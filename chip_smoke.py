@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
+
+    python3 chip_smoke.py            # from the repo root, on a machine with a card
+
+Phases, each of which exits non-zero on a failed check:
+  1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
+  2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+     sm_90a), timed;
+  3. kernel parity: each kernel against its plain PyTorch version on the card,
+     and its time (CUDA events) beside the plain version, one PyTorch library
+     call that computes the same function (a yardstick only, never used by the
+     port) and the least time the card could take (bytes over 3.35 TB/s or
+     operations over the peak rate of their type, whichever is larger);
+  4. serving: ``llama3-8b`` at full width and depth in fp32 with random weights,
+     eight ragged prompts of 384-512 tokens, 32 new tokens each, through
+     ``repro_torch.serving.make_engine``; the kernels' launch counters are set
+     to 0 just before and read just after, and must show every kernel ran;
+  5. slice parity: a 2-layer model at full width serves the same prompts
+     through the kernels and through ``backend="ref"``; the teacher-forced
+     logits must agree within 1e-3 absolute.
+Phase 4 ends with a torch.profiler trace of the prefill and of four decode
+steps: device time by kernel class beside the host's wall time.
+Then it prints one ``{"kernels": [...]}`` line and, last, the device line.
+TF32 is off in every phase (fp32 matrix products run in full fp32).
+"""
+from __future__ import annotations
+
+import gc
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serving import make_engine  # noqa: E402
+
+SEED = 0
+ARCH = "llama3-8b"
+BATCH, MAX_NEW, MAX_SEQ = 8, 32, 1024
+PROMPT_LENS = (384, 512)          # ragged prompt lengths, inclusive range
+
+# H100 SXM, NVIDIA data sheet (dense rates, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
+
+RMS_BOUND, RMS_BOUND_F32 = 2e-2, 1e-5     # the reference's bound; a tighter fp32 one
+FLASH_BOUND = 1e-4                        # the reference's fp32 bound
+SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, 2 layers, fp32
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, *, samples: int = 25, per_sample: int = 5, warmup: int = 3) -> float:
+    """Median over ``samples`` of the mean time of ``per_sample`` back-to-back
+    calls, by CUDA events.  Back to back, the host enqueues while the card
+    works, so the launch overhead of the Python wrapper stays hidden."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_sample):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_sample)
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randn(shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def rmsnorm_phase(gen) -> dict:
+    cases = []
+    for shape, dtype in (((8, 4096), torch.float32), ((4096, 4096), torch.float32),
+                         ((2, 7, 128), torch.bfloat16)):
+        x = randn(shape, dtype, gen)
+        scale = torch.linspace(0.5, 1.5, shape[-1], device="cuda")
+        y = ops.rmsnorm(x, scale, backend="cuda")
+        torch.cuda.synchronize()
+        err = (y.float() - ref.rmsnorm_ref(x, scale).float()).abs().max().item()
+        bnd = RMS_BOUND_F32 if dtype == torch.float32 else RMS_BOUND
+        check(y.shape == x.shape and y.dtype == dtype, f"rmsnorm {shape}: bad output")
+        check(err <= bnd, f"rmsnorm {shape} {dtype}: max abs err {err} > {bnd}")
+        cases.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                      "max_abs_err": err, "bound": bnd})
+        say(f"rmsnorm {tuple(shape)} {dtype}: max abs err {err:.3e} (bound {bnd})")
+
+    # timed at the prefill shape of phase 4: B*S rows of d_model
+    rows, D = 4096, 4096
+    x = randn((rows, D), torch.float32, gen)
+    scale = torch.linspace(0.5, 1.5, D, device="cuda")
+    ms = time_ms(lambda: ops.rmsnorm(x, scale, backend="cuda"))
+    plain = time_ms(lambda: ref.rmsnorm_ref(x, scale))
+    lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), scale, 1e-5))
+    b_ms, b_by = bound_ms(2 * rows * D * 4 + D * 4, 4 * rows * D, torch.float32)
+    say(f"rmsnorm ({rows}, {D}) fp32: {ms:.4f} ms; plain {plain:.4f} ms; "
+        f"F.rms_norm {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:25",
+            "shape": [rows, D], "dtype": "float32",
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "bound": RMS_BOUND,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "cases": cases}
+
+
+def causal_pairs(Sq: int, Sk: int) -> int:
+    """(query, key) pairs a causal mask keeps, positions counted from 0."""
+    return sum(min(i + 1, Sk) for i in range(Sq))
+
+
+def sdpa(q, k, v, causal):
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True)
+    return o.transpose(1, 2)
+
+
+def flash_phase(gen) -> dict:
+    cases = []
+    for B, S, causal in ((2, 512, True), (2, 300, True), (2, 512, False)):
+        q = randn((B, S, 32, 128), torch.float32, gen)
+        k = randn((B, S, 8, 128), torch.float32, gen)
+        v = randn((B, S, 8, 128), torch.float32, gen)
+        o = ops.flash_attention(q, k, v, causal=causal, backend="cuda")
+        torch.cuda.synchronize()
+        err = (o - ref.flash_attention_ref(q, k, v, causal=causal)).abs().max().item()
+        check(o.shape == q.shape and bool(torch.isfinite(o).all()), "flash: bad output")
+        check(err <= FLASH_BOUND, f"flash B={B} S={S} causal={causal}: "
+                                  f"max abs err {err} > {FLASH_BOUND}")
+        cases.append({"shape": [B, S, 32, 8, 128], "causal": causal, "dtype": "float32",
+                      "max_abs_err": err, "bound": FLASH_BOUND})
+        say(f"flash B={B} S={S} Hq=32 Hkv=8 h=128 causal={causal} fp32: "
+            f"max abs err {err:.3e} (bound {FLASH_BOUND})")
+
+    # timed at the prefill shape of phase 4
+    B, S, Hq, Hkv, h = BATCH, PROMPT_LENS[1], 32, 8, 128
+    q = randn((B, S, Hq, h), torch.float32, gen)
+    k = randn((B, S, Hkv, h), torch.float32, gen)
+    v = randn((B, S, Hkv, h), torch.float32, gen)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, backend="cuda"))
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    lib = time_ms(lambda: sdpa(q, k, v, True))
+    err_lib = (sdpa(q, k, v, True) - ref.flash_attention_ref(q, k, v)).abs().max().item()
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * h * B * Hq * causal_pairs(S, S)
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    say(f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal fp32: {ms:.4f} ms; "
+        f"plain {plain:.4f} ms; sdpa {lib:.4f} ms (its err vs plain {err_lib:.1e}); "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash.cu",
+            "replaces": "src/repro/kernels/flash.py:65",
+            "shape": [B, S, Hq, Hkv, h], "dtype": "float32",
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "bound": FLASH_BOUND,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "cases": cases}
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: serving
+# ---------------------------------------------------------------------------
+
+def make_prompts(vocab: int):
+    rs = np.random.default_rng(SEED)
+    lens = rs.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=BATCH)
+    lens[0] = PROMPT_LENS[1]
+    return [rs.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def check_outputs(outs, vocab: int, what: str) -> None:
+    check(len(outs) == BATCH and all(len(o) == MAX_NEW for o in outs),
+          f"{what}: wrong number of tokens")
+    check(all(0 <= t < vocab for o in outs for t in o), f"{what}: token out of range")
+
+
+def device_ms_by_kernel(run) -> dict:
+    """Device time of the kernels one call of ``run`` launches, by class, in
+    ms, from a torch.profiler trace (kernels on one stream do not overlap,
+    so the sum is the time the card was busy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {"gemm": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        kind = ("flash_attention" if "flash_fwd_kernel" in name else
+                "rmsnorm" if "rmsnorm_kernel" in name else
+                "gemm" if ("gemm" in name or "gemv" in name) else "other")
+        out[kind] += ev.self_device_time_total / 1e3
+    return out
+
+
+def breakdown_phase(engine, prompts) -> None:
+    """Where the time of a served batch goes: the prefill with one decode
+    step, and four more decode steps (the difference of two profiled runs),
+    device time by kernel class beside the host's wall time."""
+    runs = {}
+    for n in (1, 5):
+        dev = device_ms_by_kernel(lambda: engine.generate(prompts, max_new=n))
+        runs[n] = (dev, engine.last_timing)
+    dev1, t1 = runs[1]
+    dev5, t5 = runs[5]
+    spans = {"prefill+1 step": (dev1, (t1["prefill_s"] + t1["decode_s"][0]) * 1e3),
+             "4 decode steps": ({k: dev5[k] - dev1[k] for k in dev1},
+                                sum(t5["decode_s"][1:]) * 1e3)}
+    for span, (dev, wall) in spans.items():
+        busy = sum(dev.values())
+        if busy <= 0:      # the profiler saw no kernel: say so, time nothing
+            say(f"profile {span}: wall {wall:.1f} ms, device time not measured")
+            continue
+        say(f"profile {span}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+            f"({busy / wall:.1%}); " + ", ".join(f"{k} {v:.1f} ms" for k, v in dev.items()))
+
+
+def serving_phase(cfg, prompts) -> dict:
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = make_engine(cfg, model, mode="fixed", batch_size=BATCH, max_seq=MAX_SEQ)
+    engine.generate(prompts, max_new=2)          # warm-up: cuBLAS handles, allocator
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    outs = engine.generate(prompts, max_new=MAX_NEW)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    L = cfg.num_layers
+    want = {"rmsnorm": (2 * L + 1) * (1 + MAX_NEW), "flash_attention": L}
+    check(launches == want, f"launches {launches}, expected {want}")
+    check_outputs(outs, cfg.vocab_size, "serving")
+    forced = engine.teacher_forced_logits(prompts, outs)
+    check(bool(torch.isfinite(forced).all()), "serving: non-finite logits")
+    check(forced.argmax(-1).tolist() == outs,
+          "serving: greedy tokens are not the argmax of their teacher-forced logits")
+
+    timing = engine.last_timing
+    prefill_ms = timing["prefill_s"] * 1e3
+    decode_ms = statistics.median(timing["decode_s"]) * 1e3
+    tok_s = BATCH * MAX_NEW / sum(timing["decode_s"])
+    prompt_tokens = int(sum(len(p) for p in prompts))
+    say(f"serving {cfg.name}: {n_params} params fp32, {L} layers, init {init_s:.2f} s")
+    say(f"serving: batch {BATCH}, prompts {[len(p) for p in prompts]} "
+        f"({prompt_tokens} tokens), max_new {MAX_NEW}, max_seq {MAX_SEQ}")
+    say(f"serving: prefill {prefill_ms:.1f} ms ({prompt_tokens / timing['prefill_s']:.0f} "
+        f"prompt tok/s); decode {decode_ms:.2f} ms/token (median step); "
+        f"{tok_s:.1f} generated tok/s; peak memory {peak / 2**30:.2f} GiB")
+    say(f"serving: launches {launches}; request 0: {outs[0][:8]}...")
+    breakdown_phase(engine, prompts)
+    del engine, model, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tokens_per_s": tok_s, "peak_bytes": peak}
+
+
+def slice_parity_phase(cfg, prompts) -> None:
+    cfg2 = cfg.replace(num_layers=2)
+    model = M.init_params(cfg2, SEED + 1, device="cuda")
+    kern = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ)
+    plain = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ, backend="ref")
+    outs_k = kern.generate(prompts, max_new=MAX_NEW)
+    ops.reset_launches()
+    outs_r = plain.generate(prompts, max_new=MAX_NEW)
+    check(ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0},
+          "backend='ref' launched a kernel")
+    check_outputs(outs_k, cfg.vocab_size, "slice parity")
+    lk = kern.teacher_forced_logits(prompts, outs_k)
+    lr = plain.teacher_forced_logits(prompts, outs_k)
+    err = (lk - lr).abs().max().item()
+    same = float(np.mean(np.asarray(outs_k) == np.asarray(outs_r)))
+    say(f"slice parity (2 layers, full width): teacher-forced logits max abs err "
+        f"{err:.3e} (bound {SLICE_LOGITS_BOUND}); greedy tokens equal: {same:.3f}")
+    check(bool(torch.isfinite(lk).all()), "slice parity: non-finite logits")
+    check(err <= SLICE_LOGITS_BOUND, f"slice parity: logits err {err} > {SLICE_LOGITS_BOUND}")
+    del kern, plain, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one card",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    say(card)
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}, tf32 off")
+
+    _build.library()
+    say(f"build: kernels compiled with nvcc for sm_90a in {_build.BUILD_SECONDS:.1f} s "
+        f"({_build.BUILD_DIR})")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kernels = [rmsnorm_phase(gen), flash_phase(gen)]
+
+    cfg = get_config(ARCH)
+    prompts = make_prompts(cfg.vocab_size)
+    serve = serving_phase(cfg, prompts)
+    slice_parity_phase(cfg, prompts)
+
+    for k in kernels:
+        k["launches"] = serve["launches"][k["name"]]
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,140 @@
+"""Model API of the port for the dense family (PyTorch counterpart of
+``repro.models.model``).
+
+    model = init_params(cfg, seed, device="cuda")                      # nn.Module
+    x, caches, aux = forward_hidden(cfg, model, batch[, caches])        # prefill
+    caches = init_caches(cfg, batch_size, seq_len, device="cuda")       # serving
+    logits, caches = decode_step(cfg, model, tokens, caches)            # decode
+
+``batch``: {"tokens": (B,S) int}.  Entry points run on the card unless the
+caller passes ``device="cpu"``; asking for ``"cuda"`` with no card raises.
+The weights are random, drawn on the target device from a
+``torch.Generator`` seeded with ``seed`` (the reference draws from
+``jax.random``; the tests convert its weights with
+``convert.params_from_jax`` instead of reseeding).  Forward-only: no loss,
+no training path yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import dense, layers as L
+
+Caches = Dict[str, object]
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' asked for, but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class Model(nn.Module):
+    """embed -> trunk -> ln_f -> head (untied) or embedᵀ (tied)."""
+
+    def __init__(self, cfg, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, **kw)
+        self.trunk = dense.init_trunk(cfg, **kw)
+        self.ln_f = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
+        self.head = None if cfg.tie_embeddings else nn.Linear(
+            cfg.d_model, cfg.vocab_size, bias=False, **kw)
+
+
+@torch.no_grad()
+def _init_weights(model: Model, gen: torch.Generator) -> None:
+    """The reference's scheme: linear weights N(0, 1/d_in), biases 0,
+    embeddings N(0, 0.02²), norm scales 1 and biases 0."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 0.02, generator=gen)
+        elif isinstance(mod, L.Norm):
+            mod.scale.fill_(1.0)
+            if mod.kind == "layernorm":
+                mod.bias.zero_()
+
+
+def init_params(cfg, seed: int = 0, *, device="cuda") -> Model:
+    """A model with random weights, made on ``device`` (never on the host
+    and copied: llama3-8b in fp32 is 32 GB)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = Model(cfg, dtype=_dtype(cfg))
+    model = model.to_empty(device=dev)
+    _init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def _positions(cfg, B: int, S: int, t0: int, device) -> torch.Tensor:
+    """(B,S) int64 positions t0..t0+S-1."""
+    if cfg.pos_kind == "mrope":
+        raise NotImplementedError(f"M-RoPE positions arrive with {L.OTHER_FAMILIES}")
+    return (t0 + torch.arange(S, device=device)).expand(B, S)
+
+
+def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
+                   backend: Optional[str] = None, mesh=None
+                   ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+    """Runs the trunk over batch["tokens"].  If ``caches`` is given, this is a
+    cached prefill into fresh caches (filled in place)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    t0 = caches["pos"] if caches is not None else 0
+    positions = _positions(cfg, B, S, t0, tokens.device)
+    x = L.embed(p.embed, tokens)
+    tc = caches["trunk"] if caches is not None else None
+    x, new_tc, aux = dense.trunk_fwd(p.trunk, cfg, x, positions, tc,
+                                     backend=backend, mesh=mesh)
+    new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S}
+    return L.norm(p.ln_f, x, cfg.norm_kind, backend=backend), new_caches, aux
+
+
+def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
+    # parallel/constraints.py is not ported: the reference's CT.logits is a
+    # sharding hint, a no-op on one device.
+    if cfg.tie_embeddings:
+        return L.unembed(p.embed, x)
+    return L.linear(p.head, x)
+
+
+def init_caches(cfg, batch: int, seq_len: int, *, device="cuda") -> Caches:
+    return {"trunk": dense.init_trunk_caches(cfg, batch, seq_len, dtype=_dtype(cfg),
+                                             device=resolve_device(device)),
+            "pos": 0}
+
+
+def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
+                backend: Optional[str] = None, mesh=None,
+                pos_offset: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Caches]:
+    """One token per sequence: tokens (B,1) -> logits (B,1,vocab).
+
+    ``pos_offset`` (B,) subtracts a per-sequence gap from the shared position
+    counter: how the fixed-batch engine keeps right-padded ragged prompts on
+    their true RoPE positions (the pad slots themselves are excluded by the
+    per-row ``slot_pos`` mask)."""
+    B = tokens.shape[0]
+    t0 = caches["pos"]
+    positions = _positions(cfg, B, 1, t0, tokens.device)
+    if pos_offset is not None:
+        positions = positions - pos_offset.to(positions.device, positions.dtype)[:, None]
+    x = L.embed(p.embed, tokens)
+    x, new_tc, _ = dense.trunk_fwd(p.trunk, cfg, x, positions, caches["trunk"],
+                                   backend=backend, mesh=mesh)
+    x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)
+    return _unembed(cfg, p, x), {"trunk": new_tc, "pos": t0 + 1}

@@ -1,0 +1,242 @@
+"""The port's dense model (``repro_torch.models``) against the JAX
+reference on smoke ``llama3-8b`` in fp32: the same weights (initialised in
+JAX, converted with ``convert.params_from_jax``) and the same numpy
+inputs through both.  Bounds, all absolute in fp32: 1e-5 for RoPE, 1e-4
+for attention outputs, caches and logits (the two frameworks sum matrix
+products in different orders), and the reference's 5e-3 for its
+prefill-then-decode check (tests/test_models.py)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import get_config as jget_config, get_smoke_config as jget_smoke  # noqa: E402
+from repro.models import layers as JL, model as JM  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.models import layers as L, model as M  # noqa: E402
+
+ARCH = "llama3-8b"
+ROPE_BOUND = 1e-5
+BOUND = 1e-4
+PREFILL_DECODE_BOUND = 5e-3     # tests/test_models.py::test_prefill_decode_matches_full_forward
+
+
+def params_to_jax(cfg, sd):
+    """Inverse of ``params_from_jax``: the port's state_dict -> the
+    reference's nested tree of numpy arrays (layers restacked)."""
+    names = {"weight": "w", "bias": "b"}
+    tree = {}
+    for key, t in sd.items():
+        parts = key.split(".")
+        a = t.detach().numpy()
+        leaf = parts[-1]
+        if parts[0] == "embed":
+            leaf = "table"
+        elif leaf in names:
+            if leaf == "weight":
+                a = a.T
+            leaf = names[leaf]
+        if parts[:2] == ["trunk", "dense_layers"]:
+            i, path = int(parts[2]), parts[3:-1] + [leaf]
+            node = tree.setdefault("trunk", {}).setdefault("dense_layers", {})
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node.setdefault(path[-1], [None] * cfg.num_layers)[i] = a
+        else:
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[leaf] = a
+
+    def stack(node):
+        if isinstance(node, list):
+            return np.stack(node)
+        if isinstance(node, dict):
+            return {k: stack(v) for k, v in node.items()}
+        return node
+    return stack(tree)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    cfg = get_smoke_config(ARCH)
+    jcfg = jget_smoke(ARCH)
+    jp = jax.jit(lambda key: JM.init_params(jcfg, key))(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jp)
+    model = M.init_params(cfg, 0, device="cpu")
+    model.load_state_dict(params_from_jax(cfg, tree))
+    model.requires_grad_(False)
+    return cfg, jp, tree, model
+
+
+def _np(a):
+    return a.detach().float().numpy() if torch.is_tensor(a) else np.asarray(a, np.float32)
+
+
+def _close(a, b, bound):
+    err = float(np.abs(_np(a) - _np(b)).max())
+    assert err < bound, err
+
+
+def test_configs_match_the_reference():
+    for get, jget in ((get_config, jget_config), (get_smoke_config, jget_smoke)):
+        assert dataclasses.asdict(get(ARCH)) == dataclasses.asdict(jget(ARCH))
+    with pytest.raises(KeyError):
+        get_config("rwkv6-1.6b")
+
+
+def test_params_round_trip(pair):
+    cfg, _, tree, model = pair
+    back = params_to_jax(cfg, model.state_dict())
+    flat_a = jax.tree_util.tree_leaves_with_path(tree)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, a in flat_a:
+        assert np.array_equal(a, flat_b[path]), path
+    assert model.trunk.dense_layers[1].attn.q.weight.shape == (cfg.q_dim, cfg.d_model)
+
+
+def test_apply_rope(pair):
+    cfg = pair[0]
+    rs = np.random.default_rng(0)
+    B, S, h = 2, 9, cfg.head_dim
+    q = rs.standard_normal((B, S, cfg.num_heads, h)).astype(np.float32)
+    k = rs.standard_normal((B, S, cfg.num_kv_heads, h)).astype(np.float32)
+    pos = (np.arange(S)[None] + np.array([[0], [37]])).astype(np.int32)
+    jq, jk = JL.apply_rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos),
+                           head_dim=h, theta=cfg.rope_theta)
+    tq, tk = L.apply_rope(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(pos),
+                          head_dim=h, theta=cfg.rope_theta)
+    _close(tq, jq, ROPE_BOUND)
+    _close(tk, jk, ROPE_BOUND)
+
+
+def _layer0(pair):
+    cfg, jp, _, model = pair
+    return cfg, jax.tree.map(lambda a: a[0], jp["trunk"]["dense_layers"])["attn"], \
+        model.trunk.dense_layers[0].attn
+
+
+def _x(cfg, B, S, seed):
+    return np.random.default_rng(seed).standard_normal((B, S, cfg.d_model)).astype(np.float32)
+
+
+def _pos(B, S, t0=0):
+    return np.broadcast_to(t0 + np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+
+
+def _jattention(p, cfg, x, pos, cache=None):
+    return jax.jit(lambda p, x, pos, c: JL.attention(p, cfg, x, pos, cache=c))(p, x, pos, cache)
+
+
+def test_attention_without_cache(pair):
+    cfg, jattn, tattn = _layer0(pair)
+    x, pos = _x(cfg, 2, 24, 1), _pos(2, 24)
+    jo, _ = _jattention(jattn, cfg, jnp.asarray(x), jnp.asarray(pos))
+    to, tc = L.attention(tattn, cfg, torch.from_numpy(x), torch.from_numpy(pos).long())
+    assert tc is None
+    _close(to, jo, BOUND)
+
+
+def _jcache(cfg, B, W):
+    return JL.init_kv_cache(cfg, B, W)
+
+
+def _tcache(cfg, B, W):
+    return L.init_kv_cache(cfg, B, W)
+
+
+def _close_cache(tc, jc):
+    _close(tc["k"], jc["k"], BOUND)
+    _close(tc["v"], jc["v"], BOUND)
+    assert np.array_equal(tc["slot_pos"].numpy(), np.asarray(jc["slot_pos"]))
+    assert tc["pos"] == int(jc["pos"])
+
+
+def test_attention_cached_prefill_then_decode_with_holes(pair):
+    """Cached prefill at pos 0, then one decode step after invalidating row 0's
+    right-padded slots (slot_pos = -1), as the fixed engine does."""
+    cfg, jattn, tattn = _layer0(pair)
+    B, S, W = 2, 16, 32
+    x, pos = _x(cfg, B, S, 2), _pos(B, S)
+    jo, jc = _jattention(jattn, cfg, jnp.asarray(x), jnp.asarray(pos), _jcache(cfg, B, W))
+    to, tc = L.attention(tattn, cfg, torch.from_numpy(x), torch.from_numpy(pos).long(),
+                         cache=_tcache(cfg, B, W))
+    _close(to, jo, BOUND)
+    _close_cache(tc, jc)
+
+    lens = np.array([11, 16])
+    hole = np.arange(W)[None, :] >= lens[:, None]
+    jc = dict(jc, slot_pos=jnp.where(jnp.asarray(hole), -1, jc["slot_pos"]))
+    tc["slot_pos"].masked_fill_(torch.from_numpy(hole), -1)
+    x1 = _x(cfg, B, 1, 3)
+    pos1 = np.array([[S - (S - 11)], [S]], np.int32)      # row 0 keeps its true position
+    jo, jc = _jattention(jattn, cfg, jnp.asarray(x1), jnp.asarray(pos1), jc)
+    to, tc = L.attention(tattn, cfg, torch.from_numpy(x1), torch.from_numpy(pos1).long(),
+                         cache=tc)
+    _close(to, jo, BOUND)
+    _close_cache(tc, jc)
+
+
+def test_cached_prefill_into_nonempty_cache_raises(pair):
+    cfg, _, tattn = _layer0(pair)
+    cache = dict(_tcache(cfg, 1, 32), pos=4)
+    with pytest.raises(NotImplementedError, match="non-empty cache"):
+        L.attention(tattn, cfg, torch.zeros(1, 3, cfg.d_model), torch.zeros(1, 3).long(),
+                    cache=cache)
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def test_forward_hidden_logits(pair):
+    cfg, jp, _, model = pair
+    toks = _tokens(cfg, 2, 32)
+    jx, jcaches, _ = jax.jit(lambda p, t: JM.forward_hidden(cfg, p, {"tokens": t}))(
+        jp, jnp.asarray(toks))
+    with torch.no_grad():
+        tx, tcaches, aux = M.forward_hidden(cfg, model, {"tokens": torch.from_numpy(toks).long()})
+        tlogits = M._unembed(cfg, model, tx)
+    assert jcaches is None and tcaches is None and float(aux) == 0.0
+    assert tx.shape == (2, 32, cfg.d_model)
+    _close(tlogits, JM._unembed(cfg, jp, jx), BOUND)
+
+
+def test_prefill_then_decode_matches_full_forward(pair):
+    """tests/test_models.py's cache-consistency check, on the port, and the
+    port's decode logits against the reference's."""
+    cfg, jp, _, model = pair
+    B, S = 2, 12
+    toks = _tokens(cfg, B, S, seed=5)
+    tt = torch.from_numpy(toks).long()
+    with torch.no_grad():
+        x, _, _ = M.forward_hidden(cfg, model, {"tokens": tt})
+        full = M._unembed(cfg, model, x)[:, -1]
+        caches = M.init_caches(cfg, B, 32, device="cpu")
+        _, caches, _ = M.forward_hidden(cfg, model, {"tokens": tt[:, :S - 1]}, caches)
+        logits, caches = M.decode_step(cfg, model, tt[:, S - 1:], caches)
+    assert caches["pos"] == S and logits.shape == (B, 1, cfg.vocab_size)
+    _close(logits[:, 0], full, PREFILL_DECODE_BOUND)
+
+    @jax.jit
+    def jax_prefill_decode(p, t):
+        c = JM.init_caches(cfg, B, 32)
+        _, c, _ = JM.forward_hidden(cfg, p, {"tokens": t[:, :S - 1]}, c)
+        return JM.decode_step(cfg, p, t[:, S - 1:], c)[0]
+    jlogits = jax_prefill_decode(jp, jnp.asarray(toks))
+    _close(logits, jlogits, BOUND)
+
+
+@pytest.mark.parametrize("change", [dict(sliding_window=16), dict(num_experts=4, top_k=2),
+                                    dict(qk_norm=True), dict(parallel_block=True),
+                                    dict(attn_kind="mla"), dict(family="ssm")])
+def test_unported_variants_raise(change):
+    cfg = get_smoke_config(ARCH).replace(**change)
+    with pytest.raises(NotImplementedError, match="slice"):
+        M.init_params(cfg, 0, device="cpu")
