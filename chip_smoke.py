@@ -7,20 +7,28 @@ Phases, each of which exits non-zero on a failed check:
   1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a), timed;
-  3. kernel parity: each kernel against its plain PyTorch version on the card,
-     and its time (CUDA events) beside the plain version, one PyTorch library
-     call that computes the same function (a yardstick only, never used by the
-     port) and the least time the card could take (bytes over 3.35 TB/s or
-     operations over the peak rate of their type, whichever is larger);
-  4. serving: ``llama3-8b`` at full width and depth in fp32 with random weights,
-     eight ragged prompts of 384-512 tokens, 32 new tokens each, through
-     ``repro_torch.serving.make_engine``; the kernels' launch counters are set
-     to 0 just before and read just after, and must show every kernel ran;
-  5. slice parity: a 2-layer model at full width serves the same prompts
-     through the kernels and through ``backend="ref"``; the teacher-forced
-     logits must agree within 1e-3 absolute.
-Phase 4 ends with a torch.profiler trace of the prefill and of four decode
-steps: device time by kernel class beside the host's wall time.
+  3. kernel parity: each kernel (RMSNorm, flash attention at h = 128 and at
+     zamba2's h = 112, the SSD and WKV6 scans at prefill lengths 512 and 500
+     and at decode's 1) against its plain PyTorch version on the card, and
+     its time (CUDA events) beside the plain version, one PyTorch library
+     call that computes the same function where there is one (a yardstick
+     only, never used by the port) and the least time the card could take
+     (bytes over 3.35 TB/s or operations over the peak rate of their type,
+     whichever is larger);
+  4. serving, one model at a time, each freed before the next: ``llama3-8b``
+     (eight ragged prompts of 384-512 tokens), ``zamba2-7b`` and
+     ``rwkv6-1.6b`` (eight prompts of 512 tokens: the recurrent families need
+     equal lengths), each at full width and depth in fp32 with random
+     weights, 32 new tokens, through ``repro_torch.serving.make_engine``; the
+     kernels' launch counters are set to 0 just before each served batch and
+     read just after, and must equal the counts from the code;
+  5. slice parity, per model: a cut-depth model at full width (llama3-8b at
+     2 layers, zamba2-7b at 7, which keeps one shared-block application and
+     a tail layer, rwkv6-1.6b at 2) serves the same prompts through the
+     kernels and through ``backend="ref"``; the teacher-forced logits must
+     agree within 1e-3 absolute.
+Each serving phase ends with a torch.profiler trace of the prefill and of
+four decode steps: device time by kernel class beside the host's wall time.
 Then it prints one ``{"kernels": [...]}`` line and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
@@ -46,9 +54,10 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import make_engine  # noqa: E402
 
 SEED = 0
-ARCH = "llama3-8b"
+ARCHS = ("llama3-8b", "zamba2-7b", "rwkv6-1.6b")
 BATCH, MAX_NEW, MAX_SEQ = 8, 32, 1024
 PROMPT_LENS = (384, 512)          # ragged prompt lengths, inclusive range
+PARITY_LAYERS = {"llama3-8b": 2, "zamba2-7b": 7, "rwkv6-1.6b": 2}
 
 # H100 SXM, NVIDIA data sheet (dense rates, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -56,7 +65,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e1
 
 RMS_BOUND, RMS_BOUND_F32 = 2e-2, 1e-5     # the reference's bound; a tighter fp32 one
 FLASH_BOUND = 1e-4                        # the reference's fp32 bound
-SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, 2 layers, fp32
+SCAN_RTOL = 1e-3                          # the reference's fp32 bound for SSD and WKV6,
+                                          # relative to max|y| (state: max(1, max|state|))
+SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, cut depth, fp32
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
 
 
 class SmokeFailure(RuntimeError):
@@ -185,24 +197,176 @@ def flash_phase(gen) -> dict:
     say(f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal fp32: {ms:.4f} ms; "
         f"plain {plain:.4f} ms; sdpa {lib:.4f} ms (its err vs plain {err_lib:.1e}); "
         f"bound {b_ms:.4f} ms ({b_by})")
+    h112 = flash_timed(gen, BATCH, PROMPT_LENS[1], 32, 32, 112)
+    cases.append(h112.pop("case"))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash.cu",
             "replaces": "src/repro/kernels/flash.py:65",
             "shape": [B, S, Hq, Hkv, h], "dtype": "float32",
             "max_abs_err": max(c["max_abs_err"] for c in cases), "bound": FLASH_BOUND,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "cases": cases}
+            "library_ms": lib, "at_h112": h112, "cases": cases}
+
+
+def flash_timed(gen, B, S, Hq, Hkv, h) -> dict:
+    """Flash at zamba2-7b's shared-attention prefill shape (h = 112): held
+    against its plain version and timed beside it and SDPA."""
+    q = randn((B, S, Hq, h), torch.float32, gen)
+    k = randn((B, S, Hkv, h), torch.float32, gen)
+    v = randn((B, S, Hkv, h), torch.float32, gen)
+    o = ops.flash_attention(q, k, v, causal=True, backend="cuda")
+    torch.cuda.synchronize()
+    err = (o - ref.flash_attention_ref(q, k, v, causal=True)).abs().max().item()
+    check(o.shape == q.shape and bool(torch.isfinite(o).all()), f"flash h={h}: bad output")
+    check(err <= FLASH_BOUND, f"flash h={h}: max abs err {err} > {FLASH_BOUND}")
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, backend="cuda"))
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    lib = time_ms(lambda: sdpa(q, k, v, True))
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(nbytes, 4 * h * B * Hq * causal_pairs(S, S), torch.float32)
+    say(f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal fp32: max abs err {err:.3e} "
+        f"(bound {FLASH_BOUND}); {ms:.4f} ms; plain {plain:.4f} ms; sdpa {lib:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return {"shape": [B, S, Hq, Hkv, h], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib,
+            "case": {"shape": [B, S, Hq, Hkv, h], "causal": True, "dtype": "float32",
+                     "max_abs_err": err, "bound": FLASH_BOUND}}
+
+
+# the scans: (B, H, P, N) of zamba2-7b's Mamba2 layers, (B, H, K, V) of rwkv6-1.6b
+SSD_SHAPE = (BATCH, 112, 64, 64)
+WKV6_SHAPE = (BATCH, 32, 64, 64)
+
+
+def _chunk_rows(S: int, Q: int):
+    return [min(Q, S - c0) for c0 in range(0, S, Q)]
+
+
+def ssd_work(B, S, H, P, N, with_state: bool) -> tuple:
+    """(bytes, flops) of one SSD call: each input read once and each output
+    written once; the four chunk products counted over the causal pairs
+    s <= t this call's rows have (the kernel computes nothing above the
+    diagonal or past S), plus the decays and the D x skip."""
+    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * H * N + B * S * H + 2 * H
+                  + B * H * P * N * (2 if with_state else 1))
+    flops = 0
+    for q in _chunk_rows(S, 64):
+        pairs = q * (q + 1) // 2
+        flops += 2 * pairs * N + 3 * pairs      # G = C Bᵀ, decay and dt on it
+        flops += 2 * pairs * P                  # G x
+        flops += 2 * q * P * N + 3 * q * P      # (C h0ᵀ) e^{cum}, D x
+        flops += 2 * q * P * N + 2 * P * N      # state update
+    return nbytes, B * H * flops
+
+
+def wkv6_work(B, S, H, K, V, with_state: bool) -> tuple:
+    """(bytes, flops) of one WKV6 call, counted as ``ssd_work`` counts: the
+    off-diagonal A[t][s] over s < t (a subtraction, an exp, two multiplies
+    and an add per channel), its diagonal, the decays folded into r and k,
+    and the three products."""
+    nbytes = 4 * (3 * B * S * H * K + 2 * B * S * H * V + H * K
+                  + B * H * K * V * (2 if with_state else 1))
+    flops = 0
+    for q in _chunk_rows(S, 32):
+        flops += 5 * K * q * (q - 1) // 2 + 3 * K * q     # A, off-diagonal and diagonal
+        flops += 5 * q * K                                 # r e^{cw}, k e^{cw_end - ci}
+        flops += 2 * q * K * V + q * (q + 1) * V           # y: inter and intra
+        flops += 2 * q * K * V + 2 * K * V                 # state update
+    return nbytes, B * H * flops
+
+
+def _scan_err(y, st, y_ref, st_ref, what) -> tuple:
+    y_ref, st_ref = y_ref.float(), st_ref.float()
+    err = (y.float() - y_ref).abs().max().item()
+    err_s = (st - st_ref).abs().max().item()
+    bnd = SCAN_RTOL * (y_ref.abs().max().item() or 1.0)
+    bnd_s = SCAN_RTOL * max(1.0, st_ref.abs().max().item())
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
+          f"{what}: non-finite output")
+    check(err <= bnd, f"{what}: y max abs err {err} > {bnd}")
+    check(err_s <= bnd_s, f"{what}: state max abs err {err_s} > {bnd_s}")
+    return err, bnd
+
+
+def scan_phase(name: str, gen) -> dict:
+    """SSD or WKV6 at its model's prefill shape (S = 512), at S = 500 (not a
+    chunk multiple) and at decode's S = 1 with a state, against the plain
+    version the CPU takes (chunked, padded; the step oracle at S = 1), then
+    timed at S = 512 and at S = 1."""
+    B, H, D1, D2 = SSD_SHAPE if name == "ssd" else WKV6_SHAPE
+
+    def inputs(S, with_state):
+        if name == "ssd":
+            x = randn((B, S, H, D1), torch.float32, gen)
+            dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, gen))
+            A = -torch.exp(randn((H,), torch.float32, gen) * 0.3)
+            Bm, Cm = randn((B, S, H, D2), torch.float32, gen), randn((B, S, H, D2), torch.float32, gen)
+            args = [x, dt, A, Bm, Cm, torch.ones(H, device="cuda")]
+        else:
+            r, k = randn((B, S, H, D1), torch.float32, gen), randn((B, S, H, D1), torch.float32, gen)
+            v = randn((B, S, H, D2), torch.float32, gen)
+            w = -torch.exp(randn((B, S, H, D1), torch.float32, gen) * 0.5)
+            args = [r, k, v, w, randn((H, D1), torch.float32, gen) * 0.1]
+        return args + [randn((B, H, D1, D2), torch.float32, gen) if with_state else None]
+
+    fn = getattr(ops, name)
+    work = ssd_work if name == "ssd" else wkv6_work
+    cases = []
+    for S, with_state in ((512, False), (500, True), (1, True)):
+        args = inputs(S, with_state)
+        y, st = fn(*args, backend="cuda")
+        torch.cuda.synchronize()
+        y_ref, st_ref = fn(*args, backend="chunked" if S > 1 else "ref")
+        err, bnd = _scan_err(y, st, y_ref, st_ref, f"{name} S={S}")
+        cases.append({"shape": [B, S, H, D1, D2], "state": with_state, "dtype": "float32",
+                      "max_abs_err": err, "bound": bnd})
+        say(f"{name} B={B} S={S} H={H} dims=({D1}, {D2}) state={with_state} fp32: "
+            f"y max abs err {err:.3e} (bound {bnd:.3e} = {SCAN_RTOL} x max|y|)")
+
+    timed = {}
+    for S, with_state in ((512, False), (1, True)):
+        args = inputs(S, with_state)
+        ms = time_ms(lambda: fn(*args, backend="cuda"))
+        plain = time_ms(lambda: fn(*args, backend="chunked" if S > 1 else "ref"),
+                        samples=5, per_sample=1)
+        b_ms, b_by = bound_ms(*work(B, S, H, D1, D2, with_state), torch.float32)
+        timed[S] = {"shape": [B, S, H, D1, D2], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None}
+        say(f"{name} B={B} S={S} H={H} dims=({D1}, {D2}) fp32: {ms:.4f} ms; plain {plain:.4f} ms; "
+            f"no single library call; bound {b_ms:.4f} ms ({b_by})")
+    source, line = {"ssd": ("ssd.cu", "ssd.py:61"), "wkv6": ("wkv6.cu", "wkv6.py:66")}[name]
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{line}", "dtype": "float32",
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "rtol": SCAN_RTOL,
+            **timed[512], "at_decode": timed[1], "cases": cases}
 
 
 # ---------------------------------------------------------------------------
 # phases 4 and 5: serving
 # ---------------------------------------------------------------------------
 
-def make_prompts(vocab: int):
+def make_prompts(cfg):
+    """Ragged prompts of 384-512 tokens for the dense family; 512 each for the
+    recurrent families, which need equal lengths."""
     rs = np.random.default_rng(SEED)
     lens = rs.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=BATCH)
     lens[0] = PROMPT_LENS[1]
-    return [rs.integers(0, vocab, n).astype(np.int32) for n in lens]
+    if cfg.family in ("ssm", "hybrid"):
+        lens[:] = PROMPT_LENS[1]
+    return [rs.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+
+def expected_launches(cfg) -> dict:
+    """Each kernel's launches for one served batch (a prefill and MAX_NEW
+    decode steps), counted from the model code."""
+    fwd, L = 1 + MAX_NEW, cfg.num_layers
+    if cfg.family == "dense":      # ln1, ln2 per layer and ln_f; flash at prefill
+        return dict(NO_LAUNCHES, rmsnorm=(2 * L + 1) * fwd, flash_attention=L)
+    if cfg.family == "hybrid":     # ln and the gated inner norm per Mamba2 layer,
+        groups = L // cfg.shared_attn_every    # ln1 and ln2 per shared-block application
+        return dict(NO_LAUNCHES, rmsnorm=(2 * L + 2 * groups + 1) * fwd,
+                    flash_attention=groups, ssd=L * fwd)
+    return dict(NO_LAUNCHES, wkv6=L * fwd)    # rwkv6: LayerNorms are plain PyTorch
 
 
 def check_outputs(outs, vocab: int, what: str) -> None:
@@ -220,19 +384,22 @@ def device_ms_by_kernel(run) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    out = {"gemm": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    out = {"gemm": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0, "ssd": 0.0, "wkv6": 0.0,
+           "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.key.lower()
         kind = ("flash_attention" if "flash_fwd_kernel" in name else
                 "rmsnorm" if "rmsnorm_kernel" in name else
+                "ssd" if "ssd_fwd_kernel" in name else
+                "wkv6" if "wkv6_fwd_kernel" in name else
                 "gemm" if ("gemm" in name or "gemv" in name) else "other")
         out[kind] += ev.self_device_time_total / 1e3
     return out
 
 
-def breakdown_phase(engine, prompts) -> None:
+def breakdown_phase(engine, prompts, tag: str) -> None:
     """Where the time of a served batch goes: the prefill with one decode
     step, and four more decode steps (the difference of two profiled runs),
     device time by kernel class beside the host's wall time."""
@@ -248,9 +415,9 @@ def breakdown_phase(engine, prompts) -> None:
     for span, (dev, wall) in spans.items():
         busy = sum(dev.values())
         if busy <= 0:      # the profiler saw no kernel: say so, time nothing
-            say(f"profile {span}: wall {wall:.1f} ms, device time not measured")
+            say(f"profile {tag} {span}: wall {wall:.1f} ms, device time not measured")
             continue
-        say(f"profile {span}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        say(f"profile {tag} {span}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
             f"({busy / wall:.1%}); " + ", ".join(f"{k} {v:.1f} ms" for k, v in dev.items()))
 
 
@@ -270,50 +437,50 @@ def serving_phase(cfg, prompts) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     L = cfg.num_layers
-    want = {"rmsnorm": (2 * L + 1) * (1 + MAX_NEW), "flash_attention": L}
-    check(launches == want, f"launches {launches}, expected {want}")
-    check_outputs(outs, cfg.vocab_size, "serving")
-    forced = engine.teacher_forced_logits(prompts, outs)
-    check(bool(torch.isfinite(forced).all()), "serving: non-finite logits")
-    check(forced.argmax(-1).tolist() == outs,
-          "serving: greedy tokens are not the argmax of their teacher-forced logits")
-
+    want = expected_launches(cfg)
     timing = engine.last_timing
     prefill_ms = timing["prefill_s"] * 1e3
     decode_ms = statistics.median(timing["decode_s"]) * 1e3
     tok_s = BATCH * MAX_NEW / sum(timing["decode_s"])
     prompt_tokens = int(sum(len(p) for p in prompts))
-    say(f"serving {cfg.name}: {n_params} params fp32, {L} layers, init {init_s:.2f} s")
-    say(f"serving: batch {BATCH}, prompts {[len(p) for p in prompts]} "
+    tag = f"serving {cfg.name}"
+    say(f"{tag}: {n_params} params fp32, {L} layers, init {init_s:.2f} s")
+    say(f"{tag}: batch {BATCH}, prompts {[len(p) for p in prompts]} "
         f"({prompt_tokens} tokens), max_new {MAX_NEW}, max_seq {MAX_SEQ}")
-    say(f"serving: prefill {prefill_ms:.1f} ms ({prompt_tokens / timing['prefill_s']:.0f} "
+    say(f"{tag}: prefill {prefill_ms:.1f} ms ({prompt_tokens / timing['prefill_s']:.0f} "
         f"prompt tok/s); decode {decode_ms:.2f} ms/token (median step); "
         f"{tok_s:.1f} generated tok/s; peak memory {peak / 2**30:.2f} GiB")
-    say(f"serving: launches {launches}; request 0: {outs[0][:8]}...")
-    breakdown_phase(engine, prompts)
+    say(f"{tag}: launches {launches} (expected {want}); request 0: {outs[0][:8]}...")
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    check_outputs(outs, cfg.vocab_size, tag)
+    forced = engine.teacher_forced_logits(prompts, outs)
+    check(bool(torch.isfinite(forced).all()), f"{tag}: non-finite logits")
+    check(forced.argmax(-1).tolist() == outs,
+          f"{tag}: greedy tokens are not the argmax of their teacher-forced logits")
+    breakdown_phase(engine, prompts, tag)
     del engine, model, forced
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "tokens_per_s": tok_s, "peak_bytes": peak}
+    return {"arch": cfg.name, "launches": launches, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak}
 
 
 def slice_parity_phase(cfg, prompts) -> None:
-    cfg2 = cfg.replace(num_layers=2)
+    cfg2 = cfg.replace(num_layers=PARITY_LAYERS[cfg.name])
     model = M.init_params(cfg2, SEED + 1, device="cuda")
     kern = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ)
     plain = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ, backend="ref")
     outs_k = kern.generate(prompts, max_new=MAX_NEW)
     ops.reset_launches()
     outs_r = plain.generate(prompts, max_new=MAX_NEW)
-    check(ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0},
-          "backend='ref' launched a kernel")
+    check(ops.LAUNCHES == NO_LAUNCHES, "backend='ref' launched a kernel")
     check_outputs(outs_k, cfg.vocab_size, "slice parity")
     lk = kern.teacher_forced_logits(prompts, outs_k)
     lr = plain.teacher_forced_logits(prompts, outs_k)
     err = (lk - lr).abs().max().item()
     same = float(np.mean(np.asarray(outs_k) == np.asarray(outs_r)))
-    say(f"slice parity (2 layers, full width): teacher-forced logits max abs err "
+    say(f"slice parity {cfg.name} ({cfg2.num_layers} layers, full width): "
+        f"teacher-forced logits max abs err "
         f"{err:.3e} (bound {SLICE_LOGITS_BOUND}); greedy tokens equal: {same:.3f}")
     check(bool(torch.isfinite(lk).all()), "slice parity: non-finite logits")
     check(err <= SLICE_LOGITS_BOUND, f"slice parity: logits err {err} > {SLICE_LOGITS_BOUND}")
@@ -342,15 +509,19 @@ def main() -> int:
         f"({_build.BUILD_DIR})")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [rmsnorm_phase(gen), flash_phase(gen)]
+    kernels = [rmsnorm_phase(gen), flash_phase(gen), scan_phase("ssd", gen),
+               scan_phase("wkv6", gen)]
 
-    cfg = get_config(ARCH)
-    prompts = make_prompts(cfg.vocab_size)
-    serve = serving_phase(cfg, prompts)
-    slice_parity_phase(cfg, prompts)
+    served = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        prompts = make_prompts(cfg)
+        served.append(serving_phase(cfg, prompts))
+        slice_parity_phase(cfg, prompts)
 
-    for k in kernels:
-        k["launches"] = serve["launches"][k["name"]]
+    for k in kernels:       # launches on the served batches, by model and in all
+        k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
+        k["launches"] = sum(k["launches_by_model"].values())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,11 @@ reference each module is tested against.  This package imports neither
 ``jax`` nor ``repro``, and importing it builds nothing: the CUDA kernels
 under ``kernels/csrc`` are compiled at their first launch.
 
-  configs  — ModelConfig and the registry (llama3-8b)
-  kernels  — CUDA RMSNorm and flash attention, their plain versions, dispatch
-  models   — the dense GQA decoder (layers, trunk, model API)
+  configs  — ModelConfig and the registry (llama3-8b, zamba2-7b, rwkv6-1.6b)
+  kernels  — CUDA RMSNorm, flash attention, SSD and WKV6 scans, their plain
+             versions, dispatch
+  models   — the dense GQA decoder, the zamba2 hybrid (mamba2 + shared
+             attention) and rwkv6 trunks, the model API
   serving  — the fixed-batch engine
   launch   — ``python -m repro_torch.launch.serve``
   convert  — reference parameters -> the port's state_dict

@@ -1,7 +1,8 @@
 """Config registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-Only the architectures the port serves are registered; the others join
-with the slices that port their families (see ROADMAP.md, queue 1).
+Only the architectures the port serves are registered (llama3-8b,
+zamba2-7b, rwkv6-1.6b); the others join with the slices that port their
+families (see ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from repro_torch.configs.base import ModelConfig, smoke
 # arch-id -> module name
 _REGISTRY = {
     "llama3-8b": "llama3_8b",
+    "zamba2-7b": "zamba2_7b",
+    "rwkv6-1.6b": "rwkv6_1p6b",
 }
 
 ALL_ARCHS = list(_REGISTRY)

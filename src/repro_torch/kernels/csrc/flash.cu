@@ -10,7 +10,8 @@
 //     memory above the 48 KB static limit);
 //   * four adjacent lanes own one query row: each computes 8 of the tile's
 //     32 scores and h/4 of the row's output columns, so the accumulator is
-//     32 floats a thread at h = 128 and nothing spills;
+//     32 floats a thread at h = 128 (28 at zamba2-7b's h = 112) and nothing
+//     spills;
 //   * the row max and denominator combine over those four lanes with warp
 //     shuffles; the probabilities go through shared memory to the P @ V loop,
 //     and a __syncwarp suffices because a row's lanes share a warp;
@@ -173,6 +174,7 @@ int launch_h(const void* q, const void* k, const void* v, void* o, int B, int Sq
     case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 112: return launch<T, 112>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
   }
   return RT_UNSUPPORTED;
@@ -182,7 +184,7 @@ int launch_h(const void* q, const void* k, const void* v, void* o, int B, int Sq
 
 // q, o: (B, Sq, Hq, h); k, v: (B, Sk, Hkv, h); all contiguous, one dtype.
 // Returns a cudaError_t, or RT_UNSUPPORTED for shapes the kernel does not
-// take (h outside {16, 32, 64, 128}, Hq not a multiple of Hkv, a grid
+// take (h outside {16, 32, 64, 112, 128}, Hq not a multiple of Hkv, a grid
 // dimension over its limit).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int Sq, int Sk, int Hq, int Hkv,

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)     # instantiated in csrc/flash.cu
+HEAD_DIMS = (16, 32, 64, 112, 128)   # instantiated in csrc/flash.cu
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

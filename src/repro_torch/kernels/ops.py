@@ -1,9 +1,19 @@
 """Kernel dispatch for the port, with a launch counter per kernel.
 
 ``backend``:
-  * ``"ref"``  — the plain PyTorch version (``kernels.ref``), on any device;
-  * ``"cuda"`` — the hand-written CUDA kernel; needs CUDA tensors.
-  * ``None``   — ``"cuda"`` for CUDA tensors, ``"ref"`` for CPU tensors.
+  * ``"ref"``     — the plain PyTorch version (``kernels.ref``), on any
+                    device; for the scans, the step-by-step oracle;
+  * ``"chunked"`` — the scans only: the chunked plain version, on any device,
+                    padded to a chunk multiple as the reference pads;
+  * ``"cuda"``    — the hand-written CUDA kernel; needs CUDA tensors.
+  * ``None``      — ``"cuda"`` for CUDA tensors; for CPU tensors ``"ref"``,
+                    and for the scans at S > 1 ``"chunked"``, as the
+                    reference's default backend does.
+
+On the card a scan takes its kernel at every S, decode's S = 1 included:
+the reference's S == 1 route to the step oracle applies to CPU tensors
+only, and the kernels take any S (rows past S count as absent), so
+nothing is padded.
 
 There is no fallback: ``"cuda"`` on a CPU tensor raises, and a build or
 launch error on the card propagates.  ``LAUNCHES`` counts the launches of
@@ -15,13 +25,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.ssd import ssd_cuda
+from repro_torch.kernels.wkv6 import wkv6_cuda
 
 BACKENDS = ("ref", "cuda")
-LAUNCHES = {"rmsnorm": 0, "flash_attention": 0}
+SCAN_BACKENDS = ("ref", "chunked", "cuda")
+LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
 
 
 def reset_launches() -> None:
@@ -29,11 +43,11 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _backend(x: torch.Tensor, backend: Optional[str]) -> str:
+def _backend(x: torch.Tensor, backend: Optional[str], known=BACKENDS) -> str:
     if backend is None:
         return "cuda" if x.is_cuda else "ref"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if backend not in known:
+        raise ValueError(f"unknown backend {backend!r}; known: {known}")
     if backend == "cuda" and not x.is_cuda:
         raise ValueError(f"backend 'cuda' needs a CUDA tensor, got one on {x.device}")
     return backend
@@ -56,3 +70,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = flash_attention_cuda(q, k, v, causal=causal)
     LAUNCHES["flash_attention"] += 1
     return o
+
+
+def _scan_backend(x: torch.Tensor, backend: Optional[str]) -> str:
+    b = _backend(x, backend, SCAN_BACKENDS)
+    if b == "cuda":
+        return b
+    if x.shape[1] == 1:            # the plain route decodes with the step oracle
+        return "ref"
+    return "chunked" if backend is None else b
+
+
+def _pad_seq(a: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad axis 1 up to a multiple of ``mult`` (the reference's _pad_seq)."""
+    pad = (-a.shape[1]) % mult
+    return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) if pad else a
+
+
+def wkv6(r, k, v, w_log, u, state=None, *, backend: Optional[str] = None, chunk: int = 32):
+    """RWKV6 WKV.  r, k, v, w_log (B,S,H,K); u (H,K); state (B,H,K,V) fp32 or
+    None -> y (B,S,H,V), final state (B,H,K,V) fp32."""
+    b = _scan_backend(r, backend)
+    if b == "cuda":
+        y, st = wkv6_cuda(r, k, v, w_log, u, state, chunk=chunk)
+        LAUNCHES["wkv6"] += 1
+        return y, st
+    if b == "ref":
+        return _ref.wkv6_ref(r, k, v, w_log, u, state)
+    S = r.shape[1]
+    y, st = _ref.wkv6_chunked_ref(*(_pad_seq(a, chunk) for a in (r, k, v, w_log)), u,
+                                  state, chunk=chunk)
+    return y[:, :S], st
+
+
+def ssd(x, dt, A, Bm, Cm, D, state=None, *, backend: Optional[str] = None, chunk: int = 64):
+    """Mamba2 SSD.  x (B,S,H,P); dt (B,S,H); A, D (H,); Bm, Cm (B,S,H,N);
+    state (B,H,P,N) fp32 or None -> y (B,S,H,P), final state (B,H,P,N) fp32."""
+    b = _scan_backend(x, backend)
+    if b == "cuda":
+        y, st = ssd_cuda(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+        LAUNCHES["ssd"] += 1
+        return y, st
+    if b == "ref":
+        return _ref.ssd_ref(x, dt, A, Bm, Cm, D, state)
+    S = x.shape[1]
+    xp, dtp, Bp, Cp = (_pad_seq(a, chunk) for a in (x, dt, Bm, Cm))
+    y, st = _ref.ssd_chunked_ref(xp, dtp, A, Bp, Cp, D, state, chunk=chunk)
+    return y[:, :S], st

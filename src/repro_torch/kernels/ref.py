@@ -4,6 +4,10 @@ They are the CPU execution path that ``kernels.ops`` takes for CPU tensors
 and the oracle each CUDA kernel is held against on the card
 (``chip_smoke.py``).  They compute in float32 and return the input dtype,
 as ``repro.kernels.ref`` does; the masking constants are the TPU kernel's.
+The scans have two each: the step-by-step oracle (``*_ref``, a Python
+loop over S) and the chunked algorithm of the TPU kernel
+(``*_chunked_ref``), which CPU tensors take for S > 1; both give the state
+in fp32.
 """
 from __future__ import annotations
 
@@ -44,3 +48,124 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bngqs,bsnh->bngqh", p, v.float()) / l.clamp_min(DENOM_FLOOR)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, h).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 "Finch" WKV: data-dependent per-channel decay
+#   S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
+#   y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+# ---------------------------------------------------------------------------
+
+def _state(state, shape, device) -> torch.Tensor:
+    if state is None:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return state.float()
+
+
+def wkv6_ref(r, k, v, w_log, u, state=None):
+    """The step-by-step oracle.  r, k, w_log (B,S,H,K), v (B,S,H,V); u (H,K);
+    state (B,H,K,V) or None (zeros).  w_log is the log-decay (≤ 0).  Returns
+    y (B,S,H,V) in v's dtype and the final state (B,H,K,V) in fp32."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w_log))
+    uf = u.float()
+    st = _state(state, (B, H, K, V), r.device)
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]              # (B,H,K,V)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], st + uf[None, :, :, None] * kv))
+        st = torch.exp(wf[:, t])[..., None] * st + kv
+    return torch.stack(ys, dim=1).to(v.dtype), st
+
+
+def wkv6_chunked_ref(r, k, v, w_log, u, state=None, *, chunk: int = 64):
+    """Chunked (matmul-form) WKV, the algorithm of the TPU kernel; S must be
+    a multiple of ``chunk``.  Same arguments and results as ``wkv6_ref``."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
+    Q = chunk
+    uf = u.float()
+    st = _state(state, (B, H, K, V), r.device)
+    # strictly lower-triangular: s < t
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=r.device), -1)
+    mask = mask[None, :, :, None, None]
+    ys = []
+    for c0 in range(0, S, Q):
+        rq, kq, vq, wq = (a[:, c0:c0 + Q].float() for a in (r, k, v, w_log))
+        cw = torch.cumsum(wq, dim=1) - wq                 # exclusive: Σ_{τ<t} w
+        cw_end = wq.sum(dim=1)                            # (B,H,K)
+        # inter-chunk: y_t += (r_t ⊙ e^{cw_t}) · S0   (cw_t ≤ 0)
+        y = torch.einsum("bqhk,bhkv->bqhv", rq * torch.exp(cw), st)
+        # intra-chunk: A[t,s] = Σ_K r_t e^{cw_t − cw_s − w_s} k_s (s < t), and
+        # A[t,t] = Σ_K r_t u k_t.  The exponent is masked before exp: for
+        # s > t it is positive and exp may overflow.
+        dmat = cw[:, :, None] - cw[:, None] - wq[:, None]             # (B,Q,Q,H,K)
+        P = torch.where(mask, torch.exp(torch.where(mask, dmat, 0.0)), 0.0)
+        A = torch.einsum("bqhk,bshk,bqshk->bhqs", rq, kq, P)
+        A_diag = torch.einsum("bqhk,hk,bqhk->bqh", rq, uf, kq)
+        y = y + torch.einsum("bhqs,bshv->bqhv", A, vq) + A_diag[..., None] * vq
+        # state: S = diag(e^{cw_end}) S0 + Σ_s e^{cw_end − cw_s − w_s} k_s v_sᵀ
+        carry_k = kq * torch.exp(cw_end[:, None] - cw - wq)
+        st = torch.exp(cw_end)[..., None] * st + torch.einsum("bshk,bshv->bhkv", carry_k, vq)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(v.dtype), st
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD: scalar-identity state space
+#   h_t = exp(dt_t·A) h_{t-1} + (dt_t x_t) ⊗ B_t ;  y_t = h_t · C_t + D x_t
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x, dt, A, Bm, Cm, D, state=None):
+    """The step-by-step oracle.  x (B,S,H,P); dt (B,S,H) (after softplus,
+    > 0); A (H,) (< 0); Bm, Cm (B,S,H,N), expanded from groups to heads;
+    D (H,); state (B,H,P,N) or None (zeros).  Returns y (B,S,H,P) in x's
+    dtype and the final state (B,H,P,N) in fp32."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Bf, Cf = (a.float() for a in (x, dt, Bm, Cm))
+    Af, Df = A.float(), D.float()
+    h = _state(state, (B, H, P, N), x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af)                             # (B,H)
+        h = decay[..., None, None] * h \
+            + (dtf[:, t, :, None] * xf[:, t])[..., None] * Bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cf[:, t]) + Df[None, :, None] * xf[:, t])
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, D, state=None, *, chunk: int = 64):
+    """Chunked SSD (the Mamba-2 paper's block decomposition), the algorithm
+    of the TPU kernel; S must be a multiple of ``chunk``.  Same arguments
+    and results as ``ssd_ref``."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
+    Q = chunk
+    Af, Df = A.float(), D.float()
+    h = _state(state, (B, H, P, N), x.device)
+    # lower-triangular with the diagonal: s ≤ t
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, :, :, None]
+    ys = []
+    for c0 in range(0, S, Q):
+        xq, dtq, Bq, Cq = (a[:, c0:c0 + Q].float() for a in (x, dt, Bm, Cm))
+        cum = torch.cumsum(dtq * Af, dim=1)               # inclusive log decay (B,Q,H)
+        # inter-chunk: y_t += C_t · (e^{cum_t} h0)
+        y = torch.einsum("bqhn,bhpn->bqhp", Cq * torch.exp(cum)[..., None], h)
+        # intra-chunk: L[t,s] = e^{cum_t − cum_s} (s ≤ t), exponent masked
+        # before exp as in wkv6_chunked_ref
+        Ldiff = cum[:, :, None] - cum[:, None]           # (B,Q,Q,H)
+        Lmat = torch.where(mask, torch.exp(torch.where(mask, Ldiff, 0.0)), 0.0)
+        G = torch.einsum("bqhn,bshn->bqsh", Cq, Bq) * Lmat
+        y = y + torch.einsum("bqsh,bsh,bshp->bqhp", G, dtq, xq) + Df[None, None, :, None] * xq
+        # state: h = e^{cum_end} h0 + Σ_s e^{cum_end − cum_s} (dt_s x_s) ⊗ B_s
+        cum_end = cum[:, -1]                              # (B,H)
+        w = torch.exp(cum_end[:, None] - cum) * dtq       # (B,Q,H)
+        h = torch.exp(cum_end)[..., None, None] * h + torch.einsum("bqh,bqhp,bqhn->bhpn", w, xq, Bq)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), h

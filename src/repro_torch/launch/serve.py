@@ -3,9 +3,11 @@ KV cache, on one card by default.
 
     python -m repro_torch.launch.serve --arch llama3-8b --batch 8 \
         --prompt-len 512 --max-new 32 --max-seq 1024
-    python -m repro_torch.launch.serve --arch llama3-8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
 
-The weights are random, drawn from ``--seed``; so are the prompts.  The
+``--arch`` is one of llama3-8b, zamba2-7b and rwkv6-1.6b.  The weights are
+random, drawn from ``--seed``; so are the prompts, all ``--prompt-len``
+long (the recurrent families need equal lengths).  The
 reference's plan, fault and re-tune flags arrive with the port's
 tensor-parallel serving slice.
 """

@@ -1,5 +1,5 @@
-"""Model API of the port for the dense family (PyTorch counterpart of
-``repro.models.model``).
+"""Model API of the port (PyTorch counterpart of ``repro.models.model``)
+for the dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
 
     model = init_params(cfg, seed, device="cuda")                      # nn.Module
     x, caches, aux = forward_hidden(cfg, model, batch[, caches])        # prefill
@@ -12,7 +12,8 @@ The weights are random, drawn on the target device from a
 ``torch.Generator`` seeded with ``seed`` (the reference draws from
 ``jax.random``; the tests convert its weights with
 ``convert.params_from_jax`` instead of reseeding).  Forward-only: no loss,
-no training path yet.
+no training path yet.  The ``moe``, ``audio`` and ``vlm`` families raise
+``NotImplementedError`` naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -22,9 +23,19 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models import dense, layers as L
+from repro_torch.models import dense, layers as L, rwkv6, zamba2
 
 Caches = Dict[str, object]
+
+_TRUNKS = {"dense": dense, "ssm": rwkv6, "hybrid": zamba2}
+_LATER = {"moe": dense.MOE_SLICE, "audio": L.OTHER_FAMILIES, "vlm": L.OTHER_FAMILIES}
+
+
+def _trunk(cfg):
+    if cfg.family not in _TRUNKS:
+        later = _LATER.get(cfg.family, "a later slice of the port (ROADMAP.md, queue 1)")
+        raise NotImplementedError(f"family {cfg.family!r} arrives with {later}")
+    return _TRUNKS[cfg.family]
 
 
 def resolve_device(device) -> torch.device:
@@ -46,7 +57,7 @@ class Model(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, **kw)
-        self.trunk = dense.init_trunk(cfg, **kw)
+        self.trunk = _trunk(cfg).init_trunk(cfg, **kw)
         self.ln_f = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         self.head = None if cfg.tie_embeddings else nn.Linear(
             cfg.d_model, cfg.vocab_size, bias=False, **kw)
@@ -55,8 +66,12 @@ class Model(nn.Module):
 @torch.no_grad()
 def _init_weights(model: Model, gen: torch.Generator) -> None:
     """The reference's scheme: linear weights N(0, 1/d_in), biases 0,
-    embeddings N(0, 0.02²), norm scales 1 and biases 0."""
+    embeddings N(0, 0.02²), norm scales 1 and biases 0; modules with other
+    leaves (the Mamba2 block, RWKV6's time- and channel-mix) draw those
+    themselves (``init_weights``)."""
     for mod in model.modules():
+        if hasattr(mod, "init_weights"):
+            mod.init_weights(gen)
         if isinstance(mod, nn.Linear):
             mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=gen)
             if mod.bias is not None:
@@ -98,10 +113,16 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     positions = _positions(cfg, B, S, t0, tokens.device)
     x = L.embed(p.embed, tokens)
     tc = caches["trunk"] if caches is not None else None
-    x, new_tc, aux = dense.trunk_fwd(p.trunk, cfg, x, positions, tc,
-                                     backend=backend, mesh=mesh)
+    x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh)
     new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S}
     return L.norm(p.ln_f, x, cfg.norm_kind, backend=backend), new_caches, aux
+
+
+def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh):
+    if cfg.family == "dense":
+        return dense.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, mesh=mesh)
+    # as in the reference, the recurrent families ignore ``mesh``
+    return _trunk(cfg).trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend)
 
 
 def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
@@ -113,8 +134,8 @@ def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_caches(cfg, batch: int, seq_len: int, *, device="cuda") -> Caches:
-    return {"trunk": dense.init_trunk_caches(cfg, batch, seq_len, dtype=_dtype(cfg),
-                                             device=resolve_device(device)),
+    return {"trunk": _trunk(cfg).init_trunk_caches(cfg, batch, seq_len, dtype=_dtype(cfg),
+                                                   device=resolve_device(device)),
             "pos": 0}
 
 
@@ -134,7 +155,7 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
     if pos_offset is not None:
         positions = positions - pos_offset.to(positions.device, positions.dtype)[:, None]
     x = L.embed(p.embed, tokens)
-    x, new_tc, _ = dense.trunk_fwd(p.trunk, cfg, x, positions, caches["trunk"],
-                                   backend=backend, mesh=mesh)
+    x, new_tc, _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"], backend=backend,
+                              mesh=mesh)
     x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)
     return _unembed(cfg, p, x), {"trunk": new_tc, "pos": t0 + 1}

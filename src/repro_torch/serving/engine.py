@@ -1,13 +1,17 @@
 """Fixed-batch serving engine of the port (PyTorch counterpart of
-``repro.serving.engine``): prefill right-padded prompts into the KV cache
-in one pass, then decode greedily in lockstep.
+``repro.serving.engine``): prefill right-padded prompts into the caches in
+one pass, then decode greedily in lockstep.
 
-On the card the prefill runs the CUDA RMSNorm and flash-attention kernels
-and decode runs the RMSNorm kernel (``kernels.ops`` counts the launches).
-The reference's plan surface (``plan=``, ``repo=``, ``mesh=``, fault
-schedules, online re-tuning) binds collectives across chips; those
-keywords raise ``NotImplementedError`` until the port's tensor-parallel
-serving slice.
+On the card the prefill and every decode step run the port's CUDA kernels
+(``kernels.ops`` counts the launches): RMSNorm and, at prefill, flash
+attention for the dense and hybrid families, the SSD scan for zamba2's
+Mamba2 layers and the WKV6 scan for rwkv6.  The recurrent families
+(``ssm``, ``hybrid``) need equal-length prompts, as in the reference: a
+recurrent state would absorb the right padding, so ragged prompts raise
+``ValueError`` (the reference asserts).  The reference's plan surface
+(``plan=``, ``repo=``, ``mesh=``, fault schedules, online re-tuning) binds
+collectives across chips; those keywords raise ``NotImplementedError``
+until the port's tensor-parallel serving slice.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ __all__ = ["Engine", "Request", "make_serve_step"]
 PLAN_KEYWORDS = ("plan", "repo", "plan_hardware", "plan_parallel", "plan_band", "mesh",
                  "fault_schedule", "health_window", "health_tolerance", "retune",
                  "plan_lint")
+RECURRENT = ("ssm", "hybrid")      # families whose caches carry recurrent states
 
 
 def make_serve_step(cfg, *, backend: Optional[str] = None, mesh=None):
@@ -89,6 +94,10 @@ class Engine:
         plen = max(len(p) for p in prompts)
         toks = np.zeros((self.batch, plen), np.int64)
         lens = np.asarray([len(p) for p in prompts], np.int64)
+        if self.cfg.family in RECURRENT and len(set(lens.tolist())) > 1:
+            raise ValueError(f"{self.cfg.family} serving needs equal-length prompts "
+                             f"(a recurrent state absorbs right padding); got lengths "
+                             f"{sorted(set(lens.tolist()))}")
         for i, p in enumerate(prompts):    # right-pad; causal mask + per-row
             toks[i, :len(p)] = p           # slot_pos invalidation keep pads out
         caches = M.init_caches(self.cfg, self.batch, self.max_seq, device=self.device)
@@ -104,6 +113,8 @@ class Engine:
     def _prefill_ragged(self, batch, caches, lens: np.ndarray):
         caches = M.forward_hidden(self.cfg, self.params, batch, caches,
                                   backend=self.backend)[1]
+        if self.cfg.family in RECURRENT:    # equal lengths: no pad slot to mark
+            return caches
         return _invalidate_pad_slots(caches, torch.as_tensor(lens, device=self.device))
 
     # ------------------------------------------------------------------

@@ -12,13 +12,16 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro.kernels.flash import flash_attention as jflash  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_pallas  # noqa: E402
+from repro.kernels.ssd import ssd_pallas  # noqa: E402
+from repro.kernels.wkv6 import wkv6_pallas  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 RMS_BOUND = 2e-2      # tests/test_kernels.py::test_rmsnorm_pallas
 FLASH_BOUND = 1e-4    # tests/test_kernels.py::test_flash_attention_pallas
+SCAN_RTOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py, ssd and wkv6
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -81,3 +84,110 @@ def test_flash_ref_any_length(Sq, Sk, causal):
     o_port = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
                                      torch.from_numpy(v), causal=causal)
     assert np.abs(o_port.numpy() - np.asarray(o_dense)).max() < FLASH_BOUND
+
+
+# ---------------------------------------------------------------------------
+# the scans: SSD and WKV6
+# ---------------------------------------------------------------------------
+
+def _wkv_np(B, S, H, K, seed=0):
+    """r, k, v, w_log (B,S,H,K) and u (H,K), as tests/test_kernels.py draws them."""
+    rs = np.random.default_rng(seed)
+    r, k, v = (rs.standard_normal((B, S, H, K)).astype(np.float32) for _ in range(3))
+    w_log = -np.exp(rs.standard_normal((B, S, H, K)) * 0.5).astype(np.float32)
+    u = (rs.standard_normal((H, K)) * 0.1).astype(np.float32)
+    return r, k, v, w_log, u
+
+
+def _ssd_np(B, S, H, P, N, seed=0):
+    """x (B,S,H,P), dt (B,S,H), A (H,), Bm, Cm (B,S,H,N), D (H,)."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rs.standard_normal((B, S, H)))).astype(np.float32)   # softplus
+    A = -np.exp(rs.standard_normal(H) * 0.3).astype(np.float32)
+    Bm, Cm = (rs.standard_normal((B, S, H, N)).astype(np.float32) for _ in range(2))
+    return x, dt, A, Bm, Cm, np.ones(H, np.float32)
+
+
+# which inputs take the working dtype (the others stay fp32, as in the model)
+_WKV_CAST = (True, True, True, False, True)
+_SSD_CAST = (True, False, False, True, True, False)
+
+
+def _both(arrays, cast, dtype):
+    jdt, tdt = DTYPES[dtype]
+    j = [jnp.asarray(a, jdt) if c else jnp.asarray(a) for a, c in zip(arrays, cast)]
+    t = [torch.from_numpy(a).to(tdt) if c else torch.from_numpy(a) for a, c in zip(arrays, cast)]
+    return j, t
+
+
+def _close_scan(y, st, jy, jst, dtype):
+    """Bounds of tests/test_kernels.py: relative to max|y| of the JAX side, and to
+    max(1, max|state|) for the state."""
+    rtol = SCAN_RTOL[dtype]
+    jy, jst = _f32(jy), _f32(jst)
+    assert np.abs(_f32(y) - jy).max() < rtol * (float(np.abs(jy).max()) or 1.0)
+    assert st.dtype == torch.float32
+    assert np.abs(_f32(st) - jst).max() < rtol * max(1.0, float(np.abs(jst).max()))
+
+
+@pytest.mark.parametrize("B,S,H,K", [(1, 32, 1, 8), (2, 64, 3, 16), (2, 96, 2, 64)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_wkv6_plain_matches_pallas(B, S, H, K, dtype):
+    (jr, jk, jv, jw, ju), targs = _both(_wkv_np(B, S, H, K), _WKV_CAST, dtype)
+    jy, jst = wkv6_pallas(jr, jk, jv, jw, ju, chunk=32)
+    for fn in (ref.wkv6_ref, lambda *a: ref.wkv6_chunked_ref(*a, chunk=32)):
+        y, st = fn(*targs)
+        assert y.dtype == targs[2].dtype and y.shape == (B, S, H, K)
+        _close_scan(y, st, jy, jst, dtype)
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 32, 1, 4, 8), (2, 64, 3, 8, 16), (1, 128, 2, 16, 32)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssd_plain_matches_pallas(B, S, H, P, N, dtype):
+    jargs, targs = _both(_ssd_np(B, S, H, P, N), _SSD_CAST, dtype)
+    jy, jst = ssd_pallas(*jargs, chunk=32)
+    for fn in (ref.ssd_ref, lambda *a: ref.ssd_chunked_ref(*a, chunk=32)):
+        y, st = fn(*targs)
+        assert y.dtype == targs[0].dtype and y.shape == (B, S, H, P)
+        _close_scan(y, st, jy, jst, dtype)
+
+
+def test_scans_state_continuation():
+    """Two calls carrying the state equal one call over the whole sequence:
+    the port's plain versions against the JAX kernels over all of it."""
+    (jr, jk, jv, jw, ju), (r, k, v, w, u) = _both(_wkv_np(2, 64, 2, 16, 1), _WKV_CAST, "float32")
+    jy, jst = wkv6_pallas(jr, jk, jv, jw, ju, chunk=32)
+    for fn in (ref.wkv6_ref, lambda *a: ref.wkv6_chunked_ref(*a, chunk=16)):
+        ya, sa = fn(r[:, :32], k[:, :32], v[:, :32], w[:, :32], u)
+        yb, sb = fn(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:], u, sa)
+        _close_scan(torch.cat([ya, yb], 1), sb, jy, jst, "float32")
+
+    jargs, (x, dt, A, Bm, Cm, D) = _both(_ssd_np(2, 64, 2, 8, 16, 1), _SSD_CAST, "float32")
+    jy, jst = ssd_pallas(*jargs, chunk=32)
+    for fn in (ref.ssd_ref, lambda *a: ref.ssd_chunked_ref(*a, chunk=16)):
+        ya, sa = fn(x[:, :32], dt[:, :32], A, Bm[:, :32], Cm[:, :32], D)
+        yb, sb = fn(x[:, 32:], dt[:, 32:], A, Bm[:, 32:], Cm[:, 32:], D, sa)
+        _close_scan(torch.cat([ya, yb], 1), sb, jy, jst, "float32")
+
+
+@pytest.mark.parametrize("S", [1, 45, 77])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_scan_ops_any_length(S, dtype):
+    """``ops.wkv6`` and ``ops.ssd`` on CPU tensors at S = 1 and at S not a
+    chunk multiple, with a passed-in state, against the reference's
+    ``ops`` through its Pallas kernel (which pads) and its S = 1 route."""
+    rs = np.random.default_rng(S)
+    st_w = rs.standard_normal((2, 3, 16, 16)).astype(np.float32)
+    (jr, jk, jv, jw, ju), targs = _both(_wkv_np(2, S, 3, 16, 2), _WKV_CAST, dtype)
+    jy, jst = jops.wkv6(jr, jk, jv, jw, ju, jnp.asarray(st_w), backend="pallas")
+    y, st = ops.wkv6(*targs, torch.from_numpy(st_w))
+    assert y.shape == (2, S, 3, 16)
+    _close_scan(y, st, jy, jst, dtype)
+
+    st_s = rs.standard_normal((2, 3, 8, 16)).astype(np.float32)
+    jargs, targs = _both(_ssd_np(2, S, 3, 8, 16, 2), _SSD_CAST, dtype)
+    jy, jst = jops.ssd(*jargs, jnp.asarray(st_s), backend="pallas")
+    y, st = ops.ssd(*targs, torch.from_numpy(st_s))
+    assert y.shape == (2, S, 3, 8)
+    _close_scan(y, st, jy, jst, dtype)

@@ -1,11 +1,13 @@
-"""The port's dense model (``repro_torch.models``) against the JAX
-reference on smoke ``llama3-8b`` in fp32: the same weights (initialised in
-JAX, converted with ``convert.params_from_jax``) and the same numpy
-inputs through both.  Bounds, all absolute in fp32: 1e-5 for RoPE, 1e-4
+"""The port's models (``repro_torch.models``) against the JAX reference on
+smoke ``llama3-8b``, ``zamba2-7b`` (also at 3 layers, which gives it a
+tail after its one group) and ``rwkv6-1.6b`` in fp32: the same weights
+(initialised in JAX, converted with ``convert.params_from_jax``) and the
+same numpy inputs through both.  Bounds, all absolute in fp32: 1e-5 for RoPE, 1e-4
 for attention outputs, caches and logits (the two frameworks sum matrix
 products in different orders), and the reference's 5e-3 for its
 prefill-then-decode check (tests/test_models.py)."""
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -17,49 +19,47 @@ import torch  # noqa: E402
 from repro.configs import get_config as jget_config, get_smoke_config as jget_smoke  # noqa: E402
 from repro.models import layers as JL, model as JM  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.convert import params_from_jax, stacked_axes  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
+from torch import nn  # noqa: E402
 
 ARCH = "llama3-8b"
+RECURRENT = {"zamba2-7b": 2, "zamba2-7b-tail": 3, "rwkv6-1.6b": 2}   # variant -> layers
 ROPE_BOUND = 1e-5
 BOUND = 1e-4
 PREFILL_DECODE_BOUND = 5e-3     # tests/test_models.py::test_prefill_decode_matches_full_forward
 
 
-def params_to_jax(cfg, sd):
-    """Inverse of ``params_from_jax``: the port's state_dict -> the
-    reference's nested tree of numpy arrays (layers restacked)."""
-    names = {"weight": "w", "bias": "b"}
-    tree = {}
-    for key, t in sd.items():
+def params_to_jax(cfg, model):
+    """Inverse of ``params_from_jax``: the port's model -> the reference's
+    nested tree of numpy arrays (layers restacked, linears transposed back)."""
+    mods = dict(model.named_modules())
+    stacked = stacked_axes(cfg)
+    tree, parts_of = {}, {}
+    for key, t in model.state_dict().items():
         parts = key.split(".")
-        a = t.detach().numpy()
-        leaf = parts[-1]
-        if parts[0] == "embed":
+        mod, leaf, a = mods[".".join(parts[:-1])], parts[-1], t.detach().numpy()
+        if isinstance(mod, nn.Embedding):
             leaf = "table"
-        elif leaf in names:
-            if leaf == "weight":
-                a = a.T
-            leaf = names[leaf]
-        if parts[:2] == ["trunk", "dense_layers"]:
-            i, path = int(parts[2]), parts[3:-1] + [leaf]
-            node = tree.setdefault("trunk", {}).setdefault("dense_layers", {})
-            for p in path[:-1]:
-                node = node.setdefault(p, {})
-            node.setdefault(path[-1], [None] * cfg.num_layers)[i] = a
+        elif isinstance(mod, nn.Linear):
+            a = a.T if leaf == "weight" else a
+            leaf = {"weight": "w", "bias": "b"}[leaf]
+        lead = stacked.get(tuple(parts[:2]), ())
+        path = parts[:2] + parts[2 + len(lead):-1] + [leaf] if lead else parts[:-1] + [leaf]
+        idx = tuple(int(i) for i in parts[2:2 + len(lead)])
+        parts_of.setdefault(tuple(path), {})[idx] = a
+        parts_of[tuple(path)]["lead"] = lead
+    for path, got in parts_of.items():
+        lead = got.pop("lead")
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if lead:
+            idxs = list(itertools.product(*(range(n) for n in lead)))
+            node[path[-1]] = np.stack([got[i] for i in idxs]).reshape(lead + got[idxs[0]].shape)
         else:
-            node = tree
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[leaf] = a
-
-    def stack(node):
-        if isinstance(node, list):
-            return np.stack(node)
-        if isinstance(node, dict):
-            return {k: stack(v) for k, v in node.items()}
-        return node
-    return stack(tree)
+            node[path[-1]] = got[()]
+    return tree
 
 
 @pytest.fixture(scope="module")
@@ -84,15 +84,16 @@ def _close(a, b, bound):
 
 
 def test_configs_match_the_reference():
-    for get, jget in ((get_config, jget_config), (get_smoke_config, jget_smoke)):
-        assert dataclasses.asdict(get(ARCH)) == dataclasses.asdict(jget(ARCH))
+    for arch in (ARCH, "zamba2-7b", "rwkv6-1.6b"):
+        for get, jget in ((get_config, jget_config), (get_smoke_config, jget_smoke)):
+            assert dataclasses.asdict(get(arch)) == dataclasses.asdict(jget(arch))
     with pytest.raises(KeyError):
-        get_config("rwkv6-1.6b")
+        get_config("whisper-small")
 
 
 def test_params_round_trip(pair):
     cfg, _, tree, model = pair
-    back = params_to_jax(cfg, model.state_dict())
+    back = params_to_jax(cfg, model)
     flat_a = jax.tree_util.tree_leaves_with_path(tree)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(flat_a) == len(flat_b)
@@ -235,8 +236,118 @@ def test_prefill_then_decode_matches_full_forward(pair):
 
 @pytest.mark.parametrize("change", [dict(sliding_window=16), dict(num_experts=4, top_k=2),
                                     dict(qk_norm=True), dict(parallel_block=True),
-                                    dict(attn_kind="mla"), dict(family="ssm")])
+                                    dict(attn_kind="mla"), dict(family="audio")])
 def test_unported_variants_raise(change):
     cfg = get_smoke_config(ARCH).replace(**change)
     with pytest.raises(NotImplementedError, match="slice"):
         M.init_params(cfg, 0, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: zamba2 (hybrid) and rwkv6 (ssm)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=list(RECURRENT))
+def rpair(request):
+    arch = request.param.replace("-tail", "")
+    n = RECURRENT[request.param]
+    cfg = get_smoke_config(arch).replace(num_layers=n)
+    jcfg = jget_smoke(arch).replace(num_layers=n)
+    jp = jax.jit(lambda key: JM.init_params(jcfg, key))(jax.random.PRNGKey(1))
+    tree = jax.tree.map(np.asarray, jp)
+    model = M.init_params(cfg, 0, device="cpu")
+    model.load_state_dict(params_from_jax(cfg, tree))
+    model.requires_grad_(False)
+    return cfg, jp, tree, model
+
+
+def test_recurrent_params_round_trip(rpair):
+    """Every leaf of the reference's tree survives params_from_jax and back;
+    raw matrices keep the reference's (d_in, d_out) layout, linears are
+    transposed, and the nested stacks land on the right modules."""
+    cfg, _, tree, model = rpair
+    back = params_to_jax(cfg, model)
+    flat_a = jax.tree_util.tree_leaves_with_path(tree)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, a in flat_a:
+        assert np.array_equal(a, flat_b[path]), path
+    t, D = tree["trunk"], cfg.d_model
+    if cfg.family == "ssm":
+        tm, jtm = model.trunk.layers[1].tm, t["layers"]["tm"]
+        for name, shape in (("maa_w1", (D, 160)), ("maa_w2", (5, 32, D)),
+                            ("decay_w1", (D, 64)), ("decay_w2", (64, D)), ("Wr", (D, D))):
+            assert tuple(getattr(tm, name).shape) == shape
+            assert np.array_equal(getattr(tm, name).numpy(), jtm[name][1]), name
+        cm = model.trunk.layers[0].cm
+        assert tuple(cm.Wk.shape) == (D, cfg.d_ff) and tuple(cm.Wv.shape) == (cfg.d_ff, D)
+        assert np.array_equal(cm.Wv.numpy(), t["layers"]["cm"]["Wv"][0])
+    else:
+        every, groups, tail = cfg.shared_attn_every, cfg.num_layers // 2, cfg.num_layers % 2
+        assert len(model.trunk.groups) == groups and len(model.trunk.groups[0]) == every
+        mb, jmb = model.trunk.groups[0][1].mamba, t["groups"]["mamba"]
+        assert np.array_equal(mb.xbc_proj.weight.numpy(), jmb["xbc_proj"]["w"][0, 1].T)
+        assert np.array_equal(mb.conv_w.numpy(), jmb["conv_w"][0, 1])     # (K, C)
+        assert np.array_equal(model.trunk.app_in[0].weight.numpy(), t["app_in"]["w"][0].T)
+        assert tuple(model.trunk.app_in[0].weight.shape) == (D, 2 * D)
+        if tail:
+            assert np.array_equal(model.trunk.tail[0].mamba.A_log.numpy(),
+                                  t["tail"]["mamba"]["A_log"][0])
+        else:
+            assert not hasattr(model.trunk, "tail")
+
+
+def test_recurrent_forward_hidden(rpair):
+    """forward_hidden at S = 40, not a chunk multiple of either scan."""
+    cfg, jp, _, model = rpair
+    toks = _tokens(cfg, 2, 40, seed=3)
+    jx, _, _ = jax.jit(lambda p, t: JM.forward_hidden(cfg, p, {"tokens": t}))(
+        jp, jnp.asarray(toks))
+    with torch.no_grad():
+        tx, tcaches, aux = M.forward_hidden(cfg, model, {"tokens": torch.from_numpy(toks).long()})
+    assert tcaches is None and float(aux) == 0.0 and tx.shape == (2, 40, cfg.d_model)
+    _close(tx, jx, BOUND)
+
+
+def _close_tree(tc, jc, bound):
+    for name, a in tc.items():
+        if isinstance(a, dict):
+            _close_tree(a, jc[name], bound)
+        elif name == "pos":
+            assert a == int(np.asarray(jc[name]).reshape(-1)[0]), name
+        elif name == "slot_pos":
+            assert np.array_equal(a.numpy(), np.asarray(jc[name])), name
+        else:
+            assert a.shape == jc[name].shape, name
+            _close(a, jc[name], bound)
+
+
+def test_recurrent_prefill_then_decode(rpair):
+    """A cached prefill of 21 tokens and three decode steps: the port's
+    logits and caches (conv carries, SSD and WKV states, token shifts, the
+    shared attention's KV caches) against the reference's."""
+    cfg, jp, _, model = rpair
+    B, S, W = 2, 21, 32
+    toks = _tokens(cfg, B, S + 3, seed=4)
+
+    @jax.jit
+    def jax_run(p, t):
+        c = JM.init_caches(cfg, B, W)
+        _, c, _ = JM.forward_hidden(cfg, p, {"tokens": t[:, :S]}, c)
+        out = []
+        for j in range(3):
+            logits, c = JM.decode_step(cfg, p, t[:, S + j:S + j + 1], c)
+            out.append(logits)
+        return out, c
+    jlogits, jc = jax_run(jp, jnp.asarray(toks))
+
+    tt = torch.from_numpy(toks).long()
+    with torch.no_grad():
+        c = M.init_caches(cfg, B, W, device="cpu")
+        _, c, _ = M.forward_hidden(cfg, model, {"tokens": tt[:, :S]}, c)
+        for j in range(3):
+            logits, c = M.decode_step(cfg, model, tt[:, S + j:S + j + 1], c)
+            assert logits.shape == (B, 1, cfg.vocab_size)
+            _close(logits, jlogits[j], BOUND)
+    assert c["pos"] == S + 3
+    _close_tree(c["trunk"], jc["trunk"], BOUND)

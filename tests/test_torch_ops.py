@@ -7,24 +7,54 @@ marked ``gpu`` and skip, with the reason, where no card is present.
 Bounds: RMSNorm 2e-2 absolute (the reference's bound, fp32/bf16/fp16)
 and 1e-5 in fp32; flash attention 1e-4 absolute in fp32 (the reference's
 bound) and 2e-2 in bf16/fp16, where the output itself is rounded to
-2^-8 relative."""
+2^-8 relative; the SSD and WKV6 scans 1e-3 (fp32) and 3e-2 (bf16)
+relative to max|y|, and to max(1, max|state|) for the final state (the
+reference's bounds, tests/test_kernels.py); the smoke models through the
+kernels against ``backend="ref"`` 1e-3 absolute on the logits (fp32, the
+bound of ``chip_smoke.py``'s slice parity)."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.ssd import ssd_cuda
+from repro_torch.kernels.wkv6 import wkv6_cuda
+from repro_torch.models import model as M
 
 RMS_BOUND = 2e-2
 RMS_BOUND_F32 = 1e-5
 FLASH_BOUND_F32 = 1e-4
 FLASH_BOUND_HALF = 2e-2
+SCAN_RTOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+MODEL_LOGITS_BOUND = 1e-3
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
 
 
 def _t(shape, seed=0, dtype=torch.float32, device="cpu"):
     a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
     return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _wkv(B, S, H, K, V, dtype=torch.float32, device="cpu", seed=0):
+    """r, k (B,S,H,K), v (B,S,H,V) in ``dtype``; w_log (B,S,H,K) ≤ 0 and u
+    (H,K) in fp32, as tests/test_kernels.py draws them."""
+    r, k = _t((B, S, H, K), seed, dtype, device), _t((B, S, H, K), seed + 1, dtype, device)
+    v = _t((B, S, H, V), seed + 2, dtype, device)
+    w = -torch.exp(_t((B, S, H, K), seed + 3, device=device) * 0.5)
+    return r, k, v, w, _t((H, K), seed + 4, device=device) * 0.1
+
+
+def _ssd(B, S, H, P, N, dtype=torch.float32, device="cpu", seed=0):
+    """x (B,S,H,P), Bm, Cm (B,S,H,N) in ``dtype``; dt (B,S,H) > 0, A (H,) < 0
+    and D (H,) in fp32."""
+    x = _t((B, S, H, P), seed, dtype, device)
+    dt = torch.nn.functional.softplus(_t((B, S, H), seed + 1, device=device))
+    A = -torch.exp(_t((H,), seed + 2, device=device) * 0.3)
+    Bm, Cm = _t((B, S, H, N), seed + 3, dtype, device), _t((B, S, H, N), seed + 4, dtype, device)
+    return x, dt, A, Bm, Cm, torch.ones(H, device=device)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -35,7 +65,20 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
     assert torch.equal(ops.flash_attention(q, k, v, backend="ref", causal=False),
                        ref.flash_attention_ref(q, k, v, causal=False))
-    assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0}
+    r, k, v, w, u = _wkv(2, 40, 3, 16, 16)
+    y, st = ops.wkv6(r, k, v, w, u)
+    y2, st2 = ref.wkv6_chunked_ref(*(ops._pad_seq(a, 32) for a in (r, k, v, w)), u, chunk=32)
+    assert torch.equal(y, y2[:, :40]) and torch.equal(st, st2)
+    one = [a[:, :1] for a in (r, k, v, w)]
+    assert all(torch.equal(a, b) for a, b in zip(ops.wkv6(*one, u), ref.wkv6_ref(*one, u)))
+    x, dt, A, Bm, Cm, D = _ssd(2, 40, 3, 16, 16)
+    y, st = ops.ssd(x, dt, A, Bm, Cm, D)
+    xp, dtp, Bp, Cp = (ops._pad_seq(a, 64) for a in (x, dt, Bm, Cm))
+    y2, st2 = ref.ssd_chunked_ref(xp, dtp, A, Bp, Cp, D)
+    assert torch.equal(y, y2[:, :40]) and torch.equal(st, st2)
+    assert all(torch.equal(a, b) for a, b in zip(ops.ssd(x, dt, A, Bm, Cm, D, backend="ref"),
+                                                 ref.ssd_ref(x, dt, A, Bm, Cm, D)))
+    assert ops.LAUNCHES == NO_LAUNCHES
     assert _build._LIB is None          # nothing was built for the CPU route
 
 
@@ -52,13 +95,26 @@ def test_cuda_backend_on_cpu_tensor_raises():
         rmsnorm_cuda(x, s)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(q, q, q)
+    r, k, v, w, u = _wkv(1, 4, 2, 16, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.wkv6(r, k, v, w, u, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wkv6_cuda(r, k, v, w, u)
+    x, dt, A, Bm, Cm, D = _ssd(1, 4, 2, 16, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.ssd(x, dt, A, Bm, Cm, D, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_cuda(x, dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.ssd(x, dt, A, Bm, Cm, D, backend="pallas")
     assert _build._LIB is None
 
 
 def test_reset_launches():
     ops.LAUNCHES["rmsnorm"] = 7
+    ops.LAUNCHES["ssd"] = 3
     ops.reset_launches()
-    assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.LAUNCHES == NO_LAUNCHES
 
 
 @pytest.fixture
@@ -90,7 +146,8 @@ def test_rmsnorm_kernel_matches_ref(cuda, shape, dtype, scale_fp32):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,h", [
     (1, 64, 64, 2, 2, 16), (2, 128, 128, 4, 2, 32), (1, 96, 96, 6, 3, 64),
-    (2, 300, 300, 32, 8, 128), (1, 37, 81, 4, 1, 64), (3, 1, 70, 8, 8, 128)])
+    (2, 300, 300, 32, 8, 128), (1, 37, 81, 4, 1, 64), (3, 1, 70, 8, 8, 128),
+    (2, 200, 200, 32, 32, 112), (1, 1, 45, 4, 4, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_kernel_matches_ref(cuda, B, Sq, Sk, Hq, Hkv, h, causal, dtype):
@@ -114,3 +171,82 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     x = _t((4, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         rmsnorm_cuda(x, torch.ones(64, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="P=48"):
+        ssd_cuda(*_ssd(1, 4, 2, 48, 16, device=cuda))
+    with pytest.raises(ValueError, match="K=48"):
+        wkv6_cuda(*_wkv(1, 4, 2, 48, 64, device=cuda))
+    with pytest.raises(TypeError):
+        wkv6_cuda(*_wkv(1, 4, 2, 64, 64, dtype=torch.float16, device=cuda))
+
+
+def _close_scan(y, st, y_ref, st_ref, dtype):
+    rtol = SCAN_RTOL[dtype]
+    y_ref = y_ref.float()
+    assert y.dtype == dtype and st.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    assert (y.float() - y_ref).abs().max().item() < rtol * (y_ref.abs().max().item() or 1.0)
+    assert (st - st_ref).abs().max().item() < rtol * max(1.0, st_ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,P,N", [(2, 4, 128, 16), (2, 112, 64, 64), (1, 3, 32, 128)])
+@pytest.mark.parametrize("S", [1, 64, 100, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_matches_ref(cuda, B, H, P, N, S, dtype, with_state):
+    """Smoke zamba2 (P=128, N=16) and full zamba2-7b (P=N=64) heads; S = 1
+    (decode), chunk multiples and not."""
+    x, dt, A, Bm, Cm, D = _ssd(B, S, H, P, N, dtype, cuda)
+    s0 = _t((B, H, P, N), 9, device=cuda) if with_state else None
+    ops.reset_launches()
+    y, st = ops.ssd(x, dt, A, Bm, Cm, D, s0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd"] == 1 and y.shape == x.shape
+    _close_scan(y, st, *ref.ssd_ref(x, dt, A, Bm, Cm, D, s0), dtype)
+    _close_scan(y, st, *ops.ssd(x, dt, A, Bm, Cm, D, s0, backend="chunked"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,V", [(2, 4, 64, 64), (2, 32, 64, 64), (1, 3, 16, 128),
+                                     (1, 2, 128, 16)])
+@pytest.mark.parametrize("S", [1, 32, 45, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_kernel_matches_ref(cuda, B, H, K, V, S, dtype, with_state):
+    """Smoke and full rwkv6 heads (K=V=64), and the corner instantiations;
+    S = 1 (decode), chunk multiples and not."""
+    r, k, v, w, u = _wkv(B, S, H, K, V, dtype, cuda)
+    s0 = _t((B, H, K, V), 9, device=cuda) if with_state else None
+    ops.reset_launches()
+    y, st = ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["wkv6"] == 1 and y.shape == v.shape
+    _close_scan(y, st, *ref.wkv6_ref(r, k, v, w, u, s0), dtype)
+    _close_scan(y, st, *ops.wkv6(r, k, v, w, u, s0, backend="chunked"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers", [("zamba2-7b", 3), ("rwkv6-1.6b", 2)])
+def test_smoke_model_kernels_match_ref(cuda, arch, layers):
+    """A cached prefill of 70 tokens and two decode steps of the smoke model,
+    through the kernels and through backend="ref": logits within 1e-3, and
+    every scan launch counted (one per Mamba2 or RWKV6 layer and forward)."""
+    cfg = get_smoke_config(arch).replace(num_layers=layers)
+    model = M.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 72), generator=torch.Generator().manual_seed(0))
+    toks = toks.to(cuda)
+    out = {}
+    with torch.inference_mode():
+        for backend in (None, "ref"):
+            ops.reset_launches()
+            c = M.init_caches(cfg, 2, 128, device=cuda)
+            _, c, _ = M.forward_hidden(cfg, model, {"tokens": toks[:, :70]}, c, backend=backend)
+            logits = []
+            for j in range(2):
+                lg, c = M.decode_step(cfg, model, toks[:, 70 + j:71 + j], c, backend=backend)
+                logits.append(lg)
+            out[backend] = (torch.cat(logits, 1), dict(ops.LAUNCHES))
+    (lk, launches), (lr, none) = out[None], out["ref"]
+    assert none == NO_LAUNCHES
+    scan = "wkv6" if cfg.family == "ssm" else "ssd"
+    assert launches[scan] == 3 * layers
+    assert (lk - lr).abs().max().item() < MODEL_LOGITS_BOUND

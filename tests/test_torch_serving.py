@@ -3,7 +3,10 @@
 reference's) and ragged prompts of 12 and 16 tokens, ``max_new=6``.  The
 greedy tokens must be identical, and the teacher-forced logits of every
 decode step must agree within 1e-4 absolute (fp32; the frameworks sum
-matrix products in different orders)."""
+matrix products in different orders).  The recurrent families (smoke
+``zamba2-7b`` and ``rwkv6-1.6b``) serve two equal-length prompts of 12
+tokens, as the reference requires, under the same checks; ragged prompts
+raise ``ValueError`` there."""
 import numpy as np
 import pytest
 
@@ -96,6 +99,49 @@ def test_engine_surface(setup):
 
 def test_serve_cli_on_cpu(capsys):
     serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "8", "--max-new", "4", "--max-seq", "32"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("request 0: [") and out[1].startswith("request 1: [")
+    assert len(eval(out[0].split(": ", 1)[1])) == 4
+    assert out[2].startswith("decode throughput:") and out[2].endswith("batch 2, cpu)")
+
+
+@pytest.fixture(scope="module", params=["zamba2-7b", "rwkv6-1.6b"])
+def rsetup(request):
+    cfg, jcfg = get_smoke_config(request.param), jget_smoke(request.param)
+    jp = jax.jit(lambda key: JM.init_params(jcfg, key))(jax.random.PRNGKey(2))
+    model = M.init_params(cfg, 0, device="cpu")
+    model.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jp)))
+    rs = np.random.default_rng(1)
+    prompts = [rs.integers(0, cfg.vocab_size, 12).astype(np.int32) for _ in range(2)]
+    return cfg, jp, model, prompts
+
+
+def test_recurrent_engine_matches_jax_engine(rsetup):
+    cfg, jp, model, prompts = rsetup
+    jeng = jmake_engine(cfg, jp, mode="fixed", batch_size=2, max_seq=MAX_SEQ)
+    teng = make_engine(cfg, model, mode="fixed", batch_size=2, max_seq=MAX_SEQ)
+    jouts = jeng.generate(prompts, max_new=MAX_NEW)
+    touts = teng.generate(prompts, max_new=MAX_NEW)
+    assert touts == jouts
+    tl = teng.teacher_forced_logits(prompts, touts)
+    assert tl.argmax(-1).tolist() == touts
+    jl = _jax_teacher_forced(cfg, jp, prompts, touts)
+    assert float(np.abs(tl.numpy() - jl).max()) < LOGITS_BOUND
+
+
+def test_recurrent_engine_refuses_ragged_prompts(rsetup):
+    cfg, _, model, prompts = rsetup
+    eng = make_engine(cfg, model, batch_size=2, max_seq=MAX_SEQ)
+    with pytest.raises(ValueError, match="equal-length"):
+        eng.generate([prompts[0], prompts[1][:9]], max_new=2)
+    with pytest.raises(ValueError, match="equal-length"):
+        eng.teacher_forced_logits([prompts[0][:5], prompts[1]], [[0], [0]])
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_serve_cli_recurrent_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "8", "--max-new", "4", "--max-seq", "32"])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("request 0: [") and out[1].startswith("request 1: [")
