@@ -6,15 +6,21 @@
 Phases, each of which exits non-zero on a failed check:
   1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     sm_90a), timed;
+     sm_90a), timed; what ptxas reports for flash attention's fp32
+     instantiations at h = 112 and 128 (registers, spills, which fail the
+     run) beside the shared memory of its layout and the blocks per SM that
+     these allow;
   3. kernel parity: each kernel (RMSNorm, flash attention at h = 128 and at
      zamba2's h = 112, the SSD and WKV6 scans at prefill lengths 512 and 500
      and at decode's 1) against its plain PyTorch version on the card, and
      its time (CUDA events) beside the plain version, one PyTorch library
      call that computes the same function where there is one (a yardstick
-     only, never used by the port) and the least time the card could take
-     (bytes over 3.35 TB/s or operations over the peak rate of their type,
-     whichever is larger);
+     only, never used by the port; SDPA pinned to its memory-efficient
+     backend, so it raises rather than fall back to the math path) and the
+     least time the card could take (bytes over 3.35 TB/s or operations over
+     the peak rate of their type, whichever is larger; flash's fp32 products
+     are fp32-exact on the tensor cores as 3 TF32 products at 495 TFLOP/s,
+     its bound on the CUDA cores' 67 TFLOP/s is printed beside it);
   4. serving, one model at a time, each freed before the next: ``llama3-8b``
      (eight ragged prompts of 384-512 tokens), ``zamba2-7b`` and
      ``rwkv6-1.6b`` (eight prompts of 512 tokens: the recurrent families need
@@ -37,6 +43,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +69,13 @@ PARITY_LAYERS = {"llama3-8b": 2, "zamba2-7b": 7, "rwkv6-1.6b": 2}
 # H100 SXM, NVIDIA data sheet (dense rates, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
+# fp32 work done fp32-exact on the TF32 tensor cores (495 TFLOP/s): three TF32
+# products per fp32 product (3xTF32), as flash attention's kernel does it
+FP32_AS_3XTF32 = "fp32 as 3xTF32"
+PEAK_FLOPS[FP32_AS_3XTF32] = 495e12 / 3
+# an SM of the H100: shared memory (1 KB of it kept per resident block),
+# registers, threads
+SM_SMEM, SM_SMEM_PER_BLOCK, SM_REGS, SM_THREADS = 228 * 1024, 1024, 65536, 2048
 
 RMS_BOUND, RMS_BOUND_F32 = 2e-2, 1e-5     # the reference's bound; a tighter fp32 one
 FLASH_BOUND = 1e-4                        # the reference's fp32 bound
@@ -158,11 +172,18 @@ def causal_pairs(Sq: int, Sk: int) -> int:
     return sum(min(i + 1, Sk) for i in range(Sq))
 
 
-def sdpa(q, k, v, causal):
-    o = torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal, enable_gqa=True)
-    return o.transpose(1, 2)
+def sdpa_efficient(q, k, v, causal):
+    """``scaled_dot_product_attention`` pinned to its memory-efficient backend,
+    on (B, H, S, h) views with K and V already expanded to the query heads:
+    where that backend does not take the inputs it raises, rather than fall
+    back to the math path."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+SDPA_BACKEND = "EFFICIENT_ATTENTION"
 
 
 def flash_phase(gen) -> dict:
@@ -182,55 +203,120 @@ def flash_phase(gen) -> dict:
         say(f"flash B={B} S={S} Hq=32 Hkv=8 h=128 causal={causal} fp32: "
             f"max abs err {err:.3e} (bound {FLASH_BOUND})")
 
-    # timed at the prefill shape of phase 4
-    B, S, Hq, Hkv, h = BATCH, PROMPT_LENS[1], 32, 8, 128
-    q = randn((B, S, Hq, h), torch.float32, gen)
-    k = randn((B, S, Hkv, h), torch.float32, gen)
-    v = randn((B, S, Hkv, h), torch.float32, gen)
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, backend="cuda"))
-    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
-    lib = time_ms(lambda: sdpa(q, k, v, True))
-    err_lib = (sdpa(q, k, v, True) - ref.flash_attention_ref(q, k, v)).abs().max().item()
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * h * B * Hq * causal_pairs(S, S)
-    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-    say(f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal fp32: {ms:.4f} ms; "
-        f"plain {plain:.4f} ms; sdpa {lib:.4f} ms (its err vs plain {err_lib:.1e}); "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    # timed at the prefill shapes of phase 4: llama3-8b's and zamba2-7b's
+    h128 = flash_timed(gen, BATCH, PROMPT_LENS[1], 32, 8, 128)
     h112 = flash_timed(gen, BATCH, PROMPT_LENS[1], 32, 32, 112)
-    cases.append(h112.pop("case"))
+    cases += [h128.pop("case"), h112.pop("case")]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash.cu",
-            "replaces": "src/repro/kernels/flash.py:65",
-            "shape": [B, S, Hq, Hkv, h], "dtype": "float32",
+            "replaces": "src/repro/kernels/flash.py:65", "dtype": "float32",
             "max_abs_err": max(c["max_abs_err"] for c in cases), "bound": FLASH_BOUND,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "at_h112": h112, "cases": cases}
+            **h128, "at_h112": h112, "cases": cases}
 
 
 def flash_timed(gen, B, S, Hq, Hkv, h) -> dict:
-    """Flash at zamba2-7b's shared-attention prefill shape (h = 112): held
-    against its plain version and timed beside it and SDPA."""
+    """Flash at a served model's prefill shape, causal fp32: held against its
+    plain version, then timed beside it and beside SDPA on its efficient
+    backend, with the bound on the CUDA cores' fp32 rate and the bound of
+    the kernel's own route (3 TF32 products per fp32 product at the TF32
+    rate)."""
     q = randn((B, S, Hq, h), torch.float32, gen)
     k = randn((B, S, Hkv, h), torch.float32, gen)
     v = randn((B, S, Hkv, h), torch.float32, gen)
     o = ops.flash_attention(q, k, v, causal=True, backend="cuda")
     torch.cuda.synchronize()
-    err = (o - ref.flash_attention_ref(q, k, v, causal=True)).abs().max().item()
+    o_ref = ref.flash_attention_ref(q, k, v, causal=True)
+    err = (o - o_ref).abs().max().item()
     check(o.shape == q.shape and bool(torch.isfinite(o).all()), f"flash h={h}: bad output")
     check(err <= FLASH_BOUND, f"flash h={h}: max abs err {err} > {FLASH_BOUND}")
     ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, backend="cuda"))
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
-    lib = time_ms(lambda: sdpa(q, k, v, True))
+    G = Hq // Hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    lib = time_ms(lambda: sdpa_efficient(qt, kt, vt, True))
+    err_lib = (sdpa_efficient(qt, kt, vt, True).transpose(1, 2) - o_ref).abs().max().item()
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound_ms(nbytes, 4 * h * B * Hq * causal_pairs(S, S), torch.float32)
+    flops = 4 * h * B * Hq * causal_pairs(S, S)
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_AS_3XTF32)
+    b_cores, by_cores = bound_ms(nbytes, flops, torch.float32)
     say(f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal fp32: max abs err {err:.3e} "
-        f"(bound {FLASH_BOUND}); {ms:.4f} ms; plain {plain:.4f} ms; sdpa {lib:.4f} ms; "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"(bound {FLASH_BOUND}); {ms:.4f} ms; plain {plain:.4f} ms; "
+        f"sdpa[{SDPA_BACKEND}] {lib:.4f} ms (its err vs plain {err_lib:.1e}); "
+        f"bound {b_ms:.4f} ms ({b_by}, 3xTF32 tensor cores; {b_ms / ms:.1%} of it "
+        f"reached); on the fp32 CUDA cores it would be {b_cores:.4f} ms ({by_cores})")
     return {"shape": [B, S, Hq, Hkv, h], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib,
+            "library_backend": SDPA_BACKEND, "library_max_abs_err": err_lib,
             "case": {"shape": [B, S, Hq, Hkv, h], "causal": True, "dtype": "float32",
                      "max_abs_err": err, "bound": FLASH_BOUND}}
+
+
+def ptxas_report(source: str) -> list:
+    """Compile one source of the port's ``csrc`` to a cubin with ``-Xptxas -v``
+    (the build's flags) and return, per kernel, what ptxas reports:
+    ``{"kernel", "registers", "smem_static", "stack", "spill_stores",
+    "spill_loads"}``, in bytes where not a count."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    check(CUDA_HOME is not None, "ptxas report: the CUDA toolkit was not found")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / (os.path.splitext(source)[0] + ".cubin")
+    res = subprocess.run([nvcc, *_build.CUDA_FLAGS, "-std=c++17", "-cubin", "-Xptxas", "-v",
+                          "-o", str(out), str(_build.CSRC / source)],
+                         capture_output=True, text=True, check=True, timeout=600)
+    found = []
+    for line in res.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            found.append({"kernel": m.group(1)})
+            continue
+        if not found:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            found[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            found[-1]["smem_static"] = int(sm.group(1)) if sm else 0
+    return found
+
+
+def flash_smem_bytes(h: int) -> int:
+    """Dynamic shared memory of flash.cu's ``Layout<h>``: a 128-row Q tile and
+    two buffers each of a 64-key K and V tile, rows padded to h + 8 floats (Q,
+    K) and h + 4 (V)."""
+    return 4 * (128 * (h + 8) + 2 * 64 * ((h + 8) + (h + 4)))
+
+
+def flash_build_report() -> dict:
+    """What ptxas reports for the fp32 instantiations of the main path's head
+    dims (fails on a spill), beside the shared memory of the kernel's layout
+    and the blocks of 256 threads per SM that it and the registers allow."""
+    report = {}
+    for entry in ptxas_report("flash.cu"):
+        m = re.search(r"flash_fwd_kernelIfLi(\d+)E", entry["kernel"])
+        if not m or int(m.group(1)) not in (112, 128):
+            continue
+        h = int(m.group(1))
+        report[h] = {k: v for k, v in entry.items() if k != "kernel"}
+        smem = flash_smem_bytes(h)
+        regs = -(-entry["registers"] // 8) * 8     # allocated in units of 8 a thread
+        blocks = min(SM_SMEM // (smem + SM_SMEM_PER_BLOCK), SM_REGS // (regs * 256),
+                     SM_THREADS // 256)
+        say(f"ptxas flash <fp32, {h}>: {entry['registers']} registers, "
+            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads, "
+            f"{entry['stack']} B stack; its layout takes {smem} B of dynamic shared "
+            f"memory, so {blocks} block(s) per SM")
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"flash <fp32, {h}> spills")
+    check(sorted(report) == [112, 128], f"ptxas reported no flash kernel for {sorted(report)}")
+    return report
 
 
 # the scans: (B, H, P, N) of zamba2-7b's Mamba2 layers, (B, H, K, V) of rwkv6-1.6b
@@ -508,9 +594,12 @@ def main() -> int:
     say(f"build: kernels compiled with nvcc for sm_90a in {_build.BUILD_SECONDS:.1f} s "
         f"({_build.BUILD_DIR})")
 
+    flash_ptxas = flash_build_report()
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [rmsnorm_phase(gen), flash_phase(gen), scan_phase("ssd", gen),
                scan_phase("wkv6", gen)]
+    kernels[1]["ptxas"] = flash_ptxas
 
     served = []
     for arch in ARCHS:

@@ -1,69 +1,183 @@
-// Forward flash attention, causal or full, with grouped KV heads (GQA).
+// Forward flash attention, causal or full, with grouped KV heads (GQA), on
+// the tensor cores with fp32-exact products.
 //
-// Port of repro/kernels/flash.py::flash_attention (_flash_kernel).  The TPU
-// kernel walks a sequential KV grid axis with the running max, denominator
-// and fp32 accumulator in VMEM scratch.  Here one block owns one (batch,
-// query head, 64-row query tile) and walks the KV tiles in a loop, so the
-// online-softmax state lives in registers:
-//   * the query tile and each 32-row K and V tile are staged in shared memory
-//     as fp32 (74 KB at h = 128, so the launch opts into dynamic shared
-//     memory above the 48 KB static limit);
-//   * four adjacent lanes own one query row: each computes 8 of the tile's
-//     32 scores and h/4 of the row's output columns, so the accumulator is
-//     32 floats a thread at h = 128 (28 at zamba2-7b's h = 112) and nothing
-//     spills;
-//   * the row max and denominator combine over those four lanes with warp
-//     shuffles; the probabilities go through shared memory to the P @ V loop,
-//     and a __syncwarp suffices because a row's lanes share a warp;
-//   * KV tiles past the last row of a causal query tile are never loaded,
-//     and rows or keys past Sq / Sk are masked in the kernel, so no length
-//     has to be a block multiple.
+// Replaces repro/kernels/flash.py::flash_attention (_flash_kernel, the
+// pl.pallas_call at flash.py:79).  The TPU kernel walks a sequential KV grid
+// axis with the running max, denominator and fp32 accumulator in VMEM
+// scratch.  Here one block owns one (batch, query head, 128-row query tile)
+// and walks the KV tiles in a loop; each of its eight warps owns 16 query
+// rows, so a row's max, denominator and output accumulator live in that
+// warp's registers.
+//
+// Bound on the H100: operations.  The function does 4·h flops per (query,
+// key) pair against 4·h·4 bytes per row of q, k, v and o.  Both products run
+// on the TF32 tensor cores (mma.sync m16n8k8) in the 3xTF32 split: each fp32
+// operand x = big + small with big = tf32(x) and small = x − big, and a·b is
+// big·big + big·small + small·big with fp32 accumulation.  One TF32 product
+// misses the reference's 1e-4 bound by about 10x at h = 112 and 128; the
+// three-term split is as accurate as fp32 (the dropped small·small term is
+// 2^-22 relative).  So the ceiling is 3 × 4·h·pairs TF32 flops at
+// 495 TFLOP/s, about 165 TFLOP/s of fp32 work, against 67 on the CUDA cores.
+// The kernel is bound by issue slots as much as by the MMAs (each fp32
+// operand costs a cvt and a subtraction), so the design saves instructions:
+//   * within each 8-wide step of a product, the MMA's k = t and k = t + 4
+//     carry columns (or keys) 2t and 2t + 1.  The sum is the same, but a
+//     lane's A and B pairs of QKᵀ are then adjacent floats (one 8-byte
+//     load each), and P leaves QKᵀ in the C layout exactly where P·V wants
+//     its A fragment: P stays in registers, with no shuffle;
+//   * small is passed to the MMA as a raw fp32 word, which the TF32 unit
+//     reads truncated (a 2^-21 relative error of x), so a split is two
+//     instructions;
+//   * the row max is reduced over the four lanes that share a row with two
+//     shuffles, the denominator only at the end; exponentials are exp2 of
+//     scores scaled by log2(e)/sqrt(h); tiles wholly inside the mask skip
+//     the mask tests;
+//   * K and V tiles (BK = 64 keys) come in with 16-byte cp.async.cg into a
+//     double buffer: tile j+1 is in flight while tile j's products run;
+//     bf16 and fp16 inputs are converted to fp32 by plain loads instead;
+//   * rows are padded (Q, K to h + 8 floats, V to h + 4), so the 8-byte
+//     (g, 2t) reads of QKᵀ and the (keys 2t, 2t + 1, column g) reads of P·V
+//     hit distinct banks at every supported h, and rows stay 16-byte
+//     aligned;
+//   * shared memory is Q + 2 × (K + V): 202 KB at h = 128 and 178 KB at
+//     h = 112, one block of eight warps per SM; a 128-row tile shares each
+//     K/V tile among eight warps (64-row tiles with 32-key tiles, two
+//     blocks of four warps per SM, were slower on the card);
+//   * causal KV tiles past the query tile's last row are never loaded, a
+//     warp skips a tile that lies wholly past its own last row, and the
+//     longest causal query tiles are launched first;
+//   * rows past Sq and keys past Sk are zero-filled by cp.async's source
+//     size and masked, so no length has to be a tile multiple.
 // The constants are the TPU kernel's: masked scores -1e30, the denominator
-// clamped at 1e-20, scores scaled by 1/sqrt(h).
-//
-// Bound on the H100: operations.  At llama3-8b prefill (S = 512, h = 128) the
-// kernel does about 4 * h flops per (query, key) pair against 4 * h * 4 bytes
-// per row of q, k, v, o, far above the card's ~20 fp32 flops per byte.  This
-// first version runs on the CUDA cores in fp32, so its ceiling is the 67
-// TFLOP/s fp32 rate; shared-memory traffic (about one load per FMA) keeps it
-// well below that.  Tensor cores (wgmma, TMA) come later.
+// clamped at 1e-20, scores scaled by 1/sqrt(h) after QKᵀ.
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 32;              // keys per KV tile
-constexpr int THREADS = 256;
-constexpr int TPR = THREADS / BQ;   // lanes per query row (adjacent lanes)
-constexpr int CPT = BK / TPR;       // scores per lane per KV tile
+constexpr int BQ = 128;             // query rows per block
+constexpr int BK = 64;              // keys per KV tile
+constexpr int WARPS = BQ / 16;      // each owns 16 query rows
+constexpr int THREADS = 32 * WARPS;
 constexpr float kNegInf = -1e30f;
 constexpr float kDenomFloor = 1e-20f;
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
+struct Layout {                     // in floats; rows padded against bank conflicts
+  static constexpr int LDQ = HD + 8;
+  static constexpr int LDK = HD + 8;
+  static constexpr int LDV = HD + 4;
+  static constexpr int Q = BQ * LDQ;
+  static constexpr int K = BK * LDK;
+  static constexpr int V = BK * LDV;
+  static constexpr size_t bytes = sizeof(float) * (Q + 2 * (K + V));
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small: big = tf32(x) rounded to nearest, small = x − big exactly
+// in fp32, which the TF32 MMA reads truncated to its top 19 bits (a 2^-21
+// relative error of x)
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a·b for one m16n8k8 tile, TF32 operands, fp32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a·b to fp32 accuracy: the small terms first, then big·big
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_big)[4],
+                                     const uint32_t (&a_small)[4], float2 b) {
+  uint32_t b_big[2], b_small[2];
+  split(b.x, b_big[0], b_small[0]);
+  split(b.y, b_big[1], b_small[1]);
+  mma(c, a_small, b_big);
+  mma(c, a_big, b_small);
+  mma(c, a_big, b_big);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// ROWS rows of HD elements, row r at src + (row0 + r) * stride, into dst with
+// row pitch LD floats as fp32; rows at or past n are zeros.  fp32 goes by
+// 16-byte cp.async (the caller commits); other types by plain loads.
+template <typename T, int HD, int ROWS, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, size_t stride,
+                                          int row0, int n) {
+  constexpr int CH = HD / 4;        // 4-element chunks per row
+  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = (e % CH) * 4;
+    const bool in = row0 + r < n;
+    const T* p = src + static_cast<size_t>(in ? row0 + r : 0) * stride + c;
+    float* d = dst + r * LD + c;
+    if constexpr (std::is_same_v<T, float>) {
+      cp_async16(d, p, in);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = in ? to_f(p[i]) : 0.f;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (std::is_same_v<T, float>) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = from_f<T>(a);
+    p[1] = from_f<T>(b);
+  }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                  int Hq, int Hkv, int causal, float scale) {
-  static_assert(HD % TPR == 0, "head dim must split over a row's lanes");
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // BQ x (HD + 1), padded rows
-  float* Ks = Qs + BQ * (HD + 1);      // BK x (HD + 1), padded rows
-  float* Vs = Ks + BK * (HD + 1);      // BK x HD
-  float* Ps = Vs + BK * HD;            // BQ x (BK + 1), padded rows
+  static_assert(HD % 8 == 0, "the head dim must be a whole number of 8-wide tiles");
+  using L = Layout<HD>;
+  constexpr int NH = HD / 8;        // 8-wide tiles of the head dim
+  constexpr int NK = BK / 8;        // 8-key tiles of a KV tile
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // BQ x LDQ
+  float* Ks = Qs + L::Q;            // two buffers of BK x LDK
+  float* Vs = Ks + 2 * L::K;        // two buffers of BK x LDV
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal tiles first
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hkv);
   const int q0 = qt * BQ;
-  const int r = threadIdx.x / TPR;     // query row of this lane in the tile
-  const int cg = threadIdx.x % TPR;    // its column group
-  const int qpos = q0 + r;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;        // fragment row and column
+  const int row = warp * 16 + g;               // this lane's rows: row, row + 8
+  const int qpos[2] = {q0 + row, q0 + row + 8};
+  const int warp_first = q0 + warp * 16;       // the warp's query positions
+  const int warp_last = warp_first + 15;
+  const float scale_log2 = scale * 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
 
   const size_t q_stride = static_cast<size_t>(Hq) * HD;    // between positions
   const size_t kv_stride = static_cast<size_t>(Hkv) * HD;
@@ -72,82 +186,132 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
   T* ob = o + (static_cast<size_t>(b) * Sq * Hq + hq) * HD;
 
-  for (int e = threadIdx.x; e < BQ * HD; e += THREADS) {
-    const int rr = e / HD, d = e % HD;
-    const int s = q0 + rr;
-    Qs[rr * (HD + 1) + d] = s < Sq ? to_f(qb[s * q_stride + d]) : 0.f;
-  }
-
-  float m = kNegInf, l = 0.f;
-  float acc[HD / TPR];
-#pragma unroll
-  for (int i = 0; i < HD / TPR; ++i) acc[i] = 0.f;
-
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous tile is consumed; Qs is loaded
-    for (int e = threadIdx.x; e < BK * HD; e += THREADS) {
-      const int rr = e / HD, d = e % HD;
-      const int s = k0 + rr;
-      const bool in = s < Sk;
-      Ks[rr * (HD + 1) + d] = in ? to_f(kb[s * kv_stride + d]) : 0.f;
-      Vs[rr * HD + d] = in ? to_f(vb[s * kv_stride + d]) : 0.f;
-    }
-    __syncthreads();
+  const int ntiles = (k_end + BK - 1) / BK;
+  load_rows<T, HD, BQ, L::LDQ>(Qs, qb, q_stride, q0, Sq);
+  load_rows<T, HD, BK, L::LDK>(Ks, kb, kv_stride, 0, Sk);
+  load_rows<T, HD, BK, L::LDV>(Vs, vb, kv_stride, 0, Sk);
+  cp_async_commit();
 
-    float sc[CPT];
+  float acc[NH][4];
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) sc[j] = 0.f;
-    const float* qr = Qs + r * (HD + 1);
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float qv = qr[d];
+  for (int n = 0; n < NH; ++n)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) sc[j] += qv * Ks[(cg + TPR * j) * (HD + 1) + d];
-    }
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
 
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int kpos = k0 + cg + TPR * j;
-      const bool ok = kpos < Sk && (!causal || kpos <= qpos);
-      sc[j] = ok ? sc[j] * scale : kNegInf;
-      mx = fmaxf(mx, sc[j]);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < ntiles) {           // the next tile flies while this one runs
+      const int nb = (j + 1) & 1;
+      load_rows<T, HD, BK, L::LDK>(Ks + nb * L::K, kb, kv_stride, k0 + BK, Sk);
+      load_rows<T, HD, BK, L::LDV>(Vs + nb * L::V, vb, kv_stride, k0 + BK, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    float* pr = Ps + r * (BK + 1);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const float p = expf(sc[j] - m_new);
-      psum += p;
-      pr[cg + TPR * j] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();      // the row's probabilities are in Ps
+    __syncthreads();                // tile j (and Q) visible to every warp
 
+    if (!causal || k0 <= warp_last) {          // warp-uniform
+      const float* Kt = Ks + (j & 1) * L::K;
+      const float* Vt = Vs + (j & 1) * L::V;
+
+      // S = Q Kᵀ: 16 rows x BK keys per warp, in the C layout.  Within each
+      // 8-wide step of the head dim, the MMA's k = t and k = t + 4 carry
+      // columns 2t and 2t + 1, so a lane's A and B pairs are adjacent floats.
+      float s[NK][4];
 #pragma unroll
-    for (int i = 0; i < HD / TPR; ++i) acc[i] *= corr;
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float p = pr[c];
-      const float* vr = Vs + c * HD + cg;
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int i = 0; i < HD / TPR; ++i) acc[i] += p * vr[TPR * i];
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+      const float* qa = Qs + row * L::LDQ + 2 * t;
+      const float* ka = Kt + g * L::LDK + 2 * t;
+#pragma unroll
+      for (int d = 0; d < NH; ++d) {
+        const float2 q_lo = *reinterpret_cast<const float2*>(qa + 8 * d);
+        const float2 q_hi = *reinterpret_cast<const float2*>(qa + 8 * L::LDQ + 8 * d);
+        uint32_t a_big[4], a_small[4];
+        split(q_lo.x, a_big[0], a_small[0]);
+        split(q_hi.x, a_big[1], a_small[1]);
+        split(q_lo.y, a_big[2], a_small[2]);
+        split(q_hi.y, a_big[3], a_small[3]);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const float2 kv = *reinterpret_cast<const float2*>(ka + 8 * n * L::LDK + 8 * d);
+          mma3(s[n], a_big, a_small, kv);
+        }
+      }
+
+      // scale (into log2 units) and mask; the running max over the quad
+      // that shares a row.  A tile wholly inside the mask skips the tests.
+      const bool inside = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= warp_first);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kpos = k0 + 8 * n + 2 * t + (i & 1);
+          const bool ok = inside || (kpos < Sk && (!causal || kpos <= qpos[i / 2]));
+          s[n][i] = ok ? s[n][i] * scale_log2 : kNegInf;
+          mx[i / 2] = fmaxf(mx[i / 2], s[n][i]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[n][i] = exp2f(s[n][i] - m[i / 2]);
+          l[i / 2] += s[n][i];
+        }
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+
+      // O += P V.  In each 8-key step the MMA's k = t and k = t + 4 carry
+      // keys 2t and 2t + 1, which is where the C layout left this lane's P:
+      // P is already an A fragment, with no shuffle.
+#pragma unroll
+      for (int c = 0; c < NK; ++c) {
+        uint32_t a_big[4], a_small[4];
+        split(s[c][0], a_big[0], a_small[0]);   // (row, key 2t)
+        split(s[c][2], a_big[1], a_small[1]);   // (row + 8, key 2t)
+        split(s[c][1], a_big[2], a_small[2]);   // (row, key 2t + 1)
+        split(s[c][3], a_big[3], a_small[3]);   // (row + 8, key 2t + 1)
+        const float* vr = Vt + (8 * c + 2 * t) * L::LDV + g;
+#pragma unroll
+        for (int n = 0; n < NH; ++n)
+          mma3(acc[n], a_big, a_small, make_float2(vr[8 * n], vr[L::LDV + 8 * n]));
+      }
     }
+    __syncthreads();                // tile j consumed before its buffer refills
   }
 
-  if (qpos < Sq) {
-    const float den = fmaxf(l, kDenomFloor);
-    T* orow = ob + qpos * q_stride + cg;
 #pragma unroll
-    for (int i = 0; i < HD / TPR; ++i) orow[TPR * i] = from_f<T>(acc[i] / den);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (qpos[r] < Sq) {
+      const float inv = 1.f / fmaxf(l[r], kDenomFloor);
+      T* orow = ob + static_cast<size_t>(qpos[r]) * q_stride + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+        store2(orow + 8 * n, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
   }
 }
 
@@ -155,7 +319,7 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, HD>;
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = Layout<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -182,10 +346,10 @@ int launch_h(const void* q, const void* k, const void* v, void* o, int B, int Sq
 
 }  // namespace
 
-// q, o: (B, Sq, Hq, h); k, v: (B, Sk, Hkv, h); all contiguous, one dtype.
-// Returns a cudaError_t, or RT_UNSUPPORTED for shapes the kernel does not
-// take (h outside {16, 32, 64, 112, 128}, Hq not a multiple of Hkv, a grid
-// dimension over its limit).
+// q, o: (B, Sq, Hq, h); k, v: (B, Sk, Hkv, h); all contiguous, one dtype,
+// 16-byte aligned when fp32 (cp.async).  Returns a cudaError_t, or
+// RT_UNSUPPORTED for shapes the kernel does not take (h outside {16, 32, 64,
+// 112, 128}, Hq not a multiple of Hkv, a grid dimension over its limit).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int Sq, int Sk, int Hq, int Hkv,
                                   int h, int causal, float scale, int dtype,

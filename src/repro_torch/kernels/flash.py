@@ -1,7 +1,8 @@
 """CUDA flash attention: the port of ``repro.kernels.flash.flash_attention``.
 
-The kernel is ``csrc/flash.cu`` (forward, causal or full, GQA); its plain
-version is ``ref.flash_attention_ref``.  Callers go through
+The kernel is ``csrc/flash.cu`` (forward, causal or full, GQA, both products
+on the tensor cores in the fp32-exact 3xTF32 split); its plain version is
+``ref.flash_attention_ref``.  Callers go through
 ``kernels.ops.flash_attention``, which picks between the two by the
 tensor's device and counts launches.  Unlike the TPU kernel it needs no
 block-multiple lengths: the kernel masks rows and keys past Sq and Sk.
@@ -37,6 +38,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {h} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda needs contiguous q, k and v")
+    if q.dtype == torch.float32 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda needs fp32 q, k and v 16-byte aligned "
+                         "(the kernel copies fp32 rows in 16-byte pieces)")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("flash_attention_cuda is forward-only; it has no backward")
     o = torch.empty_like(q)

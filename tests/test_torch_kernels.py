@@ -86,6 +86,54 @@ def test_flash_ref_any_length(Sq, Sk, causal):
     assert np.abs(o_port.numpy() - np.asarray(o_dense)).max() < FLASH_BOUND
 
 
+def _tf32(x):
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: the operand type of the CUDA
+    flash kernel's tensor-core products."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_truncated(x):
+    """fp32 cut to TF32 by dropping its low 13 mantissa bits: how the TF32
+    tensor core reads an fp32 word that was not rounded first."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, terms):
+    """a @ b with TF32 operands and fp32 accumulation: one product, or the
+    3xTF32 split of csrc/flash.cu (big = x rounded to TF32, small = x − big
+    passed raw and so truncated to TF32; big·big + big·small + small·big)."""
+    if terms == 1:
+        return _tf32(a) @ _tf32(b)
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32_truncated(a - a_big), _tf32_truncated(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+@pytest.mark.parametrize("h", [112, 128])
+def test_flash_3xtf32_meets_the_bound_and_1xtf32_does_not(h):
+    """The premise of the CUDA flash kernel's design, where no card is: causal
+    attention at S = 512 (one head, the served models' head dims) whose two
+    products are emulated on TF32 operands meets the reference's fp32 bound
+    against its Pallas kernel (interpret mode) with the three-product split,
+    and misses it with one product."""
+    S = 512
+    q, k, v = (a[0, :, 0] for a in _qkv(1, S, S, 1, 1, h, seed=3))
+    o_pallas = np.asarray(jflash(*(jnp.asarray(a[None, :, None]) for a in (q, k, v)),
+                                 causal=True))[0, :, 0]
+    keep = np.tril(np.ones((S, S), bool))
+    errs = {}
+    for terms in (1, 3):
+        s = _tf32_matmul(q, k.T, terms) * np.float32(1 / math.sqrt(h))
+        s = np.where(keep, s, np.float32(-1e30))
+        p = np.exp(s - s.max(-1, keepdims=True))
+        o = _tf32_matmul(p, v, terms) / np.maximum(p.sum(-1, keepdims=True), 1e-20)
+        errs[terms] = float(np.abs(o - o_pallas).max())
+    assert errs[3] < FLASH_BOUND < errs[1], errs
+
+
 # ---------------------------------------------------------------------------
 # the scans: SSD and WKV6
 # ---------------------------------------------------------------------------

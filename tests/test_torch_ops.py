@@ -147,7 +147,17 @@ def test_rmsnorm_kernel_matches_ref(cuda, shape, dtype, scale_fp32):
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,h", [
     (1, 64, 64, 2, 2, 16), (2, 128, 128, 4, 2, 32), (1, 96, 96, 6, 3, 64),
     (2, 300, 300, 32, 8, 128), (1, 37, 81, 4, 1, 64), (3, 1, 70, 8, 8, 128),
-    (2, 200, 200, 32, 32, 112), (1, 1, 45, 4, 4, 112)])
+    (2, 200, 200, 32, 32, 112), (1, 1, 45, 4, 4, 112),
+    # the tile edges of the kernel's 128-row query tiles and 64-key K/V
+    # tiles: one m16n8k8 tile (16 rows, 8 keys, h = 16); one key past a K/V
+    # tile (65); one row past a query tile (129); exactly one query tile
+    # over two K/V tiles (128) and one short of each (127 rows, 63 keys);
+    # ragged lengths inside one tile (33); one query row against a ragged
+    # tile; a single key; more keys than queries
+    (1, 16, 8, 1, 1, 16), (1, 65, 65, 2, 2, 64), (2, 129, 129, 4, 2, 128),
+    (2, 128, 128, 4, 1, 112), (1, 127, 63, 2, 2, 64),
+    (2, 33, 33, 2, 1, 112), (2, 1, 33, 4, 2, 128), (2, 7, 1, 2, 1, 16),
+    (1, 48, 130, 4, 4, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_kernel_matches_ref(cuda, B, Sq, Sk, Hq, Hkv, h, causal, dtype):
@@ -161,6 +171,36 @@ def test_flash_kernel_matches_ref(cuda, B, Sq, Sk, Hq, Hkv, h, causal, dtype):
     assert o.dtype == dtype and o.shape == q.shape
     err = (o.float() - ref.flash_attention_ref(q, k, v, causal=causal).float()).abs().max().item()
     assert err < (FLASH_BOUND_F32 if dtype == torch.float32 else FLASH_BOUND_HALF)
+
+
+@pytest.mark.gpu
+def test_flash_refuses_unaligned_tensors(cuda):
+    """The kernel copies fp32 rows in 16-byte pieces: a contiguous fp32 view
+    that starts 4 bytes into its storage is refused, not read misaligned."""
+    shape = (1, 8, 2, 16)
+    buf = _t((1 + int(np.prod(shape)),), device=cuda)
+    q = buf[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    k = _t(shape, 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(k, q, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_takes_unaligned_half_tensors(cuda, dtype):
+    """bf16 and fp16 rows are read element by element: a view that starts 2
+    bytes into its storage is taken, and matches the plain version."""
+    shape = (1, 40, 2, 64)
+    buf = _t((1 + int(np.prod(shape)),), 1, dtype, cuda)
+    q = buf[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    k, v = _t(shape, 2, dtype, cuda), _t(shape, 3, dtype, cuda)
+    o = flash_attention_cuda(q, k, v, causal=True)
+    err = (o.float() - ref.flash_attention_ref(q, k, v, causal=True).float()).abs().max().item()
+    assert err < FLASH_BOUND_HALF
 
 
 @pytest.mark.gpu
