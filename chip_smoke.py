@@ -7,20 +7,28 @@ Phases, each of which exits non-zero on a failed check:
   1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a), timed; what ptxas reports for flash attention's fp32
-     instantiations at h = 112 and 128 (registers, spills, which fail the
-     run) beside the shared memory of its layout and the blocks per SM that
-     these allow;
+     instantiations at h = 112 and 128 and for the SSD kernels' at
+     P = N = 64 (registers, spills, which fail the run) beside the shared
+     memory of their layouts and the blocks per SM that these allow, and
+     for the chunked SSD kernel's other fp32 instantiations;
   3. kernel parity: each kernel (RMSNorm, flash attention at h = 128 and at
      zamba2's h = 112, the SSD and WKV6 scans at prefill lengths 512 and 500
-     and at decode's 1) against its plain PyTorch version on the card, and
-     its time (CUDA events) beside the plain version, one PyTorch library
-     call that computes the same function where there is one (a yardstick
-     only, never used by the port; SDPA pinned to its memory-efficient
-     backend, so it raises rather than fall back to the math path) and the
-     least time the card could take (bytes over 3.35 TB/s or operations over
-     the peak rate of their type, whichever is larger; flash's fp32 products
-     are fp32-exact on the tensor cores as 3 TF32 products at 495 TFLOP/s,
-     its bound on the CUDA cores' 67 TFLOP/s is printed beside it);
+     and at decode's 1; SSD with x, B and C as views of one conv-output
+     buffer with one group, as the Mamba2 block passes them, head-expanded,
+     and writing its state in place) against its plain PyTorch version on
+     the card (SSD also against the step oracle in fp64, within 2e-5 of
+     max|y|, which one TF32 product per chunk product would not meet), and
+     its time (CUDA events; for the scans, the kernel's device
+     time from the profiler, since a decode step's kernel is shorter than
+     its host call) beside the plain version, one PyTorch library call that
+     computes the same function where there is one (a yardstick only, never
+     used by the port; SDPA pinned to its memory-efficient backend, so it
+     raises rather than fall back to the math path) and the least time the
+     card could take (bytes over
+     3.35 TB/s or operations over the peak rate of their type, whichever is
+     larger; the fp32 products of flash and of SSD's chunked kernel are
+     fp32-exact on the tensor cores as 3 TF32 products at 495 TFLOP/s, and
+     their bound on the CUDA cores' 67 TFLOP/s is printed beside it);
   4. serving, one model at a time, each freed before the next: ``llama3-8b``
      (eight ragged prompts of 384-512 tokens), ``zamba2-7b`` and
      ``rwkv6-1.6b`` (eight prompts of 512 tokens: the recurrent families need
@@ -81,6 +89,10 @@ RMS_BOUND, RMS_BOUND_F32 = 2e-2, 1e-5     # the reference's bound; a tighter fp3
 FLASH_BOUND = 1e-4                        # the reference's fp32 bound
 SCAN_RTOL = 1e-3                          # the reference's fp32 bound for SSD and WKV6,
                                           # relative to max|y| (state: max(1, max|state|))
+SSD_EXACT_RTOL = 2e-5                     # SSD against its plain version in fp64, as
+                                          # SCAN_RTOL: the fp32-exact products err by
+                                          # ~4e-6, one TF32 product per chunk product
+                                          # by ~8e-4
 SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, cut depth, fp32
 NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
 
@@ -116,6 +128,52 @@ def time_ms(fn, *, samples: int = 25, per_sample: int = 5, warmup: int = 3) -> f
         end.synchronize()
         times.append(start.elapsed_time(end) / per_sample)
     return statistics.median(times)
+
+
+def kernel_ms(fn, kernel: str, *, calls: int = 50, warmup: int = 3,
+              attempts: int = 3) -> float:
+    """Mean device time of one launch of the kernels whose names hold
+    ``kernel``, over ``calls`` calls of ``fn``, from a torch.profiler trace:
+    the kernel's own time, which a decode-sized kernel's back-to-back CUDA
+    events cannot show (the host's wrapper takes longer than the kernel, so
+    they time the host).
+
+    The profiler can lose kernel records (on the H100 a trace of 50 WKV6
+    decode calls once held 38).  A trace that holds fewer than ``calls`` is
+    taken again, up to ``attempts`` times; then the fullest one is used if
+    it holds at least half of them, and the mean is over the launches it
+    holds.  The calls must have launched ``calls`` kernels of the port, by
+    the wrappers' counts, and a trace that holds more fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    best = (0.0, 0)
+    for _ in range(attempts):
+        launched = sum(ops.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(ops.LAUNCHES.values()) - launched
+        check(launched == calls, f"{calls} calls launched {launched} kernels of the port")
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and kernel in ev.key:
+                total += ev.self_device_time_total
+                count += ev.count
+        check(count <= calls, f"profiler saw {count} launches of {kernel}, "
+                              f"more than the {calls} calls")
+        if count > best[1]:
+            best = (total, count)
+        if count == calls:
+            break
+        say(f"profiler saw {count} of {calls} launches of {kernel}")
+    total, count = best
+    check(2 * count >= calls, f"profiler saw at most {count} launches of {kernel} "
+                              f"in {attempts} traces of {calls} calls")
+    return total / count / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -319,6 +377,52 @@ def flash_build_report() -> dict:
     return report
 
 
+def ssd_build_report() -> dict:
+    """What ptxas reports for the fp32 SSD kernels at the main path's P = N = 64
+    (the chunked kernel of 128 threads and the decode step of 256; fails on a
+    spill), beside the blocks per SM that shared memory (the chunked kernel's
+    layout, as ssd.cu gives it) and registers allow; and, for every other
+    fp32 instantiation of the chunked kernel, its registers and spills (one
+    buffer rather than two at P = N = 128)."""
+    lib = _build.library()
+    report, others = {}, {}
+    for entry in ptxas_report("ssd.cu"):
+        name = entry["kernel"]
+        fields = {k: v for k, v in entry.items() if k != "kernel"}
+        m = re.search(r"ssd_fwd_kernelIfLi(\d+)ELi(\d+)EE", name)
+        if m and (m.group(1), m.group(2)) != ("64", "64"):
+            P, N = int(m.group(1)), int(m.group(2))
+            others[f"{P},{N}"] = dict(fields, smem_dynamic=lib.rt_ssd_smem_bytes(P, N))
+            continue
+        if m:
+            kind, threads, smem = "chunked", 128, lib.rt_ssd_smem_bytes(64, 64)
+            check(smem > 0, "ssd chunked: no shared memory size for <64, 64>")
+        elif "ssd_step_kernelIfLi64EE" in name:
+            kind, threads, smem = "decode", 256, entry["smem_static"]
+        else:
+            continue
+        report[kind] = fields
+        regs = -(-entry["registers"] // 8) * 8     # allocated in units of 8 a thread
+        blocks = min(SM_SMEM // (smem + SM_SMEM_PER_BLOCK), SM_REGS // (regs * threads),
+                     SM_THREADS // threads)
+        report[kind].update(smem_dynamic=smem if kind == "chunked" else 0, blocks_per_sm=blocks)
+        say(f"ptxas ssd {kind} <fp32, 64, 64>: {entry['registers']} registers, "
+            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads, "
+            f"{entry['stack']} B stack; {smem} B of shared memory and {threads} threads a "
+            f"block, so {blocks} block(s) per SM")
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"ssd {kind} <fp32, 64, 64> spills")
+    check(sorted(report) == ["chunked", "decode"], f"ptxas reported no ssd kernel for "
+                                                   f"{sorted(report)}")
+    check(len(others) == 15, f"ptxas reported {len(others)} other chunked instantiations")
+    say("ptxas ssd chunked <fp32, P, N>, registers / spill stores / spill loads (B) / "
+        "shared memory (B): " + ", ".join(
+            f"<{pn}> {e['registers']}/{e['spill_stores']}/{e['spill_loads']}/{e['smem_dynamic']}"
+            for pn, e in sorted(others.items(), key=lambda kv: tuple(map(int, kv[0].split(","))))))
+    report["chunked_other"] = others
+    return report
+
+
 # the scans: (B, H, P, N) of zamba2-7b's Mamba2 layers, (B, H, K, V) of rwkv6-1.6b
 SSD_SHAPE = (BATCH, 112, 64, 64)
 WKV6_SHAPE = (BATCH, 32, 64, 64)
@@ -328,12 +432,13 @@ def _chunk_rows(S: int, Q: int):
     return [min(Q, S - c0) for c0 in range(0, S, Q)]
 
 
-def ssd_work(B, S, H, P, N, with_state: bool) -> tuple:
+def ssd_work(B, S, H, P, N, with_state: bool, G: int) -> tuple:
     """(bytes, flops) of one SSD call: each input read once and each output
-    written once; the four chunk products counted over the causal pairs
-    s <= t this call's rows have (the kernel computes nothing above the
-    diagonal or past S), plus the decays and the D x skip."""
-    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * H * N + B * S * H + 2 * H
+    written once, B and C at their G groups; the four chunk products
+    counted over the causal pairs s <= t this call's rows have (the kernel
+    computes nothing above the diagonal or past S), plus the decays and the
+    D x skip."""
+    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + 2 * H
                   + B * H * P * N * (2 if with_state else 1))
     flops = 0
     for q in _chunk_rows(S, 64):
@@ -374,55 +479,130 @@ def _scan_err(y, st, y_ref, st_ref, what) -> tuple:
     return err, bnd
 
 
-def scan_phase(name: str, gen) -> dict:
-    """SSD or WKV6 at its model's prefill shape (S = 512), at S = 500 (not a
-    chunk multiple) and at decode's S = 1 with a state, against the plain
-    version the CPU takes (chunked, padded; the step oracle at S = 1), then
-    timed at S = 512 and at S = 1."""
-    B, H, D1, D2 = SSD_SHAPE if name == "ssd" else WKV6_SHAPE
+def wkv6_phase(gen) -> dict:
+    """WKV6 at rwkv6-1.6b's prefill shape (S = 512), at S = 500 (not a chunk
+    multiple) and at decode's S = 1 with a state, against the plain version
+    the CPU takes (chunked, padded; the step oracle at S = 1), then timed at
+    S = 512 and at S = 1."""
+    B, H, K, V = WKV6_SHAPE
 
     def inputs(S, with_state):
-        if name == "ssd":
-            x = randn((B, S, H, D1), torch.float32, gen)
-            dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, gen))
-            A = -torch.exp(randn((H,), torch.float32, gen) * 0.3)
-            Bm, Cm = randn((B, S, H, D2), torch.float32, gen), randn((B, S, H, D2), torch.float32, gen)
-            args = [x, dt, A, Bm, Cm, torch.ones(H, device="cuda")]
-        else:
-            r, k = randn((B, S, H, D1), torch.float32, gen), randn((B, S, H, D1), torch.float32, gen)
-            v = randn((B, S, H, D2), torch.float32, gen)
-            w = -torch.exp(randn((B, S, H, D1), torch.float32, gen) * 0.5)
-            args = [r, k, v, w, randn((H, D1), torch.float32, gen) * 0.1]
-        return args + [randn((B, H, D1, D2), torch.float32, gen) if with_state else None]
+        r, k = randn((B, S, H, K), torch.float32, gen), randn((B, S, H, K), torch.float32, gen)
+        v = randn((B, S, H, V), torch.float32, gen)
+        w = -torch.exp(randn((B, S, H, K), torch.float32, gen) * 0.5)
+        return [r, k, v, w, randn((H, K), torch.float32, gen) * 0.1,
+                randn((B, H, K, V), torch.float32, gen) if with_state else None]
 
-    fn = getattr(ops, name)
-    work = ssd_work if name == "ssd" else wkv6_work
     cases = []
     for S, with_state in ((512, False), (500, True), (1, True)):
         args = inputs(S, with_state)
-        y, st = fn(*args, backend="cuda")
+        y, st = ops.wkv6(*args, backend="cuda")
         torch.cuda.synchronize()
-        y_ref, st_ref = fn(*args, backend="chunked" if S > 1 else "ref")
-        err, bnd = _scan_err(y, st, y_ref, st_ref, f"{name} S={S}")
-        cases.append({"shape": [B, S, H, D1, D2], "state": with_state, "dtype": "float32",
+        y_ref, st_ref = ops.wkv6(*args, backend="chunked" if S > 1 else "ref")
+        err, bnd = _scan_err(y, st, y_ref, st_ref, f"wkv6 S={S}")
+        cases.append({"shape": [B, S, H, K, V], "state": with_state, "dtype": "float32",
                       "max_abs_err": err, "bound": bnd})
-        say(f"{name} B={B} S={S} H={H} dims=({D1}, {D2}) state={with_state} fp32: "
+        say(f"wkv6 B={B} S={S} H={H} dims=({K}, {V}) state={with_state} fp32: "
             f"y max abs err {err:.3e} (bound {bnd:.3e} = {SCAN_RTOL} x max|y|)")
 
     timed = {}
     for S, with_state in ((512, False), (1, True)):
         args = inputs(S, with_state)
-        ms = time_ms(lambda: fn(*args, backend="cuda"))
-        plain = time_ms(lambda: fn(*args, backend="chunked" if S > 1 else "ref"),
+        call = time_ms(lambda: ops.wkv6(*args, backend="cuda"))
+        ms = kernel_ms(lambda: ops.wkv6(*args, backend="cuda"), "wkv6_fwd_kernel")
+        plain = time_ms(lambda: ops.wkv6(*args, backend="chunked" if S > 1 else "ref"),
                         samples=5, per_sample=1)
-        b_ms, b_by = bound_ms(*work(B, S, H, D1, D2, with_state), torch.float32)
-        timed[S] = {"shape": [B, S, H, D1, D2], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None}
-        say(f"{name} B={B} S={S} H={H} dims=({D1}, {D2}) fp32: {ms:.4f} ms; plain {plain:.4f} ms; "
+        b_ms, b_by = bound_ms(*wkv6_work(B, S, H, K, V, with_state), torch.float32)
+        timed[S] = {"shape": [B, S, H, K, V], "ms": ms, "call_ms": call, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        say(f"wkv6 B={B} S={S} H={H} dims=({K}, {V}) fp32: {ms:.4f} ms on the card "
+            f"({call:.4f} ms a call back to back); plain {plain:.4f} ms; "
             f"no single library call; bound {b_ms:.4f} ms ({b_by})")
-    source, line = {"ssd": ("ssd.cu", "ssd.py:61"), "wkv6": ("wkv6.cu", "wkv6.py:66")}[name]
-    return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": f"src/repro/kernels/{line}", "dtype": "float32",
+    return {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:66", "dtype": "float32",
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "rtol": SCAN_RTOL,
+            **timed[512], "at_decode": timed[1], "cases": cases}
+
+
+def ssd_inputs(gen, S: int, G: int, with_state: bool):
+    """SSD's inputs at zamba2-7b's shape: x (B,S,H,P), B and C (B,S,G,N) as
+    views of one (B, S, H·P + 2·G·N) buffer, as the Mamba2 block passes its
+    conv output; dt (B,S,H) after softplus, A < 0, D = 1; the state or
+    None."""
+    B, H, P, N = SSD_SHAPE
+    buf = randn((B, S, H * P + 2 * G * N), torch.float32, gen)
+    x, Bm, Cm = torch.split(buf, [H * P, G * N, G * N], dim=-1)
+    dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, gen))
+    A = -torch.exp(randn((H,), torch.float32, gen) * 0.3)
+    args = [x.unflatten(-1, (H, P)), dt, A, Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N)),
+            torch.ones(H, device="cuda")]
+    return args, randn((B, H, P, N), torch.float32, gen) if with_state else None
+
+
+def ssd_phase(gen) -> dict:
+    """SSD at zamba2-7b's shape against the plain version the CPU takes
+    (chunked, padded, groups expanded; the step oracle at S = 1): at
+    S = 512 with one group (the main path's layout) and head-expanded
+    (G = H), at S = 500 and 1 with a state, and writing the state in place
+    (``out_state`` is ``state``) at S = 500 and 1.  Then timed, in the main
+    path's layout, at S = 512 and at S = 1 in place: the kernel's device
+    time from the profiler, beside the time of a call back to back by CUDA
+    events, the bound at the kernel's own route (3xTF32 on the tensor cores
+    for S > 1; the decode step runs on the CUDA cores) and the CUDA-core
+    fp32 bound."""
+    B, H, P, N = SSD_SHAPE
+    cases = []
+    for S, G, with_state, in_place in ((512, 1, False, False), (512, H, False, False),
+                                       (500, 1, True, False), (1, 1, True, False),
+                                       (500, 1, True, True), (1, 1, True, True)):
+        args, state = ssd_inputs(gen, S, G, with_state)
+        y_ref, st_ref = ops.ssd(*args, state, backend="chunked" if S > 1 else "ref")
+        y64, st64 = ops.ssd(*(a.double() for a in args),
+                            None if state is None else state.double(), backend="ref")
+        if in_place:
+            st_in = state.clone()
+            y, st = ops.ssd(*args, st_in, out_state=st_in, backend="cuda")
+            check(st is st_in, f"ssd S={S}: out_state was not the state it was given")
+        else:
+            y, st = ops.ssd(*args, state, backend="cuda")
+        torch.cuda.synchronize()
+        what = f"ssd S={S} G={G}" + (" in place" if in_place else "")
+        err, bnd = _scan_err(y, st, y_ref, st_ref, what)
+        # against fp64: fails a kernel whose products are not fp32-exact
+        y_top, st_top = y64.abs().max().item() or 1.0, max(1.0, st64.abs().max().item())
+        rel = (y.double() - y64).abs().max().item() / y_top
+        rel_s = (st.double() - st64).abs().max().item() / st_top
+        check(rel <= SSD_EXACT_RTOL and rel_s <= SSD_EXACT_RTOL,
+              f"{what}: against fp64, y err {rel:.2e} x max|y|, state err {rel_s:.2e} x "
+              f"max(1, max|state|) > {SSD_EXACT_RTOL}")
+        cases.append({"shape": [B, S, H, P, N], "groups": G, "state": with_state,
+                      "in_place": in_place, "dtype": "float32", "max_abs_err": err,
+                      "bound": bnd, "rel_err_fp64": rel, "state_rel_err_fp64": rel_s,
+                      "bound_fp64": SSD_EXACT_RTOL})
+        say(f"{what} B={B} H={H} P={P} N={N} state={with_state} fp32: "
+            f"y max abs err {err:.3e} (bound {bnd:.3e} = {SCAN_RTOL} x max|y|); against "
+            f"fp64 {rel:.2e} x max|y|, state {rel_s:.2e} (bound {SSD_EXACT_RTOL})")
+
+    timed = {}
+    for S, with_state in ((512, False), (1, True)):
+        args, state = ssd_inputs(gen, S, 1, with_state)
+        call = time_ms(lambda: ops.ssd(*args, state, out_state=state, backend="cuda"))
+        ms = kernel_ms(lambda: ops.ssd(*args, state, out_state=state, backend="cuda"),
+                       "ssd_fwd_kernel" if S > 1 else "ssd_step_kernel")
+        plain = time_ms(lambda: ops.ssd(*args, state, backend="chunked" if S > 1 else "ref"),
+                        samples=5, per_sample=1)
+        work = ssd_work(B, S, H, P, N, with_state, 1)
+        b_ms, b_by = bound_ms(*work, FP32_AS_3XTF32 if S > 1 else torch.float32)
+        b_cores, by_cores = bound_ms(*work, torch.float32)
+        timed[S] = {"shape": [B, S, H, P, N], "groups": 1, "ms": ms, "call_ms": call,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        say(f"ssd B={B} S={S} H={H} P={P} N={N} G=1 fp32{' in place' if with_state else ''}: "
+            f"{ms:.4f} ms on the card ({call:.4f} ms a call back to back); plain "
+            f"{plain:.4f} ms; no single library call; bound {b_ms:.4f} ms "
+            f"({b_by}{', 3xTF32 tensor cores' if S > 1 else ''}; {b_ms / ms:.1%} of it "
+            f"reached); on the fp32 CUDA cores it would be {b_cores:.4f} ms ({by_cores})")
+    return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd.py:61", "dtype": "float32",
             "max_abs_err": max(c["max_abs_err"] for c in cases), "rtol": SCAN_RTOL,
             **timed[512], "at_decode": timed[1], "cases": cases}
 
@@ -478,7 +658,7 @@ def device_ms_by_kernel(run) -> dict:
         name = ev.key.lower()
         kind = ("flash_attention" if "flash_fwd_kernel" in name else
                 "rmsnorm" if "rmsnorm_kernel" in name else
-                "ssd" if "ssd_fwd_kernel" in name else
+                "ssd" if ("ssd_fwd_kernel" in name or "ssd_step_kernel" in name) else
                 "wkv6" if "wkv6_fwd_kernel" in name else
                 "gemm" if ("gemm" in name or "gemv" in name) else "other")
         out[kind] += ev.self_device_time_total / 1e3
@@ -595,11 +775,12 @@ def main() -> int:
         f"({_build.BUILD_DIR})")
 
     flash_ptxas = flash_build_report()
+    ssd_ptxas = ssd_build_report()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [rmsnorm_phase(gen), flash_phase(gen), scan_phase("ssd", gen),
-               scan_phase("wkv6", gen)]
+    kernels = [rmsnorm_phase(gen), flash_phase(gen), ssd_phase(gen), wkv6_phase(gen)]
     kernels[1]["ptxas"] = flash_ptxas
+    kernels[2]["ptxas"] = ssd_ptxas
 
     served = []
     for arch in ARCHS:

@@ -62,13 +62,15 @@ def _compile() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.rt_rmsnorm.argtypes = [p, p, p, i, i, f, i, i, p]
     lib.rt_rmsnorm.restype = i
     lib.rt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, i, p]
     lib.rt_flash_attention.restype = i
-    lib.rt_ssd.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.rt_ssd.argtypes = [p] * 9 + [i] * 6 + [ll] * 6 + [i, p]
     lib.rt_ssd.restype = i
+    lib.rt_ssd_smem_bytes.argtypes = [i, i]
+    lib.rt_ssd_smem_bytes.restype = i
     lib.rt_wkv6.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.rt_wkv6.restype = i
     lib.rt_error_string.argtypes = [i]

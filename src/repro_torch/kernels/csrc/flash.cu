@@ -50,9 +50,6 @@
 //     size and masked, so no length has to be a tile multiple.
 // The constants are the TPU kernel's: masked scores -1e30, the denominator
 // clamped at 1e-20, scores scaled by 1/sqrt(h) after QKᵀ.
-#include <cstdint>
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -75,53 +72,6 @@ struct Layout {                     // in floats; rows padded against bank confl
   static constexpr size_t bytes = sizeof(float) * (Q + 2 * (K + V));
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small: big = tf32(x) rounded to nearest, small = x − big exactly
-// in fp32, which the TF32 MMA reads truncated to its top 19 bits (a 2^-21
-// relative error of x)
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// c += a·b for one m16n8k8 tile, TF32 operands, fp32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a·b to fp32 accuracy: the small terms first, then big·big
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_big)[4],
-                                     const uint32_t (&a_small)[4], float2 b) {
-  uint32_t b_big[2], b_small[2];
-  split(b.x, b_big[0], b_small[0]);
-  split(b.y, b_big[1], b_small[1]);
-  mma(c, a_small, b_big);
-  mma(c, a_big, b_small);
-  mma(c, a_big, b_big);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
 // ROWS rows of HD elements, row r at src + (row0 + r) * stride, into dst with
 // row pitch LD floats as fp32; rows at or past n are zeros.  fp32 goes by
 // 16-byte cp.async (the caller commits); other types by plain loads.
@@ -140,16 +90,6 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, size_t strid
 #pragma unroll
       for (int i = 0; i < 4; ++i) d[i] = in ? to_f(p[i]) : 0.f;
     }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b) {
-  if constexpr (std::is_same_v<T, float>) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else {
-    p[0] = from_f<T>(a);
-    p[1] = from_f<T>(b);
   }
 }
 

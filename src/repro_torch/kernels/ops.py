@@ -103,17 +103,31 @@ def wkv6(r, k, v, w_log, u, state=None, *, backend: Optional[str] = None, chunk:
     return y[:, :S], st
 
 
-def ssd(x, dt, A, Bm, Cm, D, state=None, *, backend: Optional[str] = None, chunk: int = 64):
-    """Mamba2 SSD.  x (B,S,H,P); dt (B,S,H); A, D (H,); Bm, Cm (B,S,H,N);
-    state (B,H,P,N) fp32 or None -> y (B,S,H,P), final state (B,H,P,N) fp32."""
+def ssd(x, dt, A, Bm, Cm, D, state=None, *, backend: Optional[str] = None, chunk: int = 64,
+        out_state: Optional[torch.Tensor] = None):
+    """Mamba2 SSD.  x (B,S,H,P); dt (B,S,H); A, D (H,); Bm, Cm (B,S,G,N) with
+    G dividing H (head h reads group h // (H // G); G = H is the reference's
+    head-expanded layout); state (B,H,P,N) fp32 or None -> y (B,S,H,P),
+    final state (B,H,P,N) fp32.  x, Bm and Cm may be strided views (the
+    kernel reads them in place).  With ``out_state`` the final state is
+    written there, which may be ``state`` itself, and returned."""
     b = _scan_backend(x, backend)
     if b == "cuda":
-        y, st = ssd_cuda(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+        y, st = ssd_cuda(x, dt, A, Bm, Cm, D, state, out_state=out_state, chunk=chunk)
         LAUNCHES["ssd"] += 1
         return y, st
+    H, G = x.shape[2], Bm.shape[2]
+    if H % G:
+        raise ValueError(f"{G} groups do not divide {H} heads")
+    if G != H:                     # the plain versions take head-expanded B and C
+        Bm, Cm = (a.repeat_interleave(H // G, dim=2) for a in (Bm, Cm))
     if b == "ref":
-        return _ref.ssd_ref(x, dt, A, Bm, Cm, D, state)
-    S = x.shape[1]
-    xp, dtp, Bp, Cp = (_pad_seq(a, chunk) for a in (x, dt, Bm, Cm))
-    y, st = _ref.ssd_chunked_ref(xp, dtp, A, Bp, Cp, D, state, chunk=chunk)
-    return y[:, :S], st
+        y, st = _ref.ssd_ref(x, dt, A, Bm, Cm, D, state)
+    else:
+        S = x.shape[1]
+        xp, dtp, Bp, Cp = (_pad_seq(a, chunk) for a in (x, dt, Bm, Cm))
+        y, st = _ref.ssd_chunked_ref(xp, dtp, A, Bp, Cp, D, state, chunk=chunk)
+        y = y[:, :S]
+    if out_state is not None:
+        st = out_state.copy_(st)
+    return y, st

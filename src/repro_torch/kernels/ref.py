@@ -56,10 +56,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 #   y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
 # ---------------------------------------------------------------------------
 
-def _state(state, shape, device) -> torch.Tensor:
+def _state(state, shape, device, dtype=torch.float32) -> torch.Tensor:
     if state is None:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-    return state.float()
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return state.to(dtype)
 
 
 def wkv6_ref(r, k, v, w_log, u, state=None):
@@ -123,12 +123,13 @@ def ssd_ref(x, dt, A, Bm, Cm, D, state=None):
     """The step-by-step oracle.  x (B,S,H,P); dt (B,S,H) (after softplus,
     > 0); A (H,) (< 0); Bm, Cm (B,S,H,N), expanded from groups to heads;
     D (H,); state (B,H,P,N) or None (zeros).  Returns y (B,S,H,P) in x's
-    dtype and the final state (B,H,P,N) in fp32."""
+    dtype and the final state (B,H,P,N) in the dtype it computes in: fp32,
+    or fp64 when x is fp64 (a yardstick for the fp32 kernels' accuracy)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    xf, dtf, Bf, Cf = (a.float() for a in (x, dt, Bm, Cm))
-    Af, Df = A.float(), D.float()
-    h = _state(state, (B, H, P, N), x.device)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, dtf, Bf, Cf, Af, Df = (a.to(acc) for a in (x, dt, Bm, Cm, A, D))
+    h = _state(state, (B, H, P, N), x.device, acc)
     ys = []
     for t in range(S):
         decay = torch.exp(dtf[:, t] * Af)                             # (B,H)

@@ -85,7 +85,9 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def block_fwd(p: Block, cfg, x: torch.Tensor, cache: Optional[Cache], *,
               backend: Optional[str] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """cache: {"conv": (B,K-1,C), "state": (B,H,P,N) fp32} or None.  Returns
-    (out, new cache or None); the cache's tensors are not modified."""
+    (out, new cache or None).  The cache's SSD state is updated in place (the
+    new cache holds that same tensor); the conv carry is a new tensor, and
+    the cache's own carry is left as it was."""
     B, S, _ = x.shape
     din = d_inner(cfg)
     G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
@@ -96,16 +98,17 @@ def block_fwd(p: Block, cfg, x: torch.Tensor, cache: Optional[Cache], *,
     dt = L.linear(p.dt_proj, x)
     xBC, conv_state = _causal_conv(xBC, p.conv_w, p.conv_b,
                                    cache["conv"] if cache is not None else None)
+    # views of the conv output, B and C per group: the SSD kernel reads them
+    # in place (the plain versions expand the groups themselves)
     xs, Bm, Cm = torch.split(xBC, [din, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, S, H, P).contiguous()
-    rep = H // G
-    Bm = Bm.reshape(B, S, G, N).repeat_interleave(rep, dim=2)     # head-expanded
-    Cm = Cm.reshape(B, S, G, N).repeat_interleave(rep, dim=2)
+    xs = xs.unflatten(-1, (H, P))
+    Bm = Bm.unflatten(-1, (G, N))
+    Cm = Cm.unflatten(-1, (G, N))
     dt = F.softplus(dt.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
 
-    y, new_state = ops.ssd(xs, dt, A, Bm, Cm, p.D,
-                           cache["state"] if cache is not None else None, backend=backend)
+    state = cache["state"] if cache is not None else None
+    y, new_state = ops.ssd(xs, dt, A, Bm, Cm, p.D, state, out_state=state, backend=backend)
     y = y.reshape(B, S, din)
     y = L.norm(p.norm, y * F.silu(z), "rmsnorm", backend=backend)
     out = L.linear(p.out_proj, y)

@@ -101,7 +101,8 @@ def _shared_block_fwd(shared: SharedBlock, app_in: nn.Linear, cfg, x, x0, positi
 def _mamba_stack(layers, cfg, x, seg, index, *, backend=None):
     """Run ``layers`` in order; ``seg`` is the stacked cache of this stack
     (leading axes ``index`` + the layer) or None.  Each layer's new conv carry
-    and state are written into its slice of ``seg``."""
+    is written into its slice of ``seg``; its SSD state already is that slice
+    (``mamba2.block_fwd`` updates it in place), so it is not copied."""
     for j, lp in enumerate(layers):
         lc = None
         if seg is not None:
@@ -109,7 +110,8 @@ def _mamba_stack(layers, cfg, x, seg, index, *, backend=None):
         x, nc = mamba_layer_fwd(lp, cfg, x, lc, backend=backend)
         if seg is not None:
             for name, a in nc.items():
-                seg[name][index + (j,)] = a
+                if a.data_ptr() != lc[name].data_ptr():
+                    seg[name][index + (j,)] = a
     return x
 
 

@@ -239,3 +239,99 @@ def test_scan_ops_any_length(S, dtype):
     y, st = ops.ssd(*targs, torch.from_numpy(st_s))
     assert y.shape == (2, S, 3, 8)
     _close_scan(y, st, jy, jst, dtype)
+
+
+def _conv_views(buf, H, P, G, N):
+    """x (B,S,H,P), Bm and Cm (B,S,G,N) as views of one (B, S, H·P + 2·G·N)
+    buffer, as the Mamba2 block's conv output holds them."""
+    x, Bm, Cm = torch.split(buf, [H * P, G * N, G * N], dim=-1)
+    return x.unflatten(-1, (H, P)), Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("S", [1, 45, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssd_ops_grouped_strided_matches_pallas(G, S, dtype):
+    """``ops.ssd`` with B and C per group (G = 1 and 3 at H = 6) and x, B, C
+    as strided views of one conv-output buffer, with a state, against the
+    reference's ``ops.ssd`` through its Pallas kernel (its S = 1 route at
+    S = 1) on the head-expanded, contiguous inputs."""
+    B, H, P, N = 2, 6, 8, 16
+    rs = np.random.default_rng(100 + S + G)
+    buf = rs.standard_normal((B, S, H * P + 2 * G * N)).astype(np.float32)
+    _, dt, A, _, _, D = _ssd_np(B, S, H, P, N, seed=S)
+    st = rs.standard_normal((B, H, P, N)).astype(np.float32)
+    xs = buf[..., :H * P].reshape(B, S, H, P)
+    Be, Ce = (np.repeat(buf[..., H * P + i * G * N:H * P + (i + 1) * G * N]
+                        .reshape(B, S, G, N), H // G, axis=2) for i in (0, 1))
+    jargs, targs = _both((xs, dt, A, Be, Ce, D), _SSD_CAST, dtype)
+    jy, jst = jops.ssd(*jargs, jnp.asarray(st), backend="pallas")
+    tx, tB, tC = _conv_views(torch.from_numpy(buf).to(DTYPES[dtype][1]), H, P, G, N)
+    assert not (tx.is_contiguous() or tB.is_contiguous()) and tB.shape == (B, S, G, N)
+    y, tst = ops.ssd(tx, targs[1], targs[2], tB, tC, targs[5], torch.from_numpy(st))
+    assert y.shape == (B, S, H, P) and y.dtype == DTYPES[dtype][1]
+    _close_scan(y, tst, jy, jst, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 45])
+def test_ssd_out_state_aliases_state(S):
+    """An ``out_state`` that is ``state`` itself: ``ops.ssd`` returns that
+    tensor, holding what a call without it returns, and both agree with the
+    reference."""
+    rs = np.random.default_rng(7 + S)
+    st0 = rs.standard_normal((2, 3, 8, 16)).astype(np.float32)
+    jargs, targs = _both(_ssd_np(2, S, 3, 8, 16, seed=S), _SSD_CAST, "float32")
+    y_new, st_new = ops.ssd(*targs, torch.from_numpy(st0.copy()))
+    st = torch.from_numpy(st0.copy())
+    y, st_out = ops.ssd(*targs, st, out_state=st)
+    assert st_out is st
+    assert torch.equal(y, y_new) and torch.equal(st, st_new)
+    jy, jst = jops.ssd(*jargs, jnp.asarray(st0), backend="pallas")
+    _close_scan(y, st, jy, jst, "float32")
+
+
+def _ssd_chunk(mm, x, dt, a, Bm, Cm, h0, d):
+    """One chunk of the CUDA SSD kernel's arithmetic with products ``mm``:
+    G = C Bᵀ, decayed and masked; y = (C h0ᵀ) e^{cum} + G x + D x;
+    h = e^{cum_end} h0 + (w x)ᵀ B with w_s = e^{cum_end − cum_s} dt_s."""
+    Q = x.shape[0]
+    cum = np.cumsum(dt * a)
+    keep = np.tril(np.ones((Q, Q), bool))
+    L = np.exp(np.where(keep, cum[:, None] - cum[None, :], 0.0))
+    G = np.where(keep, mm(Cm, Bm.T) * L * dt[None, :], 0.0)
+    y = mm(Cm, h0.T) * np.exp(cum)[:, None] + mm(G, x) + d * x
+    w = np.exp(cum[-1] - cum) * dt
+    return y, np.exp(cum[-1]) * h0 + mm((w[:, None] * x).T, Bm)
+
+
+def test_ssd_3xtf32_chunk_meets_1e5_and_1xtf32_does_not():
+    """The premise of the CUDA SSD kernel's design, where no card is: one
+    64-row chunk at P = N = 64 with an initial state, inputs drawn as
+    ``chip_smoke.py`` draws them, its four products emulated on TF32
+    operands (small passed raw and truncated, as the MMA reads it), against
+    the same chunk in float64: the three-product split stays within 1e-5 of
+    max|y| (and of max(1, max|state|)), one product does not.  The float64
+    chunk is the reference's function: it agrees with ``ssd_pallas``."""
+    Q, P, N = 64, 64, 64
+    rs = np.random.default_rng(15)
+    x = rs.standard_normal((Q, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rs.standard_normal(Q))).astype(np.float32)
+    a = np.float32(-np.exp(rs.standard_normal() * 0.3))
+    Bm, Cm = (rs.standard_normal((Q, N)).astype(np.float32) for _ in range(2))
+    h0 = rs.standard_normal((P, N)).astype(np.float32)
+    f64 = [v.astype(np.float64) for v in (x, dt, a, Bm, Cm, h0)]
+    y_ex, h_ex = _ssd_chunk(np.matmul, *f64, 1.0)
+    jy, jst = ssd_pallas(*(jnp.asarray(v) for v in (x[None, :, None], dt[None, :, None],
+                                                    np.full(1, a), Bm[None, :, None],
+                                                    Cm[None, :, None], np.ones(1, np.float32))),
+                         jnp.asarray(h0[None, None]), chunk=Q)
+    _close_scan(y_ex, torch.from_numpy(h_ex.astype(np.float32)), np.asarray(jy)[0, :, 0],
+                np.asarray(jst)[0, 0], "float32")
+    errs = {}
+    for terms in (1, 3):
+        y, h = _ssd_chunk(lambda u, v: _tf32_matmul(u.astype(np.float32), v.astype(np.float32),
+                                                    terms),
+                          x, dt, a, Bm, Cm, h0, np.float32(1.0))
+        errs[terms] = max(np.abs(y - y_ex).max() / np.abs(y_ex).max(),
+                          np.abs(h - h_ex).max() / max(1.0, np.abs(h_ex).max()))
+    assert errs[3] < 1e-5 < errs[1], errs

@@ -351,3 +351,37 @@ def test_recurrent_prefill_then_decode(rpair):
             _close(logits, jlogits[j], BOUND)
     assert c["pos"] == S + 3
     _close_tree(c["trunk"], jc["trunk"], BOUND)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("S", [1, 21])
+def test_mamba2_block_updates_its_state_in_place(groups, S):
+    """One cached call of the port's Mamba2 block against the reference's, with
+    B and C read per group (G = 1 and 2 at the smoke config's 4 heads): the
+    same output, conv carry and SSD state.  The new state is written into the
+    cache's own tensor, which the block returns; the conv carry is a new
+    tensor and the cache's carry is left as it was."""
+    from repro.models import mamba2 as jmamba2
+    from repro_torch.models import mamba2
+
+    cfg = get_smoke_config("zamba2-7b").replace(ssm_groups=groups)
+    jcfg = jget_smoke("zamba2-7b").replace(ssm_groups=groups)
+    jp = jmamba2.init_block(jax.random.PRNGKey(2), jcfg)
+    block = mamba2.Block(cfg)
+    block.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jp)))
+    block.requires_grad_(False)
+    H, P, N = cfg.ssm_heads, mamba2.head_p(cfg), cfg.ssm_state
+    rs = np.random.default_rng(S + groups)
+    x = rs.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    conv = rs.standard_normal((2, cfg.conv_kernel - 1, mamba2.conv_channels(cfg))).astype(np.float32)
+    state = rs.standard_normal((2, H, P, N)).astype(np.float32)
+    jout, jc = jmamba2.block_fwd(jp, jcfg, jnp.asarray(x),
+                                 {"conv": jnp.asarray(conv), "state": jnp.asarray(state)})
+    cache = {"conv": torch.from_numpy(conv.copy()), "state": torch.from_numpy(state.copy())}
+    with torch.no_grad():
+        out, nc = mamba2.block_fwd(block, cfg, torch.from_numpy(x), cache)
+    assert nc["state"] is cache["state"] and nc["conv"] is not cache["conv"]
+    assert np.array_equal(cache["conv"].numpy(), conv)
+    _close(out, jout, BOUND)
+    _close(nc["conv"], jc["conv"], BOUND)
+    _close(nc["state"], jc["state"], BOUND)

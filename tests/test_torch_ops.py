@@ -29,6 +29,9 @@ RMS_BOUND_F32 = 1e-5
 FLASH_BOUND_F32 = 1e-4
 FLASH_BOUND_HALF = 2e-2
 SCAN_RTOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+# SSD's fp32 kernels against the step oracle in fp64: the chunk products are
+# fp32-exact (3xTF32); one TF32 product per chunk product errs by ~8e-4
+SSD_EXACT_RTOL = 2e-5
 MODEL_LOGITS_BOUND = 1e-3
 NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
 
@@ -55,6 +58,14 @@ def _ssd(B, S, H, P, N, dtype=torch.float32, device="cpu", seed=0):
     A = -torch.exp(_t((H,), seed + 2, device=device) * 0.3)
     Bm, Cm = _t((B, S, H, N), seed + 3, dtype, device), _t((B, S, H, N), seed + 4, dtype, device)
     return x, dt, A, Bm, Cm, torch.ones(H, device=device)
+
+
+def _ssd_views(B, S, H, P, G, N, dtype=torch.float32, device="cpu", seed=0):
+    """x (B,S,H,P), Bm and Cm (B,S,G,N) as views of one (B, S, H·P + 2·G·N)
+    buffer, as the Mamba2 block's conv output holds them."""
+    buf = _t((B, S, H * P + 2 * G * N), seed, dtype, device)
+    x, Bm, Cm = torch.split(buf, [H * P, G * N, G * N], dim=-1)
+    return x.unflatten(-1, (H, P)), Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -108,6 +119,39 @@ def test_cuda_backend_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="unknown backend"):
         ops.ssd(x, dt, A, Bm, Cm, D, backend="pallas")
     assert _build._LIB is None
+
+
+@pytest.mark.parametrize("S", [1, 40])
+def test_ssd_plain_routes_take_groups_views_and_out_state(S):
+    """On CPU tensors ``ops.ssd`` expands grouped B and C to the heads, reads
+    strided views, and copies the final state into ``out_state`` (which may
+    be ``state``): the same numbers as head-expanded contiguous inputs."""
+    x, Bm, Cm = _ssd_views(2, S, 6, 16, 2, 16)
+    _, dt, A, _, _, D = _ssd(2, S, 6, 16, 16)
+    s0 = _t((2, 6, 16, 16), 5)
+    Be, Ce = (a.repeat_interleave(3, dim=2).contiguous() for a in (Bm, Cm))
+    for backend in (None, "ref", "chunked"):
+        y_ref, st_ref = ops.ssd(x.contiguous(), dt, A, Be, Ce, D, s0, backend=backend)
+        st = s0.clone()
+        y, st_out = ops.ssd(x, dt, A, Bm, Cm, D, st, out_state=st, backend=backend)
+        assert st_out is st and torch.equal(y, y_ref) and torch.equal(st, st_ref)
+    with pytest.raises(ValueError, match="groups"):
+        ops.ssd(x, dt, A, Bm[:, :, :1].expand(2, S, 4, 16), Cm[:, :, :1].expand(2, S, 4, 16), D)
+    assert ops.LAUNCHES == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("S", [1, 40])
+def test_ssd_ref_computes_in_fp64_for_fp64_inputs(S):
+    """The step oracle keeps fp64 inputs in fp64 (the card's yardstick for
+    the fp32 kernels' accuracy), keeps fp32 as it was, and the two agree."""
+    args = _ssd(2, S, 3, 16, 16)
+    s0 = _t((2, 3, 16, 16), 5)
+    y32, st32 = ref.ssd_ref(*args, s0)
+    y64, st64 = ref.ssd_ref(*(a.double() for a in args), s0.double())
+    assert y32.dtype == st32.dtype == torch.float32
+    assert y64.dtype == st64.dtype == torch.float64
+    assert (y64 - y32.double()).abs().max().item() < 1e-5 * y64.abs().max().item()
+    assert (st64 - st32.double()).abs().max().item() < 1e-5 * max(1.0, st64.abs().max().item())
 
 
 def test_reset_launches():
@@ -219,30 +263,96 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         wkv6_cuda(*_wkv(1, 4, 2, 64, 64, dtype=torch.float16, device=cuda))
 
 
-def _close_scan(y, st, y_ref, st_ref, dtype):
-    rtol = SCAN_RTOL[dtype]
-    y_ref = y_ref.float()
+def _close_scan(y, st, y_ref, st_ref, dtype, rtol=None):
+    rtol = SCAN_RTOL[dtype] if rtol is None else rtol
+    y_ref, st_ref = y_ref.double(), st_ref.double()
     assert y.dtype == dtype and st.dtype == torch.float32 and bool(torch.isfinite(y).all())
-    assert (y.float() - y_ref).abs().max().item() < rtol * (y_ref.abs().max().item() or 1.0)
-    assert (st - st_ref).abs().max().item() < rtol * max(1.0, st_ref.abs().max().item())
+    assert (y.double() - y_ref).abs().max().item() < rtol * (y_ref.abs().max().item() or 1.0)
+    assert (st.double() - st_ref).abs().max().item() < rtol * max(1.0, st_ref.abs().max().item())
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,P,N", [(2, 4, 128, 16), (2, 112, 64, 64), (1, 3, 32, 128)])
-@pytest.mark.parametrize("S", [1, 64, 100, 200])
+@pytest.mark.parametrize("B,H,P,N", [(2, 4, 128, 16), (2, 112, 64, 64), (1, 3, 32, 128),
+                                     (1, 2, 128, 128)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 100, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_state", [False, True])
-def test_ssd_kernel_matches_ref(cuda, B, H, P, N, S, dtype, with_state):
-    """Smoke zamba2 (P=128, N=16) and full zamba2-7b (P=N=64) heads; S = 1
-    (decode), chunk multiples and not."""
+@pytest.mark.parametrize("layout", ["expanded", "grouped", "strided"])
+def test_ssd_kernel_matches_ref(cuda, B, H, P, N, S, dtype, with_state, layout):
+    """Smoke zamba2 (P=128, N=16) and full zamba2-7b (P=N=64) heads, and
+    P = N = 128, the one shape whose chunked kernel has a single input
+    buffer; S = 1 (decode), chunk multiples and not, the chunk's edges.
+    ``expanded``: B and C per head (G = H), contiguous; ``grouped``: one
+    group (G = 1), x, B and C views of one conv-output buffer, as the
+    Mamba2 block passes them; ``strided``: G = H, as such views.  fp32 is
+    also held to the step oracle in fp64, at a bound that one TF32 product
+    per chunk product would not meet."""
     x, dt, A, Bm, Cm, D = _ssd(B, S, H, P, N, dtype, cuda)
+    if layout != "expanded":
+        x, Bm, Cm = _ssd_views(B, S, H, P, 1 if layout == "grouped" else H, N, dtype, cuda)
+        assert B * S == 1 or not x.is_contiguous()
     s0 = _t((B, H, P, N), 9, device=cuda) if with_state else None
     ops.reset_launches()
     y, st = ops.ssd(x, dt, A, Bm, Cm, D, s0)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ssd"] == 1 and y.shape == x.shape
-    _close_scan(y, st, *ref.ssd_ref(x, dt, A, Bm, Cm, D, s0), dtype)
+    _close_scan(y, st, *ops.ssd(x, dt, A, Bm, Cm, D, s0, backend="ref"), dtype)
     _close_scan(y, st, *ops.ssd(x, dt, A, Bm, Cm, D, s0, backend="chunked"), dtype)
+    if dtype == torch.float32:
+        exact = ops.ssd(*(a.double() for a in (x, dt, A, Bm, Cm, D)),
+                        None if s0 is None else s0.double(), backend="ref")
+        _close_scan(y, st, *exact, dtype, rtol=SSD_EXACT_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_updates_state_in_place(cuda, S, dtype):
+    """``out_state`` aliasing ``state`` (the decode kernel at S = 1, the
+    chunked one at S = 100): the call returns that tensor, holding exactly
+    what a call into a new tensor gives, and y is the same."""
+    B, H, P, N = 2, 8, 64, 64
+    x, Bm, Cm = _ssd_views(B, S, H, P, 1, N, dtype, cuda)
+    _, dt, A, _, _, D = _ssd(B, S, H, P, N, device=cuda)
+    s0 = _t((B, H, P, N), 9, device=cuda)
+    y_new, st_new = ops.ssd(x, dt, A, Bm, Cm, D, s0)
+    st = s0.clone()
+    y, st_out = ops.ssd(x, dt, A, Bm, Cm, D, st, out_state=st)
+    torch.cuda.synchronize()
+    assert st_out is st and torch.equal(y, y_new) and torch.equal(st, st_new)
+    _close_scan(y, st, *ops.ssd(x, dt, A, Bm, Cm, D, s0, backend="ref"), dtype)
+
+
+@pytest.mark.gpu
+def test_ssd_refuses_misaligned_or_unpacked_views(cuda):
+    """fp32 x, B, C must start on 16 bytes and have row strides of whole
+    16-byte pieces (cp.async); every view needs a contiguous last dim and
+    packed heads; G must divide H.  bf16 views need no alignment."""
+    B, S, H, P, N = 2, 8, 4, 16, 16
+    x, dt, A, Bm, Cm, D = _ssd(B, S, H, P, N, device=cuda)
+    odd = _t((B, S, H * P + 2 * N + 1), device=cuda)       # rows of 97 floats
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_cuda(odd[..., :H * P].unflatten(-1, (H, P)), dt, A, Bm, Cm, D)
+    flat = _t((B * S * H * P + 1,), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):             # base one float off
+        ssd_cuda(flat[1:].view(B, S, H, P), dt, A, Bm, Cm, D)
+    wide = _t((B, S, H, 2 * N), device=cuda)
+    with pytest.raises(ValueError, match="packed"):
+        ssd_cuda(x, dt, A, wide[..., :N], Cm, D)
+    with pytest.raises(ValueError, match="packed"):
+        ssd_cuda(x, dt, A, Bm, Cm.transpose(2, 3).contiguous().transpose(2, 3), D)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ssd_cuda(x, dt, A, Bm[:, :, :3], Cm[:, :, :3], D)
+    with pytest.raises(ValueError, match="out_state"):
+        ssd_cuda(x, dt, A, Bm, Cm, D, out_state=torch.empty(B, H, P, N, device=cuda,
+                                                              dtype=torch.bfloat16))
+    oddb = odd.to(torch.bfloat16)[..., 1:]                    # 2-byte aligned views
+    xb, Bb, Cb = (oddb[..., :H * P].unflatten(-1, (H, P)),
+                  oddb[..., H * P:H * P + N].unflatten(-1, (1, N)),
+                  oddb[..., H * P + N:].unflatten(-1, (1, N)))
+    y, st = ssd_cuda(xb, dt, A, Bb, Cb, D)
+    torch.cuda.synchronize()
+    _close_scan(y, st, *ops.ssd(xb, dt, A, Bb, Cb, D, backend="ref"), torch.bfloat16)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Per-call cost of the port's SSD decode path and of flash attention on one
+card, for one tree of the repo, so that two trees can be compared in one
+run on the same card:
+
+    python3 tools/call_cost.py --src src                 # this tree
+    python3 tools/call_cost.py --src /path/to/other/src  # another tree
+
+It imports ``repro_torch`` from ``--src`` and prints one JSON line:
+  * ``ssd_call_ms``: one ``ops.ssd`` decode call (S = 1) at zamba2-7b's
+    shape (B = 8, H = 112, P = N = 64, fp32, with a state), back to back by
+    CUDA events (the median of 25 means of 5 calls, as ``chip_smoke.py``
+    times a call), in the layout that tree's Mamba2 block passes: B and C
+    expanded to the heads and x contiguous where ``ops.ssd`` has no
+    ``out_state``, else x, B and C as views of one conv-output buffer with
+    one group and the state written in place;
+  * ``ssd_host_us``: the host's time in that call, by the host's clock over
+    2000 calls (the kernel is shorter, so the card never holds the host);
+  * ``layer_ms``: one decode step of zamba2-7b's Mamba layers through the
+    trunk's ``_mamba_stack`` over 4 layers at full width with random
+    weights and a stacked cache, per layer, by CUDA events as above;
+  * ``flash_ms``: ``ops.flash_attention`` at llama3-8b's served prefill
+    shape (B = 8, S = 512, 32 / 8 heads of 128, causal, fp32), by CUDA
+    events as above.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+def time_ms(fn, *, samples: int = 25, per_sample: int = 5, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_sample):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_sample)
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(os.path.dirname(__file__), "..", "src"),
+                    help="the src directory of the tree to import repro_torch from")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("call_cost: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import mamba2, zamba2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(args.seed)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    _build.library()
+    cfg = get_config("zamba2-7b")
+    B, H, P, N = 8, cfg.ssm_heads, mamba2.head_p(cfg), cfg.ssm_state
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    in_place = "out_state" in inspect.signature(ops.ssd).parameters
+    dt = torch.nn.functional.softplus(randn(B, 1, H))
+    A, D = -torch.exp(randn(H) * 0.3), torch.ones(H, device=dev)
+    state = randn(B, H, P, N)
+    if in_place:
+        buf = randn(B, 1, H * P + 2 * N)
+        x, Bm, Cm = torch.split(buf, [H * P, N, N], dim=-1)
+        x, Bm, Cm = x.unflatten(-1, (H, P)), Bm.unflatten(-1, (1, N)), Cm.unflatten(-1, (1, N))
+
+        def ssd():
+            return ops.ssd(x, dt, A, Bm, Cm, D, state, out_state=state, backend="cuda")
+    else:
+        x, Bm, Cm = randn(B, 1, H, P), randn(B, 1, H, N), randn(B, 1, H, N)
+
+        def ssd():
+            return ops.ssd(x, dt, A, Bm, Cm, D, state, backend="cuda")
+
+    with torch.no_grad():
+        ssd_call = time_ms(ssd)
+        torch.cuda.synchronize()
+        calls = 2000
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ssd()
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+
+        layers = torch.nn.ModuleList(zamba2.MambaLayer(cfg, device=dev) for _ in range(4))
+        for lp in layers:
+            lp.mamba.init_weights(gen)
+        one = mamba2.init_cache(cfg, B, device=dev)
+        seg = {name: a.expand(len(layers), *a.shape).clone() for name, a in one.items()}
+        h = randn(B, 1, cfg.d_model) * 0.1
+        layer = time_ms(lambda: zamba2._mamba_stack(layers, cfg, h, seg, ())) / len(layers)
+        del layers, seg
+
+        q = randn(8, 512, 32, 128)
+        k, v = randn(8, 512, 8, 128), randn(8, 512, 8, 128)
+        flash = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, backend="cuda"))
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"src": args.src, "card": card, "ssd_in_place": in_place,
+                      "ssd_call_ms": ssd_call, "ssd_host_us": host_us,
+                      "layer_ms": layer, "flash_ms": flash}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
