@@ -7,17 +7,19 @@ Phases, each of which exits non-zero on a failed check:
   1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a), timed; what ptxas reports for flash attention's fp32
-     instantiations at h = 112 and 128 and for the SSD kernels' at
-     P = N = 64 (registers, spills, which fail the run) beside the shared
-     memory of their layouts and the blocks per SM that these allow, and
-     for the chunked SSD kernel's other fp32 instantiations;
+     instantiations at h = 112 and 128, for the SSD kernels' at P = N = 64
+     and for the WKV6 kernels' at K = V = 64 (registers, spills, which fail
+     the run) beside the shared memory of their layouts and the blocks per
+     SM that these allow, and for the chunked scans' other fp32
+     instantiations;
   3. kernel parity: each kernel (RMSNorm, flash attention at h = 128 and at
      zamba2's h = 112, the SSD and WKV6 scans at prefill lengths 512 and 500
      and at decode's 1; SSD with x, B and C as views of one conv-output
      buffer with one group, as the Mamba2 block passes them, head-expanded,
-     and writing its state in place) against its plain PyTorch version on
-     the card (SSD also against the step oracle in fp64, within 2e-5 of
-     max|y|, which one TF32 product per chunk product would not meet), and
+     and writing its state in place; WKV6 writing its state in place and at
+     strong decays) against its plain PyTorch version on the card (the scans
+     also against their step oracles in fp64, within 2e-5 of max|y|, which
+     one TF32 product per chunk product in SSD would not meet), and
      its time (CUDA events; for the scans, the kernel's device
      time from the profiler, since a decode step's kernel is shorter than
      its host call) beside the plain version, one PyTorch library call that
@@ -93,6 +95,9 @@ SSD_EXACT_RTOL = 2e-5                     # SSD against its plain version in fp6
                                           # SCAN_RTOL: the fp32-exact products err by
                                           # ~4e-6, one TF32 product per chunk product
                                           # by ~8e-4
+WKV6_EXACT_RTOL = 2e-5                    # WKV6 against its step oracle in fp64, as
+                                          # SSD_EXACT_RTOL: its exponents are sums over
+                                          # the rows they span
 SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, cut depth, fp32
 NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
 
@@ -423,6 +428,53 @@ def ssd_build_report() -> dict:
     return report
 
 
+def wkv6_build_report() -> dict:
+    """What ptxas reports for the fp32 WKV6 kernels at the main path's K = V =
+    64 (the chunked kernel, 256 threads; the decode step, 4 V = 256 threads;
+    fails on a spill), beside the blocks
+    per SM that shared memory (the chunked kernel's layout, as wkv6.cu gives
+    it) and registers allow; and, for every other fp32 instantiation of the
+    chunked kernel, its registers, spills and shared memory."""
+    lib = _build.library()
+    report, others = {}, {}
+    entries = ptxas_report("wkv6.cu") + ptxas_report("wkv6_step.cu")
+    for entry in entries:
+        name = entry["kernel"]
+        fields = {k: v for k, v in entry.items() if k != "kernel"}
+        m = re.search(r"wkv6_fwd_kernelIfLi(\d+)ELi(\d+)ELi\d+EE", name)
+        if m and m.groups() != ("64", "64"):
+            K, V = (int(g) for g in m.groups())
+            others[f"{K},{V}"] = dict(fields, smem_dynamic=lib.rt_wkv6_smem_bytes(K, V))
+            continue
+        if m:
+            kind, threads, smem = "chunked", 256, lib.rt_wkv6_smem_bytes(64, 64)
+            check(smem > 0, "wkv6 chunked: no shared memory size for <64, 64>")
+        elif "wkv6_step_kernelIfLi64ELi64EE" in name:
+            kind, threads, smem = "decode", 256, entry["smem_static"]
+        else:
+            continue
+        regs = -(-entry["registers"] // 8) * 8     # allocated in units of 8 a thread
+        blocks = min(SM_SMEM // (smem + SM_SMEM_PER_BLOCK), SM_REGS // (regs * threads),
+                     SM_THREADS // threads)
+        report[kind] = dict(fields, smem_dynamic=0 if kind == "decode" else smem,
+                            blocks_per_sm=blocks)
+        say(f"ptxas wkv6 {kind} <fp32, 64, 64>: {entry['registers']} registers, "
+            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads, "
+            f"{entry['stack']} B stack; {smem} B of shared memory and {threads} threads a "
+            f"block, so {blocks} block(s) per SM")
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"wkv6 {kind} <fp32, 64, 64> spills")
+    check(sorted(report) == ["chunked", "decode"],
+          f"ptxas reported no wkv6 kernel for {sorted(report)}")
+    check(len(others) == 15, f"ptxas reported {len(others)} other chunked instantiations")
+    say("ptxas wkv6 chunked <fp32, K, V>, registers / spill stores / spill loads (B) / "
+        "shared memory (B): " + ", ".join(
+            f"<{kv}> {e['registers']}/{e['spill_stores']}/{e['spill_loads']}/{e['smem_dynamic']}"
+            for kv, e in sorted(others.items(), key=lambda kv: tuple(map(int, kv[0].split(","))))))
+    report["chunked_other"] = others
+    return report
+
+
 # the scans: (B, H, P, N) of zamba2-7b's Mamba2 layers, (B, H, K, V) of rwkv6-1.6b
 SSD_SHAPE = (BATCH, 112, 64, 64)
 WKV6_SHAPE = (BATCH, 32, 64, 64)
@@ -480,44 +532,75 @@ def _scan_err(y, st, y_ref, st_ref, what) -> tuple:
 
 
 def wkv6_phase(gen) -> dict:
-    """WKV6 at rwkv6-1.6b's prefill shape (S = 512), at S = 500 (not a chunk
-    multiple) and at decode's S = 1 with a state, against the plain version
-    the CPU takes (chunked, padded; the step oracle at S = 1), then timed at
-    S = 512 and at S = 1."""
+    """WKV6 at rwkv6-1.6b's shape: the chunked kernel at the prefill length
+    S = 512 and at S = 500 (not a chunk multiple) with a state, the decode
+    step at S = 1 with a state, out of place and in place (``out_state`` is
+    ``state``), and both at strong decays (w_log = −exp(2 randn), steps of
+    e^-1000 and less beside steps of about 1), against the plain version the
+    CPU takes (chunked, padded; the step oracle at S = 1) within 1e-3 of
+    max|y| and against the step oracle in fp64 within 2e-5.  Then timed in
+    the main path's way (a state, written in place): the kernel's device
+    time at S = 512 and at S = 1 from the profiler, beside a call's time
+    back to back by CUDA events."""
     B, H, K, V = WKV6_SHAPE
 
-    def inputs(S, with_state):
+    def inputs(S, with_state, spread=0.5):
         r, k = randn((B, S, H, K), torch.float32, gen), randn((B, S, H, K), torch.float32, gen)
         v = randn((B, S, H, V), torch.float32, gen)
-        w = -torch.exp(randn((B, S, H, K), torch.float32, gen) * 0.5)
+        w = -torch.exp(randn((B, S, H, K), torch.float32, gen) * spread)
         return [r, k, v, w, randn((H, K), torch.float32, gen) * 0.1,
                 randn((B, H, K, V), torch.float32, gen) if with_state else None]
 
     cases = []
-    for S, with_state in ((512, False), (500, True), (1, True)):
-        args = inputs(S, with_state)
-        y, st = ops.wkv6(*args, backend="cuda")
-        torch.cuda.synchronize()
+    for S, with_state, in_place, spread in ((512, False, False, 0.5), (500, True, False, 0.5),
+                                            (1, True, False, 0.5), (500, True, True, 0.5),
+                                            (1, True, True, 0.5), (512, True, True, 2.0),
+                                            (1, True, True, 2.0)):
+        args = inputs(S, with_state, spread)
         y_ref, st_ref = ops.wkv6(*args, backend="chunked" if S > 1 else "ref")
-        err, bnd = _scan_err(y, st, y_ref, st_ref, f"wkv6 S={S}")
-        cases.append({"shape": [B, S, H, K, V], "state": with_state, "dtype": "float32",
-                      "max_abs_err": err, "bound": bnd})
-        say(f"wkv6 B={B} S={S} H={H} dims=({K}, {V}) state={with_state} fp32: "
-            f"y max abs err {err:.3e} (bound {bnd:.3e} = {SCAN_RTOL} x max|y|)")
+        y64, st64 = ref.wkv6_ref(*(None if a is None else a.double() for a in args))
+        if in_place:
+            st_in = args[5].clone()
+            y, st = ops.wkv6(*args[:5], st_in, out_state=st_in, backend="cuda")
+            check(st is st_in, f"wkv6 S={S}: out_state was not the state it was given")
+        else:
+            y, st = ops.wkv6(*args, backend="cuda")
+        torch.cuda.synchronize()
+        what = (f"wkv6 S={S}" + (" in place" if in_place else "")
+                + (" strong decays" if spread > 1 else ""))
+        err, bnd = _scan_err(y, st, y_ref, st_ref, what)
+        y_top, st_top = y64.abs().max().item() or 1.0, max(1.0, st64.abs().max().item())
+        rel = (y.double() - y64).abs().max().item() / y_top
+        rel_s = (st.double() - st64).abs().max().item() / st_top
+        check(rel <= WKV6_EXACT_RTOL and rel_s <= WKV6_EXACT_RTOL,
+              f"{what}: against fp64, y err {rel:.2e} x max|y|, state err {rel_s:.2e} x "
+              f"max(1, max|state|) > {WKV6_EXACT_RTOL}")
+        cases.append({"shape": [B, S, H, K, V], "state": with_state, "in_place": in_place,
+                      "w_log_spread": spread, "dtype": "float32", "max_abs_err": err,
+                      "bound": bnd, "rel_err_fp64": rel, "state_rel_err_fp64": rel_s,
+                      "bound_fp64": WKV6_EXACT_RTOL, "min_w_log": args[3].min().item()})
+        say(f"{what} B={B} H={H} dims=({K}, {V}) state={with_state} fp32: "
+            f"y max abs err {err:.3e} (bound {bnd:.3e} = {SCAN_RTOL} x max|y|); against "
+            f"fp64 {rel:.2e} x max|y|, state {rel_s:.2e} (bound {WKV6_EXACT_RTOL}); "
+            f"min w_log {args[3].min().item():.1f}")
 
     timed = {}
-    for S, with_state in ((512, False), (1, True)):
-        args = inputs(S, with_state)
-        call = time_ms(lambda: ops.wkv6(*args, backend="cuda"))
-        ms = kernel_ms(lambda: ops.wkv6(*args, backend="cuda"), "wkv6_fwd_kernel")
-        plain = time_ms(lambda: ops.wkv6(*args, backend="chunked" if S > 1 else "ref"),
+    for S in (512, 1):
+        args = inputs(S, True)
+        state = args.pop()
+        call = time_ms(lambda: ops.wkv6(*args, state, out_state=state, backend="cuda"))
+        ms = kernel_ms(lambda: ops.wkv6(*args, state, out_state=state, backend="cuda"),
+                       "wkv6_fwd_kernel" if S > 1 else "wkv6_step_kernel")
+        plain = time_ms(lambda: ops.wkv6(*args, state, backend="chunked" if S > 1 else "ref"),
                         samples=5, per_sample=1)
-        b_ms, b_by = bound_ms(*wkv6_work(B, S, H, K, V, with_state), torch.float32)
+        b_ms, b_by = bound_ms(*wkv6_work(B, S, H, K, V, True), torch.float32)
         timed[S] = {"shape": [B, S, H, K, V], "ms": ms, "call_ms": call, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        say(f"wkv6 B={B} S={S} H={H} dims=({K}, {V}) fp32: {ms:.4f} ms on the card "
+        say(f"wkv6 B={B} S={S} H={H} dims=({K}, {V}) fp32 in place: {ms:.4f} ms on the card "
             f"({call:.4f} ms a call back to back); plain {plain:.4f} ms; "
-            f"no single library call; bound {b_ms:.4f} ms ({b_by})")
+            f"no single library call; bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it "
+            f"reached)")
+    timed[1]["source"] = "src/repro_torch/kernels/csrc/wkv6_step.cu"
     return {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:66", "dtype": "float32",
             "max_abs_err": max(c["max_abs_err"] for c in cases), "rtol": SCAN_RTOL,
@@ -659,7 +742,7 @@ def device_ms_by_kernel(run) -> dict:
         kind = ("flash_attention" if "flash_fwd_kernel" in name else
                 "rmsnorm" if "rmsnorm_kernel" in name else
                 "ssd" if ("ssd_fwd_kernel" in name or "ssd_step_kernel" in name) else
-                "wkv6" if "wkv6_fwd_kernel" in name else
+                "wkv6" if ("wkv6_fwd_kernel" in name or "wkv6_step_kernel" in name) else
                 "gemm" if ("gemm" in name or "gemv" in name) else "other")
         out[kind] += ev.self_device_time_total / 1e3
     return out
@@ -776,11 +859,13 @@ def main() -> int:
 
     flash_ptxas = flash_build_report()
     ssd_ptxas = ssd_build_report()
+    wkv6_ptxas = wkv6_build_report()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [rmsnorm_phase(gen), flash_phase(gen), ssd_phase(gen), wkv6_phase(gen)]
     kernels[1]["ptxas"] = flash_ptxas
     kernels[2]["ptxas"] = ssd_ptxas
+    kernels[3]["ptxas"] = wkv6_ptxas
 
     served = []
     for arch in ARCHS:

@@ -19,7 +19,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm.cu", "flash.cu", "ssd.cu", "wkv6.cu", "runtime.cu")
+SOURCES = ("rmsnorm.cu", "flash.cu", "ssd.cu", "wkv6.cu", "wkv6_step.cu", "runtime.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 EXT_NAME = "repro_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
@@ -73,6 +73,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_ssd_smem_bytes.restype = i
     lib.rt_wkv6.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.rt_wkv6.restype = i
+    lib.rt_wkv6_smem_bytes.argtypes = [i, i]
+    lib.rt_wkv6_smem_bytes.restype = i
+    lib.rt_wkv6_step.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.rt_wkv6_step.restype = i
     lib.rt_error_string.argtypes = [i]
     lib.rt_error_string.restype = ctypes.c_char_p
     return lib

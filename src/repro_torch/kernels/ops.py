@@ -87,20 +87,27 @@ def _pad_seq(a: torch.Tensor, mult: int) -> torch.Tensor:
     return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) if pad else a
 
 
-def wkv6(r, k, v, w_log, u, state=None, *, backend: Optional[str] = None, chunk: int = 32):
-    """RWKV6 WKV.  r, k, v, w_log (B,S,H,K); u (H,K); state (B,H,K,V) fp32 or
-    None -> y (B,S,H,V), final state (B,H,K,V) fp32."""
+def wkv6(r, k, v, w_log, u, state=None, *, backend: Optional[str] = None, chunk: int = 32,
+         out_state: Optional[torch.Tensor] = None):
+    """RWKV6 WKV.  r, k, w_log (B,S,H,K), v (B,S,H,V); u (H,K); state
+    (B,H,K,V) fp32 or None -> y (B,S,H,V), final state (B,H,K,V) fp32.
+    w_log ≤ 0.  With ``out_state`` the final state is written there, which
+    may be ``state`` itself, and returned."""
     b = _scan_backend(r, backend)
     if b == "cuda":
-        y, st = wkv6_cuda(r, k, v, w_log, u, state, chunk=chunk)
+        y, st = wkv6_cuda(r, k, v, w_log, u, state, out_state=out_state, chunk=chunk)
         LAUNCHES["wkv6"] += 1
         return y, st
     if b == "ref":
-        return _ref.wkv6_ref(r, k, v, w_log, u, state)
-    S = r.shape[1]
-    y, st = _ref.wkv6_chunked_ref(*(_pad_seq(a, chunk) for a in (r, k, v, w_log)), u,
-                                  state, chunk=chunk)
-    return y[:, :S], st
+        y, st = _ref.wkv6_ref(r, k, v, w_log, u, state)
+    else:
+        S = r.shape[1]
+        y, st = _ref.wkv6_chunked_ref(*(_pad_seq(a, chunk) for a in (r, k, v, w_log)), u,
+                                      state, chunk=chunk)
+        y = y[:, :S]
+    if out_state is not None:
+        st = out_state.copy_(st)
+    return y, st
 
 
 def ssd(x, dt, A, Bm, Cm, D, state=None, *, backend: Optional[str] = None, chunk: int = 64,

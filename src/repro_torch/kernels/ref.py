@@ -5,9 +5,11 @@ and the oracle each CUDA kernel is held against on the card
 (``chip_smoke.py``).  They compute in float32 and return the input dtype,
 as ``repro.kernels.ref`` does; the masking constants are the TPU kernel's.
 The scans have two each: the step-by-step oracle (``*_ref``, a Python
-loop over S) and the chunked algorithm of the TPU kernel
-(``*_chunked_ref``), which CPU tensors take for S > 1; both give the state
-in fp32.
+loop over S, in fp64 for fp64 inputs) and the chunked algorithm of the TPU
+kernel (``*_chunked_ref``), which CPU tensors take for S > 1; both give
+the state in fp32 for fp32 inputs.  WKV6 has a third, the sub-chunked
+algorithm of its CUDA kernel (``wkv6_subchunked_ref``), which only the
+tests run.
 """
 from __future__ import annotations
 
@@ -65,12 +67,14 @@ def _state(state, shape, device, dtype=torch.float32) -> torch.Tensor:
 def wkv6_ref(r, k, v, w_log, u, state=None):
     """The step-by-step oracle.  r, k, w_log (B,S,H,K), v (B,S,H,V); u (H,K);
     state (B,H,K,V) or None (zeros).  w_log is the log-decay (≤ 0).  Returns
-    y (B,S,H,V) in v's dtype and the final state (B,H,K,V) in fp32."""
+    y (B,S,H,V) in v's dtype and the final state (B,H,K,V) in the dtype it
+    computes in: fp32, or fp64 when v is fp64 (a yardstick for the fp32
+    kernels' accuracy)."""
     B, S, H, K = r.shape
     V = v.shape[-1]
-    rf, kf, vf, wf = (a.float() for a in (r, k, v, w_log))
-    uf = u.float()
-    st = _state(state, (B, H, K, V), r.device)
+    acc = torch.float64 if v.dtype == torch.float64 else torch.float32
+    rf, kf, vf, wf, uf = (a.to(acc) for a in (r, k, v, w_log, u))
+    st = _state(state, (B, H, K, V), r.device, acc)
     ys = []
     for t in range(S):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]              # (B,H,K,V)
@@ -110,6 +114,74 @@ def wkv6_chunked_ref(r, k, v, w_log, u, state=None, *, chunk: int = 64):
         # state: S = diag(e^{cw_end}) S0 + Σ_s e^{cw_end − cw_s − w_s} k_s v_sᵀ
         carry_k = kq * torch.exp(cw_end[:, None] - cw - wq)
         st = torch.exp(cw_end)[..., None] * st + torch.einsum("bshk,bshv->bhkv", carry_k, vq)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(v.dtype), st
+
+
+def wkv6_subchunked_ref(r, k, v, w_log, u, state=None, *, chunk: int = 32, sub: int = 8):
+    """The algorithm of ``csrc/wkv6.cu``'s chunked kernel: chunks of ``chunk``
+    rows cut into sub-chunks of ``sub`` rows, every decay a power of 2 of a
+    number ≤ 0 (w_log ≤ 0), so no factor overflows at any decay.  S must be
+    a multiple of ``chunk``.  Same arguments and results as ``wkv6_ref``.
+
+    Per channel, with w2 = w_log · log2(e): a row t of sub-chunk i keeps
+    q_t = r_t 2^(w2 summed over the rows of i before t), a row s of
+    sub-chunk j keeps kk_s = k_s 2^(w2 summed over the rows of j after s),
+    and P[a][m] = 2^(the sums of w2 over sub-chunks m .. a−1) (m < a;
+    P[a][a] = 1).  Then
+      y_t      = (q_t ⊙ P[i][0]) · S0 + Σ_(s ≤ t) A[t][s] v_s
+      A[t][s]  = Σ_K q_t P[i][j+1] kk_s                        (j < i)
+      A[t][s]  = Σ_K r_t k_s Π_(s < τ < t) 2^(w2_τ)            (s < t, same sub-chunk)
+      A[t][t]  = Σ_K r_t u k_t
+      S_end    = P[n][0] ⊙ S0 + Σ_s (kk_s ⊙ P[n][j+1]) v_sᵀ    (n = chunk / sub)
+    Every exponent is a sum over the rows it spans, never the difference of
+    two running sums: after a step of strong decay (w_log of −1000) such a
+    difference would keep only its absolute rounding, about 1e-4, which a
+    decay of order 1 turns into a relative error of 1e-4.  A factor that
+    underflows to 0 stands for a true product below 2^-126."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    if S % chunk or chunk % sub:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}, "
+                         f"or the chunk is not a multiple of the sub-chunk {sub}")
+    Q, L, n = chunk, sub, chunk // sub
+    acc = torch.float64 if v.dtype == torch.float64 else torch.float32
+    uf = u.to(acc)
+    st = _state(state, (B, H, K, V), r.device, acc)
+    idx = torch.arange(L, device=r.device)
+    lower = idx[:, None] > idx[None, :]                              # s < t
+    between = ((idx[None, None, :] < idx[:, None, None])             # [t, s, τ]: s < τ < t
+               & (idx[None, None, :] > idx[None, :, None])).to(acc)
+    before = (idx[None, :] < idx[:, None]).to(acc)                   # [t, τ]: τ < t
+    after = (idx[None, :] > idx[:, None]).to(acc)                    # [s, τ]: τ > s
+    ys = []
+    for c0 in range(0, S, Q):
+        rq, kq, vq, wq = (a[:, c0:c0 + Q].to(acc) for a in (r, k, v, w_log))
+        w2 = (wq * (1.0 / math.log(2.0))).unflatten(1, (n, L))      # (B,n,L,H,K)
+        q = rq * torch.exp2(torch.einsum("tu,bxuhk->bxthk", before, w2)).flatten(1, 2)
+        kk = kq * torch.exp2(torch.einsum("su,bxuhk->bxshk", after, w2)).flatten(1, 2)
+        tot = w2.sum(dim=2)                                          # (B,n,H,K)
+
+        def P(a, m):                                                 # (B,H,K)
+            return torch.exp2(tot[:, m:a].sum(dim=1))
+
+        sub_of = torch.arange(Q, device=r.device) // L
+        E = torch.stack([P(i, 0) for i in range(n)], dim=1)[:, sub_of]
+        y = torch.einsum("bqhk,bhkv->bqhv", q * E, st)
+        A = q.new_zeros((B, H, Q, Q))
+        for i in range(n):
+            ti = slice(i * L, (i + 1) * L)
+            seg = torch.einsum("tsu,buhk->btshk", between, w2[:, i])
+            D = torch.where(lower[None, :, :, None, None], torch.exp2(seg), 0.0)
+            A[:, :, ti, ti] = torch.einsum("bthk,bshk,btshk->bhts", rq[:, ti], kq[:, ti], D)
+            for j in range(i):
+                sj = slice(j * L, (j + 1) * L)
+                A[:, :, ti, sj] = torch.einsum("bthk,bhk,bshk->bhts", q[:, ti], P(i, j + 1),
+                                               kk[:, sj])
+        A = A + torch.diag_embed(torch.einsum("bqhk,hk,bqhk->bhq", rq, uf, kq))
+        y = y + torch.einsum("bhts,bshv->bthv", A, vq)
+        carry = kk * torch.stack([P(n, j + 1) for j in range(n)], dim=1)[:, sub_of]
+        st = P(n, 0)[..., None] * st + torch.einsum("bshk,bshv->bhkv", carry, vq)
         ys.append(y)
     return torch.cat(ys, dim=1).to(v.dtype), st
 

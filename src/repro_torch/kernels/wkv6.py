@@ -1,12 +1,14 @@
 """CUDA RWKV6 WKV scan: the port of ``repro.kernels.wkv6.wkv6_pallas``.
 
-The kernel is ``csrc/wkv6.cu``; its plain versions are ``ref.wkv6_ref``
-(the step-by-step oracle) and ``ref.wkv6_chunked_ref`` (the chunked
-algorithm the kernel computes).  Callers go through ``kernels.ops.wkv6``,
-which picks by the tensor's device and counts launches.  Unlike the TPU
-kernel it takes any S: rows past S count as absent (decay 1, k = 0), which
-leaves the state as the reference's zero padding leaves it, so decode's
-S = 1 runs the kernel too.
+Two kernels: ``csrc/wkv6.cu``, chunked, for S > 1, and ``csrc/wkv6_step.cu``,
+a streaming decode step, for S == 1.  Their plain versions are
+``ref.wkv6_ref`` (the step-by-step oracle), ``ref.wkv6_chunked_ref`` (the
+TPU kernel's chunked algorithm) and ``ref.wkv6_subchunked_ref`` (the chunked
+CUDA kernel's sub-chunk-factored algorithm).  Callers go through
+``kernels.ops.wkv6``, which picks by the tensor's device and counts
+launches.  Unlike the TPU kernel it takes any S: rows past S count as
+absent (decay 1, k = 0), which leaves the state as the reference's zero
+padding leaves it.
 """
 from __future__ import annotations
 
@@ -19,11 +21,15 @@ DTYPES = (torch.float32, torch.bfloat16)    # instantiated
 DIMS = (16, 32, 64, 128)            # key dim K and value dim V instantiated
 
 
-def wkv6_cuda(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
-    """r, k (B,S,H,K) and v (B,S,H,V) in fp32 or bf16; w_log
-    (B,S,H,K), u (H,K) and state (B,H,K,V) in any float type (read as fp32);
-    on the card.  Returns y (B,S,H,V) in v's dtype and the final state
-    (B,H,K,V) in fp32."""
+def wkv6_cuda(r, k, v, w_log, u, state=None, *, out_state=None, chunk: int = CHUNK):
+    """r, k (B,S,H,K) and v (B,S,H,V) in fp32 or bf16, contiguous; w_log
+    (B,S,H,K) ≤ 0, u (H,K) and state (B,H,K,V) in any float type (read as
+    fp32); on the card.  The kernels take w_log ≤ 0 (a decay of at most 1,
+    as the model's −exp(·) gives): every exponential they take is then of a
+    number ≤ 0.  The final state is written to ``out_state`` (B,H,K,V) fp32
+    contiguous, which may be ``state`` itself, or to a new tensor.  Returns
+    y (B,S,H,V) in v's dtype and the final state.  S == 1 runs the decode
+    step, S > 1 the chunked kernel."""
     if chunk != CHUNK:
         raise ValueError(f"wkv6_cuda runs chunks of {CHUNK} rows, not {chunk}")
     if not all(t.is_cuda for t in (r, k, v, w_log, u)):
@@ -39,8 +45,6 @@ def wkv6_cuda(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
             or u.shape != (H, K)):
         raise ValueError(f"bad shapes r {tuple(r.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} w_log {tuple(w_log.shape)} u {tuple(u.shape)}")
-    if state is not None and (state.shape != (B, H, K, V) or not state.is_cuda):
-        raise ValueError(f"state must be a CUDA tensor of shape {(B, H, K, V)}")
     if K not in DIMS or V not in DIMS:
         raise ValueError(f"wkv6_cuda takes key dim K and value dim V in {DIMS}, "
                          f"got K={K}, V={V}")
@@ -48,13 +52,29 @@ def wkv6_cuda(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
         raise ValueError("wkv6_cuda needs contiguous r, k and v")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w_log)):
         raise RuntimeError("wkv6_cuda is forward-only; it has no backward")
+    shape = (B, H, K, V)
+    s0 = None
+    if state is not None:
+        if state.shape != shape or not state.is_cuda:
+            raise ValueError(f"state must be a CUDA tensor of shape {shape}")
+        s0 = state.float().contiguous()
+    if out_state is None:
+        out_state = torch.empty(shape, dtype=torch.float32, device=r.device)
+    elif (out_state.shape != shape or out_state.dtype != torch.float32
+          or not out_state.is_cuda or not out_state.is_contiguous()):
+        raise ValueError(f"out_state must be a contiguous fp32 CUDA tensor of shape {shape}")
     wf, uf = w_log.float().contiguous(), u.float().contiguous()
-    s0 = None if state is None else state.float().contiguous()
+    if any(t is not None and t.data_ptr() % 16 for t in (r, k, v, wf, s0, out_state)):
+        raise ValueError("wkv6_cuda needs r, k, v, w_log, state and out_state 16-byte "
+                         "aligned (the kernels move rows in 16-byte pieces)")
     y = torch.empty_like(v)
-    sf = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     lib = _build.library()
-    rc = lib.rt_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(), wf.data_ptr(), uf.data_ptr(),
-                     0 if s0 is None else s0.data_ptr(), y.data_ptr(), sf.data_ptr(),
-                     B, S, H, K, V, _build.DTYPES[r.dtype], _build.stream_of(r))
-    _build.check(lib, rc, "wkv6 kernel")
-    return y, sf
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wf.data_ptr(), uf.data_ptr(),
+            0 if s0 is None else s0.data_ptr(), y.data_ptr(), out_state.data_ptr())
+    if S == 1:
+        rc = lib.rt_wkv6_step(*args, B, H, K, V, _build.DTYPES[r.dtype], _build.stream_of(r))
+        _build.check(lib, rc, "wkv6 step kernel")
+    else:
+        rc = lib.rt_wkv6(*args, B, S, H, K, V, _build.DTYPES[r.dtype], _build.stream_of(r))
+        _build.check(lib, rc, "wkv6 kernel")
+    return y, out_state

@@ -131,7 +131,8 @@ def _group_norm_heads(p: L.Norm, x: torch.Tensor, H: int) -> torch.Tensor:
 
 def time_mix(p: TimeMix, cfg, x: torch.Tensor, state, shift_last, *,
              backend: Optional[str] = None):
-    """Returns (out, new WKV state (B,H,K,V) fp32, the last token (B,1,D))."""
+    """Returns (out, new WKV state (B,H,K,V) fp32, the last token (B,1,D)).
+    A given ``state`` is updated in place and is the state returned."""
     B, S, D = x.shape
     H, Kd = cfg.num_heads, cfg.head_dim
     xprev = _token_shift(x, shift_last)
@@ -149,7 +150,7 @@ def time_mix(p: TimeMix, cfg, x: torch.Tensor, state, shift_last, *,
     w_log = -torch.exp(p.decay.float() + torch.tanh(xw @ p.decay_w1) @ p.decay_w2)
     w_log = w_log.reshape(B, S, H, Kd)
 
-    y, new_state = ops.wkv6(r, k, v, w_log, p.bonus, state, backend=backend)
+    y, new_state = ops.wkv6(r, k, v, w_log, p.bonus, state, out_state=state, backend=backend)
     y = _group_norm_heads(p.ln_x, y.reshape(B, S, D), H).to(x.dtype)
     return (y * g) @ p.Wo, new_state, x[:, -1:]
 
@@ -166,7 +167,9 @@ def channel_mix(p: ChannelMix, x: torch.Tensor, shift_last) -> Tuple[torch.Tenso
 def layer_fwd(p: Layer, cfg, x: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]], *,
               backend: Optional[str] = None):
     """cache: {"wkv", "shift_tm", "shift_cm"} or None.  Returns (x, new cache
-    or None); the cache's tensors are not modified."""
+    or None).  The cache's WKV state is updated in place and is the new
+    cache's "wkv"; its token shifts are new tensors, and the cache's are not
+    modified."""
     st = cache or {}
     tm_out, wkv, tm_last = time_mix(p.tm, cfg, L.norm(p.ln1, x, "layernorm"),
                                     st.get("wkv"), st.get("shift_tm"), backend=backend)
@@ -181,14 +184,18 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, cache: Optional[Dict[str, torch.Te
 def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions=None, caches: Optional[Caches] = None,
               *, backend: Optional[str] = None):
     """caches: None | {"layers": stacked (L, ...)}, updated in place.  Returns
-    (x, caches, aux); aux is zero (no MoE).  ``positions`` is unused."""
+    (x, caches, aux); aux is zero (no MoE).  ``positions`` is unused.  Each
+    layer's token shifts are written into its slice of the cache; its WKV
+    state already is that slice (``time_mix`` updates it in place), so it is
+    not copied."""
     seg = caches["layers"] if caches is not None else None
     for i, lp in enumerate(p.layers):
         lc = None if seg is None else {name: a[i] for name, a in seg.items()}
         x, nc = layer_fwd(lp, cfg, x, lc, backend=backend)
         if seg is not None:
             for name, a in nc.items():
-                seg[name][i] = a
+                if a.data_ptr() != lc[name].data_ptr():
+                    seg[name][i] = a
     return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -184,10 +184,42 @@ def _close_scan(y, st, jy, jst, dtype):
 def test_wkv6_plain_matches_pallas(B, S, H, K, dtype):
     (jr, jk, jv, jw, ju), targs = _both(_wkv_np(B, S, H, K), _WKV_CAST, dtype)
     jy, jst = wkv6_pallas(jr, jk, jv, jw, ju, chunk=32)
-    for fn in (ref.wkv6_ref, lambda *a: ref.wkv6_chunked_ref(*a, chunk=32)):
+    for fn in (ref.wkv6_ref, lambda *a: ref.wkv6_chunked_ref(*a, chunk=32),
+               lambda *a: ref.wkv6_subchunked_ref(*a, chunk=32, sub=8),
+               lambda *a: ref.wkv6_subchunked_ref(*a, chunk=32, sub=16)):
         y, st = fn(*targs)
         assert y.dtype == targs[2].dtype and y.shape == (B, S, H, K)
         _close_scan(y, st, jy, jst, dtype)
+
+
+# the sub-chunked WKV6 against the step oracle in fp64 (× max|y|, and the
+# state × max(1, max|state|)): the bound of the CUDA kernels on the card
+WKV6_EXACT_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("sub", [8, 16])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wkv6_subchunked_ref_holds_at_strong_decays(sub, seed):
+    """w_log = −exp(2·randn), so that some steps decay by e^-1000 and more
+    (w_log below −1000) and others by e^-0.01: the sub-chunk-factored
+    algorithm, in fp32, stays finite and within 2e-5 of max|y| of the step
+    oracle in fp64, with a state carried in.  Its exponents are sums over the
+    rows they span; at S = 96 it runs three chunks."""
+    B, S, H, K = 2, 96, 3, 32
+    rs = np.random.default_rng(40 + seed)
+    r, k, v = (rs.standard_normal((B, S, H, K)).astype(np.float32) for _ in range(3))
+    w = -np.exp(rs.standard_normal((B, S, H, K)) * 2.0).astype(np.float32)
+    u = (rs.standard_normal((H, K)) * 0.1).astype(np.float32)
+    s0 = rs.standard_normal((B, H, K, K)).astype(np.float32)
+    assert w.min() < -1000 and w.max() > -0.01
+    args = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
+    y, st = ref.wkv6_subchunked_ref(*args, chunk=32, sub=sub)
+    y64, st64 = ref.wkv6_ref(*(a.double() for a in args))
+    assert y.dtype == st.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    assert (y.double() - y64).abs().max().item() < WKV6_EXACT_RTOL * y64.abs().max().item()
+    assert ((st.double() - st64).abs().max().item()
+            < WKV6_EXACT_RTOL * max(1.0, st64.abs().max().item()))
 
 
 @pytest.mark.parametrize("B,S,H,P,N", [(1, 32, 1, 4, 8), (2, 64, 3, 8, 16), (1, 128, 2, 16, 32)])
@@ -239,6 +271,24 @@ def test_scan_ops_any_length(S, dtype):
     y, st = ops.ssd(*targs, torch.from_numpy(st_s))
     assert y.shape == (2, S, 3, 8)
     _close_scan(y, st, jy, jst, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 45])
+def test_wkv6_out_state_aliases_state(S):
+    """An ``out_state`` that is ``state`` itself: ``ops.wkv6`` returns that
+    tensor, holding what a call without it returns, and both agree with the
+    reference's ``ops.wkv6`` through its Pallas kernel (its S = 1 route at
+    S = 1)."""
+    rs = np.random.default_rng(11 + S)
+    st0 = rs.standard_normal((2, 3, 16, 16)).astype(np.float32)
+    (jr, jk, jv, jw, ju), targs = _both(_wkv_np(2, S, 3, 16, seed=S), _WKV_CAST, "float32")
+    y_new, st_new = ops.wkv6(*targs, torch.from_numpy(st0.copy()))
+    st = torch.from_numpy(st0.copy())
+    y, st_out = ops.wkv6(*targs, st, out_state=st)
+    assert st_out is st
+    assert torch.equal(y, y_new) and torch.equal(st, st_new)
+    jy, jst = jops.wkv6(jr, jk, jv, jw, ju, jnp.asarray(st0), backend="pallas")
+    _close_scan(y, st, jy, jst, "float32")
 
 
 def _conv_views(buf, H, P, G, N):

@@ -353,6 +353,52 @@ def test_recurrent_prefill_then_decode(rpair):
     _close_tree(c["trunk"], jc["trunk"], BOUND)
 
 
+def test_rwkv6_trunk_updates_the_wkv_cache_in_place(monkeypatch):
+    """A cached prefill of 21 tokens and two decode steps of smoke rwkv6: every
+    WKV6 call writes its layer's state into that layer's slice of the cache
+    (the state it is given, returned as the new state), the stacked cache
+    stays the same tensor, and its values are the reference's."""
+    from repro_torch.models import rwkv6
+
+    arch, n = "rwkv6-1.6b", RECURRENT["rwkv6-1.6b"]
+    cfg, jcfg = get_smoke_config(arch).replace(num_layers=n), jget_smoke(arch).replace(num_layers=n)
+    jp = jax.jit(lambda key: JM.init_params(jcfg, key))(jax.random.PRNGKey(5))
+    model = M.init_params(cfg, 0, device="cpu")
+    model.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jp)))
+    model.requires_grad_(False)
+    B, S, W = 2, 21, 32
+    toks = _tokens(cfg, B, S + 2, seed=6)
+
+    @jax.jit
+    def jax_run(p, t):
+        c = JM.init_caches(cfg, B, W)
+        _, c, _ = JM.forward_hidden(cfg, p, {"tokens": t[:, :S]}, c)
+        for j in range(2):
+            _, c = JM.decode_step(cfg, p, t[:, S + j:S + j + 1], c)
+        return c
+    jc = jax_run(jp, jnp.asarray(toks))
+
+    seen, wkv6 = [], rwkv6.ops.wkv6
+
+    def spy(*args, out_state=None, **kw):
+        y, st = wkv6(*args, out_state=out_state, **kw)
+        assert out_state is not None and st is out_state and args[5] is out_state
+        seen.append(st.data_ptr())
+        return y, st
+
+    monkeypatch.setattr(rwkv6.ops, "wkv6", spy)
+    tt = torch.from_numpy(toks).long()
+    with torch.no_grad():
+        c = M.init_caches(cfg, B, W, device="cpu")
+        wkv = c["trunk"]["layers"]["wkv"]
+        _, c, _ = M.forward_hidden(cfg, model, {"tokens": tt[:, :S]}, c)
+        for j in range(2):
+            _, c = M.decode_step(cfg, model, tt[:, S + j:S + j + 1], c)
+    assert c["trunk"]["layers"]["wkv"] is wkv
+    assert seen == [wkv[i].data_ptr() for i in range(n)] * 3
+    _close(wkv, jc["trunk"]["layers"]["wkv"], BOUND)
+
+
 @pytest.mark.parametrize("groups", [1, 2])
 @pytest.mark.parametrize("S", [1, 21])
 def test_mamba2_block_updates_its_state_in_place(groups, S):

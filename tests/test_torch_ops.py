@@ -9,7 +9,8 @@ and 1e-5 in fp32; flash attention 1e-4 absolute in fp32 (the reference's
 bound) and 2e-2 in bf16/fp16, where the output itself is rounded to
 2^-8 relative; the SSD and WKV6 scans 1e-3 (fp32) and 3e-2 (bf16)
 relative to max|y|, and to max(1, max|state|) for the final state (the
-reference's bounds, tests/test_kernels.py); the smoke models through the
+reference's bounds, tests/test_kernels.py), and their fp32 kernels 2e-5
+against the step oracles in fp64; the smoke models through the
 kernels against ``backend="ref"`` 1e-3 absolute on the logits (fp32, the
 bound of ``chip_smoke.py``'s slice parity)."""
 import numpy as np
@@ -32,6 +33,9 @@ SCAN_RTOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 # SSD's fp32 kernels against the step oracle in fp64: the chunk products are
 # fp32-exact (3xTF32); one TF32 product per chunk product errs by ~8e-4
 SSD_EXACT_RTOL = 2e-5
+# WKV6's fp32 kernels against the step oracle in fp64, as SSD_EXACT_RTOL: their
+# exponents are sums over the rows they span, so strong decays cost no accuracy
+WKV6_EXACT_RTOL = 2e-5
 MODEL_LOGITS_BOUND = 1e-3
 NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
 
@@ -41,12 +45,14 @@ def _t(shape, seed=0, dtype=torch.float32, device="cpu"):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def _wkv(B, S, H, K, V, dtype=torch.float32, device="cpu", seed=0):
+def _wkv(B, S, H, K, V, dtype=torch.float32, device="cpu", seed=0, spread=0.5):
     """r, k (B,S,H,K), v (B,S,H,V) in ``dtype``; w_log (B,S,H,K) ≤ 0 and u
-    (H,K) in fp32, as tests/test_kernels.py draws them."""
+    (H,K) in fp32, as tests/test_kernels.py draws them; w_log =
+    −exp(spread · randn), so spread = 2 gives steps that decay by e^-1000
+    and more beside steps that hardly decay."""
     r, k = _t((B, S, H, K), seed, dtype, device), _t((B, S, H, K), seed + 1, dtype, device)
     v = _t((B, S, H, V), seed + 2, dtype, device)
-    w = -torch.exp(_t((B, S, H, K), seed + 3, device=device) * 0.5)
+    w = -torch.exp(_t((B, S, H, K), seed + 3, device=device) * spread)
     return r, k, v, w, _t((H, K), seed + 4, device=device) * 0.1
 
 
@@ -152,6 +158,36 @@ def test_ssd_ref_computes_in_fp64_for_fp64_inputs(S):
     assert y64.dtype == st64.dtype == torch.float64
     assert (y64 - y32.double()).abs().max().item() < 1e-5 * y64.abs().max().item()
     assert (st64 - st32.double()).abs().max().item() < 1e-5 * max(1.0, st64.abs().max().item())
+
+
+@pytest.mark.parametrize("S", [1, 40])
+def test_wkv6_ref_computes_in_fp64_for_fp64_inputs(S):
+    """The WKV6 step oracle keeps fp64 inputs in fp64 (the card's yardstick
+    for the fp32 kernels' accuracy), keeps fp32 as it was, and the two
+    agree."""
+    args = _wkv(2, S, 3, 16, 32)
+    s0 = _t((2, 3, 16, 32), 5)
+    y32, st32 = ref.wkv6_ref(*args, s0)
+    y64, st64 = ref.wkv6_ref(*(a.double() for a in args), s0.double())
+    assert y32.dtype == st32.dtype == torch.float32
+    assert y64.dtype == st64.dtype == torch.float64
+    assert (y64 - y32.double()).abs().max().item() < 1e-5 * y64.abs().max().item()
+    assert (st64 - st32.double()).abs().max().item() < 1e-5 * max(1.0, st64.abs().max().item())
+
+
+@pytest.mark.parametrize("S", [1, 40])
+def test_wkv6_plain_routes_take_out_state(S):
+    """On CPU tensors ``ops.wkv6`` copies the final state into ``out_state``
+    (which may be ``state``) and returns that tensor: the same numbers as a
+    call without it, on every plain route."""
+    args = _wkv(2, S, 3, 16, 32)
+    s0 = _t((2, 3, 16, 32), 5)
+    for backend in (None, "ref", "chunked"):
+        y_ref, st_ref = ops.wkv6(*args, s0, backend=backend)
+        st = s0.clone()
+        y, st_out = ops.wkv6(*args, st, out_state=st, backend=backend)
+        assert st_out is st and torch.equal(y, y_ref) and torch.equal(st, st_ref)
+    assert ops.LAUNCHES == NO_LAUNCHES
 
 
 def test_reset_launches():
@@ -357,14 +393,17 @@ def test_ssd_refuses_misaligned_or_unpacked_views(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,K,V", [(2, 4, 64, 64), (2, 32, 64, 64), (1, 3, 16, 128),
-                                     (1, 2, 128, 16)])
+                                     (1, 2, 128, 16), (1, 2, 128, 128), (1, 3, 32, 32)])
 @pytest.mark.parametrize("S", [1, 32, 45, 96])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_state", [False, True])
-def test_wkv6_kernel_matches_ref(cuda, B, H, K, V, S, dtype, with_state):
-    """Smoke and full rwkv6 heads (K=V=64), and the corner instantiations;
-    S = 1 (decode), chunk multiples and not."""
-    r, k, v, w, u = _wkv(B, S, H, K, V, dtype, cuda)
+@pytest.mark.parametrize("spread", [0.5, 2.0])
+def test_wkv6_kernel_matches_ref(cuda, B, H, K, V, S, dtype, with_state, spread):
+    """Smoke and full rwkv6 heads (K=V=64), and the corner instantiations
+    (K = V = 128 has one input buffer); S = 1 (the decode step), chunk
+    multiples and not; decays as the reference draws them and strong ones
+    (spread 2).  fp32 is also held to the step oracle in fp64."""
+    r, k, v, w, u = _wkv(B, S, H, K, V, dtype, cuda, spread=spread)
     s0 = _t((B, H, K, V), 9, device=cuda) if with_state else None
     ops.reset_launches()
     y, st = ops.wkv6(r, k, v, w, u, s0)
@@ -372,6 +411,54 @@ def test_wkv6_kernel_matches_ref(cuda, B, H, K, V, S, dtype, with_state):
     assert ops.LAUNCHES["wkv6"] == 1 and y.shape == v.shape
     _close_scan(y, st, *ref.wkv6_ref(r, k, v, w, u, s0), dtype)
     _close_scan(y, st, *ops.wkv6(r, k, v, w, u, s0, backend="chunked"), dtype)
+    if dtype == torch.float32:
+        exact = ref.wkv6_ref(*(a.double() for a in (r, k, v, w, u)),
+                             None if s0 is None else s0.double())
+        _close_scan(y, st, *exact, dtype, rtol=WKV6_EXACT_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_updates_state_in_place(cuda, S, dtype):
+    """``out_state`` aliasing ``state`` (the decode step at S = 1, the chunked
+    kernel at S = 100): the call returns that tensor, holding exactly what a
+    call into a new tensor gives, and y is the same."""
+    B, H, K, V = 2, 8, 64, 64
+    r, k, v, w, u = _wkv(B, S, H, K, V, dtype, cuda)
+    s0 = _t((B, H, K, V), 9, device=cuda)
+    y_new, st_new = ops.wkv6(r, k, v, w, u, s0)
+    st = s0.clone()
+    y, st_out = ops.wkv6(r, k, v, w, u, st, out_state=st)
+    torch.cuda.synchronize()
+    assert st_out is st and torch.equal(y, y_new) and torch.equal(st, st_new)
+    _close_scan(y, st, *ref.wkv6_ref(r, k, v, w, u, s0), dtype)
+
+
+@pytest.mark.gpu
+def test_wkv6_refuses_bad_out_state_or_misaligned_inputs(cuda):
+    """``out_state`` must be a contiguous fp32 CUDA tensor of the state's
+    shape, 16-byte aligned, as must the state, r, k, v and w_log (the kernels
+    move rows in 16-byte pieces)."""
+    B, S, H, K, V = 2, 8, 2, 16, 32
+    args = _wkv(B, S, H, K, V, device=cuda)
+    shape = (B, H, K, V)
+    for bad in (torch.empty(shape, device=cuda, dtype=torch.bfloat16),
+                torch.empty((B, H, K, V + 4), device=cuda),
+                torch.empty((B, H, V, K), device=cuda).transpose(2, 3),
+                torch.empty(shape)):
+        with pytest.raises(ValueError, match="out_state"):
+            wkv6_cuda(*args, out_state=bad)
+    flat = torch.empty(int(np.prod(shape)) + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv6_cuda(*args, out_state=flat[1:].view(shape))
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv6_cuda(*args, flat[1:].view(shape))
+    r = torch.empty(B * S * H * K + 1, device=cuda)[1:].view(B, S, H, K)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv6_cuda(r, *args[1:])
+    with pytest.raises(ValueError, match="state must be"):
+        wkv6_cuda(*args, torch.zeros((B, H, K, K), device=cuda))
 
 
 @pytest.mark.gpu

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Per-call cost of the port's SSD decode path and of flash attention on one
-card, for one tree of the repo, so that two trees can be compared in one
-run on the same card:
+"""Per-call cost of the port's SSD decode path, of flash attention and of the
+WKV6 scan on one card, for one tree of the repo, so that two trees can be
+compared in one run on the same card:
 
     python3 tools/call_cost.py --src src                 # this tree
     python3 tools/call_cost.py --src /path/to/other/src  # another tree
@@ -21,7 +21,14 @@ It imports ``repro_torch`` from ``--src`` and prints one JSON line:
     weights and a stacked cache, per layer, by CUDA events as above;
   * ``flash_ms``: ``ops.flash_attention`` at llama3-8b's served prefill
     shape (B = 8, S = 512, 32 / 8 heads of 128, causal, fp32), by CUDA
-    events as above.
+    events as above;
+  * ``wkv6_ms`` and ``wkv6_decode_ms``: ``ops.wkv6`` at rwkv6-1.6b's served
+    shape (B = 8, H = 32, K = V = 64, fp32, with a state, written in place
+    where ``ops.wkv6`` has ``out_state``) at S = 512 and S = 1: the mean
+    device time of the WKV6 kernels over 50 calls from a torch.profiler
+    trace (a decode call's kernel is shorter than its host call), and
+    ``wkv6_call_ms`` / ``wkv6_decode_call_ms`` the calls by CUDA events as
+    above.
 """
 from __future__ import annotations
 
@@ -52,6 +59,27 @@ def time_ms(fn, *, samples: int = 25, per_sample: int = 5, warmup: int = 3) -> f
         end.synchronize()
         times.append(start.elapsed_time(end) / per_sample)
     return statistics.median(times)
+
+
+def device_ms(fn, name: str, calls: int = 50) -> float:
+    """Mean device time of the kernels whose names hold ``name`` over
+    ``calls`` calls of ``fn``, from a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.key:
+            total += ev.self_device_time_total
+            count += ev.count
+    return total / count / 1e3 if count else float("nan")
 
 
 def main() -> int:
@@ -120,13 +148,31 @@ def main() -> int:
         q = randn(8, 512, 32, 128)
         k, v = randn(8, 512, 8, 128), randn(8, 512, 8, 128)
         flash = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, backend="cuda"))
+        del q, k, v
+
+        rcfg = get_config("rwkv6-1.6b")
+        Hr, Kd = rcfg.num_heads, rcfg.head_dim
+        wkv6_in_place = "out_state" in inspect.signature(ops.wkv6).parameters
+        wkv = {}
+        for S in (512, 1):
+            r, kk, vv = randn(B, S, Hr, Kd), randn(B, S, Hr, Kd), randn(B, S, Hr, Kd)
+            w = -torch.exp(randn(B, S, Hr, Kd) * 0.5)
+            u, st = randn(Hr, Kd) * 0.1, randn(B, Hr, Kd, Kd)
+            kw = {"out_state": st} if wkv6_in_place else {}
+
+            def call():
+                return ops.wkv6(r, kk, vv, w, u, st, backend="cuda", **kw)
+            wkv[S] = (device_ms(call, "wkv6_"), time_ms(call))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({"src": args.src, "card": card, "ssd_in_place": in_place,
                       "ssd_call_ms": ssd_call, "ssd_host_us": host_us,
-                      "layer_ms": layer, "flash_ms": flash}), flush=True)
+                      "layer_ms": layer, "flash_ms": flash, "wkv6_in_place": wkv6_in_place,
+                      "wkv6_ms": wkv[512][0], "wkv6_call_ms": wkv[512][1],
+                      "wkv6_decode_ms": wkv[1][0], "wkv6_decode_call_ms": wkv[1][1]}),
+          flush=True)
     return 0
 
 
