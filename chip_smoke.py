@@ -42,21 +42,36 @@ Phases, each of which exits non-zero on a failed check:
      2 layers, zamba2-7b at 7, which keeps one shared-block application and
      a tail layer, rwkv6-1.6b at 2) serves the same prompts through the
      kernels and through ``backend="ref"``; the teacher-forced logits must
-     agree within 1e-3 absolute.
+     agree within 1e-3 absolute;
+  6. the plan: the port tunes llama3-8b at full size under fsdp:8 and tp:8
+     (seq 2048, global batch 16) for a40-nvlink (method lagom) and for
+     h100-sxm, each tune's host wall time printed; the a40-nvlink plans must
+     reproduce the reference's lowered ``plan_digest`` and tuned configs
+     (stored below as sha256 constants, which a CPU test holds equal to what
+     the reference computes); both plans go through JSON and back, the fsdp
+     plan is activated as the base plan and the tp plan used under
+     ``applied()``, where every ``tp.layer{i}.mlp.ag|rs`` site must resolve to
+     the tp plan's lowered knobs and, outside, to the base plan's; the
+     linter's findings are printed; and bf16 ``torch.matmul`` is timed at the
+     tp:8 workload's GEMM shapes, its achieved share of the 989.4 TFLOP/s
+     peak printed beside the h100-sxm profile's ``gemm_eff``.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
-Then it prints one ``{"kernels": [...]}`` line and, last, the device line.
+Then it prints one ``{"plan": ...}`` line, one ``{"kernels": [...]}`` line
+and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,9 +80,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.analysis import errors, format_findings, lint_plan  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (ParallelPlan, TunedPlan, by_name,  # noqa: E402
+                              extract_workload, tune)
+from repro_torch.core.apply import activate, plan_digest  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.serving import make_engine  # noqa: E402
 
 SEED = 0
@@ -100,6 +120,33 @@ WKV6_EXACT_RTOL = 2e-5                    # WKV6 against its step oracle in fp64
                                           # the rows they span
 SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, cut depth, fp32
 NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
+
+# phase 6: llama3-8b's workloads (Lagom's Table 2 model; fsdp:8 at this shape
+# is the reference's examples/quickstart.py workload)
+PLAN_ARCH, PLAN_SEQ, PLAN_BATCH = "llama3-8b", 2048, 16
+PLAN_WORKLOADS = {"fsdp:8": dict(kind="fsdp", dp=8), "tp:8": dict(kind="tp", tp=8)}
+# What the reference (``repro.core``) gives for them on a40-nvlink with
+# method="lagom": sha256 of its lowered plan_digest and of its tuned configs
+# (``plan_fingerprint``), with the count of configs; ``artifact_digest`` is
+# for information only (the traces carry floats from np.exp and np.log,
+# whose last bits may differ on another CPU).  tests/test_torch_plan.py
+# holds these equal to what the reference computes.
+REFERENCE_A40_PLANS = {
+    "fsdp:8": {
+        "sites": 96,
+        "configs": "c091449d795b08e19ae3e7a6f9507daea283a3408261f19bcfec91ccc68b0964",
+        "plan_digest": "277aa903754e21ee95abcc26386bab67837327e07f5ed6d0b0f3559b042280d6",
+        "artifact_digest":
+            "6952439100ad467f81eec2d4963f630ed3bd2cc24b4764d74acad7196d0e206b",
+    },
+    "tp:8": {
+        "sites": 256,
+        "configs": "065f22feedaa6c44d1d90754edfa81cfed75246ece6da12d61cdf5f6858db189",
+        "plan_digest": "1418cdcb1ada90ec808abde284cab743995d365cadb1aec24b2cf8a918bf14f6",
+        "artifact_digest":
+            "f0fb77a63068e57351a2acab61acf94aed79e0516e1115c67b18122496adb8c2",
+    },
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -838,6 +885,146 @@ def slice_parity_phase(cfg, prompts) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the tuner and the plan bridge
+# ---------------------------------------------------------------------------
+
+def plan_fingerprint(plan, digest) -> dict:
+    """sha256 of a tuned plan's configs (as ``to_json`` writes them) and of
+    the ``plan_digest`` of its lowering, with the count of configs: what
+    ``REFERENCE_A40_PLANS`` stores for the reference's plans."""
+    configs = json.loads(plan.to_json())["configs"]
+
+    def sha(obj):
+        text = json.dumps(obj, sort_keys=True, separators=(",", ":"))
+        return hashlib.sha256(text.encode()).hexdigest()
+
+    return {"configs": sha(configs), "plan_digest": sha([list(r) for r in digest]),
+            "sites": len(configs), "artifact_digest": plan.artifact_digest()}
+
+
+def gemm_shapes(cfg, wl, spec: dict) -> list:
+    """(name, m, k, n) of the bf16 GEMMs of layer 0's forward groups of the
+    tp workload ``wl``: k and n from the config at the tp degree, m from
+    the CompOp's FLOPs, checked against its bytes."""
+    pp = ParallelPlan(**spec)
+    tp, mb = pp.tp, pp.microbatches
+    hq, hkv, f = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.d_ff // tp
+    kn = {"attn.qkv": (cfg.d_model, (hq + 2 * hkv) * cfg.head_dim),
+          "attn.o": (hq * cfg.head_dim, cfg.d_model),
+          "mlp.up0": (cfg.d_model, f), "mlp.up1": (cfg.d_model, f),
+          "mlp.down": (f, cfg.d_model)}
+    shapes = []
+    for g in wl.groups:
+        if g.name not in ("fwd.L0.attn", "fwd.L0.mlp"):
+            continue
+        for op in g.comps:
+            name = op.name.removesuffix(".fwd")
+            if name not in kn:
+                continue                      # the attention core is no GEMM
+            k, n = kn[name]
+            m = round(op.flops / (2 * k * n * mb))     # rows of one microbatch
+            check(op.flops == mb * 2.0 * m * k * n
+                  and op.bytes_rw == mb * pp.dsize * float(m * k + k * n + m * n),
+                  f"GEMM {op.name}: ({m}, {k}, {n}) does not give its CompOp")
+            shapes.append((name, m, k, n))
+    check(len(shapes) == len(kn), f"found GEMMs {shapes}")
+    return shapes
+
+
+def gemm_eff_phase(cfg, wl, spec: dict, card: str) -> dict:
+    """Achieved share of the bf16 peak of ``torch.matmul`` at the tp
+    workload's GEMM shapes, by CUDA events (a measurement for the h100-sxm
+    profile's ``gemm_eff``; the port never calls it)."""
+    peak = by_name("h100-sxm").peak_flops
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, flops, ms = [], 0.0, 0.0
+    for name, m, k, n in gemm_shapes(cfg, wl, spec):
+        a = randn((m, k), torch.bfloat16, gen)
+        b = randn((k, n), torch.bfloat16, gen)
+        t = time_ms(lambda: torch.matmul(a, b))
+        f = 2.0 * m * k * n
+        rows.append({"gemm": name, "m": m, "k": k, "n": n, "ms": t,
+                     "eff": f / (t * 1e-3) / peak})
+        flops, ms = flops + f, ms + t
+        del a, b
+    eff = flops / (ms * 1e-3) / peak
+    for r in rows:
+        say(f"plan: bf16 GEMM {r['gemm']} ({r['m']} x {r['k']} x {r['n']}): "
+            f"{r['ms']:.4f} ms, {r['eff']:.4f} of {peak / 1e12:.1f} TFLOP/s")
+    say(f"plan: gemm_eff measured {eff:.4f} (all five GEMMs), profile h100-sxm "
+        f"{by_name('h100-sxm').gemm_eff} ({card})")
+    torch.cuda.empty_cache()
+    return {"gemm_eff": eff, "gemms": rows}
+
+
+def plan_phase(card: str) -> dict:
+    cfg = get_config(PLAN_ARCH)
+    out = {"tune_ms": {}, "artifact_digest_matches": {}}
+    wls, a40 = {}, {}
+    for name, spec in PLAN_WORKLOADS.items():
+        wls[name] = extract_workload(cfg, ParallelPlan(**spec), seq=PLAN_SEQ,
+                                     global_batch=PLAN_BATCH)
+        for hw in ("a40-nvlink", "h100-sxm"):
+            t0 = time.perf_counter()
+            plan = tune(wls[name], hw, method="lagom")
+            dt = (time.perf_counter() - t0) * 1e3
+            out["tune_ms"][f"{name} {hw}"] = dt
+            say(f"plan: tune {PLAN_ARCH} {name} for {hw} (lagom): {dt:.1f} ms host "
+                f"wall, {len(plan.configs)} sites, {plan.profile_count} profiles ({card})")
+            if hw == "a40-nvlink":
+                a40[name] = plan
+        got = plan_fingerprint(a40[name], plan_digest(a40[name].runtime_plan()))
+        want = REFERENCE_A40_PLANS[name]
+        for key in ("sites", "configs", "plan_digest"):
+            check(got[key] == want[key], f"plan {name} on a40-nvlink: the port's "
+                  f"{key} {got[key]} is not the reference's {want[key]}")
+        same = got["artifact_digest"] == want["artifact_digest"]
+        out["artifact_digest_matches"][name] = same
+        say(f"plan: {name} on a40-nvlink reproduces the reference's plan_digest and "
+            f"configs; artifact_digest {'matches' if same else 'differs'} "
+            "(information only)")
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = {}
+        for name, plan in a40.items():
+            paths[name] = os.path.join(d, f"{name.replace(':', '')}.json")
+            plan.save(paths[name])
+            check(TunedPlan.load(paths[name]).to_json() == plan.to_json(),
+                  f"plan {name} changed through its JSON file")
+        base = activate(paths["fsdp:8"])
+        scoped = TunedPlan.load(paths["tp:8"])
+    wl = wls["tp:8"]
+    sites = [(f"tp.layer{i}.mlp.{leg}", leg) for i in range(cfg.num_layers)
+             for leg in ("ag", "rs")]
+    with scoped.applied(wl) as rt:
+        check(plan_digest(rt) == plan_digest(a40["tp:8"].runtime_plan()),
+              "the tp plan lowers differently after its JSON round trip")
+        for site, leg in sites:
+            want = rt[site.rsplit(".", 1)[0]]
+            check(collectives.runtime_for(site, leg) == want,
+                  f"{site} under applied(): {collectives.runtime_for(site, leg)} "
+                  f"is not the plan's {want}")
+    for site, leg in sites:
+        got = collectives.resolve_runtime(site, leg)
+        check(got == (base[leg], leg, "class"),
+              f"{site} outside applied(): {got} is not the base plan's {base[leg]}")
+    check(collectives.active_runtime_plan() == base, "the base plan did not stay")
+    collectives.install_runtime_plan(None)
+    pairs = sorted({(r.strategy, r.num_chunks) for r in rt.values()})
+    findings = lint_plan(scoped, workload=wl)
+    check(not errors(findings), format_findings(findings, label="the tp plan"))
+    say(f"plan: tp:8 lowered to {len(rt)} entries for {len(scoped.sites)} sites, "
+        f"(strategy, num_chunks) pairs {pairs}; {2 * cfg.num_layers} "
+        "tp.layer{i}.mlp.ag|rs sites resolve to it under applied() and to the "
+        f"base fsdp plan outside")
+    say(format_findings(findings, label="the tp plan"))
+    out.update(sites=len(scoped.sites), entries=len(rt), pairs=pairs,
+               findings=[f.code for f in findings])
+    out.update(gemm_eff_phase(cfg, wl, PLAN_WORKLOADS["tp:8"], card))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -873,6 +1060,8 @@ def main() -> int:
         prompts = make_prompts(cfg)
         served.append(serving_phase(cfg, prompts))
         slice_parity_phase(cfg, prompts)
+
+    say(json.dumps({"plan": plan_phase(card)}))
 
     for k in kernels:       # launches on the served batches, by model and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}

@@ -1,4 +1,6 @@
-"""Llama-3-8B (Lagom Table 2 workload)."""
+"""The port's own copy of ``repro.configs.llama3_8b``.
+
+Llama-3-8B (Lagom Table 2 workload)."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

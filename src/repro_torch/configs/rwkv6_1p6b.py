@@ -1,4 +1,6 @@
-"""RWKV6 "Finch" 1.6B — attention-free, data-dependent decay [arXiv:2404.05892]."""
+"""The port's own copy of ``repro.configs.rwkv6_1p6b``.
+
+RWKV6 "Finch" 1.6B — attention-free, data-dependent decay [arXiv:2404.05892]."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

@@ -1,4 +1,6 @@
-"""Zamba2-7B — Mamba2 trunk + shared attention blocks [arXiv:2411.15242]."""
+"""The port's own copy of ``repro.configs.zamba2_7b``.
+
+Zamba2-7B — Mamba2 trunk + shared attention blocks [arXiv:2411.15242]."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

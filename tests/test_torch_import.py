@@ -34,7 +34,9 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert not got["built"]
     for mod in ("repro_torch.kernels.ops", "repro_torch.models.model",
                 "repro_torch.serving.engine", "repro_torch.launch.serve",
-                "repro_torch.convert"):
+                "repro_torch.convert", "repro_torch.core.session",
+                "repro_torch.core.apply", "repro_torch.parallel.collectives",
+                "repro_torch.analysis.lint", "repro_torch.configs.shapes"):
         assert mod in got["modules"]
 
 

@@ -18,7 +18,7 @@ import torch  # noqa: E402
 
 from repro.configs import get_config as jget_config, get_smoke_config as jget_smoke  # noqa: E402
 from repro.models import layers as JL, model as JM  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax, stacked_axes  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
 from torch import nn  # noqa: E402
@@ -84,11 +84,19 @@ def _close(a, b, bound):
 
 
 def test_configs_match_the_reference():
-    for arch in (ARCH, "zamba2-7b", "rwkv6-1.6b"):
+    """All 15 architectures, full and smoke, and the input shapes."""
+    from repro.configs import ALL_ARCHS as JALL, INPUT_SHAPES as JSHAPES
+    from repro_torch.configs import INPUT_SHAPES
+
+    assert ALL_ARCHS == JALL and len(ALL_ARCHS) == 15
+    for arch in ALL_ARCHS:
         for get, jget in ((get_config, jget_config), (get_smoke_config, jget_smoke)):
             assert dataclasses.asdict(get(arch)) == dataclasses.asdict(jget(arch))
-    with pytest.raises(KeyError):
-        get_config("whisper-small")
+    assert ({k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in JSHAPES.items()})
+    for get in (get_config, jget_config):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("gpt-5")
 
 
 def test_params_round_trip(pair):
@@ -232,6 +240,16 @@ def test_prefill_then_decode_matches_full_forward(pair):
         return JM.decode_step(cfg, p, t[:, S - 1:], c)[0]
     jlogits = jax_prefill_decode(jp, jnp.asarray(toks))
     _close(logits, jlogits, BOUND)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_registered_archs_build_or_name_their_slice(arch):
+    """Registering a config (for the tuner) is not serving it: a model the
+    port cannot run yet raises at build, naming the slice that brings it."""
+    try:
+        M.init_params(get_smoke_config(arch), 0, device="cpu")
+    except NotImplementedError as e:
+        assert "slice" in str(e)
 
 
 @pytest.mark.parametrize("change", [dict(sliding_window=16), dict(num_experts=4, top_k=2),
