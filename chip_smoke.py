@@ -55,10 +55,26 @@ Phases, each of which exits non-zero on a failed check:
      linter's findings are printed; and bf16 ``torch.matmul`` is timed at the
      tp:8 workload's GEMM shapes, its achieved share of the 989.4 TFLOP/s
      peak printed beside the h100-sxm profile's ``gemm_eff``.
+  7. plans drive the collectives, on phase 4's llama3-8b weights before
+     they are freed: a 1-rank NCCL process group from a ``FileStore`` (a
+     failed init fails the run); ``ring_ag_matmul``,
+     ``mm_reduce_scatter``, ``chunked_all_to_all`` and
+     ``psum_tree_chunked`` at llama3-8b's MLP shapes (4096 rows, d_model
+     4096, d_ff 14336) with 1, 2 and 4 chunks over it, each against its
+     ``*_ref`` within the reference's bounds and timed beside the plain
+     product; then llama3-8b served at full size on that mesh through
+     ``make_engine(..., plan=...)`` under plan (a), tuned by the port for
+     tp:8 decode (batch 8, seq 1024) on h100-sxm, and plan (b), which
+     chunks layer 0's and layer 1's gate/up ring by 2 and 4, beside the
+     unplanned engine in turns: prefill and decode times, the
+     teacher-forced logits' difference from the unplanned engine (within
+     1e-4), whether the tokens are equal, the issued structure by site
+     and the ``CollectiveDegradedWarning`` count; the kernels' launches
+     are counted on each planned batch.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
-Then it prints one ``{"plan": ...}`` line, one ``{"kernels": [...]}`` line
-and, last, the device line.
+Then it prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}``
+line, one ``{"kernels": [...]}`` line and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -73,6 +89,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -83,9 +100,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.analysis import errors, format_findings, lint_plan  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (ParallelPlan, TunedPlan, by_name,  # noqa: E402
-                              extract_workload, tune)
+                              extract_decode_workload, extract_workload,
+                              parse_parallel, tune)
 from repro_torch.core.apply import activate, plan_digest  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.serving import make_engine  # noqa: E402
@@ -817,11 +836,22 @@ def breakdown_phase(engine, prompts, tag: str) -> None:
             f"({busy / wall:.1%}); " + ", ".join(f"{k} {v:.1f} ms" for k, v in dev.items()))
 
 
-def serving_phase(cfg, prompts) -> dict:
+def init_model(cfg):
+    """The served model at full size, random weights from SEED; returns it with
+    its init time in seconds."""
     t0 = time.perf_counter()
     model = M.init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return model, time.perf_counter() - t0
+
+
+def free() -> None:
+    """Return what the caller has dropped to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serving_phase(cfg, model, init_s: float, prompts) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     engine = make_engine(cfg, model, mode="fixed", batch_size=BATCH, max_seq=MAX_SEQ)
     engine.generate(prompts, max_new=2)          # warm-up: cuBLAS handles, allocator
@@ -854,9 +884,8 @@ def serving_phase(cfg, prompts) -> dict:
     check(forced.argmax(-1).tolist() == outs,
           f"{tag}: greedy tokens are not the argmax of their teacher-forced logits")
     breakdown_phase(engine, prompts, tag)
-    del engine, model, forced
-    gc.collect()
-    torch.cuda.empty_cache()
+    del engine, forced
+    free()
     return {"arch": cfg.name, "launches": launches, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak}
 
@@ -881,8 +910,7 @@ def slice_parity_phase(cfg, prompts) -> None:
     check(bool(torch.isfinite(lk).all()), "slice parity: non-finite logits")
     check(err <= SLICE_LOGITS_BOUND, f"slice parity: logits err {err} > {SLICE_LOGITS_BOUND}")
     del kern, plain, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
 
 
 # ---------------------------------------------------------------------------
@@ -1025,6 +1053,187 @@ def plan_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: plans drive the collectives (a 1-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+AG_BOUND, RS_BOUND, A2A_BOUND = 1e-4, 1e-3, 1e-6   # the reference's, tests/test_collectives.py
+PLAN_SERVE_BOUND = 1e-4                  # planned vs unplanned teacher-forced logits, fp32
+# plan (b): layer 0 and layer 1 chunk their gate/up ring differently
+# (the reference's tests/test_serving_plan.py:78)
+PLAN_B = {"serve.layer0.mlp.ag": ("ring", 2), "serve.layer1.mlp.ag": ("ring", 4)}
+HELPER_CHUNKS = (1, 2, 4)
+
+
+def nccl_mesh(tmpdir: str):
+    """A 1-rank NCCL process group from a FileStore, and the mesh over it:
+    NCCL really launches, with no address or port.  A failed init raises."""
+    import torch.distributed as dist
+
+    store = dist.FileStore(os.path.join(tmpdir, "nccl_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    mesh = make_mesh()
+    check(mesh.size == 1 and mesh.group is not None, f"mesh {mesh}")
+    return mesh
+
+
+def _max_err(got, want) -> float:
+    if isinstance(got, dict):
+        return max(_max_err(got[k], want[k]) for k in got)
+    check(got.shape == want.shape, f"shape {tuple(got.shape)}, expected {tuple(want.shape)}")
+    return (got - want).abs().max().item()
+
+
+def collective_helpers_phase(cfg, mesh, card: str) -> list:
+    """Each chunked helper over the NCCL group, on CUDA fp32 tensors at
+    llama3-8b's MLP shapes (prefill's 8 x 512 rows), held against its
+    ``*_ref`` (at one rank the all-to-all and the summed tree are their
+    inputs) and timed beside the plain product."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    D, F, T = cfg.d_model, cfg.d_ff, BATCH * PROMPT_LENS[1]
+    x = randn((1, T, D), torch.float32, gen)
+    w = randn((D, F), torch.float32, gen) / D ** 0.5
+    h = randn((1, T, F), torch.float32, gen)
+    wd = randn((F, D), torch.float32, gen) / F ** 0.5
+    tree = {"gate": w, "down": wd}
+    C = collectives
+    refs = {"ring_ag_matmul": (lambda: C.ag_matmul_ref(x, w), AG_BOUND),
+            "mm_reduce_scatter": (lambda: C.mm_rs_ref(h, wd), RS_BOUND),
+            "chunked_all_to_all": (lambda: h, A2A_BOUND),
+            "psum_tree_chunked": (lambda: C.psum_tree(tree, mesh), A2A_BOUND)}
+    plain = {name: time_ms(fn, samples=5, per_sample=2) for name, (fn, _) in refs.items()
+             if name in ("ring_ag_matmul", "mm_reduce_scatter")}
+    rows = []
+    for nc in HELPER_CHUNKS:
+        calls = {"ring_ag_matmul": lambda: C.ring_ag_matmul(x, w, mesh, num_chunks=nc),
+                 "mm_reduce_scatter": lambda: C.mm_reduce_scatter(h, wd, mesh, num_chunks=nc),
+                 "chunked_all_to_all": lambda: C.chunked_all_to_all(
+                     h, mesh, split_axis=1, concat_axis=1, num_chunks=nc),
+                 "psum_tree_chunked": lambda: C.psum_tree_chunked(tree, mesh, num_chunks=nc)}
+        for name, fn in calls.items():
+            ref_fn, bound = refs[name]
+            with C.record_issued() as issued:
+                y = fn()
+            torch.cuda.synchronize()
+            err = _max_err(y, ref_fn())
+            structure = [(r.num_chunks, r.matmuls, r.collectives) for r in issued]
+            ms = time_ms(fn, samples=5, per_sample=2)
+            say(f"plan serving: {name} num_chunks={nc} over NCCL: max abs err {err:.3e} "
+                f"(bound {bound}); issued (chunks, matmuls, collectives) {structure}; "
+                f"{ms:.4f} ms" + (f", plain product {plain[name]:.4f} ms" if name in plain
+                                  else "") + f" ({card})")
+            check(err <= bound, f"{name} num_chunks={nc}: max abs err {err} > {bound}")
+            want_coll = 0 if name == "ring_ag_matmul" else nc      # no ring hop at one rank
+            check(all(r.num_chunks == nc and r.collectives == want_coll for r in issued),
+                  f"{name} num_chunks={nc} issued {issued}")
+            rows.append({"helper": name, "num_chunks": nc, "max_abs_err": err, "bound": bound,
+                         "ms": ms, "plain_ms": plain.get(name), "issued": structure})
+    del x, w, h, wd, tree
+    free()
+    return rows
+
+
+def issued_summary(rows) -> dict:
+    """The issued structure of a served batch: for each (helper, chunks),
+    the sites, the calls, and the matmuls and collectives they issued."""
+    out = {}
+    for r in rows:
+        key = f"{r.op} x{r.num_chunks}"
+        e = out.setdefault(key, {"sites": set(), "calls": 0, "matmuls": 0, "collectives": 0})
+        e["sites"].add(r.site)
+        e["calls"] += 1
+        e["matmuls"] += r.matmuls
+        e["collectives"] += r.collectives
+    return {k: dict(v, sites=len(v["sites"])) for k, v in sorted(out.items())}
+
+
+def plan_serving_phase(cfg, model, prompts, card: str) -> dict:
+    """Phase 7: llama3-8b at full size on a 1-rank NCCL mesh under plan (a),
+    tuned by the port for tp:8 decode on h100-sxm, and plan (b), beside the
+    unplanned engine, in turns (none, a, b, b, a, none)."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = nccl_mesh(tmp)
+        try:
+            helpers = collective_helpers_phase(cfg, mesh, card)
+            wl = extract_decode_workload(cfg, parse_parallel("tp:8"), global_batch=BATCH,
+                                         seq=MAX_SEQ)
+            plans = {"a": tune(wl, "h100-sxm", method="lagom"),
+                     "b": {k: collectives.CollectiveRuntime(*v) for k, v in PLAN_B.items()}}
+            engines = {"none": make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ)}
+            for name, plan in plans.items():
+                engines[name] = make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ,
+                                            plan=plan, mesh=mesh)
+            for e in engines.values():
+                e.generate(prompts, max_new=2)          # warm-up
+            times = {name: [] for name in engines}
+            record = {}
+            for name in ("none", "a", "b", "b", "a", "none"):
+                engine = engines[name]
+                collectives.reset_degraded_warnings()
+                ops.reset_launches()
+                with warnings.catch_warnings(record=True) as ws, \
+                        collectives.record_issued() as issued:
+                    warnings.simplefilter("always")
+                    outs = engine.generate(prompts, max_new=MAX_NEW)
+                launches = dict(ops.LAUNCHES)
+                t = engine.last_timing
+                times[name].append((t["prefill_s"] * 1e3,
+                                    statistics.median(t["decode_s"]) * 1e3))
+                if name not in record:
+                    degraded = sum(issubclass(w.category, collectives.CollectiveDegradedWarning)
+                                   for w in ws)
+                    record[name] = {"outs": outs, "launches": launches, "degraded": degraded,
+                                    "issued": issued_summary(issued), "rows": issued}
+            base = record["none"]["outs"]
+            check_outputs(base, cfg.vocab_size, "plan serving, unplanned")
+            forced = {name: e.teacher_forced_logits(prompts, base)
+                      for name, e in engines.items()}
+            want = expected_launches(cfg)
+            out = {"helpers": helpers, "plans": {}, "card": card,
+                   "unplanned": {"prefill_ms": [p for p, _ in times["none"]],
+                                 "decode_ms": [d for _, d in times["none"]]}}
+            say(f"plan serving: unplanned engine: prefill {times['none'][0][0]:.1f} / "
+                f"{times['none'][1][0]:.1f} ms, decode {times['none'][0][1]:.2f} / "
+                f"{times['none'][1][1]:.2f} ms/token (first / last turn) ({card})")
+            for name in plans:
+                r = record[name]
+                err = (forced[name] - forced["none"]).abs().max().item()
+                same = r["outs"] == base
+                layers01 = sorted({(row.site, row.num_chunks) for row in r["rows"]
+                                   if row.site.startswith(("serve.layer0.", "serve.layer1."))})
+                say(f"plan serving: plan ({name}): prefill {times[name][0][0]:.1f} / "
+                    f"{times[name][1][0]:.1f} ms, decode {times[name][0][1]:.2f} / "
+                    f"{times[name][1][1]:.2f} ms/token (unplanned {times['none'][0][0]:.1f}, "
+                    f"{times['none'][0][1]:.2f}); teacher-forced logits max abs diff from "
+                    f"unplanned {err:.3e} (bound {PLAN_SERVE_BOUND}); tokens equal: {same}; "
+                    f"CollectiveDegradedWarnings {r['degraded']}; launches {r['launches']} "
+                    f"({card})")
+                say(f"plan serving: plan ({name}) issued {r['issued']}; layers 0-1 "
+                    f"(site, chunks) {layers01}")
+                check(r["launches"] == want,
+                      f"plan ({name}): launches {r['launches']}, expected {want}")
+                check(bool(torch.isfinite(forced[name]).all()), f"plan ({name}): non-finite")
+                check(err <= PLAN_SERVE_BOUND,
+                      f"plan ({name}): logits differ by {err} > {PLAN_SERVE_BOUND}")
+                check(r["issued"], f"plan ({name}): no collective helper ran")
+                out["plans"][name] = {
+                    "prefill_ms": [p for p, _ in times[name]],
+                    "decode_ms": [d for _, d in times[name]], "max_abs_logit_diff": err,
+                    "tokens_equal": same, "degraded_warnings": r["degraded"],
+                    "launches": r["launches"], "issued": r["issued"], "layers01": layers01}
+            check(dict(out["plans"]["b"]["layers01"])["serve.layer1.mlp.ag"] == 4
+                  and dict(out["plans"]["b"]["layers01"])["serve.layer0.mlp.ag"] == 2,
+                  "plan (b) did not chunk layers 0 and 1 as it says")
+            del engines, forced
+        finally:
+            dist.destroy_process_group()
+    free()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -1054,17 +1263,25 @@ def main() -> int:
     kernels[2]["ptxas"] = ssd_ptxas
     kernels[3]["ptxas"] = wkv6_ptxas
 
-    served = []
+    served, plan_served = [], None
     for arch in ARCHS:
         cfg = get_config(arch)
         prompts = make_prompts(cfg)
-        served.append(serving_phase(cfg, prompts))
+        model, init_s = init_model(cfg)
+        served.append(serving_phase(cfg, model, init_s, prompts))
+        if arch == PLAN_ARCH:      # phase 7 on phase 4's weights, before they go
+            plan_served = plan_serving_phase(cfg, model, prompts, card)
+        del model
+        free()
         slice_parity_phase(cfg, prompts)
 
     say(json.dumps({"plan": plan_phase(card)}))
+    say(json.dumps({"plan_serving": plan_served}))
 
-    for k in kernels:       # launches on the served batches, by model and in all
+    for k in kernels:       # launches on the served batches, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
+        k["launches_by_model"].update({f"{PLAN_ARCH} plan ({name})": run["launches"][k["name"]]
+                                       for name, run in plan_served["plans"].items()})
         k["launches"] = sum(k["launches_by_model"].values())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """Dense decoder trunk of the port (PyTorch counterpart of
-``repro.models.dense``, its scan path).
+``repro.models.dense``).
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; eager PyTorch has nothing to trace, so the port keeps one
@@ -7,18 +7,36 @@ The reference stacks the layers on a leading axis and runs them with
 KV caches keep the reference's stacked layout (a leading layer axis), and
 each layer reads and writes its slice in place.
 
+Plan-aware (sited) path: ``trunk_fwd(mesh=...)`` runs every layer's MLP
+over the explicit chunked collectives of ``parallel.collectives``
+(``ring_ag_matmul`` for gate and up, ``mm_reduce_scatter`` for down), each
+addressed by its SiteId: ``tp.layer{i}.mlp.ag|rs`` without a cache,
+``serve.layer{i}.mlp.ag|rs`` with one (global layer indices, as
+``core.extract.extract_decode_workload`` names them).  Each site resolves
+its knobs against the active plan when it runs, so one plan can drive two
+layers to different chunk structure.  Attention stays replicated on every
+rank; each rank holds a column shard of ``gate``/``up`` and a row shard of
+``down`` (``shard_trunk``), and the sequence-sharded MLP output is gathered
+back explicitly (``collectives.all_gather_rows``) where GSPMD gathers it
+implicitly in the reference.
+
 Not ported here, and raising ``NotImplementedError`` naming the slice that
-brings them: MoE feed-forwards, MLA, sliding windows, ALiBi, ``qk_norm``,
-``parallel_block``, and the plan-aware sited ``mesh=`` path.
+brings them: MoE feed-forwards, MLA, sliding windows, ALiBi, ``qk_norm``
+and ``parallel_block``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import warnings
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import layers as L
+from repro_torch.parallel.collectives import (all_gather_rows, mm_reduce_scatter,
+                                              ring_ag_matmul)
 
 Caches = Dict[str, Dict[str, object]]
 
@@ -50,10 +68,77 @@ class Layer(nn.Module):
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
 
 
+# ---------------------------------------------------------------------------
+# the plan-aware MLP
+# ---------------------------------------------------------------------------
+
+def tp_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
+           site: str = "tp.mlp") -> torch.Tensor:
+    """Explicit tensor-parallel MLP over ``mesh``: ``p`` holds this rank's
+    shards (``shard_mlp``), ``x`` (B, S, D) is replicated.  The up
+    projections are ring AllGather∘matmul over this rank's sequence shard
+    of ``x`` (site ``{site}.ag``), the down projection matmul∘ReduceScatter
+    (site ``{site}.rs``), each site's chunk structure resolved against the
+    active plan; the sequence-sharded output is gathered back to (B, S, D).
+    Numerically ``layers.mlp``."""
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp_kind {kind!r} arrives with {L.OTHER_FAMILIES}")
+    m = as_mesh(mesh)
+    Sl = x.shape[1] // m.size
+    xl = x[:, m.rank * Sl:(m.rank + 1) * Sl] if m.size > 1 else x
+    h = (F.silu(ring_ag_matmul(xl, p.gate.weight.T, m, site=f"{site}.ag"))
+         * ring_ag_matmul(xl, p.up.weight.T, m, site=f"{site}.ag"))
+    y = mm_reduce_scatter(h, p.down.weight.T, m, site=f"{site}.rs")
+    return all_gather_rows(y, m)
+
+
+def serve_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
+              site: str = "serve.mlp") -> torch.Tensor:
+    """Decode-shape plan-aware MLP.  ``tp_mlp`` chunks the sequence axis,
+    which is length 1 at decode, so the in-flight batch is re-laid as that
+    axis, (B, S, D) -> (1, B·S, D): the plan's chunk counts then decompose
+    the collectives over the sequences in flight.  Position-wise MLP, so
+    this is numerically the identity transform."""
+    B, S, D = x.shape
+    y = tp_mlp(p, x.reshape(1, B * S, D), kind, mesh, site=site)
+    return y.reshape(B, S, D)
+
+
+def shard_mlp(p: L.MLP, mesh) -> L.MLP:
+    """This rank's MLP shard: contiguous column shards of ``gate`` and
+    ``up`` and a row shard of ``down`` (in ``nn.Linear`` layout, rows of
+    ``gate``/``up`` and columns of ``down``).  At mesh size 1 the shard is
+    ``p`` itself: no copy."""
+    m = as_mesh(mesh)
+    if m.size == 1:
+        return p
+    d_ff, d_model = p.gate.weight.shape
+    f = d_ff // m.size
+    cols = slice(m.rank * f, (m.rank + 1) * f)
+    w = p.gate.weight
+    shard = L.MLP(d_model, f, "swiglu", device=w.device, dtype=w.dtype)
+    with torch.no_grad():
+        shard.gate.weight.copy_(p.gate.weight[cols])
+        shard.up.weight.copy_(p.up.weight[cols])
+        shard.down.weight.copy_(p.down.weight[:, cols])
+    return shard
+
+
+def shard_trunk(p: "Trunk", mesh) -> List[L.MLP]:
+    """Every layer's ``shard_mlp``: what an engine makes once, at
+    construction, and hands to ``trunk_fwd(shards=...)``."""
+    return [shard_mlp(lp.mlp, mesh) for lp in p.dense_layers]
+
+
 def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
-              cache: Optional[Dict[str, object]], *, backend: Optional[str] = None
+              cache: Optional[Dict[str, object]], *, backend: Optional[str] = None,
+              mesh=None, site: str = "", serve: bool = False,
+              mlp: Optional[L.MLP] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, object]]]:
-    """One decoder layer.  Returns (x, updated cache or None)."""
+    """One decoder layer.  Returns (x, updated cache or None).  ``mesh``
+    switches the MLP onto the explicit plan-aware collectives, with ``mlp``
+    this rank's shard (default ``p.mlp``, the whole MLP), ``site`` the
+    layer's SiteId prefix and ``serve`` marking the decode-shape layout."""
     # parallel/constraints.py is not ported: the reference's CT.btd pins a
     # sharding at this boundary, which is a no-op on one device.
     h = L.norm(p.ln1, x, cfg.norm_kind, backend=backend)
@@ -61,8 +146,19 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
                                       backend=backend)
     x = x + attn_out
     h2 = L.norm(p.ln2, x, cfg.norm_kind, backend=backend)
-    return x + L.mlp(p.mlp, h2, cfg.mlp_kind), new_cache
+    if mesh is None:
+        return x + L.mlp(p.mlp, h2, cfg.mlp_kind), new_cache
+    mlp = p.mlp if mlp is None else mlp
+    if serve:
+        ff = serve_mlp(mlp, h2, cfg.mlp_kind, mesh, site=site or "serve.mlp")
+    else:
+        ff = tp_mlp(mlp, h2, cfg.mlp_kind, mesh, site=site or "tp.mlp")
+    return x + ff, new_cache
 
+
+# ---------------------------------------------------------------------------
+# the trunk
+# ---------------------------------------------------------------------------
 
 class Trunk(nn.Module):
     """``dense_layers``: the per-layer stack (state-dict keys
@@ -79,21 +175,63 @@ def init_trunk(cfg, *, device=None, dtype=None) -> Trunk:
     return Trunk(cfg, device=device, dtype=dtype)
 
 
+def _sited_applicable(cfg, x, mesh) -> Tuple[bool, str]:
+    """Shape preconditions of the explicit collective helpers (the sequence
+    and ``d_ff`` must split over the mesh; otherwise the unsited loop)."""
+    n = as_mesh(mesh).size
+    if x.shape[1] % n:
+        return False, f"sequence length {x.shape[1]} not divisible by {n}"
+    if cfg.d_ff and cfg.d_ff % n:
+        return False, f"d_ff {cfg.d_ff} not divisible by {n}"
+    return True, ""
+
+
+def _sited_applicable_serve(cfg, x, mesh) -> Tuple[bool, str]:
+    """Decode-shape variant: ``serve_mlp`` re-lays (B, S, D) as
+    (1, B·S, D), so the divisible axis is the whole in-flight token count,
+    not the per-sequence length."""
+    n = as_mesh(mesh).size
+    if (x.shape[0] * x.shape[1]) % n:
+        return False, (f"in-flight tokens {x.shape[0] * x.shape[1]} not "
+                       f"divisible by {n}")
+    if cfg.d_ff and cfg.d_ff % n:
+        return False, f"d_ff {cfg.d_ff} not divisible by {n}"
+    return True, ""
+
+
 def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
               caches: Optional[Caches] = None, *, backend: Optional[str] = None,
-              mesh=None) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+              mesh=None, shards: Optional[List[L.MLP]] = None,
+              ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """caches: None | {"dense_layers": stacked cache}.  Returns (x, caches,
-    aux); aux is the MoE load-balancing loss, zero for the dense trunk."""
-    if mesh is not None:
-        raise NotImplementedError(f"the plan-aware sited trunk (mesh=) arrives with "
-                                  f"{L.SERVING_SLICE}")
+    aux); aux is the MoE load-balancing loss, zero for the dense trunk.
+
+    ``mesh`` opts into the plan-aware sited path (module docstring): layer
+    ``i``'s MLP runs at ``tp.layer{i}.mlp`` without caches and at
+    ``serve.layer{i}.mlp`` with them, with ``shards`` this rank's MLP shards
+    (default ``shard_trunk(p, mesh)``, made anew for the call; engines make
+    them once).  Shapes the explicit helpers cannot split fall back to the
+    unsited loop with a ``RuntimeWarning``, as the reference falls back to
+    its scan."""
     seg = caches["dense_layers"] if caches is not None else None
+    kind = "tp" if caches is None else "serve"
+    if mesh is not None:
+        check = _sited_applicable if caches is None else _sited_applicable_serve
+        ok, why = check(cfg, x, mesh)
+        if not ok:
+            warnings.warn(f"plan-aware trunk disabled: {why}; using the "
+                          "unsited layer loop", RuntimeWarning, stacklevel=2)
+            mesh = None
+        elif shards is None:
+            shards = shard_trunk(p, mesh)
     for i, lp in enumerate(p.dense_layers):
         lc = None
         if seg is not None:
             lc = {"k": seg["k"][i], "v": seg["v"][i], "slot_pos": seg["slot_pos"][i],
                   "pos": seg["pos"]}
-        x, _ = layer_fwd(lp, cfg, x, positions, lc, backend=backend)
+        x, _ = layer_fwd(lp, cfg, x, positions, lc, backend=backend, mesh=mesh,
+                         site=f"{kind}.layer{i}.mlp", serve=seg is not None,
+                         mlp=shards[i] if mesh is not None else None)
     new_caches = None
     if seg is not None:
         new_caches = {"dense_layers": dict(seg, pos=seg["pos"] + x.shape[1])}
@@ -103,7 +241,9 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
 def init_trunk_caches(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
                       device=None) -> Caches:
     """Stacked decode caches: k, v (L,B,W,Hkv,h), slot_pos (L,B,W), and one
-    ``pos`` for all layers (the reference stacks a per-layer copy)."""
+    ``pos`` for all layers (the reference stacks a per-layer copy): a
+    Python int, or a (B,) tensor of per-row positions (the continuous
+    engine's slots)."""
     check_supported(cfg)
     n = cfg.num_layers
     one = L.init_kv_cache(cfg, batch, seq_len, dtype=dtype, device=device)

@@ -27,7 +27,7 @@ from repro_torch.kernels.ref import NEG_INF
 Cache = Dict[str, object]
 
 OTHER_FAMILIES = "the port's other-families slice (ROADMAP.md, queue 1)"
-SERVING_SLICE = "the port's tensor-parallel serving slice (ROADMAP.md, queue 1)"
+QUERY_OFFSET = "a query offset in the flash kernel (ROADMAP.md, queue 2)"
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +154,11 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
       mask over these Sq keys.  Prefill into a non-empty cache raises.
     * ``cache`` given, Sq == 1 -> decode: plain PyTorch over the whole cache
       with the per-row ``slot_pos`` mask, as the reference computes it.
+      ``pos`` is one Python int for the batch (the fixed engine) or a (B,)
+      tensor, one position a row (the continuous engine's slots, which the
+      reference vmaps over): each row writes its K/V at its own position
+      and masks by it.  The caller keeps every row's position below the
+      cache's length (``model.decode_step`` checks it).
 
     The cache is updated in place (the reference returns a new one); the
     returned dict holds the same tensors and the advanced ``pos``.
@@ -174,11 +179,16 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     else:
         ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
         W, t = ck.shape[1], cache["pos"]
+        if torch.is_tensor(t):
+            if Sq != 1:
+                raise NotImplementedError(
+                    f"prefill into a cache at per-row positions arrives with {QUERY_OFFSET}")
+            return _decode_rows(p, q, k, v, cache, N, G, h), dict(cache, pos=t + 1)
         if t + Sq > W:
             raise ValueError(f"KV cache of {W} slots cannot take {Sq} more at position {t}")
         if Sq > 1 and t != 0:
             raise NotImplementedError(
-                f"prefill into a non-empty cache (pos {t}) arrives with {SERVING_SLICE}")
+                f"prefill into a non-empty cache (pos {t}) arrives with {QUERY_OFFSET}")
         ck[:, t:t + Sq] = k.to(ck.dtype)
         cv[:, t:t + Sq] = v.to(cv.dtype)
         # slot_pos is per-sequence (B, W): the serving engine invalidates each
@@ -197,6 +207,24 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             bias = bias.masked_fill(~valid, NEG_INF)[:, None, None, :, :]
             out = _gqa_scores_to_out(q.view(B, Sq, N, G, h), ck, cv, bias, 1.0 / math.sqrt(h))
     return linear(p.o, out.reshape(B, Sq, N * G * h)), new_cache
+
+
+def _decode_rows(p: Attention, q, k, v, cache: Cache, N: int, G: int, h: int):
+    """Decode at per-row positions ``cache["pos"]`` (B,): row b writes its
+    K/V and ``slot_pos`` at its own position and attends to the slots whose
+    ``slot_pos`` lies in [0, that position].  Returns the attention output
+    (B, 1, d)."""
+    ck, cv, spos, t = cache["k"], cache["v"], cache["slot_pos"], cache["pos"]
+    B = q.shape[0]
+    rows = torch.arange(B, device=ck.device)
+    ck[rows, t] = k[:, 0].to(ck.dtype)
+    cv[rows, t] = v[:, 0].to(cv.dtype)
+    spos[rows, t] = t.to(spos.dtype)
+    valid = (spos >= 0) & (spos <= t[:, None])                    # (B, W)
+    bias = torch.zeros(valid.shape, dtype=torch.float32, device=q.device)
+    bias = bias.masked_fill(~valid, NEG_INF)[:, None, None, None, :]
+    out = _gqa_scores_to_out(q.view(B, 1, N, G, h), ck, cv, bias, 1.0 / math.sqrt(h))
+    return linear(p.o, out.reshape(B, 1, N * G * h))
 
 
 def init_kv_cache(cfg, batch: int, seq_len: int, *, dtype=torch.float32,

@@ -95,32 +95,39 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Model:
     return model
 
 
-def _positions(cfg, B: int, S: int, t0: int, device) -> torch.Tensor:
-    """(B,S) int64 positions t0..t0+S-1."""
+def _positions(cfg, B: int, S: int, t0, device) -> torch.Tensor:
+    """(B,S) int64 positions t0..t0+S-1; ``t0`` an int, or a (B,) tensor of
+    per-row starts."""
     if cfg.pos_kind == "mrope":
         raise NotImplementedError(f"M-RoPE positions arrive with {L.OTHER_FAMILIES}")
+    if torch.is_tensor(t0):
+        return t0.to(device, torch.int64)[:, None] + torch.arange(S, device=device)
     return (t0 + torch.arange(S, device=device)).expand(B, S)
 
 
 def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
-                   backend: Optional[str] = None, mesh=None
+                   backend: Optional[str] = None, mesh=None, shards=None
                    ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """Runs the trunk over batch["tokens"].  If ``caches`` is given, this is a
-    cached prefill into fresh caches (filled in place)."""
+    cached prefill into fresh caches (filled in place).  ``mesh`` opts the
+    dense family into the plan-aware sited trunk (``dense.trunk_fwd``, with
+    ``shards`` this rank's MLP shards); the other families ignore it."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     t0 = caches["pos"] if caches is not None else 0
     positions = _positions(cfg, B, S, t0, tokens.device)
     x = L.embed(p.embed, tokens)
     tc = caches["trunk"] if caches is not None else None
-    x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh)
+    x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh,
+                                shards=shards)
     new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S}
     return L.norm(p.ln_f, x, cfg.norm_kind, backend=backend), new_caches, aux
 
 
-def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh):
+def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards):
     if cfg.family == "dense":
-        return dense.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, mesh=mesh)
+        return dense.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, mesh=mesh,
+                               shards=shards)
     # as in the reference, the recurrent families ignore ``mesh``
     return _trunk(cfg).trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend)
 
@@ -139,23 +146,44 @@ def init_caches(cfg, batch: int, seq_len: int, *, device="cuda") -> Caches:
             "pos": 0}
 
 
+def _kv_slots(tc) -> Optional[int]:
+    """Slots a row of the KV caches in ``tc`` holds (None: no KV cache)."""
+    for name, a in tc.items():
+        if isinstance(a, dict):
+            w = _kv_slots(a)
+            if w is not None:
+                return w
+        elif name == "slot_pos":
+            return a.shape[-1]
+    return None
+
+
 def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
-                backend: Optional[str] = None, mesh=None,
+                backend: Optional[str] = None, mesh=None, shards=None,
                 pos_offset: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Caches]:
     """One token per sequence: tokens (B,1) -> logits (B,1,vocab).
 
-    ``pos_offset`` (B,) subtracts a per-sequence gap from the shared position
-    counter: how the fixed-batch engine keeps right-padded ragged prompts on
-    their true RoPE positions (the pad slots themselves are excluded by the
-    per-row ``slot_pos`` mask)."""
+    ``caches["pos"]`` is one int for the batch, or a (B,) tensor of per-row
+    positions (the continuous engine's slots; every cache ``pos`` inside
+    holds the same tensor).  ``mesh`` opts the dense family into the sited
+    decode path (``serve.layer{i}.*`` sites, ``shards`` this rank's MLP
+    shards).  ``pos_offset`` (B,) subtracts a per-sequence gap from the
+    shared position counter: how the fixed-batch engine keeps right-padded
+    ragged prompts on their true RoPE positions (the pad slots themselves
+    are excluded by the per-row ``slot_pos`` mask)."""
     B = tokens.shape[0]
     t0 = caches["pos"]
+    if torch.is_tensor(t0):
+        W = _kv_slots(caches["trunk"])
+        if W is not None and int(t0.max()) >= W:
+            raise ValueError(f"KV cache of {W} slots cannot take a token at "
+                             f"positions {t0.tolist()}")
     positions = _positions(cfg, B, 1, t0, tokens.device)
     if pos_offset is not None:
         positions = positions - pos_offset.to(positions.device, positions.dtype)[:, None]
     x = L.embed(p.embed, tokens)
     x, new_tc, _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"], backend=backend,
-                              mesh=mesh)
+                              mesh=mesh, shards=shards)
     x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)
     return _unembed(cfg, p, x), {"trunk": new_tc, "pos": t0 + 1}

@@ -20,10 +20,24 @@ process-wide base plan.  ``set_runtime_plan`` remains as a deprecation
 shim over the latter.
 
 Strategy names are the reference's (``"xla"`` | ``"ring"`` |
-``"chunked"``), so one plan lowers to equal knobs in both packages.  The
-execution half, the chunked collective matmuls over a torch
-``ProcessGroup`` that consume these knobs, arrives with the port's
-chunked-collectives slice (ROADMAP.md, queue 1).
+``"chunked"``), so one plan lowers to equal knobs in both packages.
+
+Execution half
+--------------
+
+The chunked collective matmuls that consume those knobs run over a torch
+``ProcessGroup`` (a ``launch.mesh.Mesh``): ``ring_ag_matmul``,
+``mm_reduce_scatter``, ``chunked_all_to_all`` and ``psum_tree_chunked``,
+each with its dense oracle (``*_ref``).  Where the reference's
+``shard_map`` takes global arrays and partition specs, these take this
+rank's local shards; each docstring names the sharded dimension.  The
+overlap is built in, since nothing schedules it for eager code: a ring
+hop is in flight while the previous shard's matmul runs, and each chunk's
+reduce-scatter or all-to-all is issued asynchronously before the next
+chunk's work and waited for only where its result is needed.
+``record_issued`` records what each call actually issued (chunks,
+matmuls, collective calls), where the reference would count ``scan`` loops
+in a jaxpr.
 """
 from __future__ import annotations
 
@@ -31,7 +45,12 @@ import contextlib
 import contextvars
 import warnings
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import Mesh, as_mesh
 
 
 @dataclass(frozen=True)
@@ -251,3 +270,310 @@ def _warn_unchunked(site: str, num_chunks: int, detail: str) -> None:
         f"num_chunks={num_chunks} does not divide {detail}; emitting the "
         "unchunked collective for this site",
         stacklevel=4)
+
+
+# ---------------------------------------------------------------------------
+# execution half: what each call issued
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Issued:
+    """One call of a chunked helper, as it ran: ``num_chunks`` is the chunk
+    count it used (1 when unchunked or degraded), ``matmuls`` the matrix
+    products it launched and ``collectives`` the ``torch.distributed``
+    calls it issued (one ring hop's ``batch_isend_irecv`` counts once)."""
+    site: str
+    op: str              # ring_ag_matmul | mm_reduce_scatter | all_to_all | psum
+    num_chunks: int
+    matmuls: int
+    collectives: int
+
+
+_ISSUED_LOG: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_issued_log", default=None)
+
+
+@contextlib.contextmanager
+def record_issued():
+    """Record an ``Issued`` row for every helper call in the ``with`` block
+    (in call order).  Nests like ``record_site_resolutions``."""
+    rows: List[Issued] = []
+    token = _ISSUED_LOG.set(rows)
+    try:
+        yield rows
+    finally:
+        _ISSUED_LOG.reset(token)
+
+
+def _issued(site, op, num_chunks, matmuls, collectives) -> None:
+    log = _ISSUED_LOG.get()
+    if log is not None:
+        log.append(Issued(site, op, num_chunks, matmuls, collectives))
+
+
+# torch 2.13 deprecates the *_tensor names for *_single; older torch (the
+# card's 2.11) may have only the former
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or getattr(
+    dist, "reduce_scatter_tensor", None)
+_all_gather = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor", None)
+
+
+def axis_size(mesh) -> int:
+    """The size of the mesh's axis (the reference's ``axis_size(axis)``)."""
+    return as_mesh(mesh).size
+
+
+def _peer(m: Mesh, r: int) -> int:
+    """Global rank of rank ``r`` of the mesh's group (p2p ops take global
+    ranks)."""
+    return dist.get_global_rank(m.group, r)
+
+
+def _tiled(y: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n·s, D) -> (n, ..., s, D) contiguous: dim -2 split into ``n``
+    tiles moved to the front, where the flat collectives split and join."""
+    lead, rows, d = y.shape[:-2], y.shape[-2], y.shape[-1]
+    t = y.reshape(lead + (n, rows // n, d))
+    return t.movedim(-3, 0).contiguous()
+
+
+def all_gather_rows(y: torch.Tensor, mesh) -> torch.Tensor:
+    """Gather a dim -2 sharded (..., s, D) into (..., n·s, D) on every rank,
+    shards in rank order.  Not a plan site: the explicit form of the gather
+    GSPMD inserts after the reference's sequence-sharded MLP output."""
+    m = as_mesh(mesh)
+    if m.size == 1:
+        return y
+    out = y.new_empty((m.size,) + tuple(y.shape))
+    _all_gather(out.view(-1), y.contiguous().view(-1), group=m.group)
+    return torch.cat(out.unbind(0), dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# all-gather ∘ matmul  (column-parallel matmul with sequence-sharded input)
+#   x: (..., Tl, D), this rank's sequence shard;  w: (D, F_local)
+#   y = allgather_T(x) @ w   -> (..., n*Tl, F_local)
+# ---------------------------------------------------------------------------
+
+def ag_matmul_ref(x, w):
+    return x @ w
+
+
+def ring_ag_matmul(x, w, mesh, *, num_chunks: int | None = None,
+                   site: str | None = None) -> torch.Tensor:
+    """All-gather of the sequence shards ``x`` (..., Tl, D), dim -2 sharded
+    over the mesh, times this rank's column shard ``w`` (D, F_local), as a
+    ring: the shards rotate ``j -> j-1``, and step ``i`` multiplies the
+    shard of rank ``(idx + i) % n`` while the next hop is in flight.  Each
+    step's matmul is cut into ``num_chunks`` row blocks when ``Tl`` divides
+    by it.  Returns (..., n·Tl, F_local)."""
+    site = site or "ag"
+    num_chunks = _resolve_chunks(num_chunks, site, "ag")
+    m = as_mesh(mesh)
+    n, idx = m.size, m.rank
+    Tl = x.shape[-2]
+    chunked = num_chunks > 1 and Tl % num_chunks == 0
+    if num_chunks > 1 and not chunked:
+        _warn_unchunked(site, num_chunks, f"the local sequence shard ({Tl})")
+    nc = num_chunks if chunked else 1
+
+    def chunked_mm(xs):
+        if nc == 1:
+            return xs @ w
+        return torch.cat([b @ w for b in xs.chunk(nc, dim=-2)], dim=-2)
+
+    parts: List[Optional[torch.Tensor]] = [None] * n
+    cur = x.contiguous() if n > 1 else x
+    for i in range(n):
+        src = (idx + i) % n                  # whose shard we currently hold
+        reqs, nxt = [], None
+        if i < n - 1:                        # hop i+1 in flight during this matmul
+            nxt = torch.empty_like(cur)
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, cur, _peer(m, (idx - 1) % n), m.group),
+                dist.P2POp(dist.irecv, nxt, _peer(m, (idx + 1) % n), m.group)])
+        parts[src] = chunked_mm(cur)
+        for r in reqs:
+            r.wait()
+        cur = nxt
+    _issued(site, "ring_ag_matmul", nc, n * nc, n - 1)
+    return parts[0] if n == 1 else torch.cat(parts, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# matmul ∘ reduce-scatter  (row-parallel matmul)
+#   x: (..., T, F_local), F sharded over the mesh; w: (F_local, D)
+#   y = reduce_scatter_T( x @ w )  -> (..., T/n, D)
+# ---------------------------------------------------------------------------
+
+def mm_rs_ref(x, w):
+    return x @ w
+
+
+def _reduce_scatter_rows(y: torch.Tensor, m: Mesh):
+    """Issue the sum-scatter of (..., n·s, D) over dim -2 asynchronously;
+    returns (work or None, this rank's (..., s, D) tile)."""
+    if m.group is None:
+        return None, y
+    t = _tiled(y, m.size)
+    out = t.new_empty(t.shape[1:])
+    # flat views: gloo splits dim 0, so it must be the whole tile
+    return _reduce_scatter(out.view(-1), t.view(-1), group=m.group, async_op=True), out
+
+
+def mm_reduce_scatter(x, w, mesh, *, num_chunks: int | None = None,
+                      site: str | None = None) -> torch.Tensor:
+    """``x`` (..., T, F_local), F sharded over the mesh, times this rank's
+    row shard ``w`` (F_local, D), summed over the ranks and scattered over
+    dim -2: returns this rank's (..., T/n, D).  With ``num_chunks`` > 1 and
+    ``T`` divisible by ``num_chunks·n``, chunk ``i`` holds rows
+    ``{j·T/n + i·s ...}`` (``s = T/(n·num_chunks)``) for every destination
+    ``j``, so the chunks' scatters, joined, equal one scatter; each chunk's
+    reduce-scatter is in flight during the next chunk's matmul."""
+    site = site or "rs"
+    num_chunks = _resolve_chunks(num_chunks, site, "rs")
+    m = as_mesh(mesh)
+    n = m.size
+    T = x.shape[-2]
+    if num_chunks <= 1 or T % (num_chunks * n):
+        if num_chunks > 1:
+            _warn_unchunked(site, num_chunks,
+                            f"the scatter tiling ({T} rows over {n} shards)")
+        work, y = _reduce_scatter_rows(x @ w, m)
+        if work is not None:
+            work.wait()
+        _issued(site, "mm_reduce_scatter", 1, 1, int(work is not None))
+        return y
+    s = T // (n * num_chunks)
+    lead = x.shape[:-2]
+    xr = x.reshape(lead + (n, num_chunks, s, x.shape[-1]))
+    pending = []
+    for i in range(num_chunks):
+        b = xr.select(-3, i).reshape(lead + (n * s, x.shape[-1]))
+        pending.append(_reduce_scatter_rows(b @ w, m))
+    for work, _ in pending:
+        if work is not None:
+            work.wait()
+    _issued(site, "mm_reduce_scatter", num_chunks, num_chunks,
+            sum(work is not None for work, _ in pending))
+    return torch.cat([y for _, y in pending], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# chunked all-to-all (MoE dispatch/combine)
+# ---------------------------------------------------------------------------
+
+def _all_to_all(xl: torch.Tensor, m: Mesh, split_axis: int):
+    """Issue one tiled all-to-all asynchronously: ``xl``'s ``split_axis`` in
+    ``n`` tiles, tile ``j`` to rank ``j``.  Returns (work or None, the
+    received (n, ...) tiles, tile ``j`` from rank ``j``)."""
+    t = xl.movedim(split_axis, 0)
+    t = t.reshape((m.size, t.shape[0] // m.size) + tuple(t.shape[1:])).contiguous()
+    if m.group is None:
+        return None, t
+    out = torch.empty_like(t)
+    return dist.all_to_all_single(out, t, group=m.group, async_op=True), out
+
+
+def _chunked_a2a_local(xl, mesh, *, split_axis: int, concat_axis: int,
+                       num_chunks: int, site: str = "a2a"):
+    """One all-to-all, or ``num_chunks`` all-to-alls over the trailing
+    feature dim, all issued before the first is waited for."""
+    m = as_mesh(mesh)
+    sa, ca = split_axis % xl.ndim, concat_axis % xl.ndim
+    if num_chunks <= 1 or xl.shape[-1] % num_chunks:
+        if num_chunks > 1:
+            _warn_unchunked(site, num_chunks,
+                            f"the trailing feature dim ({xl.shape[-1]})")
+        blocks = [xl]
+    else:
+        blocks = list(xl.chunk(num_chunks, dim=-1))
+    pending = [_all_to_all(b, m, sa) for b in blocks]
+    ys = []
+    for work, tiles in pending:
+        if work is not None:
+            work.wait()
+        ys.append(torch.cat([tl.movedim(0, sa) for tl in tiles.unbind(0)], dim=ca))
+    _issued(site, "all_to_all", len(blocks), 0,
+            sum(work is not None for work, _ in pending))
+    return ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+
+
+def chunked_all_to_all(x, mesh, *, split_axis: int, concat_axis: int,
+                       num_chunks: int | None = None,
+                       site: str | None = None) -> torch.Tensor:
+    """The reference's tiled ``lax.all_to_all`` of this rank's shard ``x``:
+    ``split_axis`` cut into ``n`` tiles, tile ``j`` sent to rank ``j``, the
+    tiles received joined along ``concat_axis`` in rank order; decomposed
+    into ``num_chunks`` all-to-alls over the trailing feature dim.
+    ``num_chunks=None`` defers to the active plan's knobs for ``site``
+    (falling back to the ``a2a`` site class)."""
+    site = site or "a2a"
+    num_chunks = _resolve_chunks(num_chunks, site, "a2a")
+    return _chunked_a2a_local(x, mesh, split_axis=split_axis,
+                              concat_axis=concat_axis, num_chunks=num_chunks,
+                              site=site)
+
+
+# ---------------------------------------------------------------------------
+# plain helpers used by the trainer (gradient sync in explicit-DP mode)
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _all_reduce(a: torch.Tensor, m: Mesh):
+    """Issue the sum over ranks of a copy of ``a`` asynchronously."""
+    out = a.clone(memory_format=torch.contiguous_format)
+    if m.group is None:
+        return None, out
+    return dist.all_reduce(out, group=m.group, async_op=True), out
+
+
+def psum_tree(tree, mesh):
+    """Every leaf summed over the ranks (a new tree; the leaves are kept)."""
+    m = as_mesh(mesh)
+
+    def one(a):
+        work, out = _all_reduce(a, m)
+        if work is not None:
+            work.wait()
+        return out
+
+    return _tree_map(one, tree)
+
+
+def psum_tree_chunked(tree, mesh, *, num_chunks: int | None = None,
+                      site: str = "acc"):
+    """``psum_tree`` decomposed into ``num_chunks`` all-reduces over each
+    leaf's leading dim, all issued before the first is waited for (the
+    ACCO gradient sync, ``acc.step{k}.rs_grads``, and the Streaming-DiLoCo
+    outer sync).  ``num_chunks=None`` defers to the active plan's knobs for
+    ``site`` (falling back to its class); leaves whose leading dim the
+    count does not divide (scalars included) reduce whole."""
+    num_chunks = _resolve_chunks(num_chunks, site, site_class(site))
+    m = as_mesh(mesh)
+
+    def one(a):
+        if num_chunks <= 1 or a.ndim == 0 or a.shape[0] % num_chunks:
+            if num_chunks > 1 and a.ndim and a.shape[0] % num_chunks:
+                _warn_unchunked(site, num_chunks,
+                                f"the leading dim ({a.shape[0]}) of a grad leaf")
+            pending = [_all_reduce(a, m)]
+        else:
+            pending = [_all_reduce(b, m) for b in a.chunk(num_chunks, dim=0)]
+        for work, _ in pending:
+            if work is not None:
+                work.wait()
+        _issued(site, "psum", len(pending), 0,
+                sum(work is not None for work, _ in pending))
+        outs = [o for _, o in pending]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    return _tree_map(one, tree)

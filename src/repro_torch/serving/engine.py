@@ -8,41 +8,65 @@ attention for the dense and hybrid families, the SSD scan for zamba2's
 Mamba2 layers and the WKV6 scan for rwkv6.  The recurrent families
 (``ssm``, ``hybrid``) need equal-length prompts, as in the reference: a
 recurrent state would absorb the right padding, so ragged prompts raise
-``ValueError`` (the reference asserts).  The reference's plan surface
-(``plan=``, ``repo=``, ``mesh=``, fault schedules, online re-tuning) binds
-collectives across chips; those keywords raise ``NotImplementedError``
-until the port's tensor-parallel serving slice.
+``ValueError`` (the reference asserts).
+
+Plan-aware serving: pass ``plan=`` (a ``TunedPlan``, its JSON path or a
+runtime dict) or ``repo=`` (a ``PlanRepository``) and a dense model
+decodes under that plan's per-site knobs at the ``serve.layer{i}.mlp.*``
+SiteIds, through the sited trunk over ``mesh`` (by default
+``launch.mesh.make_mesh()``: the initialised process group, or a size-1
+mesh that issues no collective).  Each plan's prefill and decode step are
+kept per plan digest and run under that plan's scope, so a ``set_plan``
+hot-swap between batches takes effect and the ambient plan is restored on
+every exit path.
+
+Fault-aware serving: ``fault_schedule=`` arms per-site drift detection
+(``serving.health``); each decoded token advances the batch clock, and a
+site whose observed cost drifts past ``health_tolerance`` for
+``health_window`` consecutive batches is re-tuned online (``retune=``) or
+demoted mid-generate to its fallback knobs by a transactional plan swap.
+``health_events`` / ``health_report()`` expose the structured log.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models import model as M
-from repro_torch.models.layers import SERVING_SLICE
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import dense, model as M
+from repro_torch.serving.plans import DEFAULT_BAND, PlanBinding
 from repro_torch.serving.types import Request
 
 __all__ = ["Engine", "Request", "make_serve_step"]
 
-# the reference Engine's plan, fault and re-tune keywords
-PLAN_KEYWORDS = ("plan", "repo", "plan_hardware", "plan_parallel", "plan_band", "mesh",
-                 "fault_schedule", "health_window", "health_tolerance", "retune",
-                 "plan_lint")
 RECURRENT = ("ssm", "hybrid")      # families whose caches carry recurrent states
 
 
-def make_serve_step(cfg, *, backend: Optional[str] = None, mesh=None):
-    """serve_step(params, tokens (B,1), caches[, pos_offset (B,)]) ->
-    (next (B,1), caches)."""
-    if mesh is not None:
-        raise NotImplementedError(f"the sited decode path (mesh=) arrives with {SERVING_SLICE}")
+def _make_retune(binding, retune):
+    """Lower the engines' ``retune=`` kwarg to a ``core.retune``
+    ``RetuneService``: ``None``/``False`` off, ``True`` defaults, a dict
+    of service kwargs, or an already-built service."""
+    if not retune:
+        return None
+    from repro_torch.core.retune import RetuneService
 
+    if isinstance(retune, RetuneService):
+        return retune
+    opts = {} if retune is True else dict(retune)
+    return RetuneService(binding, **opts)
+
+
+def make_serve_step(cfg, *, backend: Optional[str] = None, mesh=None, shards=None):
+    """serve_step(params, tokens (B,1), caches[, pos_offset (B,)]) ->
+    (next (B,1), caches).  ``mesh`` opts the dense family into the sited
+    decode path (``serve.layer{i}.*``), with ``shards`` this rank's MLP
+    shards (``models.dense.shard_trunk``)."""
     def serve_step(params, tokens, caches, pos_offset=None):
         logits, caches = M.decode_step(cfg, params, tokens, caches, backend=backend,
-                                       pos_offset=pos_offset)
+                                       mesh=mesh, shards=shards, pos_offset=pos_offset)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], caches
     return serve_step
 
@@ -60,33 +84,130 @@ def _invalidate_pad_slots(caches, lens: torch.Tensor):
     return caches
 
 
-class Engine:
-    """Fixed-batch decode engine."""
+def check_equal_lengths(cfg, lens) -> None:
+    """The recurrent families need equal-length prompts in one prefill."""
+    if cfg.family in RECURRENT and len(set(lens)) > 1:
+        raise ValueError(f"{cfg.family} serving needs equal-length prompts "
+                         f"(a recurrent state absorbs right padding); got lengths "
+                         f"{sorted(set(lens))}")
 
-    def __init__(self, cfg, params, *, batch_size: int, max_seq: int,
-                 backend: Optional[str] = None, **plan_kw):
-        unknown = sorted(set(plan_kw) - set(PLAN_KEYWORDS))
-        if unknown:
-            raise TypeError(f"Engine got unexpected keyword arguments {unknown}")
-        given = sorted(k for k, v in plan_kw.items() if v is not None)
-        if given:
-            raise NotImplementedError(f"{given}: plans, fault-aware serving and online "
-                                      f"re-tuning arrive with {SERVING_SLICE}")
+
+class PlannedEngine:
+    """The plan surface both engines share: the ``PlanBinding``, the fault
+    and re-tune lifecycle, the mesh and this rank's MLP shards, and the
+    per-plan steps keyed on the plan digest."""
+
+    def _bind_plan(self, cfg, params, *, max_seq: int, backend, plan, repo,
+                   plan_hardware, plan_parallel, plan_band, mesh, fault_schedule,
+                   health_window, health_tolerance, retune, plan_lint) -> None:
         self.cfg = cfg
         self.params = params
-        self.batch = batch_size
         self.max_seq = max_seq
         self.backend = backend
         self.device = next(params.parameters()).device
-        self._step = make_serve_step(cfg, backend=backend)
-        # wall times of the last generate(): prefill, and each decode step
-        self.last_timing: Dict[str, object] = {}
+        self._binding = PlanBinding(cfg, plan=plan, repo=repo, hardware=plan_hardware,
+                                    parallel=plan_parallel, band=plan_band,
+                                    max_seq=max_seq, lint=plan_lint)
+        if fault_schedule is not None:
+            self._binding.attach_faults(fault_schedule, tolerance=health_tolerance,
+                                        window=health_window)
+        self.retune_service = _make_retune(self._binding, retune)
+        if mesh is None and self._binding.bound and cfg.family in ("dense", "moe", "vlm"):
+            mesh = make_mesh()
+        self.mesh = mesh
+        # this rank's MLP shards, made once (at mesh size 1: the weights themselves)
+        self._shards = (dense.shard_trunk(params.trunk, mesh)
+                        if mesh is not None and cfg.family == "dense" else None)
+        self._fns: Dict[tuple, Tuple[Callable, Callable]] = {}   # plan digest -> steps
+
+    # ------------------------------------------------------------------
+    def set_plan(self, plan) -> None:
+        """Hot-swap the tuned plan between batches (TunedPlan, path to its
+        JSON, runtime dict, or None to unpin)."""
+        self._binding.set_plan(plan)
+
+    @property
+    def plan_stats(self) -> Dict[str, int]:
+        return dict(self._binding.stats)
+
+    @property
+    def health_events(self) -> List[Dict]:
+        """Structured degradation log: drift detections, demotions (with
+        rollback status), re-tunes and band-widening events, in order."""
+        return list(self._binding.events)
+
+    def health_report(self) -> str:
+        return self._binding.health_report()
+
+    @property
+    def telemetry(self):
+        """The binding's live ``SiteTelemetry`` ring buffer (one row of
+        observed per-site costs per served batch)."""
+        return self._binding.telemetry
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _start(self, prompts: List[np.ndarray]):
+    def _compiled(self, rt) -> Tuple[Callable, Callable]:
+        """The (step, prefill) pair of plan ``rt``, kept per plan digest.
+        Each runs under ``rt``'s scope, where the sited trunk's sites
+        resolve their knobs."""
+        key = self._binding.digest(rt)
+        if key not in self._fns:
+            scope = self._binding.scope
+            serve_step = make_serve_step(self.cfg, backend=self.backend, mesh=self.mesh,
+                                         shards=self._shards)
+
+            def step(tokens, caches, pos_offset=None):
+                with scope(rt):
+                    return serve_step(self.params, tokens, caches, pos_offset)
+
+            def prefill(batch, caches):
+                with scope(rt):
+                    return M.forward_hidden(self.cfg, self.params, batch, caches,
+                                            backend=self.backend, mesh=self.mesh,
+                                            shards=self._shards)[1]
+
+            self._fns[key] = (step, prefill)
+        return self._fns[key]
+
+    def _after_step(self, dt: float) -> bool:
+        """Advance the health clock by one served batch; on drift, re-tune
+        online first and demote when the service declines (the swap
+        prepares the new plan's steps before it commits).  True when the
+        plan changed."""
+        drifted = self._binding.health_tick(dt)
+        if not drifted:
+            return False
+        retuned = (self.retune_service.handle(drifted)
+                   if self.retune_service is not None else None)
+        if retuned is None:
+            self._binding.demote(drifted, apply=self._compiled)
+        return True
+
+
+class Engine(PlannedEngine):
+    """Fixed-batch decode engine."""
+
+    def __init__(self, cfg, params, *, batch_size: int, max_seq: int,
+                 backend: Optional[str] = None, plan=None, repo=None,
+                 plan_hardware: str = "h100-sxm", plan_parallel=None,
+                 plan_band: float = DEFAULT_BAND, mesh=None,
+                 fault_schedule=None, health_window: int = 3,
+                 health_tolerance: float = 0.25, retune=None,
+                 plan_lint: str = "error"):
+        self.batch = batch_size
+        self._bind_plan(cfg, params, max_seq=max_seq, backend=backend, plan=plan,
+                        repo=repo, plan_hardware=plan_hardware,
+                        plan_parallel=plan_parallel, plan_band=plan_band, mesh=mesh,
+                        fault_schedule=fault_schedule, health_window=health_window,
+                        health_tolerance=health_tolerance, retune=retune,
+                        plan_lint=plan_lint)
+        # wall times of the last generate(): prefill, and each decode step
+        self.last_timing: Dict[str, object] = {}
+
+    def _start(self, prompts: List[np.ndarray], prefill):
         """Right-pad and prefill the prompts; returns (caches, first decode
         input (B,1), per-row position offsets (B,))."""
         if len(prompts) != self.batch:
@@ -94,15 +215,13 @@ class Engine:
         plen = max(len(p) for p in prompts)
         toks = np.zeros((self.batch, plen), np.int64)
         lens = np.asarray([len(p) for p in prompts], np.int64)
-        if self.cfg.family in RECURRENT and len(set(lens.tolist())) > 1:
-            raise ValueError(f"{self.cfg.family} serving needs equal-length prompts "
-                             f"(a recurrent state absorbs right padding); got lengths "
-                             f"{sorted(set(lens.tolist()))}")
+        check_equal_lengths(self.cfg, lens.tolist())
         for i, p in enumerate(prompts):    # right-pad; causal mask + per-row
             toks[i, :len(p)] = p           # slot_pos invalidation keep pads out
         caches = M.init_caches(self.cfg, self.batch, self.max_seq, device=self.device)
-        batch = {"tokens": torch.as_tensor(toks, device=self.device)}
-        caches = self._prefill_ragged(batch, caches, lens)
+        caches = prefill({"tokens": torch.as_tensor(toks, device=self.device)}, caches)
+        if self.cfg.family not in RECURRENT:    # equal lengths: no pad slot to mark
+            _invalidate_pad_slots(caches, torch.as_tensor(lens, device=self.device))
         # decode each row from its true last token; the shared position
         # counter sits at plen, so subtract each row's pad gap.
         cur = torch.as_tensor(toks[np.arange(self.batch), lens - 1][:, None],
@@ -110,59 +229,64 @@ class Engine:
         offs = torch.as_tensor(plen - lens, device=self.device)
         return caches, cur, offs
 
-    def _prefill_ragged(self, batch, caches, lens: np.ndarray):
-        caches = M.forward_hidden(self.cfg, self.params, batch, caches,
-                                  backend=self.backend)[1]
-        if self.cfg.family in RECURRENT:    # equal lengths: no pad slot to mark
-            return caches
-        return _invalidate_pad_slots(caches, torch.as_tensor(lens, device=self.device))
-
     # ------------------------------------------------------------------
     def generate(self, prompts: List[np.ndarray], *, max_new: int = 32) -> List[List[int]]:
+        rt = self._binding.resolve(self.batch)
+        step, prefill = self._compiled(rt)
         with torch.inference_mode():
             t0 = time.perf_counter()
-            caches, cur, offs = self._start(prompts)
+            caches, cur, offs = self._start(prompts, prefill)
             self._sync()
             prefill_s = time.perf_counter() - t0
             outs: List[List[int]] = [[] for _ in range(self.batch)]
             steps = []
             for _ in range(max_new):
                 t0 = time.perf_counter()
-                cur, caches = self._step(self.params, cur, caches, offs)
+                cur, caches = step(cur, caches, offs)
                 row = cur[:, 0].tolist()             # device sync
-                steps.append(time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                steps.append(dt)
                 for i, t in enumerate(row):
                     outs[i].append(int(t))
+                if self._after_step(dt):
+                    step, _ = self._compiled(self._binding.current)
         self.last_timing = {"prefill_s": prefill_s, "decode_s": steps}
         return outs
 
     def teacher_forced_logits(self, prompts: List[np.ndarray],
                               tokens: List[List[int]]) -> torch.Tensor:
         """The logits of ``generate``'s decode steps with the emitted tokens
-        forced to ``tokens``: (B, T, vocab), fp32.  Step j's logits are the
-        ones whose argmax ``generate`` emits as token j."""
+        forced to ``tokens``: (B, T, vocab), fp32, under the engine's
+        current plan.  Step j's logits are the ones whose argmax
+        ``generate`` emits as token j."""
         forced = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
+        rt = self._binding.current
+        _, prefill = self._compiled(rt)
         out = []
         with torch.inference_mode():
-            caches, cur, offs = self._start(prompts)
-            for j in range(forced.shape[1]):
-                logits, caches = M.decode_step(self.cfg, self.params, cur, caches,
-                                               backend=self.backend, pos_offset=offs)
-                out.append(logits[:, -1].float())
-                cur = forced[:, j:j + 1]
+            caches, cur, offs = self._start(prompts, prefill)
+            with self._binding.scope(rt):
+                for j in range(forced.shape[1]):
+                    logits, caches = M.decode_step(self.cfg, self.params, cur, caches,
+                                                   backend=self.backend, mesh=self.mesh,
+                                                   shards=self._shards, pos_offset=offs)
+                    out.append(logits[:, -1].float())
+                    cur = forced[:, j:j + 1]
         return torch.stack(out, dim=1)
 
     # ------------------------------------------------------------------
     def throughput_probe(self, *, steps: int = 8) -> Dict[str, float]:
+        rt = self._binding.resolve(self.batch)
+        step, _ = self._compiled(rt)
         with torch.inference_mode():
             caches = M.init_caches(self.cfg, self.batch, self.max_seq, device=self.device)
             cur = torch.zeros((self.batch, 1), dtype=torch.int64, device=self.device)
             offs = torch.zeros((self.batch,), dtype=torch.int64, device=self.device)
-            cur, caches = self._step(self.params, cur, caches, offs)   # warm-up
+            cur, caches = step(cur, caches, offs)   # warm-up
             self._sync()
             t0 = time.perf_counter()
             for _ in range(steps):
-                cur, caches = self._step(self.params, cur, caches, offs)
+                cur, caches = step(cur, caches, offs)
             self._sync()
         dt = (time.perf_counter() - t0) / steps
         return {"s_per_token": dt, "tokens_per_s": self.batch / dt}

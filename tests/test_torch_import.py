@@ -36,7 +36,10 @@ def test_import_loads_no_jax_and_builds_nothing():
                 "repro_torch.serving.engine", "repro_torch.launch.serve",
                 "repro_torch.convert", "repro_torch.core.session",
                 "repro_torch.core.apply", "repro_torch.parallel.collectives",
-                "repro_torch.analysis.lint", "repro_torch.configs.shapes"):
+                "repro_torch.analysis.lint", "repro_torch.configs.shapes",
+                "repro_torch.launch.mesh", "repro_torch.launch.plan",
+                "repro_torch.serving.continuous", "repro_torch.serving.plans",
+                "repro_torch.serving.health", "repro_torch.serving.telemetry"):
         assert mod in got["modules"]
 
 

@@ -83,11 +83,11 @@ def test_port_engine_matches_jax_engine(setup):
 
 def test_engine_surface(setup):
     cfg, _, model, prompts = setup
-    assert available_engines() == ["fixed"]
+    assert available_engines() == ["continuous", "fixed"]
     with pytest.raises(KeyError, match="continuous"):
-        make_engine(cfg, model, mode="continuous", slots=2, max_seq=MAX_SEQ)
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_engine(cfg, model, batch_size=2, max_seq=MAX_SEQ, plan="plan.json")
+        make_engine(cfg, model, mode="nope", slots=2, max_seq=MAX_SEQ)
+    with pytest.raises(FileNotFoundError):
+        make_engine(cfg, model, batch_size=2, max_seq=MAX_SEQ, plan="no-such-plan.json")
     with pytest.raises(TypeError):
         make_engine(cfg, model, batch_size=2, max_seq=MAX_SEQ, no_such_option=1)
     eng = make_engine(cfg, model, batch_size=2, max_seq=MAX_SEQ, backend="ref")
