@@ -30,7 +30,14 @@ Phases, each of which exits non-zero on a failed check:
      3.35 TB/s or operations over the peak rate of their type, whichever is
      larger; the fp32 products of flash and of SSD's chunked kernel are
      fp32-exact on the tensor cores as 3 TF32 products at 495 TFLOP/s, and
-     their bound on the CUDA cores' 67 TFLOP/s is printed beside it);
+     their bound on the CUDA cores' 67 TFLOP/s is printed beside it); and
+     the two backward kernels, which the TPU kernels do not have (RMSNorm's
+     and flash attention's, with ptxas's report of the latter), against
+     autograd of the plain versions in fp64 on the card, timed at
+     llama3-8b's training shapes (8192 x 4096 rows; B = 4, S = 2048) beside
+     the plain versions' backward, a library call's backward (autograd of
+     ``F.rms_norm``; SDPA's efficient backend, forward and backward less
+     forward) and their bounds (bytes; five products at 67 TFLOP/s);
   4. serving, one model at a time, each freed before the next: ``llama3-8b``
      (eight ragged prompts of 384-512 tokens), ``zamba2-7b`` and
      ``rwkv6-1.6b`` (eight prompts of 512 tokens: the recurrent families need
@@ -56,8 +63,8 @@ Phases, each of which exits non-zero on a failed check:
      tp:8 workload's GEMM shapes, its achieved share of the 989.4 TFLOP/s
      peak printed beside the h100-sxm profile's ``gemm_eff``.
   7. plans drive the collectives, on phase 4's llama3-8b weights before
-     they are freed: a 1-rank NCCL process group from a ``FileStore`` (a
-     failed init fails the run); ``ring_ag_matmul``,
+     they are freed, over a 1-rank NCCL process group (a failed init fails
+     the run); ``ring_ag_matmul``,
      ``mm_reduce_scatter``, ``chunked_all_to_all`` and
      ``psum_tree_chunked`` at llama3-8b's MLP shapes (4096 rows, d_model
      4096, d_ff 14336) with 1, 2 and 4 chunks over it, each against its
@@ -71,14 +78,33 @@ Phases, each of which exits non-zero on a failed check:
      1e-4), whether the tokens are equal, the issued structure by site
      and the ``CollectiveDegradedWarning`` count; the kernels' launches
      are counted on each planned batch.
+  8. training: llama3-8b at full width and 4 layers (fp32 AdamW keeps
+     16 B a parameter: 128 GB at 32 layers), fp32, batch 4 x seq 2048 from
+     the port's ``SyntheticCorpus``, remat, ``warmup_cosine``: three steps
+     each of plain, ``grad_accum=2``, ``microbatches=2`` and ACCO
+     (``grad_accum=2`` over the 1-rank NCCL group, under a plan the port
+     tunes for fsdp:8 with two accumulation steps on h100-sxm; only its
+     ``acc.step{k}.rs_grads`` sites issue): step time, tokens/s, MFU
+     against the fp32 and the bf16 peak, peak memory, loss and grad_norm,
+     and the kernels' launches, which must equal the counts from the code
+     (forward, remat recompute, backward); every parameter must move; a
+     profiler trace of one plain step by kernel class; then, at 2 layers,
+     B = 1, S = 512, one step through the kernels, one through
+     ``backend="ref"`` and one through the sited trunk on the 1-rank group
+     under that plan, each held to the first: updated parameters within
+     1e-4, AdamW's ``mu`` within 1e-4 of its max per parameter, loss and
+     grad_norm within 1e-5 relative.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
-Then it prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}``
-line, one ``{"kernels": [...]}`` line and, last, the device line.
+Phases 7 and 8 share one 1-rank NCCL group from a ``FileStore``.  Then it
+prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
+``{"train": ...}`` line, one ``{"kernels": [...]}`` line and, last, the
+device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -138,7 +164,11 @@ WKV6_EXACT_RTOL = 2e-5                    # WKV6 against its step oracle in fp64
                                           # SSD_EXACT_RTOL: its exponents are sums over
                                           # the rows they span
 SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, cut depth, fp32
-NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bwd": 0,
+               "flash_attention_bwd": 0}
+# the backward kernels against autograd of their plain versions in fp64 on
+# the card, relative to max|g| (RMSNorm per gradient; flash over dq, dk, dv)
+RMS_GRAD_BOUND, FLASH_GRAD_BOUND, HALF_GRAD_BOUND = 1e-5, 1e-4, 2e-2
 
 # phase 6: llama3-8b's workloads (Lagom's Table 2 model; fsdp:8 at this shape
 # is the reference's examples/quickstart.py workload)
@@ -379,6 +409,203 @@ def flash_timed(gen, B, S, Hq, Hkv, h) -> dict:
             "library_backend": SDPA_BACKEND, "library_max_abs_err": err_lib,
             "case": {"shape": [B, S, Hq, Hkv, h], "causal": True, "dtype": "float32",
                      "max_abs_err": err, "bound": FLASH_BOUND}}
+
+
+# the backward kernels (phase 3): each against autograd of its plain version,
+# timed at llama3-8b's training shapes (phase 8: B = 4, S = 2048)
+TRAIN_B, TRAIN_S = 4, 2048
+
+
+def grads_of(fn, inputs, dout):
+    """Autograd's gradients of ``fn(*inputs)`` for the output gradient
+    ``dout``, on leaf copies of ``inputs``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, dout.to(out.dtype))
+
+
+def backward_ms(fn, inputs, dout, **kw) -> float:
+    """The backward's share of ``fn``: forward and backward by autograd,
+    less the forward alone (the yardstick for a plain version or a library
+    call, whose backward cannot be called alone)."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    both = time_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, dout), **kw)
+    fwd = time_ms(lambda: fn(*leaves), **kw)
+    return both - fwd
+
+
+def rmsnorm_bwd_phase(gen) -> dict:
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    cases = []
+    for shape, dtype in (((8, 4096), torch.float32), ((4096, 4096), torch.float32),
+                         ((300, 4096), torch.bfloat16), ((2, 7, 128), torch.bfloat16)):
+        x, dy = randn(shape, dtype, gen), randn(shape, dtype, gen)
+        scale = torch.linspace(0.5, 1.5, shape[-1], device="cuda")
+        got = grads_of(lambda a, b: ops.rmsnorm(a, b, backend="cuda"), (x, scale), dy)
+        want = grads_of(ref.rmsnorm_ref, (x.double(), scale.double()), dy.double())
+        torch.cuda.synchronize()
+        bnd = RMS_GRAD_BOUND if dtype == torch.float32 else HALF_GRAD_BOUND
+        errs = [(g.double() - w).abs().max().item() for g, w in zip(got, want)]
+        rel = max(e / w.abs().max().item() for e, w in zip(errs, want))
+        check(rel <= bnd, f"rmsnorm backward {shape} {dtype}: err {rel} of max|g| > {bnd}")
+        cases.append({"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                      "max_abs_err": max(errs), "err_of_max_g": rel, "bound": bnd})
+        say(f"rmsnorm backward {tuple(shape)} {dtype}: max abs err {max(errs):.3e}, "
+            f"{rel:.3e} of max|g| (bound {bnd}) against autograd of the plain version "
+            f"in fp64")
+
+    rows, D = TRAIN_B * TRAIN_S, 4096          # llama3-8b's training rows of d_model
+    x, dy = randn((rows, D), torch.float32, gen), randn((rows, D), torch.float32, gen)
+    scale = torch.linspace(0.5, 1.5, D, device="cuda")
+    got = rmsnorm_bwd_cuda(x, scale, dy)       # the call timed below, held first
+    want = grads_of(ref.rmsnorm_ref, (x.double(), scale.double()), dy.double())
+    errs = [(g.double() - w).abs().max().item() for g, w in zip(got, want)]
+    rel = max(e / w.abs().max().item() for e, w in zip(errs, want))
+    check(rel <= RMS_GRAD_BOUND, f"rmsnorm backward ({rows}, {D}): err {rel} of max|g| "
+                                 f"> {RMS_GRAD_BOUND}")
+    cases.append({"shape": [rows, D], "dtype": "float32", "max_abs_err": max(errs),
+                  "err_of_max_g": rel, "bound": RMS_GRAD_BOUND, "timed": True})
+    say(f"rmsnorm backward ({rows}, {D}) fp32, the timed call: max abs err "
+        f"{max(errs):.3e}, {rel:.3e} of max|g| (bound {RMS_GRAD_BOUND}) against autograd "
+        f"of the plain version in fp64")
+    del got, want
+    ms = time_ms(lambda: rmsnorm_bwd_cuda(x, scale, dy))
+    plain = backward_ms(ref.rmsnorm_ref, (x, scale), dy)
+    lib = backward_ms(lambda a, b: torch.nn.functional.rms_norm(a, (D,), b, 1e-5),
+                      (x, scale), dy)
+    b_ms, b_by = bound_ms(4 * (3 * rows * D + 2 * D), 8 * rows * D, torch.float32)
+    say(f"rmsnorm backward ({rows}, {D}) fp32: {ms:.4f} ms; plain (autograd) {plain:.4f} "
+        f"ms; F.rms_norm's backward {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "rmsnorm_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": [rows, D],
+            "dtype": "float32",
+            "max_abs_err": max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
+            "bound": RMS_GRAD_BOUND, "bound_of": "max|g|", "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib, "library": "autograd of F.rms_norm",
+            "cases": cases}
+
+
+def flash_bwd_phase(gen) -> dict:
+    from repro_torch.kernels.flash import flash_attention_bwd_cuda, flash_attention_cuda
+
+    cases = []
+    for B, S, Hq, Hkv, h, causal in ((2, 512, 32, 8, 128, True), (2, 512, 32, 8, 128, False),
+                                     (2, 300, 32, 8, 128, True), (1, 200, 8, 8, 112, True)):
+        q, do = randn((B, S, Hq, h), torch.float32, gen), randn((B, S, Hq, h), torch.float32, gen)
+        k, v = randn((B, S, Hkv, h), torch.float32, gen), randn((B, S, Hkv, h), torch.float32, gen)
+        got = grads_of(lambda *a: ops.flash_attention(*a, causal=causal, backend="cuda"),
+                       (q, k, v), do)
+        want = grads_of(lambda *a: ref.flash_attention_ref(*a, causal=causal),
+                        (q.double(), k.double(), v.double()), do.double())
+        torch.cuda.synchronize()
+        gmax = max(w.abs().max().item() for w in want)
+        err = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
+        check(all(bool(torch.isfinite(g).all()) for g in got), "flash backward: non-finite")
+        check(err <= FLASH_GRAD_BOUND * gmax, f"flash backward B={B} S={S} h={h} "
+              f"causal={causal}: err {err} > {FLASH_GRAD_BOUND} x max|g| {gmax}")
+        cases.append({"shape": [B, S, Hq, Hkv, h], "causal": causal, "dtype": "float32",
+                      "max_abs_err": err, "err_of_max_g": err / gmax,
+                      "bound": FLASH_GRAD_BOUND})
+        say(f"flash backward B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal={causal} fp32: "
+            f"max abs err {err:.3e}, {err / gmax:.3e} of max|g| (bound {FLASH_GRAD_BOUND}) "
+            f"against autograd of the plain version in fp64")
+
+    B, S, Hq, Hkv, h = TRAIN_B, TRAIN_S, 32, 8, 128     # llama3-8b's training shape
+    q, do = randn((B, S, Hq, h), torch.float32, gen), randn((B, S, Hq, h), torch.float32, gen)
+    k, v = randn((B, S, Hkv, h), torch.float32, gen), randn((B, S, Hkv, h), torch.float32, gen)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    held = flash_train_shape_errs(q, k, v, do, o, lse,
+                                  flash_attention_bwd_cuda(q, k, v, o, lse, do))
+    cases.append({"shape": [B, S, Hq, Hkv, h], "causal": True, "dtype": "float32",
+                  "max_abs_err": held["grad_err"], "err_of_max_g": held["grad_err_of_max_g"],
+                  "bound": FLASH_GRAD_BOUND, "timed": True,
+                  "o_max_abs_err": held["o_err"], "lse_max_abs_err": held["lse_err"]})
+    ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do), samples=10,
+                 per_sample=2)
+    plain = backward_ms(lambda *a: ref.flash_attention_ref(*a, causal=True), (q, k, v), do,
+                        samples=5, per_sample=1)
+    G = Hq // Hkv
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in
+                       (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2), do))
+    lib = backward_ms(lambda *a: sdpa_efficient(*a, True), (qt, kt, vt), dot, samples=10,
+                      per_sample=2)
+    pairs = causal_pairs(S, S) * B * Hq
+    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())   # q o dO dq, k v dk dv
+    # the least time: five products, fp32-exact at the card's 3xTF32 rate (as
+    # the forward is bounded); the kernel's own route, the fp32 CUDA cores,
+    # is printed beside it
+    b_ms, b_by = bound_ms(nbytes, 5 * 2 * h * pairs, FP32_AS_3XTF32)
+    b_cores, by_cores = bound_ms(nbytes, 5 * 2 * h * pairs, torch.float32)
+    say(f"flash backward B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal fp32: {ms:.4f} ms; "
+        f"plain (autograd) {plain:.4f} ms; sdpa[{SDPA_BACKEND}] backward {lib:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}, five products as 3xTF32 on the tensor cores; "
+        f"{b_ms / ms:.1%} of it reached); on the fp32 CUDA cores it would be "
+        f"{b_cores:.4f} ms ({by_cores}; {b_cores / ms:.1%} of it reached)")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": "src/repro/kernels/flash.py:65", "shape": [B, S, Hq, Hkv, h],
+            "dtype": "float32", "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "bound": FLASH_GRAD_BOUND, "bound_of": "max|g| over dq, dk, dv", "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_fp32_cores": b_cores, "library_ms": lib,
+            "library": f"sdpa[{SDPA_BACKEND}] forward+backward less forward",
+            "cases": cases}
+
+
+def flash_train_shape_errs(q, k, v, do, o, lse, grads) -> dict:
+    """The forward's o and lse and the backward's (dq, dk, dv) at the
+    training shape, each against the plain version in fp64 (autograd of it
+    for the gradients), one batch element at a time (each one's fp64 scores
+    take 1 GB).  Fails the run past FLASH_BOUND (o, lse) or FLASH_GRAD_BOUND
+    of max|g| over dq, dk and dv."""
+    B, S, Hq, h = q.shape
+    G = Hq // k.shape[2]
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+    o_err = lse_err = g_err = g_max = 0.0
+    for b in range(B):
+        leaves = [t[b:b + 1].double().requires_grad_() for t in (q, k, v)]
+        ob = ref.flash_attention_ref(*leaves, causal=True)
+        want = torch.autograd.grad(ob, leaves, do[b:b + 1].double())
+        o_err = max(o_err, (o[b:b + 1].double() - ob.detach()).abs().max().item())
+        g_err = max(g_err, max((g[b:b + 1].double() - w).abs().max().item()
+                               for g, w in zip(grads, want)))
+        g_max = max(g_max, max(w.abs().max().item() for w in want))
+        del leaves, ob, want
+        sc = torch.einsum("qhd,shd->hqs", q[b].double(),
+                          k[b].double().repeat_interleave(G, dim=1)) / h ** 0.5
+        lse_ref = torch.logsumexp(sc.masked_fill_(mask, ref.NEG_INF), dim=-1)
+        lse_err = max(lse_err, (lse[b].double() - lse_ref).abs().max().item())
+        del sc, lse_ref
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in grads), "flash backward: non-finite")
+    check(o_err <= FLASH_BOUND and lse_err <= FLASH_BOUND,
+          f"flash at the training shape: o err {o_err}, lse err {lse_err} > {FLASH_BOUND}")
+    check(g_err <= FLASH_GRAD_BOUND * g_max, f"flash backward at the training shape: "
+          f"err {g_err} > {FLASH_GRAD_BOUND} x max|g| {g_max}")
+    say(f"flash at the training shape {tuple(q.shape)} / {tuple(k.shape)} causal fp32, the "
+        f"timed calls: o max abs err {o_err:.3e}, lse {lse_err:.3e} (bound {FLASH_BOUND}); "
+        f"dq, dk, dv max abs err {g_err:.3e}, {g_err / g_max:.3e} of max|g| (bound "
+        f"{FLASH_GRAD_BOUND}) against the plain version in fp64")
+    return {"o_err": o_err, "lse_err": lse_err, "grad_err": g_err,
+            "grad_err_of_max_g": g_err / g_max}
+
+
+def flash_bwd_build_report() -> dict:
+    """What ptxas reports for the fp32 backward kernels at h = 112 and 128
+    (registers, spills), printed and kept beside the phase's numbers."""
+    report = {}
+    for entry in ptxas_report("flash_bwd.cu"):
+        m = re.search(r"flash_bwd_(dkdv|dq)_kernelIfLi(\d+)E", entry["kernel"])
+        if not m or int(m.group(2)) not in (112, 128):
+            continue
+        name = f"{m.group(1)} <fp32, {m.group(2)}>"
+        report[name] = {k: v for k, v in entry.items() if k != "kernel"}
+        say(f"ptxas flash backward {name}: {entry['registers']} registers, "
+            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads")
+    check(len(report) == 4, f"ptxas reported the backward kernels {sorted(report)}")
+    return report
 
 
 def ptxas_report(source: str) -> list:
@@ -1148,90 +1375,324 @@ def issued_summary(rows) -> dict:
     return {k: dict(v, sites=len(v["sites"])) for k, v in sorted(out.items())}
 
 
-def plan_serving_phase(cfg, model, prompts, card: str) -> dict:
-    """Phase 7: llama3-8b at full size on a 1-rank NCCL mesh under plan (a),
+def plan_serving_phase(cfg, model, prompts, card: str, mesh) -> dict:
+    """Phase 7: llama3-8b at full size on the 1-rank NCCL mesh under plan (a),
     tuned by the port for tp:8 decode on h100-sxm, and plan (b), beside the
     unplanned engine, in turns (none, a, b, b, a, none)."""
-    import torch.distributed as dist
-
-    with tempfile.TemporaryDirectory() as tmp:
-        mesh = nccl_mesh(tmp)
-        try:
-            helpers = collective_helpers_phase(cfg, mesh, card)
-            wl = extract_decode_workload(cfg, parse_parallel("tp:8"), global_batch=BATCH,
-                                         seq=MAX_SEQ)
-            plans = {"a": tune(wl, "h100-sxm", method="lagom"),
-                     "b": {k: collectives.CollectiveRuntime(*v) for k, v in PLAN_B.items()}}
-            engines = {"none": make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ)}
-            for name, plan in plans.items():
-                engines[name] = make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ,
-                                            plan=plan, mesh=mesh)
-            for e in engines.values():
-                e.generate(prompts, max_new=2)          # warm-up
-            times = {name: [] for name in engines}
-            record = {}
-            for name in ("none", "a", "b", "b", "a", "none"):
-                engine = engines[name]
-                collectives.reset_degraded_warnings()
-                ops.reset_launches()
-                with warnings.catch_warnings(record=True) as ws, \
-                        collectives.record_issued() as issued:
-                    warnings.simplefilter("always")
-                    outs = engine.generate(prompts, max_new=MAX_NEW)
-                launches = dict(ops.LAUNCHES)
-                t = engine.last_timing
-                times[name].append((t["prefill_s"] * 1e3,
-                                    statistics.median(t["decode_s"]) * 1e3))
-                if name not in record:
-                    degraded = sum(issubclass(w.category, collectives.CollectiveDegradedWarning)
-                                   for w in ws)
-                    record[name] = {"outs": outs, "launches": launches, "degraded": degraded,
-                                    "issued": issued_summary(issued), "rows": issued}
-            base = record["none"]["outs"]
-            check_outputs(base, cfg.vocab_size, "plan serving, unplanned")
-            forced = {name: e.teacher_forced_logits(prompts, base)
-                      for name, e in engines.items()}
-            want = expected_launches(cfg)
-            out = {"helpers": helpers, "plans": {}, "card": card,
-                   "unplanned": {"prefill_ms": [p for p, _ in times["none"]],
-                                 "decode_ms": [d for _, d in times["none"]]}}
-            say(f"plan serving: unplanned engine: prefill {times['none'][0][0]:.1f} / "
-                f"{times['none'][1][0]:.1f} ms, decode {times['none'][0][1]:.2f} / "
-                f"{times['none'][1][1]:.2f} ms/token (first / last turn) ({card})")
-            for name in plans:
-                r = record[name]
-                err = (forced[name] - forced["none"]).abs().max().item()
-                same = r["outs"] == base
-                layers01 = sorted({(row.site, row.num_chunks) for row in r["rows"]
-                                   if row.site.startswith(("serve.layer0.", "serve.layer1."))})
-                say(f"plan serving: plan ({name}): prefill {times[name][0][0]:.1f} / "
-                    f"{times[name][1][0]:.1f} ms, decode {times[name][0][1]:.2f} / "
-                    f"{times[name][1][1]:.2f} ms/token (unplanned {times['none'][0][0]:.1f}, "
-                    f"{times['none'][0][1]:.2f}); teacher-forced logits max abs diff from "
-                    f"unplanned {err:.3e} (bound {PLAN_SERVE_BOUND}); tokens equal: {same}; "
-                    f"CollectiveDegradedWarnings {r['degraded']}; launches {r['launches']} "
-                    f"({card})")
-                say(f"plan serving: plan ({name}) issued {r['issued']}; layers 0-1 "
-                    f"(site, chunks) {layers01}")
-                check(r["launches"] == want,
-                      f"plan ({name}): launches {r['launches']}, expected {want}")
-                check(bool(torch.isfinite(forced[name]).all()), f"plan ({name}): non-finite")
-                check(err <= PLAN_SERVE_BOUND,
-                      f"plan ({name}): logits differ by {err} > {PLAN_SERVE_BOUND}")
-                check(r["issued"], f"plan ({name}): no collective helper ran")
-                out["plans"][name] = {
-                    "prefill_ms": [p for p, _ in times[name]],
-                    "decode_ms": [d for _, d in times[name]], "max_abs_logit_diff": err,
-                    "tokens_equal": same, "degraded_warnings": r["degraded"],
-                    "launches": r["launches"], "issued": r["issued"], "layers01": layers01}
-            check(dict(out["plans"]["b"]["layers01"])["serve.layer1.mlp.ag"] == 4
-                  and dict(out["plans"]["b"]["layers01"])["serve.layer0.mlp.ag"] == 2,
-                  "plan (b) did not chunk layers 0 and 1 as it says")
-            del engines, forced
-        finally:
-            dist.destroy_process_group()
+    helpers = collective_helpers_phase(cfg, mesh, card)
+    wl = extract_decode_workload(cfg, parse_parallel("tp:8"), global_batch=BATCH,
+                                 seq=MAX_SEQ)
+    plans = {"a": tune(wl, "h100-sxm", method="lagom"),
+             "b": {k: collectives.CollectiveRuntime(*v) for k, v in PLAN_B.items()}}
+    engines = {"none": make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ)}
+    for name, plan in plans.items():
+        engines[name] = make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ,
+                                    plan=plan, mesh=mesh)
+    for e in engines.values():
+        e.generate(prompts, max_new=2)          # warm-up
+    times = {name: [] for name in engines}
+    record = {}
+    for name in ("none", "a", "b", "b", "a", "none"):
+        engine = engines[name]
+        collectives.reset_degraded_warnings()
+        ops.reset_launches()
+        with warnings.catch_warnings(record=True) as ws, \
+                collectives.record_issued() as issued:
+            warnings.simplefilter("always")
+            outs = engine.generate(prompts, max_new=MAX_NEW)
+        launches = dict(ops.LAUNCHES)
+        t = engine.last_timing
+        times[name].append((t["prefill_s"] * 1e3,
+                            statistics.median(t["decode_s"]) * 1e3))
+        if name not in record:
+            degraded = sum(issubclass(w.category, collectives.CollectiveDegradedWarning)
+                           for w in ws)
+            record[name] = {"outs": outs, "launches": launches, "degraded": degraded,
+                            "issued": issued_summary(issued), "rows": issued}
+    base = record["none"]["outs"]
+    check_outputs(base, cfg.vocab_size, "plan serving, unplanned")
+    forced = {name: e.teacher_forced_logits(prompts, base)
+              for name, e in engines.items()}
+    want = expected_launches(cfg)
+    out = {"helpers": helpers, "plans": {}, "card": card,
+           "unplanned": {"prefill_ms": [p for p, _ in times["none"]],
+                         "decode_ms": [d for _, d in times["none"]]}}
+    say(f"plan serving: unplanned engine: prefill {times['none'][0][0]:.1f} / "
+        f"{times['none'][1][0]:.1f} ms, decode {times['none'][0][1]:.2f} / "
+        f"{times['none'][1][1]:.2f} ms/token (first / last turn) ({card})")
+    for name in plans:
+        r = record[name]
+        err = (forced[name] - forced["none"]).abs().max().item()
+        same = r["outs"] == base
+        layers01 = sorted({(row.site, row.num_chunks) for row in r["rows"]
+                           if row.site.startswith(("serve.layer0.", "serve.layer1."))})
+        say(f"plan serving: plan ({name}): prefill {times[name][0][0]:.1f} / "
+            f"{times[name][1][0]:.1f} ms, decode {times[name][0][1]:.2f} / "
+            f"{times[name][1][1]:.2f} ms/token (unplanned {times['none'][0][0]:.1f}, "
+            f"{times['none'][0][1]:.2f}); teacher-forced logits max abs diff from "
+            f"unplanned {err:.3e} (bound {PLAN_SERVE_BOUND}); tokens equal: {same}; "
+            f"CollectiveDegradedWarnings {r['degraded']}; launches {r['launches']} "
+            f"({card})")
+        say(f"plan serving: plan ({name}) issued {r['issued']}; layers 0-1 "
+            f"(site, chunks) {layers01}")
+        check(r["launches"] == want,
+              f"plan ({name}): launches {r['launches']}, expected {want}")
+        check(bool(torch.isfinite(forced[name]).all()), f"plan ({name}): non-finite")
+        check(err <= PLAN_SERVE_BOUND,
+              f"plan ({name}): logits differ by {err} > {PLAN_SERVE_BOUND}")
+        check(r["issued"], f"plan ({name}): no collective helper ran")
+        out["plans"][name] = {
+            "prefill_ms": [p for p, _ in times[name]],
+            "decode_ms": [d for _, d in times[name]], "max_abs_logit_diff": err,
+            "tokens_equal": same, "degraded_warnings": r["degraded"],
+            "launches": r["launches"], "issued": r["issued"], "layers01": layers01}
+    check(dict(out["plans"]["b"]["layers01"])["serve.layer1.mlp.ag"] == 4
+          and dict(out["plans"]["b"]["layers01"])["serve.layer0.mlp.ag"] == 2,
+          "plan (b) did not chunk layers 0 and 1 as it says")
+    del engines, forced
     free()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training (llama3-8b at full width, 4 layers)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4         # fp32 AdamW keeps 16 B a parameter: 128 GB at 32 layers
+TRAIN_STEPS = 3
+TRAIN_MODES = {"plain": {}, "grad_accum=2": dict(grad_accum=2),
+               "microbatches=2": dict(microbatches=2), "acco": dict(grad_accum=2)}
+TRAIN_OPT = dict(lr=3e-5)   # a fresh AdamW state per mode: its first steps move every
+                            # weight by about lr
+# one step through the kernels against backend="ref" and against the sited
+# trunk, fp32: updated parameters (abs), AdamW's mu (of its max per
+# parameter: mu is 0.1 x the clipped gradient after one step, as the CPU
+# tests bound gradients), loss and grad_norm (relative, as the CPU step tests)
+PARITY_TRAIN = dict(layers=2, B=1, S=512, bound=1e-4, mu_bound=1e-4, rel_bound=1e-5)
+# Adam's first step is sign(g) where |g| >> eps: a near-zero gradient element
+# whose sign is rounding noise flips its update by 2 lr.  The parity step uses
+# eps = 1e-3, which bounds the update's sensitivity to a gradient error by lr/eps.
+PARITY_OPT = dict(lr=3e-4, eps=1e-3)
+
+
+def expected_train_launches(cfg, passes: int) -> dict:
+    """Each kernel's launches in one train step of ``passes`` forward and
+    backward passes with per-layer remat: a layer's ln1, ln2 and flash run
+    in the forward and again in its recompute, ln_f once; each backward
+    pass runs each once."""
+    L = cfg.num_layers
+    return dict(NO_LAUNCHES, rmsnorm=passes * (4 * L + 1), rmsnorm_bwd=passes * (2 * L + 1),
+                flash_attention=passes * 2 * L, flash_attention_bwd=passes * L)
+
+
+def train_ms_by_class(run) -> dict:
+    """Device time of one call of ``run`` by kernel class, from a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "rmsnorm_fwd": 0.0,
+           "rmsnorm_bwd": 0.0, "nccl": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        kind = ("flash_bwd" if "flash_bwd_" in name else
+                "flash_fwd" if "flash_fwd_kernel" in name else
+                "rmsnorm_bwd" if ("rmsnorm_bwd_kernel" in name or "rmsnorm_dscale" in name) else
+                "rmsnorm_fwd" if "rmsnorm_kernel" in name else
+                "nccl" if "nccl" in name else
+                "gemm" if ("gemm" in name or "gemv" in name) else "other")
+        out[kind] += ev.self_device_time_total / 1e3
+    return out
+
+
+def param_sums(model) -> dict:
+    """Each parameter's sum in fp64: what shows that every parameter moved."""
+    return {n: p.detach().double().sum().item() for n, p in model.named_parameters()}
+
+
+def train_phase(card: str, mesh) -> dict:
+    """Phase 8: llama3-8b at full width and 4 layers, fp32, trained for
+    three steps in each mode from the port's SyntheticCorpus (batch 4 x seq
+    2048, remat, warmup_cosine), ACCO's gradient sync over the 1-rank NCCL
+    mesh under a plan the port tunes for fsdp:8 with two accumulation
+    steps; then a profiler trace of one plain step and the parity steps."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.optim import adamw
+    from repro_torch.train import metrics as MET, trainer as T
+
+    cfg = get_config(PLAN_ARCH).replace(num_layers=TRAIN_LAYERS)
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                        global_batch=TRAIN_B, seed=SEED))
+    tokens = TRAIN_B * TRAIN_S
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"train {cfg.name}: {TRAIN_LAYERS} layers at full width, {n_params} params fp32, "
+        f"init {time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x seq {TRAIN_S}, remat, "
+        f"warmup_cosine ({card})")
+    before = param_sums(model)
+    pp = ParallelPlan(kind="fsdp", dp=8, accum_steps=2)
+    t0 = time.perf_counter()
+    plan = tune(extract_workload(cfg, pp, seq=TRAIN_S, global_batch=8 * TRAIN_B),
+                "h100-sxm", method="lagom")
+    with plan.applied():
+        acc_knobs = {s: collectives.runtime_for(s).num_chunks
+                     for s in ("acc.step0.rs_grads", "acc.step1.rs_grads")}
+    say(f"train: plan tuned for fsdp:8 with 2 accumulation steps on h100-sxm in "
+        f"{time.perf_counter() - t0:.1f} s; acc sites resolve to chunks {acc_knobs}")
+
+    modes, step = {}, 0
+    for name, kw in TRAIN_MODES.items():
+        acco = name == "acco"
+        tcfg = T.TrainConfig(opt=adamw.AdamWConfig(**TRAIN_OPT), warmup=2, total_steps=100,
+                             accum_axis=mesh if acco else None, **kw)
+        step_fn = T.make_train_step(cfg, tcfg)
+        state = adamw.init_state(dict(model.named_parameters()))
+        passes = kw.get("grad_accum", kw.get("microbatches", 1))
+        times, losses, norms = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with plan.applied(), collectives.record_issued() as issued:
+            for _ in range(TRAIN_STEPS):
+                batch = {k: torch.as_tensor(v, device="cuda")
+                         for k, v in corpus.batch(step).items()}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                model, state, m = step_fn(model, state, batch, step)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                step += 1
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: TRAIN_STEPS * v for k, v in expected_train_launches(cfg, passes).items()}
+        step_s = statistics.median(times[1:])
+        tag = f"train {name}"
+        sites = issued_summary(issued) if issued else {}
+        say(f"{tag}: step {step_s * 1e3:.1f} ms (median of steps 2-3; all "
+            f"{[round(t * 1e3, 1) for t in times]} ms), "
+            f"{tokens / step_s:.0f} tok/s, MFU {MET.mfu(cfg, tokens, step_s, peak=MET.H100_FP32_PEAK):.4f} "
+            f"of the fp32 CUDA-core peak (67 TFLOP/s), "
+            f"{MET.mfu(cfg, tokens, step_s):.4f} of the bf16 tensor peak (989.4 TFLOP/s); "
+            f"peak memory {peak / 2**30:.2f} GiB; loss {losses}, grad_norm {norms} ({card})")
+        say(f"{tag}: launches {launches} (expected {want})" +
+            (f"; issued {sites}" if sites else ""))
+        check(launches == want, f"{tag}: launches {launches}, expected {want}")
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)), f"{tag}: non-finite")
+        if acco:
+            for k, nc in acc_knobs.items():
+                rows = [r for r in issued if r.site == k]
+                check(rows and all(r.num_chunks == nc and r.collectives == nc for r in rows),
+                      f"{tag}: {k} issued {rows[:2]}, expected {nc} chunks")
+            check(all(r.site in acc_knobs for r in issued),
+                  f"{tag}: issued at sites other than the gradient sync: "
+                  f"{sorted({r.site for r in issued} - set(acc_knobs))[:4]}")
+        modes[name] = {"step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+                       "tokens_per_s": tokens / step_s,
+                       "mfu_fp32": MET.mfu(cfg, tokens, step_s, peak=MET.H100_FP32_PEAK),
+                       "mfu_bf16": MET.mfu(cfg, tokens, step_s), "peak_bytes": peak,
+                       "loss": losses, "grad_norm": norms, "launches": launches,
+                       "issued": sites}
+        del state, step_fn
+        free()
+    after = param_sums(model)
+    still = [n for n in before if before[n] == after[n]]
+    check(not still, f"train: parameters that did not move: {still[:5]}")
+
+    # where a plain step's device time goes
+    tcfg = T.TrainConfig(opt=adamw.AdamWConfig(**TRAIN_OPT), warmup=2, total_steps=100)
+    step_fn = T.make_train_step(cfg, tcfg)
+    state = adamw.init_state(dict(model.named_parameters()))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in corpus.batch(step).items()}
+    t = time.perf_counter()
+    dev = train_ms_by_class(lambda: step_fn(model, state, batch, step))
+    wall = (time.perf_counter() - t) * 1e3
+    busy = sum(dev.values())
+    say(f"train profile, one plain step: wall {wall:.1f} ms (profiled), device busy "
+        f"{busy:.1f} ms; " + ", ".join(f"{k} {v:.1f} ms" for k, v in dev.items()) +
+        f" ({card})")
+    check(busy > 0, "train profile: the profiler saw no kernel")
+    del model, state, step_fn, batch
+    free()
+    return {"arch": cfg.name, "layers": TRAIN_LAYERS, "params": n_params,
+            "batch": TRAIN_B, "seq": TRAIN_S, "acc_chunks": acc_knobs, "modes": modes,
+            "profile_ms": dev, "profile_wall_ms": wall,
+            "parity": train_parity_phase(card, plan, mesh),
+            "card": card}
+
+
+def train_parity_phase(card: str, plan, mesh) -> dict:
+    """One train step through the kernels, then one through backend="ref"
+    and one through the sited trunk on the 1-rank NCCL mesh under ``plan``
+    (its ``tp.layer{i}.mlp`` sites chunk the MLP), on the card, from the
+    same weights on the same batch: llama3-8b at full width and 2 layers,
+    B = 1, S = 512.  Each is held to the first."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as T
+
+    P = PARITY_TRAIN
+    cfg = get_config(PLAN_ARCH).replace(num_layers=P["layers"])
+    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=P["S"],
+                                       global_batch=P["B"], seed=SEED + 3)).batch(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+    def one_step(backend=None, sited=False):
+        model = M.init_params(cfg, SEED + 2, device="cuda")
+        state = adamw.init_state(dict(model.named_parameters()))
+        step_fn = T.make_train_step(cfg, T.TrainConfig(
+            opt=adamw.AdamWConfig(**PARITY_OPT), warmup=2, total_steps=100, backend=backend,
+            sited_mesh=mesh if sited else None))
+        ops.reset_launches()
+        with plan.applied() if sited else contextlib.nullcontext(), \
+                collectives.record_issued() as issued:
+            model, state, m = step_fn(model, state, batch, 1)
+        torch.cuda.synchronize()
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        return (params, state["mu"], float(m["loss"]), float(m["grad_norm"]),
+                dict(ops.LAUNCHES), list(issued))
+
+    params, mu, loss, gnorm, launches, issued = one_step()
+    check(np.isfinite(loss) and np.isfinite(gnorm), "train parity: non-finite loss")
+    check(not issued, "train parity: the unsited step issued a collective")
+    out = {"loss": loss, "grad_norm": gnorm}
+    for name, kw in (("ref", dict(backend="ref")), ("sited", dict(sited=True))):
+        p2, mu2, loss2, gnorm2, launches2, issued2 = one_step(**kw)
+        if name == "ref":
+            check(launches2 == NO_LAUNCHES, "train parity: backend='ref' launched a kernel")
+        else:
+            check(launches2 == launches, f"train parity: the sited step launched "
+                                         f"{launches2}, the unsited one {launches}")
+            check(any(r.site.startswith("tp.layer") for r in issued2),
+                  "train parity: the sited trunk issued nothing")
+        err = max((p - p2[n]).abs().max().item() for n, p in params.items())
+        mu_err, mu_at = max(
+            (((m - mu2[n]).abs().max() / m.abs().max().clamp_min(1e-30)).item(), n)
+            for n, m in mu.items())
+        loss_rel, gnorm_rel = abs(loss2 - loss) / abs(loss), abs(gnorm2 - gnorm) / gnorm
+        say(f"train parity, kernels against {name} ({P['layers']} layers, full width, "
+            f"B={P['B']}, S={P['S']}): updated parameters max abs diff {err:.3e} (bound "
+            f"{P['bound']}); mu {mu_err:.3e} of its max, at {mu_at} (bound {P['mu_bound']}); loss "
+            f"{loss:.6f} / {loss2:.6f}, grad_norm {gnorm:.6f} / {gnorm2:.6f}, relative "
+            f"{loss_rel:.2e} / {gnorm_rel:.2e} (bound {P['rel_bound']})"
+            + (f"; issued {issued_summary(issued2)}" if issued2 else "") + f" ({card})")
+        check(err <= P["bound"], f"train parity {name}: parameters differ by {err}")
+        check(mu_err <= P["mu_bound"], f"train parity {name}: mu differs by {mu_err} of max")
+        check(loss_rel <= P["rel_bound"] and gnorm_rel <= P["rel_bound"],
+              f"train parity {name}: loss or grad_norm differ by {loss_rel}, {gnorm_rel}")
+        out[name] = {"max_abs_param_diff": err, "mu_err_of_max": mu_err, "loss": loss2,
+                     "grad_norm": gnorm2, "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel}
+        del p2, mu2
+        free()
+    del params, mu
+    free()
+    return {**out, "bounds": {k: P[k] for k in ("bound", "mu_bound", "rel_bound")}}
 
 
 def main() -> int:
@@ -1254,35 +1715,50 @@ def main() -> int:
         f"({_build.BUILD_DIR})")
 
     flash_ptxas = flash_build_report()
+    flash_bwd_ptxas = flash_bwd_build_report()
     ssd_ptxas = ssd_build_report()
     wkv6_ptxas = wkv6_build_report()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [rmsnorm_phase(gen), flash_phase(gen), ssd_phase(gen), wkv6_phase(gen)]
+    kernels = [rmsnorm_phase(gen), flash_phase(gen), ssd_phase(gen), wkv6_phase(gen),
+               rmsnorm_bwd_phase(gen), flash_bwd_phase(gen)]
     kernels[1]["ptxas"] = flash_ptxas
     kernels[2]["ptxas"] = ssd_ptxas
     kernels[3]["ptxas"] = wkv6_ptxas
+    kernels[5]["ptxas"] = flash_bwd_ptxas
+
+    import torch.distributed as dist
 
     served, plan_served = [], None
-    for arch in ARCHS:
-        cfg = get_config(arch)
-        prompts = make_prompts(cfg)
-        model, init_s = init_model(cfg)
-        served.append(serving_phase(cfg, model, init_s, prompts))
-        if arch == PLAN_ARCH:      # phase 7 on phase 4's weights, before they go
-            plan_served = plan_serving_phase(cfg, model, prompts, card)
-        del model
-        free()
-        slice_parity_phase(cfg, prompts)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = nccl_mesh(tmp)      # phases 7 and 8: a 1-rank NCCL group
+        try:
+            for arch in ARCHS:
+                cfg = get_config(arch)
+                prompts = make_prompts(cfg)
+                model, init_s = init_model(cfg)
+                served.append(serving_phase(cfg, model, init_s, prompts))
+                if arch == PLAN_ARCH:      # phase 7 on phase 4's weights, before they go
+                    plan_served = plan_serving_phase(cfg, model, prompts, card, mesh)
+                del model
+                free()
+                slice_parity_phase(cfg, prompts)
+            trained = train_phase(card, mesh)
+        finally:
+            dist.destroy_process_group()
 
     say(json.dumps({"plan": plan_phase(card)}))
     say(json.dumps({"plan_serving": plan_served}))
+    say(json.dumps({"train": trained}))
 
-    for k in kernels:       # launches on the served batches, by path and in all
+    for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
         k["launches_by_model"].update({f"{PLAN_ARCH} plan ({name})": run["launches"][k["name"]]
                                        for name, run in plan_served["plans"].items()})
+        k["launches_by_model"].update({f"{PLAN_ARCH} train ({name})": run["launches"][k["name"]]
+                                       for name, run in trained["modes"].items()})
         k["launches"] = sum(k["launches_by_model"].values())
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

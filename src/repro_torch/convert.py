@@ -12,7 +12,9 @@ rwkv6's raw matrices (``Wr``, ``maa_w1``, ``maa_w2``, ``decay_w1``, ...)
 and mamba2's ``conv_w`` (K, C) included: the port multiplies them as the
 reference does (``x @ W``).  ``params_from_jax`` takes the reference's tree
 with numpy leaves (``jax.tree.map(np.asarray, params)``) and returns a
-``state_dict`` for ``Model.load_state_dict``.
+``state_dict`` for ``Model.load_state_dict``; ``params_to_jax`` is its
+inverse, and ``opt_state_from_jax`` converts the reference's AdamW state
+(its ``mu`` and ``nu`` mirror the parameter tree) to the port's.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _LEAF_NAMES = {"w": "weight", "b": "bias", "table": "weight"}
 
@@ -71,3 +74,45 @@ def params_from_jax(cfg, tree) -> Dict[str, torch.Tensor]:
         for idx in itertools.product(*(range(n) for n in lead)):
             out[_name(path[:2] + tuple(map(str, idx)) + path[2:])] = _tensor(path, a[idx])
     return out
+
+
+def params_to_jax(cfg, model: nn.Module):
+    """The inverse of ``params_from_jax``: the port's model -> the
+    reference's nested tree of numpy arrays (layers restacked, linear
+    weights transposed back, embeddings as ``table``)."""
+    mods = dict(model.named_modules())
+    stacked = stacked_axes(cfg)
+    tree: Dict = {}
+    parts_of: Dict[Tuple[str, ...], Dict] = {}
+    for key, t in model.state_dict().items():
+        parts = key.split(".")
+        mod, leaf = mods[".".join(parts[:-1])], parts[-1]
+        a = t.detach().cpu().numpy()
+        if isinstance(mod, nn.Embedding):
+            leaf = "table"
+        elif isinstance(mod, nn.Linear):
+            a = a.T if leaf == "weight" else a
+            leaf = {"weight": "w", "bias": "b"}[leaf]
+        lead = stacked.get(tuple(parts[:2]), ())
+        path = parts[:2] + parts[2 + len(lead):-1] + [leaf] if lead else parts[:-1] + [leaf]
+        idx = tuple(int(i) for i in parts[2:2 + len(lead)])
+        parts_of.setdefault(tuple(path), {"lead": lead})[idx] = a
+    for path, got in parts_of.items():
+        lead = got.pop("lead")
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if lead:
+            idxs = list(itertools.product(*(range(n) for n in lead)))
+            node[path[-1]] = np.stack([got[i] for i in idxs]).reshape(lead + got[idxs[0]].shape)
+        else:
+            node[path[-1]] = got[()]
+    return tree
+
+
+def opt_state_from_jax(cfg, state) -> Dict[str, object]:
+    """The reference's AdamW state ({"mu", "nu", "count"}, numpy leaves) ->
+    the port's: ``mu`` and ``nu`` keyed by state-dict name (through
+    ``params_from_jax``), ``count`` an int64 scalar tensor."""
+    return {"mu": params_from_jax(cfg, state["mu"]), "nu": params_from_jax(cfg, state["nu"]),
+            "count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int64)}

@@ -19,7 +19,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm.cu", "flash.cu", "ssd.cu", "wkv6.cu", "wkv6_step.cu", "runtime.cu")
+SOURCES = ("rmsnorm.cu", "flash.cu", "flash_bwd.cu", "ssd.cu", "wkv6.cu", "wkv6_step.cu",
+           "runtime.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 EXT_NAME = "repro_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
@@ -65,8 +66,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.rt_rmsnorm.argtypes = [p, p, p, i, i, f, i, i, p]
     lib.rt_rmsnorm.restype = i
-    lib.rt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.rt_rmsnorm_bwd.argtypes = [p] * 6 + [i, i, i, f, i, i, p]
+    lib.rt_rmsnorm_bwd.restype = i
+    lib.rt_rmsnorm_bwd_blocks.argtypes = [i]
+    lib.rt_rmsnorm_bwd_blocks.restype = i
+    lib.rt_flash_attention.argtypes = [p] * 5 + [i] * 7 + [f, i, p]
     lib.rt_flash_attention.restype = i
+    lib.rt_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
+    lib.rt_flash_attention_bwd.restype = i
     lib.rt_ssd.argtypes = [p] * 9 + [i] * 6 + [ll] * 6 + [i, p]
     lib.rt_ssd.restype = i
     lib.rt_ssd_smem_bytes.argtypes = [i, i]

@@ -47,7 +47,12 @@
 //     warp skips a tile that lies wholly past its own last row, and the
 //     longest causal query tiles are launched first;
 //   * rows past Sq and keys past Sk are zero-filled by cp.async's source
-//     size and masked, so no length has to be a tile multiple.
+//     size and masked, so no length has to be a tile multiple;
+//   * for training, the launcher may ask for each row's log-sum-exp of its
+//     scaled scores (lse, (B, Hq, Sq) fp32, in natural log units), which the
+//     backward (flash_bwd.cu) needs to recompute P.  It is a template flag:
+//     with a null pointer (serving) the kernel is the one without it (a
+//     run-time test in the epilogue cost serving's kernel 2 %).
 // The constants are the TPU kernel's: masked scores -1e30, the denominator
 // clamped at 1e-20, scores scaled by 1/sqrt(h) after QKᵀ.
 #include "common.cuh"
@@ -93,11 +98,11 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, size_t strid
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int Hq, int Hkv, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Sk, int Hq, int Hkv, int causal, float scale) {
   static_assert(HD % 8 == 0, "the head dim must be a whole number of 8-wide tiles");
   using L = Layout<HD>;
   constexpr int NH = HD / 8;        // 8-wide tiles of the head dim
@@ -251,14 +256,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NH; ++n)
         store2(orow + 8 * n, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      if (LSE && t == 0)              // m is in log2 units: back to natural log
+        lse[(static_cast<size_t>(b) * Hq + hq) * Sq + qpos[r]] =
+            (m[r] + log2f(fmaxf(l[r], kDenomFloor))) * 0.6931471805599453f;
     }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD>;
+template <typename T, int HD, bool LSE>
+int run(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+        int Sq, int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, HD, LSE>;
   constexpr size_t smem = Layout<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -266,42 +274,54 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, Hq, Hkv, causal, scale);
+      static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int Sq, int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  return lse != nullptr
+             ? run<T, HD, true>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale, stream)
+             : run<T, HD, false>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
+}
+
 template <typename T>
-int launch_h(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-             int Sk, int Hq, int Hkv, int h, int causal, float scale,
+int launch_h(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int Sq, int Sk, int Hq, int Hkv, int h, int causal, float scale,
              cudaStream_t s) {
+#define RT_ARGS q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s
   switch (h) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 112: return launch<T, 112>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 16: return launch<T, 16>(RT_ARGS);
+    case 32: return launch<T, 32>(RT_ARGS);
+    case 64: return launch<T, 64>(RT_ARGS);
+    case 112: return launch<T, 112>(RT_ARGS);
+    case 128: return launch<T, 128>(RT_ARGS);
   }
+#undef RT_ARGS
   return RT_UNSUPPORTED;
 }
 
 }  // namespace
 
 // q, o: (B, Sq, Hq, h); k, v: (B, Sk, Hkv, h); all contiguous, one dtype,
-// 16-byte aligned when fp32 (cp.async).  Returns a cudaError_t, or
+// 16-byte aligned when fp32 (cp.async); lse: (B, Hq, Sq) fp32, or null.  Returns a cudaError_t, or
 // RT_UNSUPPORTED for shapes the kernel does not take (h outside {16, 32, 64,
 // 112, 128}, Hq not a multiple of Hkv, a grid dimension over its limit).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, int B, int Sq, int Sk, int Hq, int Hkv,
-                                  int h, int causal, float scale, int dtype,
+                                  void* o, float* lse, int B, int Sq, int Sk, int Hq,
+                                  int Hkv, int h, int causal, float scale, int dtype,
                                   void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       B > 65535 || Hq > 65535)
     return RT_UNSUPPORTED;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case RT_F32: return launch_h<float>(q, k, v, o, B, Sq, Sk, Hq, Hkv, h, causal, scale, s);
-    case RT_BF16: return launch_h<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, h, causal, scale, s);
-    case RT_F16: return launch_h<__half>(q, k, v, o, B, Sq, Sk, Hq, Hkv, h, causal, scale, s);
+#define RT_ARGS q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, h, causal, scale, s
+    case RT_F32: return launch_h<float>(RT_ARGS);
+    case RT_BF16: return launch_h<__nv_bfloat16>(RT_ARGS);
+    case RT_F16: return launch_h<__half>(RT_ARGS);
+#undef RT_ARGS
   }
   return RT_UNSUPPORTED;
 }

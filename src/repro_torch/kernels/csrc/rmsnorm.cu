@@ -11,6 +11,18 @@
 // Bound on the H100: bytes.  Two flops a byte is far below the card's
 // ~20 fp32 flops per byte of HBM bandwidth, so the kernel can at best
 // stream 2 * rows * D * sizeof(T) bytes at 3.35 TB/s.
+//
+// Backward (rt_rmsnorm_bwd; the TPU kernel has none: the reference trains
+// through plain jnp, and the port's training path on the card needs one).
+// With r = rsqrt(mean(x^2) + eps) recomputed from x (nothing is saved):
+//   dx = r * (dy * scale) - x * r^3 / D * sum_j(dy_j * scale_j * x_j)
+//   dscale_j = sum over rows of dy_j * x_j * r.
+// One block walks a contiguous run of rows: per row one block reduction of
+// (sum x^2, sum dy*scale*x), then dx; each thread keeps its own columns'
+// dscale partial sums in shared memory.  A second kernel sums the blocks'
+// partials column by column in block order.  No atomics: the result is the
+// same on every run.  Bound: bytes, 3 * rows * D * sizeof(T) (x and dy read,
+// dx written) plus the scale and its gradient.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -90,6 +102,96 @@ int launch(const void* x, const void* scale, void* y, int rows, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One block per run of rows [row0, row1): dx for each row, and this block's
+// dscale partial (its rows' sum of dy * x * r) into partial[blockIdx.x].
+template <typename T, typename S>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ partial, int rows, int D, float eps) {
+  extern __shared__ float ds[];           // D floats: this block's dscale partial
+  __shared__ float red[2][kMaxThreads / 32];
+  const int per = (rows + gridDim.x - 1) / gridDim.x;
+  const int row0 = blockIdx.x * per;
+  const int row1 = min(rows, row0 + per);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) ds[i] = 0.f;
+
+  for (int row = row0; row < row1; ++row) {
+    const T* xr = x + static_cast<size_t>(row) * D;
+    const T* gr = dy + static_cast<size_t>(row) * D;
+    T* dr = dx + static_cast<size_t>(row) * D;
+    float ss = 0.f, dot = 0.f;
+    for (int i = threadIdx.x; i < D; i += blockDim.x) {
+      const float xv = to_f(xr[i]);
+      ss += xv * xv;
+      dot += to_f(gr[i]) * to_f(scale[i]) * xv;
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = dot;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float a = lane < nwarps ? red[0][lane] : 0.f;
+      float b = lane < nwarps ? red[1][lane] : 0.f;
+      a = warp_sum(a);
+      b = warp_sum(b);
+      if (lane == 0) {
+        red[0][0] = a;
+        red[1][0] = b;
+      }
+    }
+    __syncthreads();
+    const float r = rsqrtf(red[0][0] / static_cast<float>(D) + eps);
+    const float c = red[1][0] * r * r * r / static_cast<float>(D);
+    __syncthreads();                      // red is rewritten by the next row
+    for (int i = threadIdx.x; i < D; i += blockDim.x) {
+      const float xv = to_f(xr[i]), g = to_f(gr[i]);
+      dr[i] = from_f<T>(r * g * to_f(scale[i]) - xv * c);
+      ds[i] += g * xv * r;                // column i is only ever this thread's
+    }
+  }
+  float* out = partial + static_cast<size_t>(blockIdx.x) * D;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) out[i] = ds[i];
+}
+
+// dscale[j] = sum over the blocks' partials, in block order.
+template <typename S>
+__global__ void rmsnorm_dscale_kernel(const float* __restrict__ partial, S* __restrict__ dscale,
+                                      int nblocks, int D) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= D) return;
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) s += partial[static_cast<size_t>(b) * D + j];
+  dscale[j] = from_f<S>(s);
+}
+
+template <typename T, typename S>
+int launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
+               void* partial, int rows, int D, int nblocks, float eps, cudaStream_t stream) {
+  auto kernel = rmsnorm_bwd_kernel<T, S>;
+  const size_t smem = sizeof(float) * static_cast<size_t>(D);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int threads = ((D + 31) / 32) * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  kernel<<<nblocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<float*>(partial), rows, D, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dscale_kernel<S><<<(D + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<S*>(dscale), nblocks, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, y: (rows, D) contiguous, dtype x_dtype; scale: (D,), dtype scale_dtype,
@@ -111,5 +213,40 @@ extern "C" int rt_rmsnorm(const void* x, const void* scale, void* y, int rows,
       return s32 ? launch<__half, float>(x, scale, y, rows, D, eps, s)
                  : launch<__half, __half>(x, scale, y, rows, D, eps, s);
   }
+  return RT_UNSUPPORTED;
+}
+
+// The blocks rt_rmsnorm_bwd runs for ``rows`` rows: its partial buffer
+// holds that many rows of D floats.
+extern "C" int rt_rmsnorm_bwd_blocks(int rows) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int n = 4 * sms;
+  return rows < n ? rows : n;
+}
+
+// x, dy, dx: (rows, D) contiguous in x_dtype; scale, dscale: (D,) in
+// scale_dtype (fp32 or x's); partial: nblocks x D fp32 scratch, nblocks from
+// rt_rmsnorm_bwd_blocks(rows).  Returns a cudaError_t, or RT_UNSUPPORTED.
+extern "C" int rt_rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                              void* dscale, void* partial, int rows, int D, int nblocks,
+                              float eps, int x_dtype, int scale_dtype, void* stream) {
+  if (rows <= 0 || D <= 0 || nblocks <= 0 || nblocks > rows) return RT_UNSUPPORTED;
+  if (static_cast<size_t>(D) * sizeof(float) > 227 * 1024) return RT_UNSUPPORTED;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool s32 = scale_dtype == RT_F32;
+  if (!s32 && scale_dtype != x_dtype) return RT_UNSUPPORTED;
+#define RT_ARGS x, scale, dy, dx, dscale, partial, rows, D, nblocks, eps, s
+  switch (x_dtype) {
+    case RT_F32:
+      return launch_bwd<float, float>(RT_ARGS);
+    case RT_BF16:
+      return s32 ? launch_bwd<__nv_bfloat16, float>(RT_ARGS)
+                 : launch_bwd<__nv_bfloat16, __nv_bfloat16>(RT_ARGS);
+    case RT_F16:
+      return s32 ? launch_bwd<__half, float>(RT_ARGS) : launch_bwd<__half, __half>(RT_ARGS);
+  }
+#undef RT_ARGS
   return RT_UNSUPPORTED;
 }

@@ -1,11 +1,14 @@
 """CUDA flash attention: the port of ``repro.kernels.flash.flash_attention``.
 
-The kernel is ``csrc/flash.cu`` (forward, causal or full, GQA, both products
-on the tensor cores in the fp32-exact 3xTF32 split); its plain version is
-``ref.flash_attention_ref``.  Callers go through
-``kernels.ops.flash_attention``, which picks between the two by the
-tensor's device and counts launches.  Unlike the TPU kernel it needs no
-block-multiple lengths: the kernel masks rows and keys past Sq and Sk.
+The forward kernel is ``csrc/flash.cu`` (causal or full, GQA, both products
+on the tensor cores in the fp32-exact 3xTF32 split); the backward kernels,
+which the TPU kernel does not have, are ``csrc/flash_bwd.cu`` (fp32 CUDA
+cores).  The plain version is ``ref.flash_attention_ref`` (its backward is
+autograd through it).  Callers go through ``kernels.ops.flash_attention``,
+which picks between the two by the tensor's device, wraps the kernels in
+``ops.FlashAttentionFn`` where a gradient is needed, and counts launches.
+Unlike the TPU kernel it needs no block-multiple lengths: the kernels mask
+rows and keys past Sq and Sk.
 """
 from __future__ import annotations
 
@@ -18,12 +21,9 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 112, 128)   # instantiated in csrc/flash.cu
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
-    """q (B,Sq,Hq,h); k,v (B,Sk,Hkv,h) with Hq % Hkv == 0; on the card.
-    Returns (B,Sq,Hq,h) in q's dtype."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+        raise ValueError(f"{what} needs CUDA tensors")
     if q.dtype not in _build.DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention_cuda takes one of fp32/bf16/fp16 for q, k "
                         f"and v, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -41,12 +41,58 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype == torch.float32 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs fp32 q, k and v 16-byte aligned "
                          "(the kernel copies fp32 rows in 16-byte pieces)")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, with_lse: bool = False):
+    """q (B,Sq,Hq,h); k,v (B,Sk,Hkv,h) with Hq % Hkv == 0; on the card.
+    Returns o (B,Sq,Hq,h) in q's dtype, and with ``with_lse`` also each
+    row's log-sum-exp of its scaled scores, lse (B,Hq,Sq) fp32, which the
+    backward takes.  Forward only: with grad enabled, an input that needs
+    a gradient is refused (``ops.FlashAttentionFn`` is the route then)."""
+    _check(q, k, v, "flash_attention_cuda")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("flash_attention_cuda is forward-only; it has no backward")
+        raise RuntimeError("flash_attention_cuda is forward-only; ops.FlashAttentionFn "
+                           "takes inputs that need a gradient")
+    B, Sq, Hq, h = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.library()
     rc = lib.rt_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                None if lse is None else lse.data_ptr(),
                                 B, Sq, Sk, Hq, Hkv, h, int(causal), 1.0 / math.sqrt(h),
                                 _build.DTYPES[q.dtype], _build.stream_of(q))
     _build.check(lib, rc, "flash attention kernel")
-    return o
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True):
+    """The gradients (dq, dk, dv) of flash attention, in the inputs' dtype,
+    from the forward's inputs, its output ``o`` and ``lse``
+    (``flash_attention_cuda(..., with_lse=True)``) and the output's
+    gradient ``do``; on the card.  dk and dv are summed over the query
+    heads of each KV head."""
+    _check(q, k, v, "flash_attention_bwd_cuda")
+    B, Sq, Hq, h = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {Hq}, {Sq}) fp32, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if not all(t.is_cuda and t.is_contiguous() for t in (o, do, lse)):
+        raise ValueError("flash_attention_bwd_cuda needs contiguous CUDA o, do and lse")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    rc = lib.rt_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Sq, Sk, Hq, Hkv, h, int(causal), 1.0 / math.sqrt(h), _build.DTYPES[q.dtype],
+        _build.stream_of(q))
+    _build.check(lib, rc, "flash attention backward kernels")
+    return dq, dk, dv

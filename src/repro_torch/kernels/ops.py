@@ -15,10 +15,18 @@ the reference's S == 1 route to the step oracle applies to CPU tensors
 only, and the kernels take any S (rows past S count as absent), so
 nothing is padded.
 
+Training: with grad enabled and an input that needs a gradient, RMSNorm
+and flash attention on CUDA tensors go through ``RMSNormFn`` and
+``FlashAttentionFn``, whose backward launches the backward kernels
+(``rmsnorm_bwd`` and ``flash_attention_bwd``); the plain versions are
+differentiated by autograd.  The scans are forward-only: their kernels
+refuse inputs that need a gradient.
+
 There is no fallback: ``"cuda"`` on a CPU tensor raises, and a build or
 launch error on the card propagates.  ``LAUNCHES`` counts the launches of
-each kernel, one per call that takes the ``"cuda"`` route, so a run can
-show that it went through the kernels (``chip_smoke.py`` reads it).
+each kernel, one per call that takes the ``"cuda"`` route (a remat
+recompute is a call), and one per backward pass, so a run can show that it
+went through the kernels (``chip_smoke.py`` reads it).
 """
 from __future__ import annotations
 
@@ -28,14 +36,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.flash import flash_attention_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.flash import flash_attention_bwd_cuda, flash_attention_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd import ssd_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
 BACKENDS = ("ref", "cuda")
 SCAN_BACKENDS = ("ref", "chunked", "cuda")
-LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
+LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bwd": 0,
+            "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -53,10 +62,58 @@ def _backend(x: torch.Tensor, backend: Optional[str], known=BACKENDS) -> str:
     return backend
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm through the CUDA kernels: ``rt_rmsnorm`` forward,
+    ``rt_rmsnorm_bwd`` backward (rstd recomputed from the saved x)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        y = rmsnorm_cuda(x, scale, eps=eps)
+        LAUNCHES["rmsnorm"] += 1
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_cuda(x, scale, dy.contiguous(), eps=ctx.eps)
+        LAUNCHES["rmsnorm_bwd"] += 1
+        return dx, dscale, None
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention through the CUDA kernels: the forward writes each
+    row's log-sum-exp beside o; the backward recomputes P from q, k and
+    lse and launches ``csrc/flash_bwd.cu``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do.contiguous(),
+                                              causal=ctx.causal)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, backend: Optional[str] = None,
             eps: float = 1e-5) -> torch.Tensor:
     if _backend(x, backend) == "ref":
         return _ref.rmsnorm_ref(x, scale, eps)
+    if _needs_grad(x, scale):
+        return RMSNormFn.apply(x, scale, eps)
     y = rmsnorm_cuda(x, scale, eps=eps)
     LAUNCHES["rmsnorm"] += 1
     return y
@@ -67,6 +124,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,Sq,Hq,h); k,v (B,Sk,Hkv,h) -> (B,Sq,Hq,h)."""
     if _backend(q, backend) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal)
     o = flash_attention_cuda(q, k, v, causal=causal)
     LAUNCHES["flash_attention"] += 1
     return o

@@ -21,11 +21,18 @@ NEG_INF = -1e30          # masked score, as in repro/kernels/flash.py
 DENOM_FLOOR = 1e-20      # softmax denominator clamp, as in the TPU kernel
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """fp32 math, or fp64 for fp64 inputs (the oracle the fp32 kernels'
+    gradients are held against on the card)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """y = x · rsqrt(mean(x²) + eps) · scale over the last dim, fp32 math."""
-    xf = x.float()
+    """y = x · rsqrt(mean(x²) + eps) · scale over the last dim, fp32 math
+    (fp64 for fp64 x)."""
+    xf = x.to(_acc(x))
     ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * scale.to(xf.dtype)).to(x.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -33,14 +40,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Dense GQA softmax attention.  q (B,Sq,Hq,h); k,v (B,Sk,Hkv,h) with
     Hq % Hkv == 0; query head i reads KV head i // G.  Any Sq, Sk.  The
     causal mask counts both query and key positions from 0, as the TPU
-    kernel does.  Returns (B,Sq,Hq,h) in q's dtype."""
+    kernel does.  Computes in fp32 (fp64 for fp64 q).  Returns (B,Sq,Hq,h)
+    in q's dtype."""
     B, Sq, Hq, h = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:
         raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hkv}")
     G = Hq // Hkv
-    qf = q.float().reshape(B, Sq, Hkv, G, h)
-    s = torch.einsum("bqngh,bsnh->bngqs", qf, k.float()) * (1.0 / math.sqrt(h))
+    acc = _acc(q)
+    qf = q.to(acc).reshape(B, Sq, Hkv, G, h)
+    s = torch.einsum("bqngh,bsnh->bngqs", qf, k.to(acc)) * (1.0 / math.sqrt(h))
     if causal:
         keep = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
@@ -48,7 +57,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bngqs,bsnh->bngqh", p, v.float()) / l.clamp_min(DENOM_FLOOR)
+    o = torch.einsum("bngqs,bsnh->bngqh", p, v.to(acc)) / l.clamp_min(DENOM_FLOOR)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, h).to(q.dtype)
 
 

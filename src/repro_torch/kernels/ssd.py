@@ -67,7 +67,8 @@ def ssd_cuda(x, dt, A, Bm, Cm, D, state=None, *, out_state=None, chunk: int = CH
         raise ValueError(f"ssd_cuda takes head dim P and state dim N in {DIMS}, "
                          f"got P={P}, N={N}")
     strides = (*_view_strides(x, "x"), *_view_strides(Bm, "Bm"), *_view_strides(Cm, "Cm"))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, Bm, Cm)):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                         for t in (x, dt, A, Bm, Cm, D, state)):
         raise RuntimeError("ssd_cuda is forward-only; it has no backward")
     shape = (B, H, P, N)
     s0 = None

@@ -50,7 +50,8 @@ def wkv6_cuda(r, k, v, w_log, u, state=None, *, out_state=None, chunk: int = CHU
                          f"got K={K}, V={V}")
     if not (r.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("wkv6_cuda needs contiguous r, k and v")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w_log)):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                         for t in (r, k, v, w_log, u, state)):
         raise RuntimeError("wkv6_cuda is forward-only; it has no backward")
     shape = (B, H, K, V)
     s0 = None

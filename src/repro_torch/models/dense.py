@@ -20,18 +20,28 @@ rank; each rank holds a column shard of ``gate``/``up`` and a row shard of
 back explicitly (``collectives.all_gather_rows``) where GSPMD gathers it
 implicitly in the reference.
 
+Training: ``trunk_fwd(remat=True)`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant), so the backward recomputes a
+layer from its input, as the reference's ``jax.checkpoint`` per layer does.
+The sited path gives gradients at a one-rank mesh, where every helper
+computes the local product and still issues its collectives; at more ranks
+with grad enabled it raises ``NotImplementedError``: the MLP shards are
+copies, and the collectives have no backward yet.
+
 Not ported here, and raising ``NotImplementedError`` naming the slice that
 brings them: MoE feed-forwards, MLA, sliding windows, ALiBi, ``qk_norm``
 and ``parallel_block``.
 """
 from __future__ import annotations
 
+import contextvars
 import warnings
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import layers as L
@@ -41,6 +51,7 @@ from repro_torch.parallel.collectives import (all_gather_rows, mm_reduce_scatter
 Caches = Dict[str, Dict[str, object]]
 
 MOE_SLICE = "the port's pipeline-and-MoE slice (ROADMAP.md, queue 1)"
+TP_TRAINING = "the tensor-parallel training slice (ROADMAP.md, queue 1 item 7)"
 
 
 def check_supported(cfg) -> None:
@@ -201,7 +212,7 @@ def _sited_applicable_serve(cfg, x, mesh) -> Tuple[bool, str]:
 
 def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
               caches: Optional[Caches] = None, *, backend: Optional[str] = None,
-              mesh=None, shards: Optional[List[L.MLP]] = None,
+              mesh=None, shards: Optional[List[L.MLP]] = None, remat: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """caches: None | {"dense_layers": stacked cache}.  Returns (x, caches,
     aux); aux is the MoE load-balancing loss, zero for the dense trunk.
@@ -212,7 +223,8 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
     (default ``shard_trunk(p, mesh)``, made anew for the call; engines make
     them once).  Shapes the explicit helpers cannot split fall back to the
     unsited loop with a ``RuntimeWarning``, as the reference falls back to
-    its scan."""
+    its scan.  ``remat`` (without caches) recomputes each layer in the
+    backward."""
     seg = caches["dense_layers"] if caches is not None else None
     kind = "tp" if caches is None else "serve"
     if mesh is not None:
@@ -222,16 +234,33 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
             warnings.warn(f"plan-aware trunk disabled: {why}; using the "
                           "unsited layer loop", RuntimeWarning, stacklevel=2)
             mesh = None
-        elif shards is None:
-            shards = shard_trunk(p, mesh)
+        else:
+            n = as_mesh(mesh).size
+            if n > 1 and torch.is_grad_enabled():
+                raise NotImplementedError(
+                    f"training the sited trunk at mesh size {n} arrives with {TP_TRAINING}: "
+                    "its MLP shards are copies and its collectives have no backward")
+            if shards is None:
+                shards = shard_trunk(p, mesh)
     for i, lp in enumerate(p.dense_layers):
         lc = None
         if seg is not None:
             lc = {"k": seg["k"][i], "v": seg["v"][i], "slot_pos": seg["slot_pos"][i],
                   "pos": seg["pos"]}
-        x, _ = layer_fwd(lp, cfg, x, positions, lc, backend=backend, mesh=mesh,
-                         site=f"{kind}.layer{i}.mlp", serve=seg is not None,
-                         mlp=shards[i] if mesh is not None else None)
+
+        def fl(x, lp=lp, lc=lc, i=i):
+            return layer_fwd(lp, cfg, x, positions, lc, backend=backend, mesh=mesh,
+                             site=f"{kind}.layer{i}.mlp", serve=seg is not None,
+                             mlp=shards[i] if mesh is not None else None)[0]
+
+        if remat and seg is None:
+            # the backward may recompute the layer on autograd's device
+            # thread: run it in this context (the plan scopes and issued-
+            # collective logs are context variables) both times
+            x = checkpoint(contextvars.copy_context().run, fl, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = fl(x)
     new_caches = None
     if seg is not None:
         new_caches = {"dense_layers": dict(seg, pos=seg["pos"] + x.shape[1])}

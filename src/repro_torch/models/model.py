@@ -2,18 +2,22 @@
 for the dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
 
     model = init_params(cfg, seed, device="cuda")                      # nn.Module
+    loss, metrics = loss_and_metrics(cfg, model, batch)                 # train
     x, caches, aux = forward_hidden(cfg, model, batch[, caches])        # prefill
     caches = init_caches(cfg, batch_size, seq_len, device="cuda")       # serving
     logits, caches = decode_step(cfg, model, tokens, caches)            # decode
 
-``batch``: {"tokens": (B,S) int}.  Entry points run on the card unless the
+``batch``: {"tokens": (B,S) int}, and for the loss "targets" (B,S) int and
+optionally "mask" (B,S) float.  Entry points run on the card unless the
 caller passes ``device="cpu"``; asking for ``"cuda"`` with no card raises.
 The weights are random, drawn on the target device from a
 ``torch.Generator`` seeded with ``seed`` (the reference draws from
 ``jax.random``; the tests convert its weights with
-``convert.params_from_jax`` instead of reseeding).  Forward-only: no loss,
-no training path yet.  The ``moe``, ``audio`` and ``vlm`` families raise
-``NotImplementedError`` naming the slice of the port that brings them.
+``convert.params_from_jax`` instead of reseeding).  The loss
+(``loss_and_metrics``, chunked cross-entropy) trains the dense family; the
+recurrent families are forward-only (their scan kernels have no backward).
+The ``moe``, ``audio`` and ``vlm`` families raise ``NotImplementedError``
+naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -21,7 +25,9 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import dense, layers as L, rwkv6, zamba2
 
@@ -29,6 +35,7 @@ Caches = Dict[str, object]
 
 _TRUNKS = {"dense": dense, "ssm": rwkv6, "hybrid": zamba2}
 _LATER = {"moe": dense.MOE_SLICE, "audio": L.OTHER_FAMILIES, "vlm": L.OTHER_FAMILIES}
+RECURRENT_TRAINING = "the recurrent-training slice (ROADMAP.md, queue 1)"
 
 
 def _trunk(cfg):
@@ -106,12 +113,13 @@ def _positions(cfg, B: int, S: int, t0, device) -> torch.Tensor:
 
 
 def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
-                   backend: Optional[str] = None, mesh=None, shards=None
-                   ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+                   remat: bool = False, backend: Optional[str] = None, mesh=None,
+                   shards=None) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """Runs the trunk over batch["tokens"].  If ``caches`` is given, this is a
-    cached prefill into fresh caches (filled in place).  ``mesh`` opts the
-    dense family into the plan-aware sited trunk (``dense.trunk_fwd``, with
-    ``shards`` this rank's MLP shards); the other families ignore it."""
+    cached prefill into fresh caches (filled in place).  ``remat`` recomputes
+    each dense layer in the backward.  ``mesh`` opts the dense family into
+    the plan-aware sited trunk (``dense.trunk_fwd``, with ``shards`` this
+    rank's MLP shards); the other families ignore it."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     t0 = caches["pos"] if caches is not None else 0
@@ -119,15 +127,18 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     x = L.embed(p.embed, tokens)
     tc = caches["trunk"] if caches is not None else None
     x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh,
-                                shards=shards)
+                                shards=shards, remat=remat)
     new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S}
     return L.norm(p.ln_f, x, cfg.norm_kind, backend=backend), new_caches, aux
 
 
-def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards):
+def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards, remat=False):
     if cfg.family == "dense":
         return dense.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, mesh=mesh,
-                               shards=shards)
+                               shards=shards, remat=remat)
+    if remat:
+        raise NotImplementedError(f"remat of the {cfg.family!r} trunk arrives with "
+                                  f"{RECURRENT_TRAINING}")
     # as in the reference, the recurrent families ignore ``mesh``
     return _trunk(cfg).trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend)
 
@@ -138,6 +149,54 @@ def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return L.unembed(p.embed, x)
     return L.linear(p.head, x)
+
+
+# ---------------------------------------------------------------------------
+# training loss (chunked cross-entropy: the full (B,S,V) logits are never
+# materialized; each chunk's logits are recomputed in the backward)
+# ---------------------------------------------------------------------------
+
+def _chunk_ce(cfg, p: Model, xb, tb, mb) -> torch.Tensor:
+    logits = _unembed(cfg, p, xb).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tb[..., None])[..., 0]
+    return ((lse - tgt) * mb).sum()
+
+
+def chunked_ce(cfg, p: Model, x, targets, mask, *, chunk: int = 256) -> torch.Tensor:
+    """Masked mean cross-entropy of the head's logits at x (B,S,D) against
+    targets (B,S), over sequence chunks of ``chunk`` (S padded to a
+    multiple, the pad masked out).  Each chunk runs under
+    ``torch.utils.checkpoint``, so only one chunk's (B, chunk, V) logits
+    exist at a time, in the backward too; the chunks' sums add up in order
+    in fp32, as the reference's scan does."""
+    S = x.shape[1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    targets = targets.long()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, x.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        tot = tot + checkpoint(_chunk_ce, cfg, p, x[:, sl], targets[:, sl], mask[:, sl],
+                               use_reentrant=False, preserve_rng_state=False)
+    return tot / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_and_metrics(cfg, p: Model, batch, *, remat: bool = True,
+                     backend: Optional[str] = None, mesh=None):
+    """The training loss: chunked cross-entropy plus ``router_aux_coef``
+    times the trunk's aux loss.  ``batch``: tokens, targets and optionally
+    mask (ones by default).  Returns (loss, {"ce", "aux", "loss"})."""
+    x, _, aux = forward_hidden(cfg, p, batch, remat=remat, backend=backend, mesh=mesh)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["targets"].shape, dtype=torch.float32, device=x.device)
+    ce = chunked_ce(cfg, p, x, batch["targets"], mask.float())
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 def init_caches(cfg, batch: int, seq_len: int, *, device="cuda") -> Caches:

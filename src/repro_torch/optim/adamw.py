@@ -1,0 +1,71 @@
+"""AdamW with global-norm clipping, the port of ``repro.optim.adamw``.
+
+The state is ``{"mu": {name: fp32 tensor}, "nu": {...}, "count": int64
+tensor}``, keyed by the model's state-dict names (the reference mirrors
+its parameter tree).  Moments are fp32 whatever the parameter's dtype.
+Where the reference returns new arrays, the port updates the parameters
+and the state in place under ``torch.no_grad()``: at llama3-8b's width a
+second copy of parameters and moments would not fit the card.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def init_state(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+    """Zero moments for ``params`` (name -> tensor, e.g.
+    ``dict(model.named_parameters())``), on the parameters' devices."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    first = next(iter(params.values()))
+    return {"mu": {n: zeros(p) for n, p in params.items()},
+            "nu": {n: zeros(p) for n, p in params.items()},
+            "count": torch.zeros((), dtype=torch.int64, device=first.device)}
+
+
+def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(x²), in fp32 (each leaf's norm
+    without an fp32 copy of the leaf)."""
+    leaves = [torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in tree.values()]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+@torch.no_grad()
+def apply_updates(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
+                  state: Dict[str, object], cfg: AdamWConfig, lr_scale=1.0
+                  ) -> Dict[str, torch.Tensor]:
+    """One AdamW step: ``params``, ``state["mu"]``, ``state["nu"]`` and
+    ``state["count"]`` are updated in place.  Gradients are clipped by the
+    pre-clip global norm, which is returned as ``grad_norm`` with the step's
+    ``lr`` (the reference's metrics)."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    count = state["count"]
+    count += 1
+    c1 = 1.0 - cfg.b1 ** count.float()
+    c2 = 1.0 - cfg.b2 ** count.float()
+    lr = cfg.lr * (lr_scale.to(gnorm.device) if torch.is_tensor(lr_scale) else lr_scale)
+    mu, nu = state["mu"], state["nu"]
+    for name, p in params.items():
+        g = grads[name].float() * scale
+        m, v = mu[name], nu[name]
+        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        pf = p.float()
+        p.copy_(pf - lr * (step + cfg.weight_decay * pf))
+    return {"grad_norm": gnorm, "lr": torch.as_tensor(lr, dtype=torch.float32)}

@@ -416,10 +416,15 @@ def _reduce_scatter_rows(y: torch.Tensor, m: Mesh):
     returns (work or None, this rank's (..., s, D) tile)."""
     if m.group is None:
         return None, y
-    t = _tiled(y, m.size)
+    t = _tiled(y.detach(), m.size)
     out = t.new_empty(t.shape[1:])
     # flat views: gloo splits dim 0, so it must be the whole tile
-    return _reduce_scatter(out.view(-1), t.view(-1), group=m.group, async_op=True), out
+    work = _reduce_scatter(out.view(-1), t.view(-1), group=m.group, async_op=True)
+    # at one rank the scatter is the identity: the collective is issued (a
+    # plan's structure shows) and the local product is returned, which keeps
+    # its autograd graph; the scattered sum of more ranks has none yet (the
+    # tensor-parallel training slice, ROADMAP.md, queue 1 item 7)
+    return work, (y if m.size == 1 else out)
 
 
 def mm_reduce_scatter(x, w, mesh, *, num_chunks: int | None = None,
@@ -549,14 +554,21 @@ def psum_tree(tree, mesh):
     return _tree_map(one, tree)
 
 
-def psum_tree_chunked(tree, mesh, *, num_chunks: int | None = None,
-                      site: str = "acc"):
-    """``psum_tree`` decomposed into ``num_chunks`` all-reduces over each
-    leaf's leading dim, all issued before the first is waited for (the
-    ACCO gradient sync, ``acc.step{k}.rs_grads``, and the Streaming-DiLoCo
-    outer sync).  ``num_chunks=None`` defers to the active plan's knobs for
-    ``site`` (falling back to its class); leaves whose leading dim the
-    count does not divide (scalars included) reduce whole."""
+class _Pending:
+    """One leaf's issued all-reduces: (work or None, output) per chunk."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+
+def psum_tree_chunked_issue(tree, mesh, *, num_chunks: int | None = None,
+                            site: str = "acc"):
+    """The issue half of ``psum_tree_chunked``: every leaf's chunk
+    all-reduces are issued (asynchronously, on copies) and recorded, and a
+    tree of pending results is returned for ``psum_tree_wait``.  What runs
+    between the halves overlaps the reduce: the trainer's ACCO step issues
+    microbatch k's gradients here before microbatch k+1's forward and waits
+    after its backward."""
     num_chunks = _resolve_chunks(num_chunks, site, site_class(site))
     m = as_mesh(mesh)
 
@@ -568,12 +580,34 @@ def psum_tree_chunked(tree, mesh, *, num_chunks: int | None = None,
             pending = [_all_reduce(a, m)]
         else:
             pending = [_all_reduce(b, m) for b in a.chunk(num_chunks, dim=0)]
-        for work, _ in pending:
-            if work is not None:
-                work.wait()
         _issued(site, "psum", len(pending), 0,
                 sum(work is not None for work, _ in pending))
-        outs = [o for _, o in pending]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        return _Pending(pending)
 
     return _tree_map(one, tree)
+
+
+def psum_tree_wait(pending_tree):
+    """The wait half of ``psum_tree_chunked``: waits for every issued chunk
+    and returns the summed tree (chunks joined along the leading dim)."""
+    def one(p: _Pending):
+        for work, _ in p.parts:
+            if work is not None:
+                work.wait()
+        outs = [o for _, o in p.parts]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    return _tree_map(one, pending_tree)
+
+
+def psum_tree_chunked(tree, mesh, *, num_chunks: int | None = None,
+                      site: str = "acc"):
+    """``psum_tree`` decomposed into ``num_chunks`` all-reduces over each
+    leaf's leading dim, all issued before the first is waited for (the
+    ACCO gradient sync, ``acc.step{k}.rs_grads``, and the Streaming-DiLoCo
+    outer sync).  ``num_chunks=None`` defers to the active plan's knobs for
+    ``site`` (falling back to its class); leaves whose leading dim the
+    count does not divide (scalars included) reduce whole.  The two halves,
+    ``psum_tree_chunked_issue`` and ``psum_tree_wait``, called together."""
+    return psum_tree_wait(psum_tree_chunked_issue(tree, mesh, num_chunks=num_chunks,
+                                                  site=site))

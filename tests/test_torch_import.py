@@ -39,7 +39,10 @@ def test_import_loads_no_jax_and_builds_nothing():
                 "repro_torch.analysis.lint", "repro_torch.configs.shapes",
                 "repro_torch.launch.mesh", "repro_torch.launch.plan",
                 "repro_torch.serving.continuous", "repro_torch.serving.plans",
-                "repro_torch.serving.health", "repro_torch.serving.telemetry"):
+                "repro_torch.serving.health", "repro_torch.serving.telemetry",
+                "repro_torch.train.trainer", "repro_torch.optim.adamw",
+                "repro_torch.optim.schedules", "repro_torch.data.pipeline",
+                "repro_torch.train.metrics"):
         assert mod in got["modules"]
 
 

@@ -385,3 +385,52 @@ def test_ssd_3xtf32_chunk_meets_1e5_and_1xtf32_does_not():
         errs[terms] = max(np.abs(y - y_ex).max() / np.abs(y_ex).max(),
                           np.abs(h - h_ex).max() / max(1.0, np.abs(h_ex).max()))
     assert errs[3] < 1e-5 < errs[1], errs
+
+
+# The backward kernels' oracles: autograd through the port's plain versions
+# against jax.grad through the reference's math (the reference trains through
+# plain jnp: its RMSNorm oracle and its layers' dense GQA attention), on the
+# same numpy inputs and output gradients; 1e-5 (RMSNorm) and 1e-4 (attention)
+# of each gradient's max|g|, fp32.
+GRAD_BOUND = {"rmsnorm": 1e-5, "flash": 1e-4}
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 7, 128), (3, 5, 256)])
+def test_rmsnorm_ref_grads_match_jax(shape):
+    rs = np.random.default_rng(2)
+    x, dy = (rs.standard_normal(shape).astype(np.float32) for _ in range(2))
+    scale = np.linspace(0.5, 1.5, shape[-1]).astype(np.float32)
+    _, vjp = jax.vjp(jref.rmsnorm_ref, jnp.asarray(x), jnp.asarray(scale))
+    want = vjp(jnp.asarray(dy))
+    xt, st = torch.from_numpy(x).requires_grad_(), torch.from_numpy(scale).requires_grad_()
+    got = torch.autograd.grad(ref.rmsnorm_ref(xt, st), (xt, st), torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= GRAD_BOUND["rmsnorm"] * np.abs(w).max()
+
+
+@pytest.mark.parametrize("Sq,Sk,Hq,Hkv,h", [(64, 64, 4, 2, 16), (37, 81, 4, 1, 32),
+                                             (50, 50, 8, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_grads_match_jax(Sq, Sk, Hq, Hkv, h, causal):
+    from repro.models.layers import NEG_INF, _gqa_scores_to_out
+
+    q, k, v = _qkv(2, Sq, Sk, Hq, Hkv, h, seed=3)
+    do = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    G = Hq // Hkv
+    bias = np.where(np.arange(Sq)[:, None] >= np.arange(Sk)[None, :], 0.0, NEG_INF) \
+        if causal else np.zeros((Sq, Sk))
+    bias = jnp.asarray(bias, jnp.float32)
+
+    def attn(q, k, v):
+        o = _gqa_scores_to_out(q.reshape(2, Sq, Hkv, G, h), k, v, bias, 1.0 / math.sqrt(h))
+        return o.reshape(q.shape)
+
+    _, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(ref.flash_attention_ref(*ts, causal=causal), ts,
+                              torch.from_numpy(do))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= GRAD_BOUND["flash"] * np.abs(w).max()

@@ -7,7 +7,6 @@ for attention outputs, caches and logits (the two frameworks sum matrix
 products in different orders), and the reference's 5e-3 for its
 prefill-then-decode check (tests/test_models.py)."""
 import dataclasses
-import itertools
 
 import numpy as np
 import pytest
@@ -19,47 +18,14 @@ import torch  # noqa: E402
 from repro.configs import get_config as jget_config, get_smoke_config as jget_smoke  # noqa: E402
 from repro.models import layers as JL, model as JM  # noqa: E402
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config  # noqa: E402
-from repro_torch.convert import params_from_jax, stacked_axes  # noqa: E402
+from repro_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
-from torch import nn  # noqa: E402
 
 ARCH = "llama3-8b"
 RECURRENT = {"zamba2-7b": 2, "zamba2-7b-tail": 3, "rwkv6-1.6b": 2}   # variant -> layers
 ROPE_BOUND = 1e-5
 BOUND = 1e-4
 PREFILL_DECODE_BOUND = 5e-3     # tests/test_models.py::test_prefill_decode_matches_full_forward
-
-
-def params_to_jax(cfg, model):
-    """Inverse of ``params_from_jax``: the port's model -> the reference's
-    nested tree of numpy arrays (layers restacked, linears transposed back)."""
-    mods = dict(model.named_modules())
-    stacked = stacked_axes(cfg)
-    tree, parts_of = {}, {}
-    for key, t in model.state_dict().items():
-        parts = key.split(".")
-        mod, leaf, a = mods[".".join(parts[:-1])], parts[-1], t.detach().numpy()
-        if isinstance(mod, nn.Embedding):
-            leaf = "table"
-        elif isinstance(mod, nn.Linear):
-            a = a.T if leaf == "weight" else a
-            leaf = {"weight": "w", "bias": "b"}[leaf]
-        lead = stacked.get(tuple(parts[:2]), ())
-        path = parts[:2] + parts[2 + len(lead):-1] + [leaf] if lead else parts[:-1] + [leaf]
-        idx = tuple(int(i) for i in parts[2:2 + len(lead)])
-        parts_of.setdefault(tuple(path), {})[idx] = a
-        parts_of[tuple(path)]["lead"] = lead
-    for path, got in parts_of.items():
-        lead = got.pop("lead")
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        if lead:
-            idxs = list(itertools.product(*(range(n) for n in lead)))
-            node[path[-1]] = np.stack([got[i] for i in idxs]).reshape(lead + got[idxs[0]].shape)
-        else:
-            node[path[-1]] = got[()]
-    return tree
 
 
 @pytest.fixture(scope="module")

@@ -12,15 +12,20 @@ relative to max|y|, and to max(1, max|state|) for the final state (the
 reference's bounds, tests/test_kernels.py), and their fp32 kernels 2e-5
 against the step oracles in fp64; the smoke models through the
 kernels against ``backend="ref"`` 1e-3 absolute on the logits (fp32, the
-bound of ``chip_smoke.py``'s slice parity)."""
+bound of ``chip_smoke.py``'s slice parity).  The backward kernels, which the
+reference does not have, against autograd through the plain versions on
+the same inputs: fp32 within 1e-5 (RMSNorm, of each gradient's max|g|) and
+1e-4 (flash, its forward's bound, of max|g| over dq, dk and dv), against
+the plain versions in fp64; bf16 and fp16 within 2e-2 of max|g| (the
+forward's half-precision bound)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash import flash_attention_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.flash import HEAD_DIMS, flash_attention_bwd_cuda, flash_attention_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd import ssd_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 from repro_torch.models import model as M
@@ -37,7 +42,11 @@ SSD_EXACT_RTOL = 2e-5
 # exponents are sums over the rows they span, so strong decays cost no accuracy
 WKV6_EXACT_RTOL = 2e-5
 MODEL_LOGITS_BOUND = 1e-3
-NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0}
+RMS_GRAD_BOUND = 1e-5            # relative to max|g|, fp32 against the plain version in fp64
+FLASH_GRAD_BOUND = 1e-4          # relative to max|g|, fp32 against the plain version in fp64
+HALF_GRAD_BOUND = 2e-2           # relative to max|g|, bf16/fp16
+NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bwd": 0,
+               "flash_attention_bwd": 0}
 
 
 def _t(shape, seed=0, dtype=torch.float32, device="cpu"):
@@ -188,6 +197,24 @@ def test_wkv6_plain_routes_take_out_state(S):
         y, st_out = ops.wkv6(*args, st, out_state=st, backend=backend)
         assert st_out is st and torch.equal(y, y_ref) and torch.equal(st, st_ref)
     assert ops.LAUNCHES == NO_LAUNCHES
+
+
+def test_cpu_gradients_take_the_plain_versions():
+    """With grad enabled, CPU tensors go through the plain versions and
+    autograd: the gradients are autograd's through ``ref``, and nothing is
+    launched or built."""
+    ops.reset_launches()
+    x, s = _t((3, 5, 64)).requires_grad_(), torch.linspace(0.5, 1.5, 64).requires_grad_()
+    q, k, v = (_t(shape, i).requires_grad_() for i, shape in
+               enumerate(((2, 40, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16))))
+    dy, do = _t((3, 5, 64), 7), _t((2, 40, 4, 16), 8)
+    got = torch.autograd.grad([ops.rmsnorm(x, s), ops.flash_attention(q, k, v)],
+                              [x, s, q, k, v], [dy, do])
+    want = torch.autograd.grad([ref.rmsnorm_ref(x, s), ref.flash_attention_ref(q, k, v)],
+                               [x, s, q, k, v], [dy, do])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.LAUNCHES == NO_LAUNCHES
+    assert _build._LIB is None
 
 
 def test_reset_launches():
@@ -487,3 +514,149 @@ def test_smoke_model_kernels_match_ref(cuda, arch, layers):
     scan = "wkv6" if cfg.family == "ssm" else "ssd"
     assert launches[scan] == 3 * layers
     assert (lk - lr).abs().max().item() < MODEL_LOGITS_BOUND
+
+
+def _grads(fn, inputs, dout):
+    """Autograd's gradients of ``fn(*inputs)`` for the output gradient
+    ``dout``, on leaf copies of ``inputs``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, dout.to(out.dtype))
+
+
+def _rel_err(got, want) -> float:
+    """max|got - want| over max|want|."""
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 64), (2, 7, 128), (8, 4096), (300, 4096), (5, 100),
+                                   (1, 3), (1000, 256)])
+@pytest.mark.parametrize("dtype,scale_fp32", [(torch.float32, True), (torch.bfloat16, True),
+                                              (torch.bfloat16, False), (torch.float16, False)])
+def test_rmsnorm_bwd_kernel_matches_autograd_of_ref(cuda, shape, dtype, scale_fp32):
+    """ops.rmsnorm with grad on CUDA tensors launches the forward and the
+    backward kernel once each; dx and dscale match autograd through the
+    plain version in fp64 on the same inputs."""
+    x = _t(shape, dtype=dtype, device=cuda)
+    s = torch.linspace(0.5, 1.5, shape[-1], device=cuda)
+    s = s if scale_fp32 else s.to(dtype)
+    dy = _t(shape, 1, dtype, cuda)
+    ops.reset_launches()
+    y, (dx, ds) = _grads(ops.rmsnorm, (x, s), dy)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == 1 and ops.LAUNCHES["rmsnorm_bwd"] == 1
+    assert dx.dtype == dtype and ds.dtype == s.dtype and dx.shape == x.shape
+    _, (dx64, ds64) = _grads(ref.rmsnorm_ref, (x.double(), s.double()), dy.double())
+    bound = RMS_GRAD_BOUND if dtype == torch.float32 else HALF_GRAD_BOUND
+    assert _rel_err(dx, dx64) < bound and _rel_err(ds, ds64) < bound
+
+
+@pytest.mark.gpu
+def test_rmsnorm_bwd_is_deterministic(cuda):
+    """dscale is summed in a fixed order: two runs give the same bits."""
+    x, dy = _t((4096, 4096), device=cuda), _t((4096, 4096), 1, device=cuda)
+    s = torch.linspace(0.5, 1.5, 4096, device=cuda)
+    a = rmsnorm_bwd_cuda(x, s, dy)
+    b = rmsnorm_bwd_cuda(x, s, dy)
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+
+
+_FLASH_BWD_CASES = (
+    [(1, S, S, 2 * G, 2, h) for h in HEAD_DIMS for G in (1, 4) for S in (1, 63, 512)]
+    + [(1, 2048, 2048, 8, 2, 128), (1, 2048, 2048, 2, 2, 64),
+       # Sq, Sk not tile multiples, Sq != Sk, one key, more keys than queries
+       (2, 100, 100, 4, 1, 128), (1, 37, 81, 4, 1, 64), (2, 129, 129, 8, 2, 112),
+       (1, 7, 1, 2, 1, 16), (1, 48, 130, 4, 4, 32), (1, 130, 48, 4, 2, 128)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,h", _FLASH_BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_autograd_of_ref(cuda, B, Sq, Sk, Hq, Hkv, h, causal):
+    """ops.flash_attention with grad on CUDA tensors launches the forward
+    and the backward once each; dq, dk and dv (dk and dv summed over each
+    KV head's query heads) match autograd through the plain version in
+    fp64 within 1e-4 of max|g|, and in fp32 as well."""
+    q = _t((B, Sq, Hq, h), 1, device=cuda)
+    k, v = _t((B, Sk, Hkv, h), 2, device=cuda), _t((B, Sk, Hkv, h), 3, device=cuda)
+    do = _t((B, Sq, Hq, h), 4, device=cuda)
+    ops.reset_launches()
+    o, got = _grads(lambda *a: ops.flash_attention(*a, causal=causal), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1
+    f = lambda *a: ref.flash_attention_ref(*a, causal=causal)  # noqa: E731
+    _, want64 = _grads(f, (q.double(), k.double(), v.double()), do.double())
+    _, want32 = _grads(f, (q, k, v), do)
+    # max|g| over dq, dk and dv: at Sk = 1 dq is zero (the one weight is 1)
+    gmax = max(w.abs().max().item() for w in want64)
+    for g, w64, w32 in zip(got, want64, want32):
+        assert g.dtype == torch.float32 and g.shape == w64.shape
+        assert (g.double() - w64).abs().max().item() < FLASH_GRAD_BOUND * gmax
+        assert (g - w32).abs().max().item() < FLASH_GRAD_BOUND * gmax
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_half_precision(cuda, dtype, causal):
+    q = _t((2, 200, 8, 128), 1, dtype, cuda)
+    k, v = _t((2, 200, 2, 128), 2, dtype, cuda), _t((2, 200, 2, 128), 3, dtype, cuda)
+    do = _t((2, 200, 8, 128), 4, dtype, cuda)
+    _, got = _grads(lambda *a: ops.flash_attention(*a, causal=causal), (q, k, v), do)
+    f = lambda *a: ref.flash_attention_ref(*a, causal=causal)  # noqa: E731
+    _, want = _grads(f, (q.double(), k.double(), v.double()), do.double())
+    gmax = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert (g.double() - w).abs().max().item() < HALF_GRAD_BOUND * gmax
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_lse_is_the_rows_logsumexp(cuda, causal):
+    """The forward's lse is each row's log-sum-exp of its scaled, masked
+    scores, and asking for it leaves o as it was."""
+    B, Sq, Sk, Hq, Hkv, h = 2, 150, 150, 8, 2, 64
+    q = _t((B, Sq, Hq, h), 1, device=cuda)
+    k, v = _t((B, Sk, Hkv, h), 2, device=cuda), _t((B, Sk, Hkv, h), 3, device=cuda)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    assert torch.equal(o, flash_attention_cuda(q, k, v, causal=causal))
+    kk = k.double().repeat_interleave(Hq // Hkv, dim=2)
+    sc = torch.einsum("bqhd,bshd->bhqs", q.double(), kk) / h ** 0.5
+    if causal:
+        sc = sc.masked_fill(torch.ones(Sq, Sk, dtype=torch.bool, device=cuda).triu(1), -1e30)
+    assert (lse.double() - torch.logsumexp(sc, dim=-1)).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_bwd_refuses_what_it_does_not_take(cuda):
+    q = _t((1, 8, 2, 64), device=cuda)
+    o, lse = flash_attention_cuda(q, q, q, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, q, q, o, lse[:, :, :4], o)
+    with pytest.raises(ValueError, match="must match"):
+        flash_attention_bwd_cuda(q, q, q, o, lse, o[:, :4])
+
+
+def _forward_only_calls(cuda):
+    """Each forward-only wrapper with only a parameter-like input needing a
+    gradient: RMSNorm's scale, SSD's A and D, WKV6's u."""
+    x, s = _t((4, 64), device=cuda), torch.ones(64, device=cuda)
+    x6, dt, A, Bm, Cm, D = _ssd(1, 8, 2, 64, 64, device=cuda)
+    r, k, v, w, u = _wkv(1, 8, 2, 64, 64, device=cuda)
+    return {
+        "rmsnorm scale": lambda: rmsnorm_cuda(x, s.requires_grad_()),
+        "ssd A": lambda: ssd_cuda(x6, dt, A.requires_grad_(), Bm, Cm, D),
+        "ssd D": lambda: ssd_cuda(x6, dt, A.detach(), Bm, Cm, D.requires_grad_()),
+        "wkv6 u": lambda: wkv6_cuda(r, k, v, w, u.requires_grad_()),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["rmsnorm scale", "ssd A", "ssd D", "wkv6 u"])
+def test_forward_only_wrappers_refuse_parameter_gradients(cuda, what):
+    """A parameter that needs a gradient makes the forward-only wrapper
+    raise, instead of returning an output detached from it."""
+    with pytest.raises(RuntimeError, match="forward-only"):
+        _forward_only_calls(cuda)[what]()
