@@ -7,7 +7,9 @@ Phases, each of which exits non-zero on a failed check:
   1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a), timed; what ptxas reports for flash attention's fp32
-     instantiations at h = 112 and 128, for the SSD kernels' at P = N = 64
+     instantiations at h = 112 and 128 (forward and both backward kernels,
+     each beside its dynamic shared memory), for the RMSNorm backward's
+     fp32 register-path instantiations, for the SSD kernels' at P = N = 64
      and for the WKV6 kernels' at K = V = 64 (registers, spills, which fail
      the run) beside the shared memory of their layouts and the blocks per
      SM that these allow, and for the chunked scans' other fp32
@@ -32,12 +34,14 @@ Phases, each of which exits non-zero on a failed check:
      fp32-exact on the tensor cores as 3 TF32 products at 495 TFLOP/s, and
      their bound on the CUDA cores' 67 TFLOP/s is printed beside it); and
      the two backward kernels, which the TPU kernels do not have (RMSNorm's
-     and flash attention's, with ptxas's report of the latter), against
+     and flash attention's, each with ptxas's report and its time split
+     by kernel from the profiler), against
      autograd of the plain versions in fp64 on the card, timed at
      llama3-8b's training shapes (8192 x 4096 rows; B = 4, S = 2048) beside
      the plain versions' backward, a library call's backward (autograd of
      ``F.rms_norm``; SDPA's efficient backend, forward and backward less
-     forward) and their bounds (bytes; five products at 67 TFLOP/s);
+     forward) and their bounds (bytes; five products as 3xTF32 at
+     495 TFLOP/s, the rate of the backward's tensor-core products);
   4. serving, one model at a time, each freed before the next: ``llama3-8b``
      (eight ragged prompts of 384-512 tokens), ``zamba2-7b`` and
      ``rwkv6-1.6b`` (eight prompts of 512 tokens: the recurrent families need
@@ -277,6 +281,31 @@ def kernel_ms(fn, kernel: str, *, calls: int = 50, warmup: int = 3,
     return total / count / 1e3
 
 
+def device_ms_split(fn, names, *, calls: int = 5) -> dict:
+    """Mean device time of one launch of the kernels whose names hold each
+    of ``names`` (``fn`` launches each once), from one torch.profiler trace
+    of ``calls`` calls: where a wrapper's time goes among its kernels.  The
+    mean is over the launches the trace holds, since a trace can lose
+    records (NaN where it holds none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in ev.key:
+                    total[name] += ev.self_device_time_total / 1e3
+                    count[name] += ev.count
+    return {name: total[name] / count[name] if count[name] else float("nan")
+            for name in names}
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -475,8 +504,12 @@ def rmsnorm_bwd_phase(gen) -> dict:
     lib = backward_ms(lambda a, b: torch.nn.functional.rms_norm(a, (D,), b, 1e-5),
                       (x, scale), dy)
     b_ms, b_by = bound_ms(4 * (3 * rows * D + 2 * D), 8 * rows * D, torch.float32)
+    split = device_ms_split(lambda: rmsnorm_bwd_cuda(x, scale, dy),
+                            ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"))
     say(f"rmsnorm backward ({rows}, {D}) fp32: {ms:.4f} ms; plain (autograd) {plain:.4f} "
-        f"ms; F.rms_norm's backward {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        f"ms; F.rms_norm's backward {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+        f"{b_ms / ms:.1%} of it reached); on the card by kernel: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
     return {"name": "rmsnorm_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": [rows, D],
@@ -484,7 +517,7 @@ def rmsnorm_bwd_phase(gen) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
             "bound": RMS_GRAD_BOUND, "bound_of": "max|g|", "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib, "library": "autograd of F.rms_norm",
-            "cases": cases}
+            "device_ms_by_kernel": split, "cases": cases}
 
 
 def flash_bwd_phase(gen) -> dict:
@@ -533,23 +566,36 @@ def flash_bwd_phase(gen) -> dict:
                       per_sample=2)
     pairs = causal_pairs(S, S) * B * Hq
     nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())   # q o dO dq, k v dk dv
-    # the least time: five products, fp32-exact at the card's 3xTF32 rate (as
-    # the forward is bounded); the kernel's own route, the fp32 CUDA cores,
-    # is printed beside it
+    # the least time: five products, fp32-exact at the card's 3xTF32 rate,
+    # the kernels' route (as the forward is bounded); the design's own floor,
+    # seven products (the dQ kernel recomputes S and dP), is printed beside it
     b_ms, b_by = bound_ms(nbytes, 5 * 2 * h * pairs, FP32_AS_3XTF32)
     b_cores, by_cores = bound_ms(nbytes, 5 * 2 * h * pairs, torch.float32)
+    floor7, _ = bound_ms(nbytes, 7 * 2 * h * pairs, FP32_AS_3XTF32)
+    # by kernel, each beside the floor of its own products (dK/dV: Sᵀ, dPᵀ,
+    # dV, dK; dQ: S, dP, dQ)
+    split = device_ms_split(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do),
+                            ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel",
+                             "flash_bwd_dq_kernel"), calls=3)
+    for name, products in (("flash_bwd_dkdv_kernel", 4), ("flash_bwd_dq_kernel", 3)):
+        own = products * 2 * h * pairs / PEAK_FLOPS[FP32_AS_3XTF32] * 1e3
+        say(f"flash backward {name}: {split[name]:.4f} ms on the card, "
+            f"{own / split[name]:.1%} of its {products} products' {own:.4f} ms")
+    say(f"flash backward flash_bwd_dot_kernel: {split['flash_bwd_dot_kernel']:.4f} ms")
     say(f"flash backward B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal fp32: {ms:.4f} ms; "
         f"plain (autograd) {plain:.4f} ms; sdpa[{SDPA_BACKEND}] backward {lib:.4f} ms; "
         f"bound {b_ms:.4f} ms ({b_by}, five products as 3xTF32 on the tensor cores; "
-        f"{b_ms / ms:.1%} of it reached); on the fp32 CUDA cores it would be "
-        f"{b_cores:.4f} ms ({by_cores}; {b_cores / ms:.1%} of it reached)")
+        f"{b_ms / ms:.1%} of it reached); the design's seven products {floor7:.4f} ms "
+        f"({floor7 / ms:.1%} of it reached); on the fp32 CUDA cores it would be "
+        f"{b_cores:.4f} ms ({by_cores})")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
             "replaces": "src/repro/kernels/flash.py:65", "shape": [B, S, Hq, Hkv, h],
             "dtype": "float32", "max_abs_err": max(c["max_abs_err"] for c in cases),
             "bound": FLASH_GRAD_BOUND, "bound_of": "max|g| over dq, dk, dv", "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "bound_ms_fp32_cores": b_cores, "library_ms": lib,
+            "bound_ms_seven_products": floor7, "bound_ms_fp32_cores": b_cores,
+            "device_ms_by_kernel": split, "library_ms": lib,
             "library": f"sdpa[{SDPA_BACKEND}] forward+backward less forward",
             "cases": cases}
 
@@ -592,19 +638,53 @@ def flash_train_shape_errs(q, k, v, do, o, lse, grads) -> dict:
             "grad_err_of_max_g": g_err / g_max}
 
 
+def flash_bwd_smem_bytes(kind: str, h: int) -> int:
+    """Dynamic shared memory of flash_bwd.cu's kernels: rows of h + 8 floats;
+    the dQ kernel keeps Q and dO of 128 rows and double-buffers K and V
+    tiles of 32 keys; the dK/dV kernel keeps K and V of 128 keys and
+    double-buffers Q and dO tiles of 32 queries with their lse and D."""
+    return 4 * ((h + 8) * (2 * 128 + 4 * 32) + (4 * 32 if kind == "dkdv" else 0))
+
+
 def flash_bwd_build_report() -> dict:
     """What ptxas reports for the fp32 backward kernels at h = 112 and 128
-    (registers, spills), printed and kept beside the phase's numbers."""
+    (registers, spills, which fail the run), printed beside each kernel's
+    dynamic shared memory and kept beside the phase's numbers."""
     report = {}
     for entry in ptxas_report("flash_bwd.cu"):
         m = re.search(r"flash_bwd_(dkdv|dq)_kernelIfLi(\d+)E", entry["kernel"])
         if not m or int(m.group(2)) not in (112, 128):
             continue
         name = f"{m.group(1)} <fp32, {m.group(2)}>"
-        report[name] = {k: v for k, v in entry.items() if k != "kernel"}
+        smem = flash_bwd_smem_bytes(m.group(1), int(m.group(2)))
+        report[name] = {**{k: v for k, v in entry.items() if k != "kernel"},
+                        "smem_dynamic": smem}
         say(f"ptxas flash backward {name}: {entry['registers']} registers, "
-            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads")
+            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads, "
+            f"{entry['stack']} B stack; {smem} B of dynamic shared memory")
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"flash backward {name} spills")
     check(len(report) == 4, f"ptxas reported the backward kernels {sorted(report)}")
+    return report
+
+
+def rmsnorm_bwd_build_report() -> dict:
+    """What ptxas reports for the RMSNorm backward's fp32 instantiations:
+    the register path holding 1, 2, 4 or 8 vectors a thread (fails on a
+    spill) and the generic path (0)."""
+    report = {}
+    for entry in ptxas_report("rmsnorm.cu"):
+        m = re.search(r"rmsnorm_bwd_kernelIffLi(\d+)E", entry["kernel"])
+        if not m:
+            continue
+        nv = int(m.group(1))
+        report[nv] = {k: v for k, v in entry.items() if k != "kernel"}
+        say(f"ptxas rmsnorm backward <fp32, {nv} vectors>: {entry['registers']} registers, "
+            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads")
+        check(nv == 0 or (entry["spill_stores"] == 0 and entry["spill_loads"] == 0),
+              f"rmsnorm backward <fp32, {nv}> spills")
+    check(sorted(report) == [0, 1, 2, 4, 8],
+          f"ptxas reported the rmsnorm backward for {sorted(report)}")
     return report
 
 
@@ -1716,6 +1796,7 @@ def main() -> int:
 
     flash_ptxas = flash_build_report()
     flash_bwd_ptxas = flash_bwd_build_report()
+    rmsnorm_bwd_ptxas = rmsnorm_bwd_build_report()
     ssd_ptxas = ssd_build_report()
     wkv6_ptxas = wkv6_build_report()
 
@@ -1725,6 +1806,7 @@ def main() -> int:
     kernels[1]["ptxas"] = flash_ptxas
     kernels[2]["ptxas"] = ssd_ptxas
     kernels[3]["ptxas"] = wkv6_ptxas
+    kernels[4]["ptxas"] = rmsnorm_bwd_ptxas
     kernels[5]["ptxas"] = flash_bwd_ptxas
 
     import torch.distributed as dist

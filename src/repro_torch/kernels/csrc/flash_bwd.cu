@@ -1,5 +1,5 @@
 // Backward flash attention, causal or full, with grouped KV heads (GQA), on
-// the fp32 CUDA cores.
+// the tensor cores with fp32-exact products.
 //
 // The TPU kernel it pairs with, repro/kernels/flash.py::flash_attention (the
 // pl.pallas_call at flash.py:79), has no backward: the reference trains
@@ -13,113 +13,228 @@
 // where dP = dO Vᵀ and dS = P ∘ (dP - D).  Nothing of size Sq x Sk is ever
 // written to device memory.
 //
-// Layout.  dK and dV are owned by one block per (batch, KV head, 64-key
-// tile), which walks the query tiles of all G query heads of its KV head
-// and sums into registers: GQA's sum over the group needs no second pass
-// and no atomics.  dQ is owned by one block per (batch, query head, 64-row
-// query tile), which walks the key tiles.  So every gradient is a plain
-// sum in a fixed order, the same on every run (no fp32 atomics).  S and dP
-// are recomputed in both kernels.
-//
 // Bound on the H100: operations.  Five products of 2·h flops per (query,
 // key) pair the mask keeps (QKᵀ, dO Vᵀ, Pᵀ dO, dSᵀ Q, dS K) against
 // 4 · 4 · h bytes per row of q, k, v, o, dO read and dq, dk, dv written.
-// This first kernel runs them on the CUDA cores in fp32 (67 TFLOP/s), and
-// recomputes QKᵀ and dO Vᵀ in the dQ kernel (seven products done for five).
-// Its design is simple: 256 threads per block in a 16 x 16 grid, each
-// owning a 4 x 4 tile of S and dP, read from shared-memory tiles with
-// 16-byte loads (rows padded to h + 4 floats, so the loads of 16 rows hit
-// distinct banks), then 4 x h/16 outputs of dK and dV (or dQ).  The tensor
-// cores (3xTF32 on mma.sync, or wgmma) are later work.
+// Every product runs on the TF32 tensor cores (mma.sync m16n8k8) in the
+// 3xTF32 split of common.cuh, as flash.cu's do: in a CPU emulation
+// (tests/test_torch_kernels.py) one TF32 product misses the 1e-4 of max|g|
+// bound several times over and the split is as accurate as fp32.  So
+// the ceiling is 495 / 3 TFLOP/s of fp32 work.  The dQ kernel recomputes S
+// and dP, so this design does seven products for five (its own floor is
+// 7/5 of the bound).
+//
+// Layout.  dK and dV are owned by one block per (batch, KV head, 128-key
+// tile), which walks the 32-query tiles of all G query heads of its KV
+// head and sums into registers: GQA's sum over the group needs no second
+// pass and no atomics.  dQ is owned by one block per (batch, query head,
+// 128-row query tile), which walks the 32-key tiles.  So every gradient is
+// a plain sum in a fixed order, the same on every run.  Each kernel is the
+// forward's structure turned around:
+//   * each of the eight warps owns 16 rows (queries in the dQ kernel, keys
+//     in the dK/dV kernel) and keeps their gradient rows in registers in
+//     the MMA's C layout;
+//   * S and dP (dQ kernel), Sᵀ and dPᵀ (dK/dV kernel) are computed into the
+//     C layout; within each 8-wide step of the head dim the MMA's k = t and
+//     k = t + 4 carry columns 2t and 2t + 1, so a lane's A and B pairs are
+//     adjacent floats (8-byte loads);
+//   * P = exp2(S·scale·log2 e − lse·log2 e) and dS = P ∘ (dP − D) are formed
+//     in registers, split into big and small (again for each pair of the
+//     second product's column steps), and feed the second product as its
+//     A fragment with no shuffle: in each 8-key (8-query)
+//     step the MMA's k = t and k = t + 4 carry keys (queries) 2t and
+//     2t + 1, which is where the C layout left them.  lse and D are per
+//     row in the dQ kernel (two registers each) and per column in the
+//     dK/dV kernel (read from the staged tile's 32 values);
+//   * each gradient tile's sum over a streamed tile (32 queries or keys)
+//     is taken in the MMA from zero and added to the registers' running sum
+//     in fp32 (tile_mma): the MMA's own accumulate rounds toward zero, a
+//     bias that grows with the rows summed.  S and dP, sums over the head
+//     dim only, accumulate in the MMA;
+//   * the streamed tiles (K and V; Q, dO, lse and D) come in by cp.async
+//     into a double buffer: tile j+1 is in flight while tile j's products
+//     run.  bf16 and fp16 inputs are converted to fp32 by plain loads, as
+//     flash.cu does;
+//   * causal tiles no row can see are never loaded, a warp skips a tile
+//     wholly outside its rows' mask, tiles wholly inside skip the tests,
+//     and the blocks with the most tiles are launched first (the grid's
+//     slow axis is the tile, reversed for the dQ kernel).
+//
+// Shared-memory banks.  K in the dQ kernel and Q, dO in the dK/dV kernel
+// are each read two ways: by row pairs, (row 8n + g, columns 2t, 2t + 1),
+// as the B operand of QKᵀ-like products, and by column, (rows 2t, 2t + 1,
+// column 8n + g), as the B operand of P·V-like products.  No pitch alone
+// serves both (at h + 8 the column reads of t and t + 2 collide, at h + 4
+// the 8-byte row reads of g and g + 1 overlap), so every tile here has
+// rows of h + 8 floats and an XOR swizzle: on rows whose bit 2 is set,
+// bit 3 of the column is flipped (a 16-byte chunk stays whole, so cp.async
+// writes it as one piece).  Counted at the pitch mod 32 (136 ≡ 8 at
+// h = 128, 120 ≡ 24 at h = 112): an 8-byte row read's half-warp (g in
+// 0..3 or 4..7) starts at banks 8g + 2t (h = 128) or 24g + 2t (h = 112)
+// plus one offset for the half: four distinct 8-bank groups; a column
+// read starts at bank 2t·pitch + g + 8·[t ≥ 2] (+ pitch for row 2t + 1),
+// which mod 32 is {0, 16, 8, 24} + g (row 2t) and {8, 24, 16, 0} + g (row
+// 2t + 1) at h = 128 and {0, 16, 8, 24} + g and {24, 8, 0, 16} + g at
+// h = 112: 32 distinct banks.  h = 16, 32, 64 have pitches ≡ 24, 8, 8.
+//
+// Shared memory at h = 128 (pitch 136, fp32): the dQ kernel keeps Q and dO
+// of 128 rows (2 x 69.6 KB) and double-buffers K and V tiles of 32 keys
+// (4 x 17.4 KB): 208,896 B; the dK/dV kernel keeps K and V of 128 keys and
+// double-buffers Q and dO tiles of 32 queries with their lse and D
+// (2 x 2 x 128 B): 209,408 B.  At h = 112, 184,320 and 184,832 B.  One
+// block of eight warps per SM.
+//
+// Registers.  The dK/dV kernel holds dK and dV of 16 keys x h columns (2h/4
+// registers a lane: 128 at h = 128) beside Sᵀ and dPᵀ of 16 keys x 32
+// queries (32 more) and a pair of column steps' tile sums (8); with the
+// 32-query tile ptxas fits it in 255 with no spill.  The dQ kernel holds
+// dQ (h/4) and S, dP of 16 rows x 32 keys (32).
 //
 // Lengths need not be tile multiples: rows past Sq and keys past Sk are
-// zero-filled and masked.  The causal mask counts query and key positions
-// from 0, as the forward's does.
+// zero-filled by cp.async's source size and masked.  The causal mask
+// counts query and key positions from 0, as the forward's does.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per tile
-constexpr int BK = 64;              // keys per tile
-constexpr int THREADS = 256;        // a 16 x 16 grid
-constexpr int LDP = BK + 4;         // pitch of the P and dS tiles, in floats
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;      // dQ kernel: query rows per block
+constexpr int BKV = 16 * WARPS;     // dK/dV kernel: keys per block
+constexpr int TK = 32;              // dQ kernel: keys per streamed K/V tile
+constexpr int TQ = 32;              // dK/dV kernel: queries per streamed Q/dO tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
-struct Tiles {                      // in floats
-  static constexpr int LD = HD + 4; // 16-byte rows; 16 rows' float4s on distinct banks
-  static constexpr int T = 64 * LD; // one tile of Q, dO, K or V
+// 4 bytes from global to shared memory (the tile's lse and D); zeros where
+// !valid.  The caller commits the group.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Where (row, col) of a tile lies: rows of LD floats, and on rows with bit
+// 2 set, bit 3 of the column flipped.
+template <int LD>
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * LD + (col ^ ((row & 4) << 1));
+}
+
+// ROWS rows of HD elements, row r at src + (row0 + r) * stride, into the
+// swizzled tile dst as fp32; rows at or past n are zeros.  fp32 goes by
+// 16-byte cp.async (the caller commits); other types by plain loads.
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t stride, int row0,
+                                          int n) {
+  static_assert(HD % 16 == 0, "the swizzle flips bit 3 inside 16-column groups");
+  constexpr int CH = HD / 4;        // 4-element chunks per row
+  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = (e % CH) * 4;
+    const bool in = row0 + r < n;
+    const T* p = src + static_cast<size_t>(in ? row0 + r : 0) * stride + c;
+    float* d = dst + swz<HD + 8>(r, c);
+    if constexpr (std::is_same_v<T, float>) {
+      cp_async16(d, p, in);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = in ? to_f(p[i]) : 0.f;
+    }
+  }
+}
+
+// A lane's row-pair reads of a swizzled tile: (row, 8d + 2t .. 8d + 2t + 1)
+// as one float2 for each 8-column step d.  The swizzle moves even d by +s
+// and odd d by -s (s = 8 on rows with bit 2 set), so each is one pointer
+// and an immediate offset once d is unrolled.  ``roff`` adds whole rows of
+// the same swizzle (a multiple of 8 rows).
+struct RowPairs {
+  const float* even;
+  const float* odd;
+  __device__ __forceinline__ RowPairs(const float* tile, int ld, int row, int t) {
+    const int s = (row & 4) << 1;
+    const float* base = tile + row * ld + 2 * t;
+    even = base + s;
+    odd = base - s;
+  }
+  __device__ __forceinline__ float2 at(int d, int roff) const {
+    return *reinterpret_cast<const float2*>(((d & 1) ? odd : even) + 8 * d + roff);
+  }
 };
 
-// ROWS rows of HD elements, row r at src + (row0 + r) * stride, into dst
-// (pitch LD) as fp32; rows at or past n are zeros.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t stride,
-                                          int row0, int n) {
-  for (int e = threadIdx.x; e < 64 * HD; e += THREADS) {
-    const int r = e / HD, c = e % HD;
-    dst[r * LD + c] = row0 + r < n ? to_f(src[static_cast<size_t>(row0 + r) * stride + c])
-                                   : 0.f;
+// A lane's column reads of a swizzled tile, the B operand of a product
+// whose k runs over the tile's rows: (rows 8c + 2t and 8c + 2t + 1,
+// column 8n + g) for each 8-row step c and 8-column step n.
+template <int LD>
+struct Cols {
+  const float* even;
+  const float* odd;
+  __device__ __forceinline__ Cols(const float* tile, int g, int t) {
+    const int s = ((2 * t) & 4) << 1;
+    const float* base = tile + 2 * t * LD + g;
+    even = base + s;
+    odd = base - s;
   }
+  __device__ __forceinline__ float2 at(int c, int n) const {
+    const float* p = ((n & 1) ? odd : even) + 8 * c * LD + 8 * n;
+    return make_float2(p[0], p[LD]);
+  }
+};
+
+// The A fragment of 16 rows from registers in the C layout: this lane's
+// (row, 2t), (row + 8, 2t), (row, 2t + 1), (row + 8, 2t + 1), split.
+__device__ __forceinline__ void split_c(const float (&c)[4], uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+  split(c[0], big[0], small[0]);
+  split(c[2], big[1], small[1]);
+  split(c[1], big[2], small[2]);
+  split(c[3], big[3], small[3]);
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// S = Q Kᵀ and dP = dO Vᵀ for this thread's rows ty + 16a and keys tx + 16c,
-// then P = exp(scale·S - lse) under the mask and dS = P ∘ (dP - D).
-template <int HD>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs, const float* Ks,
-                                       const float* Vs, const float* lse_s, const float* D_s,
-                                       int q0, int k0, int Sq, int Sk, int causal, float sl2,
-                                       float (&p)[4][4], float (&ds)[4][4]) {
-  constexpr int LD = Tiles<HD>::LD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dp[4][4];
+// acc[n] += A·B over one tile's NC k-steps, for each 8-column step n of B
+// (columns of a swizzled tile, the rows being k); A is 16 rows in the C
+// layout (a[c] for k-step c).  The tile's sum is taken in the MMA from zero
+// and added to acc in fp32, which rounds to nearest: the tensor core's
+// accumulate rounds toward zero, and over the thousands of rows a gradient
+// sums, accumulating in the MMA itself biases the sum (dv erred by 7.3e-5
+// of max|g| at B = 4, S = 2048 and by 1.6e-4 at S = 8192 on an H100,
+// against 9.2e-7 and 1.5e-6 this way; tools/bwd_variants.py).  Column
+// steps go in pairs, each pair's two MMA chains independent, with A split
+// again for each pair: on an H100 80GB HBM3 at 700 W pairs beat one step
+// at a time by 3 %.
+template <int NC, int NH, int LD>
+__device__ __forceinline__ void tile_mma(float (&acc)[NH][4], const float (&a)[NC][4],
+                                         const Cols<LD>& b) {
+  constexpr int NG = 2;
+  static_assert(NH % NG == 0, "whole pairs of column steps");
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int n0 = 0; n0 < NH; n0 += NG) {
+    float t[NG][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 qa[4], da[4], kb[4], vb[4];
+    for (int j = 0; j < NG; ++j)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * a) * LD + d);
-      da[a] = *reinterpret_cast<const float4*>(dOs + (ty + 16 * a) * LD + d);
-      kb[a] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * a) * LD + d);
-      vb[a] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * a) * LD + d);
+      for (int i = 0; i < 4; ++i) t[j][i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      uint32_t big[4], small[4];
+      split_c(a[c], big, small);
+#pragma unroll
+      for (int j = 0; j < NG; ++j) mma3(t[j], big, small, b.at(c, n0 + j));
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int j = 0; j < NG; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] += dot4(qa[a], kb[c]);
-        dp[a][c] += dot4(da[a], vb[c]);
-      }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = ty + 16 * a, qpos = q0 + i;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kpos = k0 + tx + 16 * c;
-      const bool ok = qpos < Sq && kpos < Sk && (!causal || kpos <= qpos);
-      p[a][c] = ok ? exp2f(s[a][c] * sl2 - lse_s[i]) : 0.f;
-      ds[a][c] = p[a][c] * (dp[a][c] - D_s[i]);
-    }
+      for (int i = 0; i < 4; ++i) acc[n0 + j][i] += t[j][i];
   }
 }
 
-// lse (natural log) in log2 units and D for the query tile at q0 of head hq.
-__device__ __forceinline__ void load_rows_stats(float* lse_s, float* D_s, const float* lse,
-                                                const float* Dv, size_t base, int q0, int Sq) {
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    const bool in = q0 + i < Sq;
-    lse_s[i] = in ? lse[base + q0 + i] * kLog2e : 0.f;
-    D_s[i] = in ? Dv[base + q0 + i] : 0.f;
-  }
+// The A fragment of 16 rows of a tile read by row pairs, split.
+__device__ __forceinline__ void split_rows(const RowPairs& a, int d, int ld,
+                                           uint32_t (&big)[4], uint32_t (&small)[4]) {
+  const float2 lo = a.at(d, 0), hi = a.at(d, 8 * ld);
+  split(lo.x, big[0], small[0]);
+  split(hi.x, big[1], small[1]);
+  split(lo.y, big[2], small[2]);
+  split(hi.y, big[3], small[3]);
 }
 
 // D[b, hq, i] = sum_d dO[b, i, hq, d] * O[b, i, hq, d]: one warp per row.
@@ -140,7 +255,7 @@ __global__ void flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restric
   }
 }
 
-// dK and dV for the keys [k0, k0 + BK) of KV head hk, summed over the G
+// dK and dV for the keys [k0, k0 + BKV) of KV head hk, summed over the G
 // query heads of its group and every query tile the mask lets see them.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -149,92 +264,131 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse, const float* __restrict__ Dv,
                       T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int Hq,
                       int Hkv, int causal, float scale) {
-  using L = Tiles<HD>;
-  constexpr int LD = L::LD, NE = HD / 16;
+  constexpr int LD = HD + 8, NH = HD / 8, NQ = TQ / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + L::T;
-  float* Qs = Vs + L::T;
-  float* dOs = Qs + L::T;
-  float* Ps = dOs + L::T;           // BQ x LDP
-  float* dSs = Ps + BQ * LDP;       // BQ x LDP
-  float* lse_s = dSs + BQ * LDP;    // BQ
-  float* D_s = lse_s + BQ;          // BQ
+  float* Ks = smem;                 // BKV x LD
+  float* Vs = Ks + BKV * LD;        // BKV x LD
+  float* Qs = Vs + BKV * LD;        // two buffers of TQ x LD
+  float* dOs = Qs + 2 * TQ * LD;    // two buffers of TQ x LD
+  float* stats = dOs + 2 * TQ * LD; // two buffers of lse (TQ) then D (TQ)
 
-  const int k0 = blockIdx.x * BK;   // causal: the short tiles (late keys) last
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv;
+  const int k0 = blockIdx.y * BKV;  // the early keys, seen by the most queries, first
   const int G = Hq / Hkv;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key = warp * 16 + g;    // this lane's keys in the tile: key, key + 8
+  const int kpos[2] = {k0 + key, k0 + key + 8};
+  const int warp_first = k0 + warp * 16, warp_last = warp_first + 15;
   const float sl2 = scale * kLog2e;
   const size_t q_stride = static_cast<size_t>(Hq) * HD;
   const size_t kv_stride = static_cast<size_t>(Hkv) * HD;
   const size_t kv_base = (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
 
-  load_tile<T, HD, LD>(Ks, k + kv_base, kv_stride, k0, Sk);
-  load_tile<T, HD, LD>(Vs, v + kv_base, kv_stride, k0, Sk);
-
-  float dK[4][NE], dV[4][NE];       // keys 4 ty + c, columns tx + 16 e
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int e = 0; e < NE; ++e) dK[c][e] = dV[c][e] = 0.f;
-
-  const int nqt = (Sq + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;
-  for (int g = 0; g < G; ++g) {
-    const int hq = hk * G + g;
+  // the tiles: G heads x the query tiles from qt0 on (causal: earlier
+  // queries see none of these keys)
+  const int qt0 = causal ? k0 / TQ : 0;
+  const int per_head = max((Sq + TQ - 1) / TQ - qt0, 0);
+  const int ntiles = G * per_head;
+  auto issue = [&](int i) {
+    const int hq = hk * G + i / per_head, q0 = (qt0 + i % per_head) * TQ, buf = i & 1;
     const size_t q_base = (static_cast<size_t>(b) * Sq * Hq + hq) * HD;
+    load_tile<T, HD, TQ>(Qs + buf * TQ * LD, q + q_base, q_stride, q0, Sq);
+    load_tile<T, HD, TQ>(dOs + buf * TQ * LD, dO + q_base, q_stride, q0, Sq);
     const size_t row_base = (static_cast<size_t>(b) * Hq + hq) * Sq;
-    for (int qt = qt0; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();              // the previous tile's readers are done
-      load_tile<T, HD, LD>(Qs, q + q_base, q_stride, q0, Sq);
-      load_tile<T, HD, LD>(dOs, dO + q_base, q_stride, q0, Sq);
-      load_rows_stats(lse_s, D_s, lse, Dv, row_base, q0, Sq);
-      __syncthreads();
+    if (threadIdx.x < 2 * TQ) {
+      const int r = threadIdx.x % TQ;
+      const bool in = q0 + r < Sq;
+      const float* src = (threadIdx.x < TQ ? lse : Dv) + row_base + (in ? q0 + r : 0);
+      cp_async4(stats + buf * 2 * TQ + threadIdx.x, src, in);
+    }
+  };
 
-      float p[4][4], ds[4][4];
-      scores<HD>(Qs, dOs, Ks, Vs, lse_s, D_s, q0, k0, Sq, Sk, causal, sl2, p, ds);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          Ps[(ty + 16 * a) * LDP + tx + 16 * c] = p[a][c];
-          dSs[(ty + 16 * a) * LDP + tx + 16 * c] = ds[a][c];
-        }
-      __syncthreads();
+  load_tile<T, HD, BKV>(Ks, k + kv_base, kv_stride, k0, Sk);
+  load_tile<T, HD, BKV>(Vs, v + kv_base, kv_stride, k0, Sk);
+  if (ntiles > 0) issue(0);
+  cp_async_commit();
 
-      // dV[j] += P[i, j] dO[i], dK[j] += dS[i, j] Q[i] over the tile's rows
-#pragma unroll 2
-      for (int i = 0; i < BQ; ++i) {
-        const float4 p4 = *reinterpret_cast<const float4*>(Ps + i * LDP + 4 * ty);
-        const float4 d4 = *reinterpret_cast<const float4*>(dSs + i * LDP + 4 * ty);
-        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float dj[4] = {d4.x, d4.y, d4.z, d4.w};
+  float dK[NH][4], dV[NH][4];       // keys key, key + 8; columns 8n + 2t, 8n + 2t + 1
 #pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          const float go = dOs[i * LD + tx + 16 * e];
-          const float qv = Qs[i * LD + tx + 16 * e];
+  for (int n = 0; n < NH; ++n)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            dV[c][e] += pj[c] * go;
-            dK[c][e] += dj[c] * qv;
-          }
+    for (int i = 0; i < 4; ++i) dK[n][i] = dV[n][i] = 0.f;
+
+  const RowPairs ka(Ks, LD, key, t), va(Vs, LD, key, t);
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + 1 < ntiles) {           // the next tile flies while this one runs
+      issue(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                // tile j (and K, V) visible to every warp
+
+    const int q0 = (qt0 + j % per_head) * TQ;
+    if (warp_first < Sk && (!causal || warp_first <= q0 + TQ - 1)) {   // warp-uniform
+      const float* Qt = Qs + (j & 1) * TQ * LD;
+      const float* dOt = dOs + (j & 1) * TQ * LD;
+      const float* lse_t = stats + (j & 1) * 2 * TQ;
+      const float* D_t = lse_t + TQ;
+
+      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: 16 keys x TQ queries per warp, C layout
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+      const RowPairs qb(Qt, LD, g, t), db(dOt, LD, g, t);
+#pragma unroll
+      for (int d = 0; d < NH; ++d) {
+        uint32_t k_big[4], k_small[4], v_big[4], v_small[4];
+        split_rows(ka, d, LD, k_big, k_small);
+        split_rows(va, d, LD, v_big, v_small);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          mma3(s[n], k_big, k_small, qb.at(d, 8 * n * LD));
+          mma3(dp[n], v_big, v_small, db.at(d, 8 * n * LD));
         }
       }
+
+      // Pᵀ and dSᵀ in place of Sᵀ and dPᵀ; lse and D per query (column)
+      const bool inside = q0 + TQ <= Sq && warp_first + 16 <= Sk &&
+                          (!causal || warp_last <= q0);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * n + 2 * t);
+        const float2 dd = *reinterpret_cast<const float2*>(D_t + 8 * n + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = q0 + 8 * n + 2 * t + (i & 1);
+          const int kp = kpos[i / 2];
+          const bool ok = inside || (qpos < Sq && kp < Sk && (!causal || kp <= qpos));
+          const float lq = (i & 1) ? l2.y : l2.x, dq = (i & 1) ? dd.y : dd.x;
+          const float p = ok ? exp2f(fmaf(s[n][i], sl2, -lq * kLog2e)) : 0.f;
+          s[n][i] = p;
+          dp[n][i] = p * (dp[n][i] - dq);
+        }
+      }
+
+      // dV += Pᵀ dO, then dK += dSᵀ Q over the tile's queries, Pᵀ and dSᵀ
+      // from registers as A fragments
+      tile_mma(dV, s, Cols<LD>(dOt, g, t));
+      tile_mma(dK, dp, Cols<LD>(Qt, g, t));
     }
+    __syncthreads();                // tile j consumed before its buffer refills
   }
+  cp_async_wait<0>();               // K and V, where no tile was issued
 
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int kpos = k0 + 4 * ty + c;
-    if (kpos < Sk) {
-      T* dkr = dk + kv_base + static_cast<size_t>(kpos) * kv_stride;
-      T* dvr = dv + kv_base + static_cast<size_t>(kpos) * kv_stride;
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] < Sk) {
+      T* dkr = dk + kv_base + static_cast<size_t>(kpos[r]) * kv_stride + 2 * t;
+      T* dvr = dv + kv_base + static_cast<size_t>(kpos[r]) * kv_stride + 2 * t;
 #pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        dkr[tx + 16 * e] = from_f<T>(dK[c][e] * scale);
-        dvr[tx + 16 * e] = from_f<T>(dV[c][e]);
+      for (int n = 0; n < NH; ++n) {
+        store2(dkr + 8 * n, dK[n][2 * r] * scale, dK[n][2 * r + 1] * scale);
+        store2(dvr + 8 * n, dV[n][2 * r], dV[n][2 * r + 1]);
       }
     }
   }
@@ -249,94 +403,128 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse, const float* __restrict__ Dv,
                     T* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int causal,
                     float scale) {
-  using L = Tiles<HD>;
-  constexpr int LD = L::LD, NE = HD / 16;
+  constexpr int LD = HD + 8, NH = HD / 8, NK = TK / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + L::T;
-  float* Ks = dOs + L::T;
-  float* Vs = Ks + L::T;
-  float* dSs = Vs + L::T;           // BQ x LDP
-  float* lse_s = dSs + BQ * LDP;
-  float* D_s = lse_s + BQ;
+  float* Qs = smem;                 // BQ x LD
+  float* dOs = Qs + BQ * LD;        // BQ x LD
+  float* Ks = dOs + BQ * LD;        // two buffers of TK x LD
+  float* Vs = Ks + 2 * TK * LD;     // two buffers of TK x LD
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest causal tiles first
-  const int hq = blockIdx.y, b = blockIdx.z;
+  const int hq = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest causal tiles first
   const int hk = hq / (Hq / Hkv);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = warp * 16 + g;    // this lane's rows in the tile: row, row + 8
+  const int qpos[2] = {q0 + row, q0 + row + 8};
+  const int warp_first = q0 + warp * 16, warp_last = warp_first + 15;
   const float sl2 = scale * kLog2e;
   const size_t q_stride = static_cast<size_t>(Hq) * HD;
   const size_t kv_stride = static_cast<size_t>(Hkv) * HD;
   const size_t q_base = (static_cast<size_t>(b) * Sq * Hq + hq) * HD;
   const size_t kv_base = (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
-
-  load_tile<T, HD, LD>(Qs, q + q_base, q_stride, q0, Sq);
-  load_tile<T, HD, LD>(dOs, dO + q_base, q_stride, q0, Sq);
-  load_rows_stats(lse_s, D_s, lse, Dv, (static_cast<size_t>(b) * Hq + hq) * Sq, q0, Sq);
-
-  float dQ[4][NE];                  // rows ty + 16 a, columns tx + 16 e
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int e = 0; e < NE; ++e) dQ[a][e] = 0.f;
+  const size_t row_base = (static_cast<size_t>(b) * Hq + hq) * Sq;
 
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();                // the previous tile's readers are done
-    load_tile<T, HD, LD>(Ks, k + kv_base, kv_stride, k0, Sk);
-    load_tile<T, HD, LD>(Vs, v + kv_base, kv_stride, k0, Sk);
-    __syncthreads();
+  const int ntiles = (k_end + TK - 1) / TK;
+  load_tile<T, HD, BQ>(Qs, q + q_base, q_stride, q0, Sq);
+  load_tile<T, HD, BQ>(dOs, dO + q_base, q_stride, q0, Sq);
+  load_tile<T, HD, TK>(Ks, k + kv_base, kv_stride, 0, Sk);
+  load_tile<T, HD, TK>(Vs, v + kv_base, kv_stride, 0, Sk);
+  cp_async_commit();
 
-    float p[4][4], ds[4][4];
-    scores<HD>(Qs, dOs, Ks, Vs, lse_s, D_s, q0, k0, Sq, Sk, causal, sl2, p, ds);
+  float l2[2], Dr[2];               // lse in log2 units and D of this lane's rows
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dSs[(ty + 16 * a) * LDP + tx + 16 * c] = ds[a][c];
-    __syncthreads();
+  for (int r = 0; r < 2; ++r) {
+    const bool in = qpos[r] < Sq;
+    l2[r] = in ? lse[row_base + qpos[r]] * kLog2e : 0.f;
+    Dr[r] = in ? Dv[row_base + qpos[r]] : 0.f;
+  }
 
-    // dQ[i] += dS[i, j] K[j] over the tile's keys, four at a time
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float dj[4][4];
+  float acc[NH][4];                 // rows row, row + 8; columns 8n + 2t, 8n + 2t + 1
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float4 d4 = *reinterpret_cast<const float4*>(dSs + (ty + 16 * a) * LDP + j);
-        dj[a][0] = d4.x;
-        dj[a][1] = d4.y;
-        dj[a][2] = d4.z;
-        dj[a][3] = d4.w;
-      }
+  for (int n = 0; n < NH; ++n)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          const float kv = Ks[(j + jj) * LD + tx + 16 * e];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dQ[a][e] += dj[a][jj] * kv;
-        }
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  const RowPairs qa(Qs, LD, row, t), da(dOs, LD, row, t);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * TK;
+    if (j + 1 < ntiles) {           // the next tile flies while this one runs
+      const int nb = (j + 1) & 1;
+      load_tile<T, HD, TK>(Ks + nb * TK * LD, k + kv_base, kv_stride, k0 + TK, Sk);
+      load_tile<T, HD, TK>(Vs + nb * TK * LD, v + kv_base, kv_stride, k0 + TK, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();                // tile j (and Q, dO) visible to every warp
+
+    if (!causal || k0 <= warp_last) {          // warp-uniform
+      const float* Kt = Ks + (j & 1) * TK * LD;
+      const float* Vt = Vs + (j & 1) * TK * LD;
+
+      // S = Q Kᵀ and dP = dO Vᵀ: 16 rows x TK keys per warp, C layout
+      float s[NK][4], dp[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+      const RowPairs kb(Kt, LD, g, t), vb(Vt, LD, g, t);
+#pragma unroll
+      for (int d = 0; d < NH; ++d) {
+        uint32_t q_big[4], q_small[4], o_big[4], o_small[4];
+        split_rows(qa, d, LD, q_big, q_small);
+        split_rows(da, d, LD, o_big, o_small);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          mma3(s[n], q_big, q_small, kb.at(d, 8 * n * LD));
+          mma3(dp[n], o_big, o_small, vb.at(d, 8 * n * LD));
+        }
+      }
+
+      // dS = P ∘ (dP − D) in place of S; a tile wholly inside the mask
+      // skips the tests
+      const bool inside = k0 + TK <= Sk && (!causal || k0 + TK - 1 <= warp_first);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kpos = k0 + 8 * n + 2 * t + (i & 1);
+          const int r = i / 2;
+          const bool ok = inside || (kpos < Sk && (!causal || kpos <= qpos[r]));
+          const float p = ok ? exp2f(fmaf(s[n][i], sl2, -l2[r])) : 0.f;
+          s[n][i] = p * (dp[n][i] - Dr[r]);
+        }
+
+      // dQ += dS K over the tile's keys, dS from registers as A fragments
+      tile_mma(acc, s, Cols<LD>(Kt, g, t));
+    }
+    __syncthreads();                // tile j consumed before its buffer refills
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qpos = q0 + ty + 16 * a;
-    if (qpos < Sq) {
-      T* dqr = dq + q_base + static_cast<size_t>(qpos) * q_stride;
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] < Sq) {
+      T* dqr = dq + q_base + static_cast<size_t>(qpos[r]) * q_stride + 2 * t;
 #pragma unroll
-      for (int e = 0; e < NE; ++e) dqr[tx + 16 * e] = from_f<T>(dQ[a][e] * scale);
+      for (int n = 0; n < NH; ++n)
+        store2(dqr + 8 * n, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
     }
   }
 }
 
 template <int HD>
 constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * Tiles<HD>::T + 2 * BQ * LDP + 2 * BQ);
+  return sizeof(float) * ((HD + 8) * (2 * BKV + 4 * TQ) + 4 * TQ);
 }
 template <int HD>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * Tiles<HD>::T + BQ * LDP + 2 * BQ);
+  return sizeof(float) * (HD + 8) * (2 * BQ + 4 * TK);
 }
+static_assert(dkdv_smem<128>() == 209408 && dq_smem<128>() == 208896,
+              "the layout's bytes stated in the header note");
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dO,
@@ -357,7 +545,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kv_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kv_kernel<<<dim3((Sk + BK - 1) / BK, Hkv, B), THREADS, kv_smem, stream>>>(
+  kv_kernel<<<dim3(B * Hkv, (Sk + BKV - 1) / BKV), THREADS, kv_smem, stream>>>(
       qp, kp, vp, gp, lse, Dv, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, Hq, Hkv,
       causal, scale);
   err = cudaGetLastError();
@@ -368,7 +556,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(q_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  q_kernel<<<dim3((Sq + BQ - 1) / BQ, Hq, B), THREADS, q_smem, stream>>>(
+  q_kernel<<<dim3(B * Hq, (Sq + BQ - 1) / BQ), THREADS, q_smem, stream>>>(
       qp, kp, vp, gp, lse, Dv, static_cast<T*>(dq), Sq, Sk, Hq, Hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -392,16 +580,19 @@ int launch_h(const void* q, const void* k, const void* v, const void* o, const v
 }  // namespace
 
 // q, o, dO, dq: (B, Sq, Hq, h); k, v, dk, dv: (B, Sk, Hkv, h); all contiguous,
-// one dtype.  lse: (B, Hq, Sq) fp32 from the forward (rt_flash_attention);
-// Dv: (B, Hq, Sq) fp32 scratch.  Returns a cudaError_t, or RT_UNSUPPORTED for
-// shapes the kernels do not take (as rt_flash_attention).
+// one dtype, 16-byte aligned when fp32 (cp.async).  lse: (B, Hq, Sq) fp32
+// from the forward (rt_flash_attention); Dv: (B, Hq, Sq) fp32 scratch.
+// Returns a cudaError_t, or RT_UNSUPPORTED for shapes the kernels do not
+// take (as rt_flash_attention, and B·Hq over 2^31 − 1 or more than 65535
+// tiles of 128 rows).
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* o, const void* dO, const float* lse,
                                       float* Dv, void* dq, void* dk, void* dv, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int h, int causal, float scale,
                                       int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B > 65535 ||
-      Hq > 65535)
+      Hq > 65535 || static_cast<long long>(B) * Hq > 0x7fffffff ||
+      (Sq + BQ - 1) / BQ > 65535 || (Sk + BKV - 1) / BKV > 65535)
     return RT_UNSUPPORTED;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_ARGS q, k, v, o, dO, lse, Dv, dq, dk, dv, B, Sq, Sk, Hq, Hkv, h, causal, scale, s

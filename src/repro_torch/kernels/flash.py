@@ -2,11 +2,12 @@
 
 The forward kernel is ``csrc/flash.cu`` (causal or full, GQA, both products
 on the tensor cores in the fp32-exact 3xTF32 split); the backward kernels,
-which the TPU kernel does not have, are ``csrc/flash_bwd.cu`` (fp32 CUDA
-cores).  The plain version is ``ref.flash_attention_ref`` (its backward is
-autograd through it).  Callers go through ``kernels.ops.flash_attention``,
-which picks between the two by the tensor's device, wraps the kernels in
-``ops.FlashAttentionFn`` where a gradient is needed, and counts launches.
+which the TPU kernel does not have, are ``csrc/flash_bwd.cu`` (the same
+3xTF32 tensor-core products).  The plain version is
+``ref.flash_attention_ref`` (its backward is autograd through it).  Callers
+go through ``kernels.ops.flash_attention``, which picks between the two by
+the tensor's device, wraps the kernels in ``ops.FlashAttentionFn`` where a
+gradient is needed, and counts launches.
 Unlike the TPU kernel it needs no block-multiple lengths: the kernels mask
 rows and keys past Sq and Sk.
 """
@@ -86,6 +87,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype}")
     if not all(t.is_cuda and t.is_contiguous() for t in (o, do, lse)):
         raise ValueError("flash_attention_bwd_cuda needs contiguous CUDA o, do and lse")
+    if q.dtype == torch.float32 and any(t.data_ptr() % 16 for t in (o, do)):
+        raise ValueError("flash_attention_bwd_cuda needs fp32 o and do 16-byte aligned "
+                         "(the kernels copy fp32 rows in 16-byte pieces)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     scratch = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     lib = _build.library()

@@ -45,13 +45,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import layers as L
-from repro_torch.parallel.collectives import (all_gather_rows, mm_reduce_scatter,
-                                              ring_ag_matmul)
+from repro_torch.parallel.collectives import (TP_TRAINING, all_gather_rows,
+                                              mm_reduce_scatter, ring_ag_matmul)
 
 Caches = Dict[str, Dict[str, object]]
 
 MOE_SLICE = "the port's pipeline-and-MoE slice (ROADMAP.md, queue 1)"
-TP_TRAINING = "the tensor-parallel training slice (ROADMAP.md, queue 1 item 7)"
 
 
 def check_supported(cfg) -> None:

@@ -52,6 +52,8 @@ import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh, as_mesh
 
+TP_TRAINING = "the tensor-parallel training slice (ROADMAP.md, queue 1 item 7)"
+
 
 @dataclass(frozen=True)
 class CollectiveRuntime:
@@ -324,6 +326,17 @@ def axis_size(mesh) -> int:
     return as_mesh(mesh).size
 
 
+def _refuse_grad(what: str, m: Mesh, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need this helper's backward: grad enabled,
+    more than one rank and an input that needs a gradient.  The helpers
+    issue their collectives into fresh tensors, which carry no graph, so
+    the gradients would be detached or miss the other ranks' parts."""
+    if m.size > 1 and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} at mesh size {m.size} has no backward: gradients through the "
+            f"collectives arrive with {TP_TRAINING}")
+
+
 def _peer(m: Mesh, r: int) -> int:
     """Global rank of rank ``r`` of the mesh's group (p2p ops take global
     ranks)."""
@@ -345,6 +358,7 @@ def all_gather_rows(y: torch.Tensor, mesh) -> torch.Tensor:
     m = as_mesh(mesh)
     if m.size == 1:
         return y
+    _refuse_grad("all_gather_rows", m, y)
     out = y.new_empty((m.size,) + tuple(y.shape))
     _all_gather(out.view(-1), y.contiguous().view(-1), group=m.group)
     return torch.cat(out.unbind(0), dim=-2)
@@ -371,6 +385,7 @@ def ring_ag_matmul(x, w, mesh, *, num_chunks: int | None = None,
     site = site or "ag"
     num_chunks = _resolve_chunks(num_chunks, site, "ag")
     m = as_mesh(mesh)
+    _refuse_grad("ring_ag_matmul", m, x, w)
     n, idx = m.size, m.rank
     Tl = x.shape[-2]
     chunked = num_chunks > 1 and Tl % num_chunks == 0
@@ -439,6 +454,7 @@ def mm_reduce_scatter(x, w, mesh, *, num_chunks: int | None = None,
     site = site or "rs"
     num_chunks = _resolve_chunks(num_chunks, site, "rs")
     m = as_mesh(mesh)
+    _refuse_grad("mm_reduce_scatter", m, x, w)
     n = m.size
     T = x.shape[-2]
     if num_chunks <= 1 or T % (num_chunks * n):
@@ -516,6 +532,7 @@ def chunked_all_to_all(x, mesh, *, split_axis: int, concat_axis: int,
     (falling back to the ``a2a`` site class)."""
     site = site or "a2a"
     num_chunks = _resolve_chunks(num_chunks, site, "a2a")
+    _refuse_grad("chunked_all_to_all", as_mesh(mesh), x)
     return _chunked_a2a_local(x, mesh, split_axis=split_axis,
                               concat_axis=concat_axis, num_chunks=num_chunks,
                               site=site)

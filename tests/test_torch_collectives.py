@@ -14,6 +14,8 @@ the all-to-all; 1e-4 for the summed trees (as the all-gather matmul);
 the trunk's logits 1e-4 (``LOGITS_BOUND`` of ``tests/test_torch_serving.py``).
 A chunk count of 3 divides none of the shards here and must warn
 ``CollectiveDegradedWarning`` with the reference's site and detail.
+The helpers have no backward yet: at 4 ranks under grad each refuses an
+input that needs a gradient, and at one rank each keeps its graph.
 """
 import dataclasses
 import json
@@ -32,6 +34,7 @@ from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.parallel import collectives as C  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -88,6 +91,24 @@ for nc in [int(c) for c in d["chunks"]]:
     t = run(f"psum{nc}", lambda: C.psum_tree_chunked(tree, mesh, num_chunks=nc))
     res[f"psum{nc}.a"], res[f"psum{nc}.b"], res[f"psum{nc}.c"] = t["a"], t["b"], t["c"]
     res[f"psum_tree{nc}.a"] = C.psum_tree(tree, mesh)["a"]
+
+def grad(a):
+    return a.clone().requires_grad_()
+
+log["refused"] = {}
+for name, fn in {
+        "ring_ag_matmul x": lambda: C.ring_ag_matmul(grad(x), w, mesh),
+        "ring_ag_matmul w": lambda: C.ring_ag_matmul(x, grad(w), mesh),
+        "mm_reduce_scatter x": lambda: C.mm_reduce_scatter(grad(xf), wf, mesh),
+        "mm_reduce_scatter w": lambda: C.mm_reduce_scatter(xf, grad(wf), mesh),
+        "all_gather_rows": lambda: C.all_gather_rows(grad(x), mesh),
+        "chunked_all_to_all": lambda: C.chunked_all_to_all(
+            grad(xa), mesh, split_axis=1, concat_axis=0)}.items():
+    try:
+        fn()
+        log["refused"][name] = None
+    except NotImplementedError as e:
+        log["refused"][name] = str(e)
 
 cfg = get_smoke_config("llama3-8b")
 model = M.init_params(cfg, 0, device="cpu")
@@ -379,3 +400,50 @@ def test_plan_drives_two_layers_to_different_structure(runs):
             "tp.layer1.mlp.rs": {("mm_reduce_scatter", 1)},
         }
         assert len(rows) == 6          # gate and up, then down, per layer
+
+
+REFUSED = ("ring_ag_matmul x", "ring_ag_matmul w", "mm_reduce_scatter x",
+           "mm_reduce_scatter w", "all_gather_rows", "chunked_all_to_all")
+
+
+@pytest.mark.parametrize("call", REFUSED)
+def test_helpers_refuse_gradients_beyond_one_rank(runs, call):
+    """At 4 ranks with grad enabled, a helper given an input (or weight)
+    that needs a gradient raises, naming the slice that brings its
+    backward, instead of returning detached or partial gradients."""
+    _, _, logs, _, _ = runs
+    for log in logs:
+        msg = log["refused"][call]
+        assert msg is not None, (call, "returned")
+        assert "tensor-parallel training slice" in msg, msg
+
+
+@pytest.mark.parametrize("helper", ["ring_ag_matmul", "mm_reduce_scatter",
+                                    "all_gather_rows", "chunked_all_to_all"])
+def test_helpers_keep_their_graph_at_one_rank(helper):
+    """At mesh size 1 under grad nothing is refused: each helper returns
+    its local result with its autograd graph, and the gradients equal the
+    oracle's."""
+    rs = np.random.default_rng(5)
+    arrays = [rs.standard_normal(s).astype(np.float32)
+              for s in ((2, 8, 16), (16, 12), (2, 8, 12), (12, 16), (4, 2, 6))]
+    leaves = x, w, xf, wf, xa = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    mesh = Mesh(None)
+    got, want = {
+        "ring_ag_matmul": lambda: (C.ring_ag_matmul(x, w, mesh, num_chunks=2),
+                                   C.ag_matmul_ref(x, w)),
+        "mm_reduce_scatter": lambda: (C.mm_reduce_scatter(xf, wf, mesh, num_chunks=2),
+                                      C.mm_rs_ref(xf, wf)),
+        "all_gather_rows": lambda: (C.all_gather_rows(x * 2, mesh), x * 2),
+        "chunked_all_to_all": lambda: (C.chunked_all_to_all(
+            xa, mesh, split_axis=1, concat_axis=0, num_chunks=2), xa),
+    }[helper]()
+    assert got.requires_grad and got.shape == want.shape
+    assert _err(got.detach().numpy(), want.detach().numpy()) < 1e-5
+    dy = torch.from_numpy(rs.standard_normal(tuple(got.shape)).astype(np.float32))
+    g_got = torch.autograd.grad(got, leaves, dy, allow_unused=True)
+    g_want = torch.autograd.grad(want, leaves, dy, allow_unused=True)
+    for a, b in zip(g_got, g_want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _err(a.numpy(), b.numpy()) < 1e-5

@@ -134,6 +134,47 @@ def test_flash_3xtf32_meets_the_bound_and_1xtf32_does_not(h):
     assert errs[3] < FLASH_BOUND < errs[1], errs
 
 
+@pytest.mark.parametrize("h", [112, 128])
+def test_flash_bwd_3xtf32_meets_the_bound_and_1xtf32_does_not(h):
+    """The premise of the CUDA flash backward's design: one causal head at
+    S = 512 whose five backward products (S, dP, dV, dK, dQ) are emulated on
+    TF32 operands meets 1e-4 of max|g| against ``jax.vjp`` of the
+    reference's attention math with the three-product split, and misses it
+    with one product.  lse and o are the forward's, computed in fp32."""
+    from repro.models.layers import NEG_INF, _gqa_scores_to_out
+
+    S = 512
+    q, k, v = (a[0, :, 0] for a in _qkv(1, S, S, 1, 1, h, seed=3))
+    do = np.random.default_rng(4).standard_normal((S, h)).astype(np.float32)
+    keep = np.tril(np.ones((S, S), bool))
+    bias = jnp.asarray(np.where(keep, 0.0, NEG_INF), jnp.float32)
+    scale = np.float32(1 / math.sqrt(h))
+
+    def attn(q, k, v):
+        o = _gqa_scores_to_out(q.reshape(1, S, 1, 1, h), k.reshape(1, S, 1, h),
+                               v.reshape(1, S, 1, h), bias, 1.0 / math.sqrt(h))
+        return o.reshape(S, h)
+
+    _, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(do))]
+    gmax = max(np.abs(w).max() for w in want)
+    s = np.where(keep, (q @ k.T) * scale, np.float32(-1e30))
+    m = s.max(-1, keepdims=True)
+    lse = (m + np.log(np.exp(s - m).sum(-1, keepdims=True))).astype(np.float32)
+    o = np.exp(s - lse) @ v
+    D = (do * o).sum(-1, keepdims=True)
+    errs = {}
+    for terms in (1, 3):
+        s = np.where(keep, _tf32_matmul(q, k.T, terms) * scale, np.float32(-1e30))
+        p = np.exp(s - lse)
+        dp = _tf32_matmul(do, v.T, terms)
+        ds = p * (dp - D)
+        got = (_tf32_matmul(ds, k, terms) * scale, _tf32_matmul(ds.T, q, terms) * scale,
+               _tf32_matmul(p.T, do, terms))
+        errs[terms] = max(float(np.abs(g - w).max()) for g, w in zip(got, want)) / gmax
+    assert errs[3] < GRAD_BOUND["flash"] < errs[1], errs
+
+
 # ---------------------------------------------------------------------------
 # the scans: SSD and WKV6
 # ---------------------------------------------------------------------------

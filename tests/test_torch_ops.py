@@ -531,7 +531,7 @@ def _rel_err(got, want) -> float:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(4, 64), (2, 7, 128), (8, 4096), (300, 4096), (5, 100),
-                                   (1, 3), (1000, 256)])
+                                   (1, 3), (1000, 256), (64, 1030), (16, 8192), (4, 16384)])
 @pytest.mark.parametrize("dtype,scale_fp32", [(torch.float32, True), (torch.bfloat16, True),
                                               (torch.bfloat16, False), (torch.float16, False)])
 def test_rmsnorm_bwd_kernel_matches_autograd_of_ref(cuda, shape, dtype, scale_fp32):
@@ -553,6 +553,22 @@ def test_rmsnorm_bwd_kernel_matches_autograd_of_ref(cuda, shape, dtype, scale_fp
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_takes_misaligned_views(cuda, dtype):
+    """Contiguous x and dy that start 1 element past a 16-byte boundary take
+    the kernel's generic path and meet the same bounds."""
+    rows, D = 64, 4096
+    x = _t((rows * D + 1,), dtype=dtype, device=cuda)[1:].view(rows, D)
+    dy = _t((rows * D + 1,), 1, dtype, cuda)[1:].view(rows, D)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    s = torch.linspace(0.5, 1.5, D, device=cuda)
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+    _, (dx64, ds64) = _grads(ref.rmsnorm_ref, (x.double(), s.double()), dy.double())
+    bound = RMS_GRAD_BOUND if dtype == torch.float32 else HALF_GRAD_BOUND
+    assert _rel_err(dx, dx64) < bound and _rel_err(ds, ds64) < bound
+
+
+@pytest.mark.gpu
 def test_rmsnorm_bwd_is_deterministic(cuda):
     """dscale is summed in a fixed order: two runs give the same bits."""
     x, dy = _t((4096, 4096), device=cuda), _t((4096, 4096), 1, device=cuda)
@@ -567,7 +583,11 @@ _FLASH_BWD_CASES = (
     + [(1, 2048, 2048, 8, 2, 128), (1, 2048, 2048, 2, 2, 64),
        # Sq, Sk not tile multiples, Sq != Sk, one key, more keys than queries
        (2, 100, 100, 4, 1, 128), (1, 37, 81, 4, 1, 64), (2, 129, 129, 8, 2, 112),
-       (1, 7, 1, 2, 1, 16), (1, 48, 130, 4, 4, 32), (1, 130, 48, 4, 2, 128)])
+       (1, 7, 1, 2, 1, 16), (1, 48, 130, 4, 4, 32), (1, 130, 48, 4, 2, 128),
+       # a long sum: each key's dk, dv over 4 x 8192 queries (summed in the
+       # MMA's accumulate, which rounds toward zero, dv erred by 1.6e-4 of
+       # max|g| on an H100: tools/bwd_variants.py)
+       (1, 8192, 8192, 8, 2, 128)])
 
 
 @pytest.mark.gpu
@@ -613,6 +633,19 @@ def test_flash_bwd_kernel_half_precision(cuda, dtype, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h", [112, 128])
+def test_flash_bwd_is_deterministic(cuda, h):
+    """Every gradient is a plain sum in a fixed order (no atomics; dk and dv
+    summed over the GQA group in one block): two calls give the same bits."""
+    q, do = _t((2, 300, 8, h), 1, device=cuda), _t((2, 300, 8, h), 4, device=cuda)
+    k, v = _t((2, 300, 2, h), 2, device=cuda), _t((2, 300, 2, h), 3, device=cuda)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    a = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    b = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_forward_lse_is_the_rows_logsumexp(cuda, causal):
     """The forward's lse is each row's log-sum-exp of its scaled, masked
@@ -637,6 +670,14 @@ def test_flash_bwd_refuses_what_it_does_not_take(cuda):
         flash_attention_bwd_cuda(q, q, q, o, lse[:, :, :4], o)
     with pytest.raises(ValueError, match="must match"):
         flash_attention_bwd_cuda(q, q, q, o, lse, o[:, :4])
+    # fp32 o and do one element past a 16-byte boundary (cp.async copies
+    # 16-byte pieces): refused, not read wrong
+    mis = torch.empty(o.numel() + 1, device=cuda)[1:].view(o.shape).copy_(o)
+    assert mis.is_contiguous() and mis.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd_cuda(q, q, q, mis, lse, o)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd_cuda(q, q, q, o, lse, mis)
 
 
 def _forward_only_calls(cuda):

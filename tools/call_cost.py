@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Per-call cost of the port's SSD decode path, of flash attention and of the
-WKV6 scan on one card, for one tree of the repo, so that two trees can be
-compared in one run on the same card:
+"""Per-call cost of the port's SSD decode path, of flash attention (forward
+and backward), of the WKV6 scan and of the RMSNorm backward on one card,
+for one tree of the repo, so that two trees can be compared in one run on
+the same card:
 
     python3 tools/call_cost.py --src src                 # this tree
     python3 tools/call_cost.py --src /path/to/other/src  # another tree
@@ -28,7 +29,13 @@ It imports ``repro_torch`` from ``--src`` and prints one JSON line:
     device time of the WKV6 kernels over 50 calls from a torch.profiler
     trace (a decode call's kernel is shorter than its host call), and
     ``wkv6_call_ms`` / ``wkv6_decode_call_ms`` the calls by CUDA events as
-    above.
+    above;
+  * ``flash_bwd_ms``: ``flash_attention_bwd_cuda`` at llama3-8b's training
+    shape (B = 4, S = 2048, 32 / 8 heads of 128, causal, fp32), from the
+    forward's o and lse, by CUDA events (the median of 10 means of 2
+    calls);
+  * ``rmsnorm_bwd_ms``: ``rmsnorm_bwd_cuda`` at llama3-8b's training rows
+    (8192 x 4096, fp32), by CUDA events as above.
 """
 from __future__ import annotations
 
@@ -96,6 +103,8 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
     from repro_torch.models import mamba2, zamba2
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -163,6 +172,17 @@ def main() -> int:
             def call():
                 return ops.wkv6(r, kk, vv, w, u, st, backend="cuda", **kw)
             wkv[S] = (device_ms(call, "wkv6_"), time_ms(call))
+        del r, kk, vv, w, u, st
+
+        q, do = randn(4, 2048, 32, 128), randn(4, 2048, 32, 128)
+        k, v = randn(4, 2048, 8, 128), randn(4, 2048, 8, 128)
+        o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+        flash_bwd = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do),
+                            samples=10, per_sample=2)
+        del q, do, k, v, o, lse
+        x, dy = randn(8192, 4096), randn(8192, 4096)
+        scale = torch.linspace(0.5, 1.5, 4096, device=dev)
+        rms_bwd = time_ms(lambda: rmsnorm_bwd_cuda(x, scale, dy))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -171,7 +191,8 @@ def main() -> int:
                       "ssd_call_ms": ssd_call, "ssd_host_us": host_us,
                       "layer_ms": layer, "flash_ms": flash, "wkv6_in_place": wkv6_in_place,
                       "wkv6_ms": wkv[512][0], "wkv6_call_ms": wkv[512][1],
-                      "wkv6_decode_ms": wkv[1][0], "wkv6_decode_call_ms": wkv[1][1]}),
+                      "wkv6_decode_ms": wkv[1][0], "wkv6_decode_call_ms": wkv[1][1],
+                      "flash_bwd_ms": flash_bwd, "rmsnorm_bwd_ms": rms_bwd}),
           flush=True)
     return 0
 
