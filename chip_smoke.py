@@ -98,12 +98,24 @@ Phases, each of which exits non-zero on a failed check:
      under that plan, each held to the first: updated parameters within
      1e-4, AdamW's ``mu`` within 1e-4 of its max per parameter, loss and
      grad_norm within 1e-5 relative.
+  9. the training launcher: ``repro_torch.launch.train.main`` with a run
+     config (llama3-8b at full width, 2 layers, seq 2048, batch 4, 3
+     steps, phase 8's lr), ``--mesh 1x1`` over the 1-rank NCCL group, ``--tuned-plan``
+     the tp:8 plan the port tunes for h100-sxm, and ``--ckpt``: step time,
+     tokens/s, peak memory, the checkpoint's write and read seconds; gated
+     on finite losses, every parameter moving, the kernels' launches and
+     each site's forward and backward ``Issued`` rows equal to the code's;
+     the checkpoint restored by ``train.checkpoint`` must equal the trained
+     parameters, also past a torn newer step; then one sited forward and
+     backward through the collectives' backwards beside the unsited one
+     from the same weights (B = 1, S = 2048): the loss and every gradient
+     within 1e-5 (of max|g|).
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
-Phases 7 and 8 share one 1-rank NCCL group from a ``FileStore``.  Then it
+Phases 7 to 9 share one 1-rank NCCL group from a ``FileStore``.  Then it
 prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
-``{"train": ...}`` line, one ``{"kernels": [...]}`` line and, last, the
-device line.
+``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"kernels":
+[...]}`` line and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -1775,6 +1787,179 @@ def train_parity_phase(card: str, plan, mesh) -> dict:
     return {**out, "bounds": {k: P[k] for k in ("bound", "mu_bound", "rel_bound")}}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training launcher, its checkpoint, and a sited step through the
+# collectives' backwards (the 1-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+LAUNCH_LAYERS = 2
+SITED_GRAD_BOUND = 1e-5      # sited against unsited, fp32: loss (relative) and each
+                             # gradient (of its max|g|)
+SITED_STEP = dict(B=1, S=2048)
+# the sited step's plan: layers 0 and 1 chunk both sites differently
+PLAN_TP = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
+           "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
+
+
+def issued_by_site(rows) -> dict:
+    """``{site: {op: [chunk counts, in call order]}}`` of ``Issued`` rows."""
+    out: dict = {}
+    for r in rows:
+        out.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
+    return out
+
+
+def expected_issued(chunks: dict, passes: int) -> dict:
+    """What ``issued_by_site`` reads after ``passes`` forward and backward
+    passes with remat, each site at ``chunks[site]``: a layer's gate and up
+    ring twice (forward, recompute) and once backward each; its down
+    reduce-scatter twice and once backward."""
+    per_pass = {"ag": {"ring_ag_matmul": 4, "ring_ag_matmul.bwd": 2},
+                "rs": {"mm_reduce_scatter": 2, "mm_reduce_scatter.bwd": 1}}
+    return {site: {op: [nc] * n * passes for op, n in per_pass[site[-2:]].items()}
+            for site, nc in chunks.items()}
+
+
+def launch_phase(card: str) -> dict:
+    """Phase 9 on the 1-rank NCCL group: (a) ``repro_torch.launch.train.main``
+    with a run config (llama3-8b at full width, 2 layers, seq 2048, batch 4,
+    3 steps), ``--mesh 1x1``, the tp:8 plan the port tunes for h100-sxm
+    and ``--ckpt``; (b) the checkpoint restored with ``train.checkpoint``,
+    equal to the trained parameters, and again past a corrupted newest
+    step; (c) one sited forward and backward beside the unsited one from
+    the same weights (B = 1, S = 2048) under ``PLAN_TP``."""
+    from repro_torch.convert import params_to_jax
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch import train as LT
+    from repro_torch.train import checkpoint
+
+    cfg = get_config(PLAN_ARCH).replace(num_layers=LAUNCH_LAYERS)
+    plan = tune(extract_workload(get_config(PLAN_ARCH), ParallelPlan(kind="tp", tp=8),
+                                 seq=PLAN_SEQ, global_batch=PLAN_BATCH), "h100-sxm",
+                method="lagom")
+    sites = [f"tp.layer{i}.mlp.{k}" for i in range(LAUNCH_LAYERS) for k in ("ag", "rs")]
+    with plan.applied():
+        knobs = {s: collectives.runtime_for(s, s.rsplit(".", 1)[1]).num_chunks for s in sites}
+    out = {"arch": cfg.name, "layers": LAUNCH_LAYERS, "batch": TRAIN_B, "seq": TRAIN_S,
+           "steps": TRAIN_STEPS, "knobs": knobs, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_path, run_path = os.path.join(tmp, "plan.json"), os.path.join(tmp, "run.json")
+        ckpt = os.path.join(tmp, "ckpt")
+        plan.save(plan_path)
+        with open(run_path, "w") as f:
+            # phase 8's lr: at the launcher's default 3e-4 a fresh AdamW's sign-like
+            # first steps lift the third step's loss from 12.16 to 16.15 at full
+            # width, unsited alike (NVIDIA H100 80GB HBM3, 700 W)
+            json.dump({"arch": PLAN_ARCH, "overrides": {"num_layers": LAUNCH_LAYERS},
+                       "seq": TRAIN_S, "batch": TRAIN_B, "steps": TRAIN_STEPS,
+                       "lr": TRAIN_OPT["lr"]}, f)
+        before = param_sums(M.init_params(cfg, 0, device="cuda"))     # the launcher's seed
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with collectives.record_issued() as issued:
+            run = LT.main(["--config", run_path, "--mesh", "1x1", "--tuned-plan", plan_path,
+                           "--ckpt", ckpt, "--log-every", "1"])
+        launches = dict(ops.LAUNCHES)
+        collectives.install_runtime_plan(None)
+        peak = torch.cuda.max_memory_allocated()
+        model = run["model"]
+        want = {k: TRAIN_STEPS * v for k, v in expected_train_launches(cfg, 1).items()}
+        by_site = issued_by_site(issued)
+        want_sites = expected_issued(knobs, TRAIN_STEPS)
+        step_s = statistics.median(run["step_s"][1:])
+        tokens = TRAIN_B * TRAIN_S
+        moved = param_sums(model)
+        still = [n for n in before if before[n] == moved[n]]
+        say(f"launch.train --mesh 1x1 under the h100-sxm tp:8 plan ({cfg.name}, "
+            f"{LAUNCH_LAYERS} layers at full width, B={TRAIN_B}, S={TRAIN_S}): step "
+            f"{step_s * 1e3:.1f} ms (median of steps 2-3; all "
+            f"{[round(t * 1e3, 1) for t in run['step_s']]} ms), {tokens / step_s:.0f} tok/s, "
+            f"peak memory {peak / 2**30:.2f} GiB; losses {run['losses']}; checkpoint gathered "
+            f"and written in {run['ckpt_s']:.2f} s; launches {launches} (expected {want}); "
+            f"issued {by_site} ({card})")
+        check(all(np.isfinite(run["losses"])), "launch: non-finite loss")
+        check(not still, f"launch: parameters that did not move: {still[:5]}")
+        check(launches == want, f"launch: launches {launches}, expected {want}")
+        check(by_site == want_sites, f"launch: issued {by_site}, expected {want_sites}")
+
+        trained = params_to_jax(cfg, model)
+        losses, steps_s, write_s = run["losses"], run["step_s"], run["ckpt_s"]
+        del model, run
+        free()
+        t = time.perf_counter()
+        tree, step = checkpoint.restore(ckpt, trained)
+        read_s = time.perf_counter() - t
+        same = all(np.array_equal(a, b) for a, b in zip(checkpoint.leaves(tree),
+                                                          checkpoint.leaves(trained)))
+        del tree
+        newest = os.path.join(ckpt, f"step_{TRAIN_STEPS + 1:08d}")     # a torn newer step
+        os.makedirs(newest)
+        with open(os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}", "arrays.npz"), "rb") as f:
+            head = f.read(1 << 20)
+        with open(os.path.join(newest, "arrays.npz"), "wb") as f:
+            f.write(head)
+        with open(os.path.join(newest, "manifest.json"), "w") as f:
+            json.dump({"step": TRAIN_STEPS + 1}, f)
+        with open(os.path.join(ckpt, "latest"), "w") as f:
+            f.write(os.path.basename(newest))
+        with warnings.catch_warnings(record=True) as ws:
+            warnings.simplefilter("always")
+            tree, fell_to = checkpoint.restore(ckpt, trained)
+        fell_same = all(np.array_equal(a, b) for a, b in zip(checkpoint.leaves(tree),
+                                                               checkpoint.leaves(trained)))
+        warned = [str(w.message) for w in ws if issubclass(w.category, RuntimeWarning)]
+        del tree, trained
+        say(f"launch checkpoint: written in {write_s:.2f} s (gathered and saved); restored "
+            f"step {step} in {read_s:.2f} s, equal to the trained parameters: {same}; past a "
+            f"torn step {TRAIN_STEPS + 1}: step {fell_to}, equal: {fell_same}; warned "
+            f"{warned} ({card})")
+        check(step == TRAIN_STEPS and same, "launch: the checkpoint differs from the model")
+        check(fell_to == TRAIN_STEPS and fell_same and len(warned) == 1
+              and f"falling back to step_{TRAIN_STEPS:08d}" in warned[0],
+              "launch: no fallback past the torn step")
+    free()
+    out.update(step_ms=step_s * 1e3, step_ms_all=[x * 1e3 for x in steps_s],
+               tokens_per_s=tokens / step_s, peak_bytes=peak, losses=losses,
+               launches=launches, issued=by_site, ckpt_write_s=write_s, ckpt_read_s=read_s,
+               ckpt_fallback_step=fell_to)
+
+    # (c) one sited forward and backward beside the unsited one, same weights
+    model = M.init_params(cfg, SEED + 4, device="cuda")
+    b = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=SITED_STEP["S"],
+                                   global_batch=SITED_STEP["B"], seed=SEED + 5)).batch(0)
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+    names, params = zip(*model.named_parameters())
+    loss_u = M.loss_and_metrics(cfg, model, b)[0]
+    g_u = torch.autograd.grad(loss_u, params)
+    model_mesh = make_mesh((1, 1), ("data", "model"))["model"]
+    plan_tp = {k: collectives.CollectiveRuntime(*v) for k, v in PLAN_TP.items()}
+    with collectives.use_runtime_plan(plan_tp), collectives.record_issued() as rows:
+        loss_s = M.loss_and_metrics(cfg, model, b, mesh=model_mesh)[0]
+        g_s = torch.autograd.grad(loss_s, params)
+    torch.cuda.synchronize()
+    loss_rel = abs(loss_s.item() - loss_u.item()) / abs(loss_u.item())
+    err, at = max((((gs - gu).abs().max() / gu.abs().max().clamp_min(1e-30)).item(), n)
+                   for n, gs, gu in zip(names, g_s, g_u))
+    sited = issued_by_site(rows)
+    want_sited = expected_issued({s: nc for s, (_, nc) in PLAN_TP.items()}, 1)
+    say(f"launch sited step ({cfg.name}, {LAUNCH_LAYERS} layers, B={SITED_STEP['B']}, "
+        f"S={SITED_STEP['S']}, PLAN_TP on the 1-rank group) against the unsited: loss "
+        f"{loss_s.item():.6f} / {loss_u.item():.6f} ({loss_rel:.2e} relative), gradients "
+        f"{err:.3e} of max|g| at {at} (bound {SITED_GRAD_BOUND}); forward and backward "
+        f"chunks by site {sited} ({card})")
+    check(bool(torch.isfinite(loss_s)), "launch sited step: non-finite loss")
+    check(loss_rel <= SITED_GRAD_BOUND and err <= SITED_GRAD_BOUND,
+          f"launch sited step: loss {loss_rel}, gradients {err} of max|g| at {at}")
+    check(sited == want_sited, f"launch sited step: issued {sited}, expected {want_sited}")
+    out["sited"] = {"loss": loss_s.item(), "loss_unsited": loss_u.item(), "loss_rel": loss_rel,
+                    "grad_err_of_max": err, "at": at, "issued": sited,
+                    "bound": SITED_GRAD_BOUND}
+    del model, g_u, g_s, loss_u, loss_s
+    free()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -1826,12 +2011,14 @@ def main() -> int:
                 free()
                 slice_parity_phase(cfg, prompts)
             trained = train_phase(card, mesh)
+            launched = launch_phase(card)
         finally:
             dist.destroy_process_group()
 
     say(json.dumps({"plan": plan_phase(card)}))
     say(json.dumps({"plan_serving": plan_served}))
     say(json.dumps({"train": trained}))
+    say(json.dumps({"launch": launched}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -1839,6 +2026,8 @@ def main() -> int:
                                        for name, run in plan_served["plans"].items()})
         k["launches_by_model"].update({f"{PLAN_ARCH} train ({name})": run["launches"][k["name"]]
                                        for name, run in trained["modes"].items()})
+        k["launches_by_model"][f"{PLAN_ARCH} launch.train (1x1)"] = \
+            launched["launches"][k["name"]]
         k["launches"] = sum(k["launches_by_model"].values())
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
     say(json.dumps({"kernels": kernels}))

@@ -15,6 +15,12 @@ with numpy leaves (``jax.tree.map(np.asarray, params)``) and returns a
 ``state_dict`` for ``Model.load_state_dict``; ``params_to_jax`` is its
 inverse, and ``opt_state_from_jax`` converts the reference's AdamW state
 (its ``mu`` and ``nu`` mirror the parameter tree) to the port's.
+
+Tensor parallelism: with ``mesh=`` the two ``*_from_jax`` give one rank's
+state dict of a model sharded in place (``models.model.shard_``): the
+dense trunk's MLP weights cut to this rank's columns of gate and up and
+rows of down.  ``params_to_jax`` of a sharded model gathers the shards
+over its mesh (every rank of it must call it) and returns the full tree.
 """
 from __future__ import annotations
 
@@ -24,6 +30,10 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.launch.mesh import as_mesh
+from repro_torch.models.model import mlp_shard_dims, sharded_params, tp_mesh
+from repro_torch.parallel.collectives import all_gather_rows
 
 _LEAF_NAMES = {"w": "weight", "b": "bias", "table": "weight"}
 
@@ -59,8 +69,21 @@ def _name(path: Tuple[str, ...]) -> str:
     return ".".join(path[:-1] + (_LEAF_NAMES.get(path[-1], path[-1]),))
 
 
-def params_from_jax(cfg, tree) -> Dict[str, torch.Tensor]:
-    """The reference's parameter tree (numpy leaves) -> the port's state_dict."""
+def _shard(cfg, sd: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """This rank's shards of the MLP weights of ``sd`` over ``mesh``."""
+    m = as_mesh(mesh)
+    if m.size == 1:
+        return sd
+    for name, dim in mlp_shard_dims(cfg).items():
+        k = sd[name].shape[dim] // m.size
+        sd[name] = sd[name].narrow(dim, m.rank * k, k).contiguous()
+    return sd
+
+
+def params_from_jax(cfg, tree, mesh=None) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree (numpy leaves) -> the port's
+    state_dict; with ``mesh``, this rank's state dict of the model sharded
+    over it."""
     stacked = stacked_axes(cfg)
     out: Dict[str, torch.Tensor] = {}
     for path, a in _flatten(tree):
@@ -73,18 +96,31 @@ def params_from_jax(cfg, tree) -> Dict[str, torch.Tensor]:
                              f"config {cfg.name} has {lead}")
         for idx in itertools.product(*(range(n) for n in lead)):
             out[_name(path[:2] + tuple(map(str, idx)) + path[2:])] = _tensor(path, a[idx])
-    return out
+    return out if mesh is None else _shard(cfg, out, mesh)
+
+
+def _gathered(cfg, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict with any MLP shards gathered over the mesh
+    the model is sharded over."""
+    sd = model.state_dict()
+    with torch.no_grad():
+        for name, dim in sharded_params(cfg, model).items():
+            t = sd[name] if dim == 0 else sd[name].T
+            g = all_gather_rows(t.contiguous(), tp_mesh(model))
+            sd[name] = g if dim == 0 else g.T
+    return sd
 
 
 def params_to_jax(cfg, model: nn.Module):
     """The inverse of ``params_from_jax``: the port's model -> the
     reference's nested tree of numpy arrays (layers restacked, linear
-    weights transposed back, embeddings as ``table``)."""
+    weights transposed back, embeddings as ``table``); a sharded model's
+    MLP shards gathered into the full weights."""
     mods = dict(model.named_modules())
     stacked = stacked_axes(cfg)
     tree: Dict = {}
     parts_of: Dict[Tuple[str, ...], Dict] = {}
-    for key, t in model.state_dict().items():
+    for key, t in _gathered(cfg, model).items():
         parts = key.split(".")
         mod, leaf = mods[".".join(parts[:-1])], parts[-1]
         a = t.detach().cpu().numpy()
@@ -110,9 +146,11 @@ def params_to_jax(cfg, model: nn.Module):
     return tree
 
 
-def opt_state_from_jax(cfg, state) -> Dict[str, object]:
+def opt_state_from_jax(cfg, state, mesh=None) -> Dict[str, object]:
     """The reference's AdamW state ({"mu", "nu", "count"}, numpy leaves) ->
     the port's: ``mu`` and ``nu`` keyed by state-dict name (through
-    ``params_from_jax``), ``count`` an int64 scalar tensor."""
-    return {"mu": params_from_jax(cfg, state["mu"]), "nu": params_from_jax(cfg, state["nu"]),
+    ``params_from_jax``, with ``mesh`` this rank's shards), ``count`` an
+    int64 scalar tensor."""
+    return {"mu": params_from_jax(cfg, state["mu"], mesh),
+            "nu": params_from_jax(cfg, state["nu"], mesh),
             "count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int64)}

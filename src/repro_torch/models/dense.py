@@ -22,11 +22,15 @@ implicitly in the reference.
 
 Training: ``trunk_fwd(remat=True)`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant), so the backward recomputes a
-layer from its input, as the reference's ``jax.checkpoint`` per layer does.
-The sited path gives gradients at a one-rank mesh, where every helper
-computes the local product and still issues its collectives; at more ranks
-with grad enabled it raises ``NotImplementedError``: the MLP shards are
-copies, and the collectives have no backward yet.
+layer from its input, as the reference's ``jax.checkpoint`` per layer does;
+on the sited path the recompute issues the layer's forward collectives
+again, on every rank in the same order (backward layer order).  Every
+collective helper has a backward (``parallel.collectives``), so the sited
+trunk trains at any mesh size.  For training, ``shard_trunk_`` shards the
+trunk in place: each layer's MLP becomes this rank's shard, the parameter
+itself (under the same state-dict names), and the sited trunk runs it;
+serving keeps the whole MLPs and hands ``trunk_fwd`` copies
+(``shard_trunk``).
 
 Not ported here, and raising ``NotImplementedError`` naming the slice that
 brings them: MoE feed-forwards, MLA, sliding windows, ALiBi, ``qk_norm``
@@ -45,8 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import layers as L
-from repro_torch.parallel.collectives import (TP_TRAINING, all_gather_rows,
-                                              mm_reduce_scatter, ring_ag_matmul)
+from repro_torch.parallel.collectives import (all_gather_rows, mm_reduce_scatter,
+                                              ring_ag_matmul, shard_rows)
 
 Caches = Dict[str, Dict[str, object]]
 
@@ -85,17 +89,17 @@ class Layer(nn.Module):
 def tp_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
            site: str = "tp.mlp") -> torch.Tensor:
     """Explicit tensor-parallel MLP over ``mesh``: ``p`` holds this rank's
-    shards (``shard_mlp``), ``x`` (B, S, D) is replicated.  The up
-    projections are ring AllGather∘matmul over this rank's sequence shard
-    of ``x`` (site ``{site}.ag``), the down projection matmul∘ReduceScatter
-    (site ``{site}.rs``), each site's chunk structure resolved against the
-    active plan; the sequence-sharded output is gathered back to (B, S, D).
-    Numerically ``layers.mlp``."""
+    shards (``shard_mlp``), ``x`` (B, S, D) is replicated.  It enters
+    through this rank's sequence shard of ``x`` (``shard_rows``); the up
+    projections are ring AllGather∘matmul over it (site ``{site}.ag``), the
+    down projection matmul∘ReduceScatter (site ``{site}.rs``), each site's
+    chunk structure resolved against the active plan; the sequence-sharded
+    output leaves gathered back to (B, S, D) (``all_gather_rows``).
+    Numerically ``layers.mlp``, and differentiable."""
     if kind != "swiglu":
         raise NotImplementedError(f"mlp_kind {kind!r} arrives with {L.OTHER_FAMILIES}")
     m = as_mesh(mesh)
-    Sl = x.shape[1] // m.size
-    xl = x[:, m.rank * Sl:(m.rank + 1) * Sl] if m.size > 1 else x
+    xl = shard_rows(x, m)
     h = (F.silu(ring_ag_matmul(xl, p.gate.weight.T, m, site=f"{site}.ag"))
          * ring_ag_matmul(xl, p.up.weight.T, m, site=f"{site}.ag"))
     y = mm_reduce_scatter(h, p.down.weight.T, m, site=f"{site}.rs")
@@ -140,6 +144,25 @@ def shard_trunk(p: "Trunk", mesh) -> List[L.MLP]:
     return [shard_mlp(lp.mlp, mesh) for lp in p.dense_layers]
 
 
+# the dim of each MLP weight (``nn.Linear`` layout) that the shards split
+MLP_SHARD_DIMS = {"gate": 0, "up": 0, "down": 1}
+
+
+def shard_trunk_(p: "Trunk", mesh) -> "Trunk":
+    """Shard ``p`` in place for tensor-parallel training: each
+    ``dense_layers.{i}.mlp`` becomes this rank's ``shard_mlp`` (the
+    ``d_ff/n`` columns of gate and up, rows of down), a parameter under the
+    same state-dict names, and ``p.mlp_mesh`` records the mesh, which the
+    sited trunk then requires.  The whole MLPs are dropped."""
+    m = as_mesh(mesh)
+    if p.mlp_mesh is not None:
+        raise ValueError(f"the trunk is already sharded over {p.mlp_mesh}")
+    for lp in p.dense_layers:
+        lp.mlp = shard_mlp(lp.mlp, m)
+    p.mlp_mesh = m
+    return p
+
+
 def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[Dict[str, object]], *, backend: Optional[str] = None,
               mesh=None, site: str = "", serve: bool = False,
@@ -179,6 +202,7 @@ class Trunk(nn.Module):
         check_supported(cfg)
         self.dense_layers = nn.ModuleList(
             Layer(cfg, device=device, dtype=dtype) for _ in range(cfg.num_layers))
+        self.mlp_mesh = None     # the mesh of the MLP shards, once shard_trunk_ ran
 
 
 def init_trunk(cfg, *, device=None, dtype=None) -> Trunk:
@@ -218,29 +242,38 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
 
     ``mesh`` opts into the plan-aware sited path (module docstring): layer
     ``i``'s MLP runs at ``tp.layer{i}.mlp`` without caches and at
-    ``serve.layer{i}.mlp`` with them, with ``shards`` this rank's MLP shards
-    (default ``shard_trunk(p, mesh)``, made anew for the call; engines make
-    them once).  Shapes the explicit helpers cannot split fall back to the
-    unsited loop with a ``RuntimeWarning``, as the reference falls back to
-    its scan.  ``remat`` (without caches) recomputes each layer in the
-    backward."""
+    ``serve.layer{i}.mlp`` with them.  A trunk sharded in place
+    (``shard_trunk_``) runs its own MLPs, the shards, and needs its mesh;
+    otherwise ``shards`` are this rank's MLP shards (default
+    ``shard_trunk(p, mesh)``, copies made anew for the call, which carry no
+    gradient to ``p``; engines make them once).  Shapes the explicit helpers
+    cannot split fall back to the unsited loop with a ``RuntimeWarning``,
+    as the reference falls back to its scan (a sharded trunk raises).
+    ``remat`` (without caches) recomputes each layer in the backward."""
     seg = caches["dense_layers"] if caches is not None else None
     kind = "tp" if caches is None else "serve"
+    if p.mlp_mesh is not None and (mesh is None or as_mesh(mesh) != p.mlp_mesh
+                                   or shards is not None):
+        raise ValueError(f"the trunk's MLPs are this rank's shards over {p.mlp_mesh}: "
+                         "run it on that mesh, without other shards")
     if mesh is not None:
         check = _sited_applicable if caches is None else _sited_applicable_serve
         ok, why = check(cfg, x, mesh)
+        if not ok and p.mlp_mesh is not None:
+            raise ValueError(f"sharded trunk: {why}")
         if not ok:
             warnings.warn(f"plan-aware trunk disabled: {why}; using the "
                           "unsited layer loop", RuntimeWarning, stacklevel=2)
             mesh = None
-        else:
-            n = as_mesh(mesh).size
-            if n > 1 and torch.is_grad_enabled():
-                raise NotImplementedError(
-                    f"training the sited trunk at mesh size {n} arrives with {TP_TRAINING}: "
-                    "its MLP shards are copies and its collectives have no backward")
-            if shards is None:
-                shards = shard_trunk(p, mesh)
+        elif p.mlp_mesh is not None:
+            shards = [lp.mlp for lp in p.dense_layers]
+        elif shards is None:
+            if as_mesh(mesh).size > 1 and torch.is_grad_enabled() and any(
+                    q.requires_grad for q in p.dense_layers[0].mlp.parameters()):
+                raise ValueError(
+                    f"training at mesh size {as_mesh(mesh).size} needs the MLP shards "
+                    "as parameters: shard the trunk in place first (shard_trunk_)")
+            shards = shard_trunk(p, mesh)
     for i, lp in enumerate(p.dense_layers):
         lc = None
         if seg is not None:

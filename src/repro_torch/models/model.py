@@ -6,6 +6,7 @@ for the dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
     x, caches, aux = forward_hidden(cfg, model, batch[, caches])        # prefill
     caches = init_caches(cfg, batch_size, seq_len, device="cuda")       # serving
     logits, caches = decode_step(cfg, model, tokens, caches)            # decode
+    shard_(cfg, model, mesh)        # tensor-parallel training: MLP shards in place
 
 ``batch``: {"tokens": (B,S) int}, and for the loss "targets" (B,S) int and
 optionally "mask" (B,S) float.  Entry points run on the card unless the
@@ -43,6 +44,38 @@ def _trunk(cfg):
         later = _LATER.get(cfg.family, "a later slice of the port (ROADMAP.md, queue 1)")
         raise NotImplementedError(f"family {cfg.family!r} arrives with {later}")
     return _TRUNKS[cfg.family]
+
+
+def shard_(cfg, model: "Model", mesh) -> "Model":
+    """Shard ``model`` in place over the tensor-parallel ``mesh`` for
+    training (``dense.shard_trunk_``): each rank then holds its MLP shards
+    as parameters, and ``forward_hidden`` and ``loss_and_metrics`` run it
+    with ``mesh=`` that mesh.  Attention, the norms, the embedding and the
+    head stay whole on every rank."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"tensor-parallel training of the {cfg.family!r} "
+                                  f"family arrives with {RECURRENT_TRAINING}")
+    dense.shard_trunk_(model.trunk, mesh)
+    return model
+
+
+def tp_mesh(model: "Model"):
+    """The mesh ``model``'s MLPs are sharded over (``shard_``), or None."""
+    return getattr(model.trunk, "mlp_mesh", None)
+
+
+def mlp_shard_dims(cfg) -> Dict[str, int]:
+    """State-dict name of each dense-trunk MLP weight -> the dim its
+    tensor-parallel shards split (``nn.Linear`` layout)."""
+    return {f"trunk.dense_layers.{i}.mlp.{k}.weight": d
+            for i in range(cfg.num_layers) for k, d in dense.MLP_SHARD_DIMS.items()}
+
+
+def sharded_params(cfg, model: "Model") -> Dict[str, int]:
+    """``mlp_shard_dims`` if ``model`` is sharded over more than one rank,
+    else empty: the parameters that are this rank's shards."""
+    m = tp_mesh(model)
+    return mlp_shard_dims(cfg) if m is not None and m.size > 1 else {}
 
 
 def resolve_device(device) -> torch.device:

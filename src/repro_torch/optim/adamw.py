@@ -6,13 +6,22 @@ its parameter tree).  Moments are fp32 whatever the parameter's dtype.
 Where the reference returns new arrays, the port updates the parameters
 and the state in place under ``torch.no_grad()``: at llama3-8b's width a
 second copy of parameters and moments would not fit the card.
+
+Under tensor parallelism some leaves are this rank's shards (the MLP
+weights, ``models.model.sharded_params``) and the rest are replicated:
+the global norm sums the shards' squares over the model group and counts
+the replicated leaves once, so every rank clips by the same norm and the
+replicated parameters stay equal across ranks.  The moments of a shard are
+the shard's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping
+from typing import Collection, Dict, Mapping
 
 import torch
+
+from repro_torch.parallel import collectives
 
 
 @dataclass(frozen=True)
@@ -37,22 +46,32 @@ def init_state(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
             "count": torch.zeros((), dtype=torch.int64, device=first.device)}
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor], *, sharded: Collection[str] = (),
+                mesh=None) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(x²), in fp32 (each leaf's norm
-    without an fp32 copy of the leaf)."""
-    leaves = [torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    without an fp32 copy of the leaf).  The leaves named in ``sharded`` are
+    this rank's shards of tensors split over ``mesh``: their squares are
+    summed over its ranks, the other leaves' counted once."""
+    def sq(x):
+        return torch.linalg.vector_norm(x, dtype=torch.float32).square()
+
+    total = torch.sum(torch.stack([sq(x) for k, x in tree.items() if k not in sharded]))
+    parts = [sq(x) for k, x in tree.items() if k in sharded]
+    if parts:
+        total = total + collectives.psum_tree(torch.sum(torch.stack(parts)), mesh)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-                  state: Dict[str, object], cfg: AdamWConfig, lr_scale=1.0
-                  ) -> Dict[str, torch.Tensor]:
+                  state: Dict[str, object], cfg: AdamWConfig, lr_scale=1.0, *,
+                  sharded: Collection[str] = (), mesh=None) -> Dict[str, torch.Tensor]:
     """One AdamW step: ``params``, ``state["mu"]``, ``state["nu"]`` and
     ``state["count"]`` are updated in place.  Gradients are clipped by the
-    pre-clip global norm, which is returned as ``grad_norm`` with the step's
+    pre-clip global norm (``global_norm``, with ``sharded`` the leaves split
+    over ``mesh``), which is returned as ``grad_norm`` with the step's
     ``lr`` (the reference's metrics)."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded=sharded, mesh=mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = state["count"]
     count += 1

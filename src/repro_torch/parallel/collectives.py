@@ -38,6 +38,20 @@ chunk's work and waited for only where its result is needed.
 ``record_issued`` records what each call actually issued (chunks,
 matmuls, collective calls), where the reference would count ``scan`` loops
 in a jaxpr.
+
+Every helper is a ``torch.autograd.Function`` at every mesh size, so
+tensor-parallel training runs one backward code path on one rank or many.
+The backwards issue the transposed collectives: the ring all-gather
+matmul's dx is a chunked reduce-scatter of ``dy·wᵀ`` and its dw a second
+ring; the matmul reduce-scatter's backward all-gathers ``dy`` chunk by
+chunk; the all-to-all's is the inverse all-to-all; ``shard_rows`` and
+``all_gather_rows`` are each other's transposes.  A backward uses the
+chunk count its forward resolved (saved on the autograd context: autograd
+may run it on its own device thread, where the plan's context variables
+are not set), keeps the forward's overlap (hop or chunk k+1 in flight
+under product k), and logs an ``Issued`` row of its own (``op`` suffixed
+``.bwd``).  The sequence-parallel pair keeps every rank's gradients of
+the replicated parameters equal without an all-reduce.
 """
 from __future__ import annotations
 
@@ -51,9 +65,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh, as_mesh
-
-TP_TRAINING = "the tensor-parallel training slice (ROADMAP.md, queue 1 item 7)"
-
 
 @dataclass(frozen=True)
 class CollectiveRuntime:
@@ -283,9 +294,10 @@ class Issued:
     """One call of a chunked helper, as it ran: ``num_chunks`` is the chunk
     count it used (1 when unchunked or degraded), ``matmuls`` the matrix
     products it launched and ``collectives`` the ``torch.distributed``
-    calls it issued (one ring hop's ``batch_isend_irecv`` counts once)."""
+    calls it issued (one ring hop's ``batch_isend_irecv`` counts once).
+    A backward pass logs its own row, ``op`` suffixed ``.bwd``."""
     site: str
-    op: str              # ring_ag_matmul | mm_reduce_scatter | all_to_all | psum
+    op: str              # ring_ag_matmul | mm_reduce_scatter | all_to_all | psum, or *.bwd
     num_chunks: int
     matmuls: int
     collectives: int
@@ -298,7 +310,9 @@ _ISSUED_LOG: contextvars.ContextVar = contextvars.ContextVar(
 @contextlib.contextmanager
 def record_issued():
     """Record an ``Issued`` row for every helper call in the ``with`` block
-    (in call order).  Nests like ``record_site_resolutions``."""
+    (in call order).  Nests like ``record_site_resolutions``.  A backward
+    pass logs into the recorder that was active at its forward (autograd
+    may run it on another thread, outside this context)."""
     rows: List[Issued] = []
     token = _ISSUED_LOG.set(rows)
     try:
@@ -307,8 +321,10 @@ def record_issued():
         _ISSUED_LOG.reset(token)
 
 
-def _issued(site, op, num_chunks, matmuls, collectives) -> None:
-    log = _ISSUED_LOG.get()
+def _issued(site, op, num_chunks, matmuls, collectives, log=None) -> None:
+    """Log a row into ``log``, the recorder a Function captured at its
+    forward, or else into the recorder active here."""
+    log = _ISSUED_LOG.get() if log is None else log
     if log is not None:
         log.append(Issued(site, op, num_chunks, matmuls, collectives))
 
@@ -326,17 +342,6 @@ def axis_size(mesh) -> int:
     return as_mesh(mesh).size
 
 
-def _refuse_grad(what: str, m: Mesh, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would need this helper's backward: grad enabled,
-    more than one rank and an input that needs a gradient.  The helpers
-    issue their collectives into fresh tensors, which carry no graph, so
-    the gradients would be detached or miss the other ranks' parts."""
-    if m.size > 1 and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} at mesh size {m.size} has no backward: gradients through the "
-            f"collectives arrive with {TP_TRAINING}")
-
-
 def _peer(m: Mesh, r: int) -> int:
     """Global rank of rank ``r`` of the mesh's group (p2p ops take global
     ranks)."""
@@ -351,17 +356,102 @@ def _tiled(y: torch.Tensor, n: int) -> torch.Tensor:
     return t.movedim(-3, 0).contiguous()
 
 
+def _gather_tiles(y: torch.Tensor, m: Mesh):
+    """Issue the all-gather of this rank's (..., s, D) asynchronously;
+    returns (work or None, the (n, ..., s, D) tiles in rank order)."""
+    if m.group is None:
+        return None, y[None]
+    out = y.new_empty((m.size,) + tuple(y.shape))
+    return _all_gather(out.view(-1), y.contiguous().view(-1), group=m.group,
+                       async_op=True), out
+
+
+def _wait(work) -> None:
+    if work is not None:
+        work.wait()
+
+
+def _ring(x: torch.Tensor, m: Mesh, step) -> int:
+    """Rotate this rank's shard ``x`` around the ring ``j -> j-1``: step
+    ``i`` calls ``step(src, shard)`` on the shard of rank ``src = (idx + i)
+    % n`` while the next hop is in flight.  Returns the hops issued."""
+    n, idx = m.size, m.rank
+    cur = x.contiguous() if n > 1 else x
+    for i in range(n):
+        reqs, nxt = [], None
+        if i < n - 1:                        # hop i+1 in flight during this step
+            nxt = torch.empty_like(cur)
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, cur, _peer(m, (idx - 1) % n), m.group),
+                dist.P2POp(dist.irecv, nxt, _peer(m, (idx + 1) % n), m.group)])
+        step((idx + i) % n, cur)
+        for r in reqs:
+            r.wait()
+        cur = nxt
+    return n - 1
+
+
+def _rows_mm(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``aᵀ·g`` over every leading dim and the rows: (..., R, P) and
+    (..., R, Q) -> (P, Q), the weight gradient of ``a @ w``."""
+    return a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# the sequence slice and its conjugate, the gather of the rows (Megatron's
+# sequence-parallel f/g).  Not plan sites, and they log no ``Issued`` row.
+# ---------------------------------------------------------------------------
+
+class _ShardRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.m = m
+        s = x.shape[-2] // m.size
+        return x.narrow(-2, m.rank * s, s).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, dy):
+        work, tiles = _gather_tiles(dy, ctx.m)
+        _wait(work)
+        return torch.cat(tiles.unbind(0), dim=-2), None
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, m):
+        ctx.m = m
+        work, tiles = _gather_tiles(y, m)
+        _wait(work)
+        return torch.cat(tiles.unbind(0), dim=-2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        m = ctx.m
+        s = dy.shape[-2] // m.size
+        return dy.narrow(-2, m.rank * s, s), None
+
+
+def shard_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of a replicated (..., n·s, D) over dim -2, rank
+    ``r`` taking rows ``r·s ... (r+1)·s``: the sequence shard at the entry
+    of the tensor-parallel MLP.  Its backward all-gathers the slices'
+    gradients, so every rank gets the whole input's gradient."""
+    m = as_mesh(mesh)
+    if m.size == 1:
+        return x
+    return _ShardRows.apply(x, m)
+
+
 def all_gather_rows(y: torch.Tensor, mesh) -> torch.Tensor:
     """Gather a dim -2 sharded (..., s, D) into (..., n·s, D) on every rank,
     shards in rank order.  Not a plan site: the explicit form of the gather
-    GSPMD inserts after the reference's sequence-sharded MLP output."""
+    GSPMD inserts after the reference's sequence-sharded MLP output.  What
+    follows it is replicated, so each rank's output gradient is the whole
+    one: its backward takes this rank's slice."""
     m = as_mesh(mesh)
     if m.size == 1:
         return y
-    _refuse_grad("all_gather_rows", m, y)
-    out = y.new_empty((m.size,) + tuple(y.shape))
-    _all_gather(out.view(-1), y.contiguous().view(-1), group=m.group)
-    return torch.cat(out.unbind(0), dim=-2)
+    return _AllGatherRows.apply(y, m)
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +464,59 @@ def ag_matmul_ref(x, w):
     return x @ w
 
 
+def _row_blocks(a: torch.Tensor, nc: int):
+    return [a] if nc == 1 else list(a.chunk(nc, dim=-2))
+
+
+class _RingAgMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, m, nc, site, log):
+        ctx.save_for_backward(x, w)
+        ctx.m, ctx.nc, ctx.site, ctx.log = m, nc, site, log
+        Tl = x.shape[-2]
+        out = x.new_empty(x.shape[:-2] + (m.size * Tl, w.shape[-1]))
+
+        def step(src, xs):
+            for j, b in enumerate(_row_blocks(xs, nc)):
+                r0 = src * Tl + j * b.shape[-2]
+                out[..., r0:r0 + b.shape[-2], :] = b @ w
+
+        hops = _ring(x, m, step)
+        _issued(site, "ring_ag_matmul", nc, m.size * nc, hops, log)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        """dx: the reduce-scatter of ``dy·wᵀ`` (chunked as the forward, each
+        chunk's scatter in flight under the next chunk's product and the
+        weight gradient's ring); dw: ``gather(x)ᵀ·dy``, the shards rotating
+        again, each hop in flight under the previous shard's products."""
+        x, w = ctx.saved_tensors
+        m, nc = ctx.m, ctx.nc
+        Tl = x.shape[-2]
+        dx = dw = None
+        matmuls = colls = 0
+        if ctx.needs_input_grad[0]:
+            pending = _mm_rs_issue(dy, w.T, m, nc)
+            matmuls, colls = nc, sum(wk is not None for wk, _ in pending)
+        if ctx.needs_input_grad[1]:
+            acc = torch.zeros(w.shape, dtype=torch.promote_types(w.dtype, torch.float32),
+                              device=w.device)
+
+            def step(src, xs):
+                g = dy[..., src * Tl:(src + 1) * Tl, :]
+                for xb, gb in zip(_row_blocks(xs, nc), _row_blocks(g, nc)):
+                    acc.add_(_rows_mm(xb, gb))
+
+            colls += _ring(x, m, step)
+            matmuls += m.size * nc
+            dw = acc.to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            dx = _mm_rs_join(pending)
+        _issued(ctx.site, "ring_ag_matmul.bwd", nc, matmuls, colls, ctx.log)
+        return dx, dw, None, None, None, None
+
+
 def ring_ag_matmul(x, w, mesh, *, num_chunks: int | None = None,
                    site: str | None = None) -> torch.Tensor:
     """All-gather of the sequence shards ``x`` (..., Tl, D), dim -2 sharded
@@ -381,39 +524,17 @@ def ring_ag_matmul(x, w, mesh, *, num_chunks: int | None = None,
     ring: the shards rotate ``j -> j-1``, and step ``i`` multiplies the
     shard of rank ``(idx + i) % n`` while the next hop is in flight.  Each
     step's matmul is cut into ``num_chunks`` row blocks when ``Tl`` divides
-    by it.  Returns (..., n·Tl, F_local)."""
+    by it.  Returns (..., n·Tl, F_local).  Differentiable: the backward
+    (``_RingAgMatmul.backward``) uses the chunk count resolved here."""
     site = site or "ag"
     num_chunks = _resolve_chunks(num_chunks, site, "ag")
     m = as_mesh(mesh)
-    _refuse_grad("ring_ag_matmul", m, x, w)
-    n, idx = m.size, m.rank
     Tl = x.shape[-2]
     chunked = num_chunks > 1 and Tl % num_chunks == 0
     if num_chunks > 1 and not chunked:
         _warn_unchunked(site, num_chunks, f"the local sequence shard ({Tl})")
-    nc = num_chunks if chunked else 1
-
-    def chunked_mm(xs):
-        if nc == 1:
-            return xs @ w
-        return torch.cat([b @ w for b in xs.chunk(nc, dim=-2)], dim=-2)
-
-    parts: List[Optional[torch.Tensor]] = [None] * n
-    cur = x.contiguous() if n > 1 else x
-    for i in range(n):
-        src = (idx + i) % n                  # whose shard we currently hold
-        reqs, nxt = [], None
-        if i < n - 1:                        # hop i+1 in flight during this matmul
-            nxt = torch.empty_like(cur)
-            reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, cur, _peer(m, (idx - 1) % n), m.group),
-                dist.P2POp(dist.irecv, nxt, _peer(m, (idx + 1) % n), m.group)])
-        parts[src] = chunked_mm(cur)
-        for r in reqs:
-            r.wait()
-        cur = nxt
-    _issued(site, "ring_ag_matmul", nc, n * nc, n - 1)
-    return parts[0] if n == 1 else torch.cat(parts, dim=-2)
+    return _RingAgMatmul.apply(x, w, m, num_chunks if chunked else 1, site,
+                               _ISSUED_LOG.get())
 
 
 # ---------------------------------------------------------------------------
@@ -426,20 +547,84 @@ def mm_rs_ref(x, w):
     return x @ w
 
 
-def _reduce_scatter_rows(y: torch.Tensor, m: Mesh):
-    """Issue the sum-scatter of (..., n·s, D) over dim -2 asynchronously;
-    returns (work or None, this rank's (..., s, D) tile)."""
-    if m.group is None:
-        return None, y
-    t = _tiled(y.detach(), m.size)
-    out = t.new_empty(t.shape[1:])
-    # flat views: gloo splits dim 0, so it must be the whole tile
-    work = _reduce_scatter(out.view(-1), t.view(-1), group=m.group, async_op=True)
-    # at one rank the scatter is the identity: the collective is issued (a
-    # plan's structure shows) and the local product is returned, which keeps
-    # its autograd graph; the scattered sum of more ranks has none yet (the
-    # tensor-parallel training slice, ROADMAP.md, queue 1 item 7)
-    return work, (y if m.size == 1 else out)
+def _rs_chunks(x: torch.Tensor, n: int, nc: int) -> torch.Tensor:
+    """(..., T, F) -> (..., n, nc, s, F) with ``s = T/(n·nc)``: chunk ``i``
+    is ``[..., :, i]``, rows ``{j·T/n + i·s ...}`` for every destination
+    ``j``, so the chunks' scatters, joined, equal one scatter."""
+    T = x.shape[-2]
+    return x.reshape(x.shape[:-2] + (n, nc, T // (n * nc), x.shape[-1]))
+
+
+def _mm_rs_issue(x, w, m: Mesh, nc: int):
+    """Each chunk's product ``b @ w`` and its sum-scatter over dim -2,
+    issued asynchronously before the next chunk's product.  Returns
+    [(work or None, this rank's tile)], one a chunk."""
+    n = m.size
+    xr = _rs_chunks(x, n, nc)
+    pending = []
+    for i in range(nc):
+        b = xr.select(-3, i).reshape(x.shape[:-2] + (-1, x.shape[-1]))
+        y = b @ w
+        if m.group is None:
+            pending.append((None, y))
+            continue
+        t = _tiled(y, n)
+        out = t.new_empty(t.shape[1:])
+        # flat views: gloo splits dim 0, so it must be the whole tile
+        work = _reduce_scatter(out.view(-1), t.view(-1), group=m.group, async_op=True)
+        # at one rank the scatter is the identity: it is issued (a plan's
+        # structure shows) and the local product is returned
+        pending.append((work, y if n == 1 else out))
+    return pending
+
+
+def _mm_rs_join(pending) -> torch.Tensor:
+    for work, _ in pending:
+        _wait(work)
+    ys = [y for _, y in pending]
+    return ys[0] if len(ys) == 1 else torch.cat(ys, dim=-2)
+
+
+class _MmReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, m, nc, site, log):
+        ctx.save_for_backward(x, w)
+        ctx.m, ctx.nc, ctx.site, ctx.log = m, nc, site, log
+        pending = _mm_rs_issue(x, w, m, nc)
+        _issued(site, "mm_reduce_scatter", nc, nc,
+                sum(work is not None for work, _ in pending), log)
+        return _mm_rs_join(pending)
+
+    @staticmethod
+    def backward(ctx, dy):
+        """Chunk ``i`` of ``dy`` is all-gathered (every chunk's gather
+        issued before the first product), giving the output gradient at
+        the forward's chunk ``i`` rows; then dx of those rows is ``g·wᵀ``
+        and dw gains ``x_iᵀ·g``."""
+        x, w = ctx.saved_tensors
+        m, nc = ctx.m, ctx.nc
+        n = m.size
+        s = dy.shape[-2] // nc
+        gathers = [_gather_tiles(dy[..., i * s:(i + 1) * s, :], m) for i in range(nc)]
+        xr = _rs_chunks(x, n, nc)
+        lead = x.shape[:-2]
+        dxs, dw, matmuls = [], None, 0
+        for i, (work, tiles) in enumerate(gathers):
+            _wait(work)
+            g = tiles.movedim(0, -3)                        # (..., n, s, D)
+            if ctx.needs_input_grad[0]:
+                dxs.append(g @ w.T)
+                matmuls += 1
+            if ctx.needs_input_grad[1]:
+                part = _rows_mm(xr.select(-3, i), g)
+                dw = part if dw is None else dw + part
+                matmuls += 1
+        dx = None
+        if dxs:
+            dx = torch.stack(dxs, dim=-3).reshape(lead + (-1, x.shape[-1]))
+        _issued(ctx.site, "mm_reduce_scatter.bwd", nc, matmuls,
+                sum(work is not None for work, _ in gathers), ctx.log)
+        return dx, dw, None, None, None, None
 
 
 def mm_reduce_scatter(x, w, mesh, *, num_chunks: int | None = None,
@@ -450,35 +635,19 @@ def mm_reduce_scatter(x, w, mesh, *, num_chunks: int | None = None,
     ``T`` divisible by ``num_chunks·n``, chunk ``i`` holds rows
     ``{j·T/n + i·s ...}`` (``s = T/(n·num_chunks)``) for every destination
     ``j``, so the chunks' scatters, joined, equal one scatter; each chunk's
-    reduce-scatter is in flight during the next chunk's matmul."""
+    reduce-scatter is in flight during the next chunk's matmul.
+    Differentiable: the backward all-gathers the output gradient chunk by
+    chunk, with the chunk count resolved here."""
     site = site or "rs"
     num_chunks = _resolve_chunks(num_chunks, site, "rs")
     m = as_mesh(mesh)
-    _refuse_grad("mm_reduce_scatter", m, x, w)
-    n = m.size
     T = x.shape[-2]
-    if num_chunks <= 1 or T % (num_chunks * n):
-        if num_chunks > 1:
-            _warn_unchunked(site, num_chunks,
-                            f"the scatter tiling ({T} rows over {n} shards)")
-        work, y = _reduce_scatter_rows(x @ w, m)
-        if work is not None:
-            work.wait()
-        _issued(site, "mm_reduce_scatter", 1, 1, int(work is not None))
-        return y
-    s = T // (n * num_chunks)
-    lead = x.shape[:-2]
-    xr = x.reshape(lead + (n, num_chunks, s, x.shape[-1]))
-    pending = []
-    for i in range(num_chunks):
-        b = xr.select(-3, i).reshape(lead + (n * s, x.shape[-1]))
-        pending.append(_reduce_scatter_rows(b @ w, m))
-    for work, _ in pending:
-        if work is not None:
-            work.wait()
-    _issued(site, "mm_reduce_scatter", num_chunks, num_chunks,
-            sum(work is not None for work, _ in pending))
-    return torch.cat([y for _, y in pending], dim=-2)
+    chunked = num_chunks > 1 and T % (num_chunks * m.size) == 0
+    if num_chunks > 1 and not chunked:
+        _warn_unchunked(site, num_chunks,
+                        f"the scatter tiling ({T} rows over {m.size} shards)")
+    return _MmReduceScatter.apply(x, w, m, num_chunks if chunked else 1, site,
+                                  _ISSUED_LOG.get())
 
 
 # ---------------------------------------------------------------------------
@@ -497,28 +666,34 @@ def _all_to_all(xl: torch.Tensor, m: Mesh, split_axis: int):
     return dist.all_to_all_single(out, t, group=m.group, async_op=True), out
 
 
-def _chunked_a2a_local(xl, mesh, *, split_axis: int, concat_axis: int,
-                       num_chunks: int, site: str = "a2a"):
-    """One all-to-all, or ``num_chunks`` all-to-alls over the trailing
-    feature dim, all issued before the first is waited for."""
-    m = as_mesh(mesh)
-    sa, ca = split_axis % xl.ndim, concat_axis % xl.ndim
-    if num_chunks <= 1 or xl.shape[-1] % num_chunks:
-        if num_chunks > 1:
-            _warn_unchunked(site, num_chunks,
-                            f"the trailing feature dim ({xl.shape[-1]})")
-        blocks = [xl]
-    else:
-        blocks = list(xl.chunk(num_chunks, dim=-1))
+def _a2a(xl, m: Mesh, sa: int, ca: int, nc: int):
+    """One all-to-all, or ``nc`` all-to-alls over the trailing feature dim,
+    all issued before the first is waited for.  Returns (y, calls issued)."""
+    blocks = [xl] if nc == 1 else list(xl.chunk(nc, dim=-1))
     pending = [_all_to_all(b, m, sa) for b in blocks]
     ys = []
     for work, tiles in pending:
-        if work is not None:
-            work.wait()
+        _wait(work)
         ys.append(torch.cat([tl.movedim(0, sa) for tl in tiles.unbind(0)], dim=ca))
-    _issued(site, "all_to_all", len(blocks), 0,
-            sum(work is not None for work, _ in pending))
-    return ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+    return y, sum(work is not None for work, _ in pending)
+
+
+class _ChunkedAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, sa, ca, nc, site, log):
+        ctx.m, ctx.sa, ctx.ca, ctx.nc, ctx.site, ctx.log = m, sa, ca, nc, site, log
+        y, calls = _a2a(x, m, sa, ca, nc)
+        _issued(site, "all_to_all", nc, 0, calls, log)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        """The inverse all-to-all: ``concat_axis`` split, ``split_axis``
+        joined, in the forward's chunks."""
+        dx, calls = _a2a(dy, ctx.m, ctx.ca, ctx.sa, ctx.nc)
+        _issued(ctx.site, "all_to_all.bwd", ctx.nc, 0, calls, ctx.log)
+        return dx, None, None, None, None, None, None
 
 
 def chunked_all_to_all(x, mesh, *, split_axis: int, concat_axis: int,
@@ -529,13 +704,16 @@ def chunked_all_to_all(x, mesh, *, split_axis: int, concat_axis: int,
     tiles received joined along ``concat_axis`` in rank order; decomposed
     into ``num_chunks`` all-to-alls over the trailing feature dim.
     ``num_chunks=None`` defers to the active plan's knobs for ``site``
-    (falling back to the ``a2a`` site class)."""
+    (falling back to the ``a2a`` site class).  Differentiable: the
+    backward is the inverse all-to-all in the same chunks."""
     site = site or "a2a"
     num_chunks = _resolve_chunks(num_chunks, site, "a2a")
-    _refuse_grad("chunked_all_to_all", as_mesh(mesh), x)
-    return _chunked_a2a_local(x, mesh, split_axis=split_axis,
-                              concat_axis=concat_axis, num_chunks=num_chunks,
-                              site=site)
+    if num_chunks > 1 and x.shape[-1] % num_chunks:
+        _warn_unchunked(site, num_chunks, f"the trailing feature dim ({x.shape[-1]})")
+        num_chunks = 1
+    return _ChunkedAllToAll.apply(x, as_mesh(mesh), split_axis % x.ndim,
+                                  concat_axis % x.ndim, max(1, num_chunks), site,
+                                  _ISSUED_LOG.get())
 
 
 # ---------------------------------------------------------------------------

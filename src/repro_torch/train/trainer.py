@@ -22,9 +22,20 @@ the batch exactly as the reference does:
   (``psum_tree_chunked_issue``) before microbatch k+1's forward and waited
   for (``psum_tree_wait``) only after its backward.
 
-Tensor-parallel training (``sited_mesh`` at more than one rank) raises
-``NotImplementedError`` in ``models.dense.trunk_fwd``; at one rank the
-sited path trains.
+Tensor parallelism: ``sited_mesh`` runs the dense trunk's MLPs over the
+explicit chunked collectives at ``tp.layer{i}.mlp.ag|rs``, whose backwards
+issue the transposed collectives.  At more than one rank the model is
+sharded in place first (``models.model.shard_``): each rank holds its MLP
+shards as parameters, AdamW's moments are the shards', and the global norm
+sums the shards' squares over the model group.  Attention, the norms, the
+embedding and the head are replicated, and their gradients come out equal
+on every rank.
+
+Data parallelism: ``data_axis`` (a ``Mesh`` or ``ProcessGroup`` over the
+ranks that hold the other slices of the global batch) averages the
+gradients, the loss and its metrics over that group after the backward:
+the reduction that GSPMD inserts implicitly in the reference.  An ACCO
+step reduces over its ``accum_axis`` instead, which is then that group.
 """
 from __future__ import annotations
 
@@ -57,6 +68,8 @@ class TrainConfig:
     backend: Optional[str] = None      # kernel backend override
     sited_mesh: Optional[Any] = None   # plan-aware explicit collectives in the
                                        # dense trunk (tp.layer{i}.mlp sites)
+    data_axis: Optional[Any] = None    # data-parallel Mesh (or ProcessGroup):
+                                       # gradient and loss mean over it
 
 
 def _split(batch: Dict[str, torch.Tensor], n: int, strided: bool):
@@ -90,7 +103,8 @@ def make_train_step(cfg, tcfg: TrainConfig):
 
     def train_step(model, opt_state, batch, step):
         params = dict(model.named_parameters())
-        if tcfg.grad_accum > 1 and tcfg.accum_axis is not None:
+        acco = tcfg.grad_accum > 1 and tcfg.accum_axis is not None
+        if acco:
             n = tcfg.grad_accum
             mesh = tcfg.accum_axis
             gsum, pending, tot_loss, metrics = None, None, 0.0, None
@@ -126,8 +140,17 @@ def make_train_step(cfg, tcfg: TrainConfig):
             loss = tot_loss / n
         else:
             loss, metrics, grads = value_and_grad(model, params, batch)
+        if tcfg.data_axis is not None and not acco:
+            d = collectives.axis_size(tcfg.data_axis)
+            grads, mean = collectives.psum_tree((grads, dict(metrics, loss=loss)),
+                                                tcfg.data_axis)
+            grads = {k: a / d for k, a in grads.items()}
+            metrics = {k: a / d for k, a in mean.items()}
+            loss = metrics.pop("loss")
         lr_scale = sched(step, warmup=tcfg.warmup, total=tcfg.total_steps)
-        opt_metrics = adamw.apply_updates(params, grads, opt_state, tcfg.opt, lr_scale)
+        opt_metrics = adamw.apply_updates(params, grads, opt_state, tcfg.opt, lr_scale,
+                                          sharded=M.sharded_params(cfg, model),
+                                          mesh=M.tp_mesh(model))
         return model, opt_state, dict(metrics, **opt_metrics, loss=loss)
 
     return train_step

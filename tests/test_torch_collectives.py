@@ -14,8 +14,12 @@ the all-to-all; 1e-4 for the summed trees (as the all-gather matmul);
 the trunk's logits 1e-4 (``LOGITS_BOUND`` of ``tests/test_torch_serving.py``).
 A chunk count of 3 divides none of the shards here and must warn
 ``CollectiveDegradedWarning`` with the reference's site and detail.
-The helpers have no backward yet: at 4 ranks under grad each refuses an
-input that needs a gradient, and at one rank each keeps its graph.
+Gradients: each helper's dx and dw at 4 ranks against ``jax.grad`` of the
+reference's helper on the same inputs and output gradient, at every chunk
+count, within the same bounds; the backward's ``Issued`` rows (the
+forward's chunk count, its products and collectives); the sequence slice
+and the row gather against their transposes; and at one rank each helper
+keeps its graph.
 """
 import dataclasses
 import json
@@ -95,20 +99,24 @@ for nc in [int(c) for c in d["chunks"]]:
 def grad(a):
     return a.clone().requires_grad_()
 
-log["refused"] = {}
-for name, fn in {
-        "ring_ag_matmul x": lambda: C.ring_ag_matmul(grad(x), w, mesh),
-        "ring_ag_matmul w": lambda: C.ring_ag_matmul(x, grad(w), mesh),
-        "mm_reduce_scatter x": lambda: C.mm_reduce_scatter(grad(xf), wf, mesh),
-        "mm_reduce_scatter w": lambda: C.mm_reduce_scatter(xf, grad(wf), mesh),
-        "all_gather_rows": lambda: C.all_gather_rows(grad(x), mesh),
-        "chunked_all_to_all": lambda: C.chunked_all_to_all(
-            grad(xa), mesh, split_axis=1, concat_axis=0)}.items():
-    try:
-        fn()
-        log["refused"][name] = None
-    except NotImplementedError as e:
-        log["refused"][name] = str(e)
+def grads_of(name, fn, ins, dy):
+    C.reset_degraded_warnings()          # a degraded site warns again, as its forward did
+    ins = [grad(a) for a in ins]
+    gs = run(name, lambda: torch.autograd.grad(fn(*ins), ins, dy))
+    for k, g in zip("xw", gs):
+        res[f"{name}.{k}"] = g
+
+dy_ag, dz_rs, dy_a2a = shard(d["dy_ag"], 2), shard(d["dz_rs"], 1), shard(d["dy_a2a"], 0)
+for nc in [int(c) for c in d["chunks"]] + [None]:     # None: the site's default
+    tag = "" if nc is None else nc
+    grads_of(f"gag{tag}", lambda a, b: C.ring_ag_matmul(a, b, mesh, num_chunks=nc), (x, w), dy_ag)
+    grads_of(f"grs{tag}", lambda a, b: C.mm_reduce_scatter(a, b, mesh, num_chunks=nc),
+             (xf, wf), dz_rs)
+    grads_of(f"ga2a{tag}", lambda a: C.chunked_all_to_all(
+        a, mesh, split_axis=1, concat_axis=0, num_chunks=nc), (xa,), dy_a2a)
+dyr = torch.from_numpy(d["dyr"])                          # the same on every rank
+grads_of("ggather", lambda a: C.all_gather_rows(a, mesh), (x,), dyr)
+grads_of("gslice", lambda a: C.shard_rows(a, mesh), (torch.from_numpy(d["x"]),), shard(d["dyr"], 1))
 
 cfg = get_smoke_config("llama3-8b")
 model = M.init_params(cfg, 0, device="cpu")
@@ -213,6 +221,24 @@ with C.use_runtime_plan(plan):                 # plans bind at trace time
         return jnp.stack(outs, 1)
 
     res["serve.sited"] = run("serve", served)
+
+def grads(name, f, args, dy):
+    gs = jax.grad(lambda *a: jnp.sum(f(*a) * dy), argnums=tuple(range(len(args))))(*args)
+    for k, g in zip("xw", gs):
+        res[f"{name}.{k}"] = np.asarray(g)
+
+for nc in [int(c) for c in d["chunks"]]:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        grads(f"gag{nc}", lambda a, b: C.ring_ag_matmul(
+            a, b, mesh, axis=M_, x_spec=P(None, M_, None), w_spec=P(None, M_),
+            out_spec=P(None, None, M_), num_chunks=nc), (d["x"], d["w"]), d["dy_ag"])
+        grads(f"grs{nc}", lambda a, b: C.mm_reduce_scatter(
+            a, b, mesh, axis=M_, x_spec=P(None, None, M_), w_spec=P(M_, None),
+            out_spec=P(None, M_, None), num_chunks=nc), (d["xf"], d["wf"]), d["dz_rs"])
+        grads(f"ga2a{nc}", lambda a: C.chunked_all_to_all(
+            a, mesh, axis=M_, split_axis=1, concat_axis=0, x_spec=P(M_, None, None),
+            out_spec=P(M_, None, None), num_chunks=nc), (d["xa"],), d["dy_a2a"])
 np.savez(out + ".npz", **res)
 with open(out + ".json", "w") as f:
     json.dump(log, f)
@@ -234,6 +260,10 @@ def runs(tmp_path_factory):
         "xf": rs.standard_normal((2, 16, 64)).astype(f32),
         "wf": rs.standard_normal((64, 32)).astype(f32),
         "xa": rs.standard_normal((8, 4, 16)).astype(f32),
+        "dy_ag": rs.standard_normal((2, 16, 64)).astype(f32),
+        "dz_rs": rs.standard_normal((2, 16, 32)).astype(f32),
+        "dy_a2a": rs.standard_normal((4 * 8, 1, 16)).astype(f32),
+        "dyr": rs.standard_normal((2, 16, 32)).astype(f32),
         "pa": rs.standard_normal((N, 8, 3)).astype(f32),
         "pb": rs.standard_normal((N,)).astype(f32),
         "pc": rs.standard_normal((N, 8, 2)).astype(f32),
@@ -402,20 +432,90 @@ def test_plan_drives_two_layers_to_different_structure(runs):
         assert len(rows) == 6          # gate and up, then down, per layer
 
 
-REFUSED = ("ring_ag_matmul x", "ring_ag_matmul w", "mm_reduce_scatter x",
-           "mm_reduce_scatter w", "all_gather_rows", "chunked_all_to_all")
+# each helper's backward: (name, inputs' sharded dims, the output gradient's)
+GRAD_HELPERS = {"ag": ("ring_ag_matmul", (1, 1), AG_BOUND),
+                "rs": ("mm_reduce_scatter", (2, 0), RS_BOUND),
+                "a2a": ("all_to_all", (0,), A2A_BOUND)}
 
 
-@pytest.mark.parametrize("call", REFUSED)
-def test_helpers_refuse_gradients_beyond_one_rank(runs, call):
-    """At 4 ranks with grad enabled, a helper given an input (or weight)
-    that needs a gradient raises, naming the slice that brings its
-    backward, instead of returning detached or partial gradients."""
+@pytest.mark.parametrize("nc", CHUNKS)
+@pytest.mark.parametrize("helper", sorted(GRAD_HELPERS))
+def test_helper_gradients_match_reference(runs, helper, nc):
+    """dx and dw of every rank's shards against ``jax.grad`` of the
+    reference's helper on the global inputs, with the same output gradient
+    (a chunk count of 3 degrades in both, and warns once)."""
+    _, port, logs, ref, _ = runs
+    _, dims, bound = GRAD_HELPERS[helper]
+    for r in range(N):
+        for k, dim in zip("xw", dims):
+            got = port[r][f"g{helper}{nc}.{k}"]
+            assert _err(got, _rank_slice(ref[f"g{helper}{nc}.{k}"], dim, r)) < bound, (k, r)
+        warned = logs[r]["warnings"][f"g{helper}{nc}"]
+        assert bool(warned) == (nc == 3) and warned == logs[r]["warnings"][f"{helper}{nc}"]
+
+
+@pytest.mark.parametrize("nc", CHUNKS)
+@pytest.mark.parametrize("helper", sorted(GRAD_HELPERS))
+def test_backward_issued_structure(runs, helper, nc):
+    """What each backward issued, logged as ``<op>.bwd`` after its forward:
+    the forward's chunk count; the ring's dx products with their chunked
+    reduce-scatters and its dw ring (n·chunks products, n-1 hops); the
+    reduce-scatter's all-gather of each chunk of dy and two products a
+    chunk; the all-to-all's inverse, one call a chunk."""
     _, _, logs, _, _ = runs
+    used = 1 if nc == 3 else nc
+    op = GRAD_HELPERS[helper][0]
+    want = {"ag": (used, used + N * used, used + N - 1), "rs": (used, 2 * used, used),
+            "a2a": (used, 0, used)}[helper]
     for log in logs:
-        msg = log["refused"][call]
-        assert msg is not None, (call, "returned")
-        assert "tensor-parallel training slice" in msg, msg
+        rows = [tuple(r) for r in log["issued"][f"g{helper}{nc}"]]
+        assert [row[1] for row in rows] == [op, op + ".bwd"], rows
+        assert rows[1] == (helper, op + ".bwd") + want, rows
+
+
+CALLS = ("ring_ag_matmul x", "ring_ag_matmul w", "mm_reduce_scatter x",
+         "mm_reduce_scatter w", "all_gather_rows", "chunked_all_to_all")
+CALL_KEYS = {"ring_ag_matmul x": "gag.x", "ring_ag_matmul w": "gag.w",
+             "mm_reduce_scatter x": "grs.x", "mm_reduce_scatter w": "grs.w",
+             "chunked_all_to_all": "ga2a.x"}
+
+
+def _dense_grads(call, inputs, r):
+    """This rank's expected gradient for ``call``, from autograd of the
+    dense oracle on the global inputs with the global output gradient."""
+    t = {k: torch.from_numpy(inputs[k]).double().requires_grad_()
+         for k in ("x", "w", "xf", "wf")}
+    if call.startswith("ring_ag_matmul"):
+        gx, gw = torch.autograd.grad(C.ag_matmul_ref(t["x"], t["w"]), (t["x"], t["w"]),
+                                     torch.from_numpy(inputs["dy_ag"]).double())
+        return (_rank_slice(gx.numpy(), 1, r) if call.endswith("x")
+                else _rank_slice(gw.numpy(), 1, r)), AG_BOUND
+    if call.startswith("mm_reduce_scatter"):
+        gx, gw = torch.autograd.grad(C.mm_rs_ref(t["xf"], t["wf"]), (t["xf"], t["wf"]),
+                                     torch.from_numpy(inputs["dz_rs"]).double())
+        return (_rank_slice(gx.numpy(), 2, r) if call.endswith("x")
+                else _rank_slice(gw.numpy(), 0, r)), RS_BOUND
+    # the all-to-all only moves tiles: its transpose moves them back
+    shards = [_rank_slice(inputs["dy_a2a"], 0, j) for j in range(N)]
+    return np.concatenate([_rank_slice(s, 0, r) for s in shards], axis=1), A2A_BOUND
+
+
+@pytest.mark.parametrize("call", CALLS)
+def test_helpers_refuse_gradients_beyond_one_rank(runs, call):
+    """At 4 ranks under grad no helper refuses any more: each call at its
+    site's default structure, with an input (or weight) that needs a
+    gradient, returns this rank's part of the dense oracle's gradient; the
+    row gather's backward is this rank's slice of the output gradient, and
+    the sequence slice's the gather of every rank's."""
+    inputs, port, _, _, _ = runs
+    for r in range(N):
+        if call == "all_gather_rows":
+            assert _err(port[r]["ggather.x"], _rank_slice(inputs["dyr"], 1, r)) == 0
+            assert _err(port[r]["gslice.x"], inputs["dyr"]) == 0
+            continue
+        got = port[r][CALL_KEYS[call]]
+        want, bound = _dense_grads(call, inputs, r)
+        assert _err(got, want) < bound, (call, r)
 
 
 @pytest.mark.parametrize("helper", ["ring_ag_matmul", "mm_reduce_scatter",

@@ -273,8 +273,9 @@ def test_remat_recomputes_under_the_forwards_plan(ref):
     its own device thread, where the forward's scoped plan (a context
     variable) is not active.  Here the backward runs on another thread:
     the recompute must still chunk as the forward did (or checkpoint
-    refuses the different tensors it saved), and the gradients equal
-    those of a backward on the forward's thread."""
+    refuses the different tensors it saved), the backward must use the
+    forward's chunk count and log into the forward's recorder, and the
+    gradients equal those of a backward on the forward's thread."""
     import threading
 
     cfg, _, _, sd = ref
@@ -294,16 +295,84 @@ def test_remat_recomputes_under_the_forwards_plan(ref):
         t.start()
         t.join(timeout=120)
         assert not t.is_alive()
-        assert [r.num_chunks for r in rows if r.site == "tp.layer0.mlp.rs"] == [4]
+        # the forward, remat's recompute and the backward, each at 4 chunks
+        assert [(r.op, r.num_chunks) for r in rows if r.site == "tp.layer0.mlp.rs"] == [
+            ("mm_reduce_scatter", 4), ("mm_reduce_scatter", 4), ("mm_reduce_scatter.bwd", 4)]
     assert all(torch.equal(a, c) for a, c in zip(grads["same thread"], grads["other thread"]))
 
 
-def test_sited_training_beyond_one_rank_names_its_slice(ref):
+_TWO_RANKS = r"""
+import sys, numpy as np, torch, torch.distributed as dist
+rank, rdv, sd, inp, out = int(sys.argv[1]), *sys.argv[2:6]
+dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank, world_size=2)
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+from repro_torch.train import trainer as T
+cfg = get_smoke_config("llama3-8b")
+model = M.init_params(cfg, 0, device="cpu")
+model.load_state_dict(torch.load(sd))
+mesh = make_mesh()
+M.shard_(cfg, model, mesh)
+assert model.trunk.dense_layers[0].mlp.gate.weight.shape[0] == cfg.d_ff // 2
+d = {k: torch.from_numpy(v) for k, v in np.load(inp).items()}
+step = T.make_train_step(cfg, T.TrainConfig(opt=adamw.AdamWConfig(lr=1e-2, eps=1e-3), warmup=2,
+                                            total_steps=10, sited_mesh=mesh))
+model, state, m = step(model, adamw.init_state(dict(model.named_parameters())), d, 1)
+full = params_from_jax(cfg, params_to_jax(cfg, model))     # the shards gathered
+if rank == 0:
+    np.savez(out, loss=m["loss"].numpy(), **{k: v.numpy() for k, v in full.items()})
+dist.destroy_process_group()
+"""
+
+
+def test_sited_training_beyond_one_rank_names_its_slice(ref, tmp_path):
+    """Beyond one rank the sited trunk no longer raises naming a later
+    slice: it trains.  At mesh size 2 (2 gloo ranks), the model sharded in
+    place, one step equals the unsited step on one process: the loss and
+    every parameter (the shards gathered) within 1e-5."""
+    cfg, _, _, sd = ref
+    b = _batch(cfg, 2, 64)
+    torch.save(sd, tmp_path / "params.pt")
+    np.savez(tmp_path / "batch.npz", **b)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r), str(tmp_path / "rdv"),
+                               str(tmp_path / "params.pt"), str(tmp_path / "batch.npz"),
+                               str(tmp_path / "out.npz")], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=180)[0] for p in procs]
+    for p, text in zip(procs, outs):
+        assert p.returncode == 0, text[-3000:]
+    got = dict(np.load(tmp_path / "out.npz"))
+    model = _model(cfg, sd)
+    step = T.make_train_step(cfg, T.TrainConfig(opt=adamw.AdamWConfig(**STEP_OPT), **STEP_SCHED))
+    model, _, m = step(model, adamw.init_state(dict(model.named_parameters())), _torch(b), 1)
+    assert abs(float(got["loss"]) - float(m["loss"])) <= STEP_RTOL * abs(float(m["loss"]))
+    for k, w in model.state_dict().items():
+        assert np.abs(got[k] - w.numpy()).max() <= STEP_ATOL, k
+
+
+def test_sharding_guards(ref):
+    """An unsharded trunk at mesh size 2 under grad refuses (its MLP copies
+    would carry no gradient to the model); a trunk sharded in place runs
+    only on its mesh, and is sharded once."""
     cfg, _, _, sd = ref
     model = _model(cfg, sd)
     b = _torch(_batch(cfg, 2, 64))
-    with pytest.raises(NotImplementedError, match="tensor-parallel training slice"):
+    with pytest.raises(ValueError, match="shard the trunk in place"):
         M.loss_and_metrics(cfg, model, b, mesh=Mesh(None, size=2))
+    mesh = Mesh(None)
+    M.shard_(cfg, model, mesh)
+    assert M.tp_mesh(model) is mesh and M.sharded_params(cfg, model) == {}
+    for kw in ({}, dict(mesh=Mesh(None, size=2))):
+        with pytest.raises(ValueError, match="run it on that mesh"):
+            M.loss_and_metrics(cfg, model, b, **kw)
+    with pytest.raises(ValueError, match="already sharded"):
+        M.shard_(cfg, model, mesh)
+    loss, _ = M.loss_and_metrics(cfg, model, b, mesh=mesh)
+    assert torch.isfinite(loss)
 
 
 # ---------------------------------------------------------------------------

@@ -21,15 +21,33 @@ port) and waits for them.  Each rank:
     seed 0, fp32, TF32 off) through the sited trunk under a plan that
     chunks layer 0's and layer 1's gate/up ring by 2 and 4, a forward of
     8 x 512 tokens without a cache and a cached prefill with 2 decode
-    steps, beside the unsited trunk: the logits' max abs difference.
-Rank 0 prints one JSON line with every rank's results; the exit code is
-1 if a check failed on any rank.
+    steps, beside the unsited trunk: the logits' max abs difference;
+  * trains llama3-8b at full width cut to 4 layers (seed 0, fp32, remat,
+    B = 4 x S = 2048 from the port's ``SyntheticCorpus``) with the model
+    sharded in place: 3 steps each of plain and ``grad_accum=2`` at
+    ``--mesh 1x4`` under ``TRAIN_PLAN`` (layers 0 and 1 chunk both sites
+    differently), and 3 plain steps at 2x2 (data x model).  The first
+    step of each is held to the one-card unsited step of that mode from
+    the same weights (each rank runs it on its own card first): the loss
+    and every parameter this rank holds within 1e-5 relative (AdamW with
+    eps = 1e-3, as phase 8's parity step).  Each site's forward and
+    backward ``Issued`` rows must equal the code's, and the replicated
+    parameters must be bit-equal on every rank after the steps.  It
+    prints step ms, tokens/s, peak memory and, of one more step under the
+    profiler, device ms by class (NCCL, GEMM, other) beside its wall ms.
+Then it runs the launcher once, under ``torch.distributed.run``
+(torchrun): ``repro_torch.launch.train --config`` (the same model, batch
+and sequence, 3 steps) ``--mesh 1x4 --tuned-plan`` a plan the port tunes
+for tp:4 on h100-sxm.  Rank 0 prints one JSON line with every rank's
+results and the launcher's last lines; the exit code is 1 if a check
+failed on any rank or the launcher failed.
 """
 from __future__ import annotations
 
 import argparse
 import faulthandler
 import json
+import math
 import os
 import socket
 import statistics
@@ -48,9 +66,20 @@ N = 4
 BOUNDS = {"ring_ag_matmul": 1e-4, "mm_reduce_scatter": 1e-3, "chunked_all_to_all": 1e-6,
           "psum_tree_chunked": 1e-6}
 TRUNK_BOUND = 1e-4
-WAIT_S = 330                      # the workers' time, after which they are stopped
+WAIT_S = 600                      # the workers' time, after which they are stopped
+LAUNCH_WAIT_S = 300               # the launcher's
 PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer1.mlp.ag": ("ring", 4),
         "serve.layer0.mlp.ag": ("ring", 2), "serve.layer1.mlp.ag": ("ring", 4)}
+TRAIN_PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
+              "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
+TRAIN = dict(layers=4, B=4, S=2048, steps=3)          # --smoke: 2 layers, S = 64
+GATE_OPT = dict(lr=3e-4, eps=1e-3)
+GATE_REL = 1e-5
+# Issued rows a layer's sites log in one forward and backward pass with remat:
+# gate and up ring twice (forward, recompute) and once backward each; down
+# reduce-scatter twice and once backward
+ROWS_A_PASS = {"ag": {"ring_ag_matmul": 4, "ring_ag_matmul.bwd": 2},
+               "rs": {"mm_reduce_scatter": 2, "mm_reduce_scatter.bwd": 1}}
 
 
 def timed(fn, dev) -> float:
@@ -71,6 +100,158 @@ def timed(fn, dev) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / 2)
     return statistics.median(times)
+
+
+def device_ms_by_class(run, dev) -> dict:
+    """Device ms of one call of ``run`` by kernel class (NCCL, GEMM, other)
+    from a torch.profiler trace, beside its wall ms under the profiler
+    (all 0 on the CPU)."""
+    out = {"nccl": 0.0, "gemm": 0.0, "other": 0.0, "wall": 0.0}
+    if dev.type != "cuda":
+        run()
+        return out
+    from torch.profiler import ProfilerActivity, profile
+
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out["wall"] = (time.perf_counter() - t) * 1e3
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        kind = "nccl" if "nccl" in name else "gemm" if ("gemm" in name or "gemv" in name) \
+            else "other"
+        out[kind] += ev.self_device_time_total / 1e3
+    return out
+
+
+def expected_rows(cfg, passes: int, steps: int) -> dict:
+    """``{site: {op: [chunks, ...]}}`` that ``steps`` steps of ``passes``
+    passes log: TRAIN_PLAN's chunk counts, 1 at the layers it leaves out."""
+    out = {}
+    for i in range(cfg.num_layers):
+        for k, ops in ROWS_A_PASS.items():
+            site = f"tp.layer{i}.mlp.{k}"
+            nc = TRAIN_PLAN.get(site, ("", 1))[1]
+            out[site] = {op: [nc] * n * passes * steps for op, n in ops.items()}
+    return out
+
+
+def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """Tensor-parallel training at 1x4 and 2x2 against the one-card
+    unsited steps (module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C
+    from repro_torch.train import trainer as T
+
+    cfg = (get_smoke_config if smoke else get_config)("llama3-8b").replace(
+        num_layers=2 if smoke else TRAIN["layers"])
+    B, S = TRAIN["B"], 64 if smoke else TRAIN["S"]
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()}
+               for k in range(TRAIN["steps"] + 1)]
+    plan = {k: C.CollectiveRuntime(*v) for k, v in TRAIN_PLAN.items()}
+    modes = {"plain": {}, "grad_accum=2": dict(grad_accum=2)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def release():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    one_card = {}                    # the unsited step 1 of each mode, on this card
+    for mode, kw in modes.items():
+        model = M.init_params(cfg, 0, device=dev)
+        state = adamw.init_state(dict(model.named_parameters()))
+        step = T.make_train_step(cfg, T.TrainConfig(opt=adamw.AdamWConfig(**GATE_OPT),
+                                                    warmup=2, total_steps=100, **kw))
+        model, state, m = step(model, state, batches[0], 1)
+        one_card[mode] = ({n: p.detach().cpu() for n, p in model.named_parameters()},
+                          float(m["loss"]))      # on the host: the card's peak is the run's
+        del model, state, step, m
+        release()
+    dims = M.mlp_shard_dims(cfg)
+    runs = []
+    meshes = {}
+    for name, shape, mode, steps in (("1x4", (1, 4), "plain", TRAIN["steps"]),
+                                     ("1x4", (1, 4), "grad_accum=2", TRAIN["steps"]),
+                                     ("2x2", (2, 2), "plain", TRAIN["steps"])):
+        if name not in meshes:
+            meshes[name] = make_mesh(shape, ("data", "model"))
+        mm, dm = meshes[name]["model"], meshes[name]["data"]
+        k = B // dm.size
+        rows = slice(dm.rank * k, (dm.rank + 1) * k)
+        model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mm)
+        state = adamw.init_state(dict(model.named_parameters()))
+        step_fn = T.make_train_step(cfg, T.TrainConfig(
+            opt=adamw.AdamWConfig(**GATE_OPT), warmup=2, total_steps=100, sited_mesh=mm,
+            data_axis=dm if dm.size > 1 else None, **modes[mode]))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        times, losses, gate = [], [], None
+        with C.use_runtime_plan(plan), C.record_issued() as issued:
+            for i in range(steps):
+                b = {n: a[rows] for n, a in batches[i].items()}
+                sync()
+                t = time.perf_counter()
+                model, state, m = step_fn(model, state, b, i + 1)
+                losses.append(float(m["loss"]))
+                sync()
+                times.append(time.perf_counter() - t)
+                if i == 0:
+                    want, want_loss = one_card[mode]
+                    worst, at = 0.0, ""
+                    for n, p in model.named_parameters():
+                        w = want[n].to(dev)
+                        if n in dims and mm.size > 1:
+                            f = w.shape[dims[n]] // mm.size
+                            w = w.narrow(dims[n], mm.rank * f, f)
+                        rel = ((p.detach() - w).abs().max() / w.abs().max()).item()
+                        if rel > worst:
+                            worst, at = rel, n
+                    gate = {"param_rel": worst, "at": at,
+                            "loss_rel": abs(losses[0] - want_loss) / abs(want_loss)}
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        by_site = {}
+        for r in issued:
+            by_site.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
+        rows_ok = by_site == expected_rows(cfg, modes[mode].get("grad_accum", 1), steps)
+        b = {n: a[rows] for n, a in batches[steps].items()}
+        with C.use_runtime_plan(plan):
+            prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
+        marks = {n: p.detach().view(torch.int32).to(torch.int64).sum().item()
+                 for n, p in model.named_parameters() if n not in dims}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, marks)
+        replicated_equal = all(e == marks for e in every)
+        step_s = statistics.median(times[1:] or times)
+        row = {"mesh": name, "mode": mode, "steps": steps, "step_ms": step_s * 1e3,
+               "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": B * S / step_s,
+               "peak_bytes": peak, "profiled_step_ms": prof_ms, "losses": losses,
+               "gate": gate, "issued_as_code": rows_ok, "replicated_equal": replicated_equal}
+        runs.append(row)
+        tag = f"train {name} {mode}"
+        if not (gate["param_rel"] <= GATE_REL and gate["loss_rel"] <= GATE_REL):
+            res["failed"].append(f"{tag}: step 1 against one card {gate}")
+        if not rows_ok:
+            res["failed"].append(f"{tag}: issued {by_site}")
+        if not replicated_equal:
+            res["failed"].append(f"{tag}: replicated parameters differ between ranks")
+        if not all(map(math.isfinite, losses)):
+            res["failed"].append(f"{tag}: losses {losses}")
+        del model, state, step_fn
+        release()
+    res["train"] = {"layers": cfg.num_layers, "batch": B, "seq": S, "runs": runs}
 
 
 def worker(rank: int, port: int, smoke: bool, out: str) -> int:
@@ -172,11 +353,60 @@ def worker(rank: int, port: int, smoke: bool, out: str) -> int:
         for key in ("tp_logits_err", "serve_logits_err"):
             if not res["trunk"][key] <= TRUNK_BOUND:
                 res["failed"].append(f"trunk {key} {res['trunk'][key]}")
+        del model, tp, tp_plain, sv, sv_plain
+        if not smoke:
+            torch.cuda.empty_cache()
+        train_section(rank, dev, smoke, res)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
         json.dump(res, f)
     return 0
+
+
+def run_launcher(smoke: bool, tmp: str) -> dict:
+    """``torch.distributed.run --standalone --nproc-per-node 4 -m
+    repro_torch.launch.train --config ... --mesh 1x4 --tuned-plan ...``:
+    its exit code, seconds and last lines."""
+    import signal
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import ParallelPlan, extract_workload, tune
+    from repro_torch.parallel import collectives as C
+
+    run = {"arch": "llama3-8b", "batch": TRAIN["B"], "seq": 64 if smoke else TRAIN["S"],
+           "steps": TRAIN["steps"], "lr": 3e-5}       # chip_smoke.py phase 8's lr
+    if smoke:
+        run["smoke"] = True
+        cfg = get_smoke_config("llama3-8b")
+    else:
+        run["overrides"] = {"num_layers": TRAIN["layers"]}
+        cfg = get_config("llama3-8b").replace(num_layers=TRAIN["layers"])
+    plan = tune(extract_workload(cfg, ParallelPlan(kind="tp", tp=N), seq=run["seq"],
+                                 global_batch=run["batch"]), "h100-sxm")
+    paths = {"config": os.path.join(tmp, "run.json"), "plan": os.path.join(tmp, "plan.json")}
+    with open(paths["config"], "w") as f:
+        json.dump(run, f)
+    plan.save(paths["plan"])
+    with plan.applied():         # what the sited trunk's sites resolve to
+        knobs = {f"tp.layer{i}.mlp.{k}": C.runtime_for(f"tp.layer{i}.mlp.{k}", k).num_chunks
+                 for i in range(cfg.num_layers) for k in ("ag", "rs")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(N), "-m", "repro_torch.launch.train", "--config", paths["config"], "--mesh",
+           f"1x{N}", "--tuned-plan", paths["plan"], "--log-every", "1"]
+    cmd += ["--device", "cpu"] if smoke else []
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    p = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text = p.communicate(timeout=LAUNCH_WAIT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)          # torchrun and its workers
+        text = p.communicate()[0]
+    return {"cmd": " ".join(cmd[1:]), "rc": p.returncode,
+            "seconds": time.perf_counter() - t, "plan_knobs": knobs,
+            "last_lines": text.strip().splitlines()[-8:]}
 
 
 def main() -> int:
@@ -233,8 +463,12 @@ def main() -> int:
         for o in outs:
             with open(o) as f:
                 ranks.append(json.load(f))
-    print(json.dumps({"cards": card, "ranks": ranks}))
+        launcher = run_launcher(args.smoke, tmp)
+    print(json.dumps({"cards": card, "ranks": ranks, "launcher": launcher}))
     failed = [f for r in ranks for f in r["failed"]]
+    if launcher["rc"] != 0 or not any(line.startswith(f"step {TRAIN['steps'] - 1:4d} loss")
+                                      for line in launcher["last_lines"]):
+        failed.append(f"launcher: exit code {launcher['rc']}")
     if failed:
         print(f"four_rank_check: failed {failed}", file=sys.stderr)
         return 1
