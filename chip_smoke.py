@@ -100,8 +100,9 @@ Phases, each of which exits non-zero on a failed check:
      grad_norm within 1e-5 relative.
   9. the training launcher: ``repro_torch.launch.train.main`` with a run
      config (llama3-8b at full width, 2 layers, seq 2048, batch 4, 3
-     steps, phase 8's lr), ``--mesh 1x1`` over the 1-rank NCCL group, ``--tuned-plan``
-     the tp:8 plan the port tunes for h100-sxm, and ``--ckpt``: step time,
+     steps, phase 8's lr), ``--mesh 1x1`` over the 1-rank NCCL group (the model
+     placed on it: every FSDP gather runs, and must issue no collective),
+     ``--tuned-plan`` the tp:8 plan the port tunes for h100-sxm, and ``--ckpt``: step time,
      tokens/s, peak memory, the checkpoint's write and read seconds; gated
      on finite losses, every parameter moving, the kernels' launches and
      each site's forward and backward ``Issued`` rows equal to the code's;
@@ -1820,6 +1821,34 @@ def expected_issued(chunks: dict, passes: int) -> dict:
             for site, nc in chunks.items()}
 
 
+def fsdp_gathers(rows) -> dict:
+    """``{site: {op: [calls, collectives issued]}}`` of the ``fsdp.*`` rows."""
+    out: dict = {}
+    for r in rows:
+        if r.site.startswith("fsdp."):
+            c = out.setdefault(r.site, {}).setdefault(r.op, [0, 0])
+            c[0] += 1
+            c[1] += r.collectives
+    return out
+
+
+def expected_gathers(cfg, model, passes: int) -> dict:
+    """What ``fsdp_gathers`` reads after ``passes`` passes with remat on a
+    model placed on a 1-rank data axis: each layer's data-split weights
+    gathered twice (forward, recompute) and once in the backward, the
+    embedding and the head once each way, and no collective issued."""
+    place = model.placement
+    split = sum(1 for n in place.specs
+                if n.startswith("trunk.dense_layers.0.") and place.dim(n, "data") is not None)
+    out = {f"fsdp.layer{i}.ag_params": {"all_gather": [2 * split * passes, 0],
+                                        "all_gather.bwd": [split * passes, 0]}
+           for i in range(cfg.num_layers)}
+    out.update({f"fsdp.{k}.ag_params": {"all_gather": [passes, 0],
+                                         "all_gather.bwd": [passes, 0]}
+                for k in ("embed", "head")})
+    return out
+
+
 def launch_phase(card: str) -> dict:
     """Phase 9 on the 1-rank NCCL group: (a) ``repro_torch.launch.train.main``
     with a run config (llama3-8b at full width, 2 layers, seq 2048, batch 4,
@@ -1865,8 +1894,10 @@ def launch_phase(card: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         model = run["model"]
         want = {k: TRAIN_STEPS * v for k, v in expected_train_launches(cfg, 1).items()}
-        by_site = issued_by_site(issued)
+        by_site = issued_by_site([r for r in issued if r.site.startswith("tp.")])
         want_sites = expected_issued(knobs, TRAIN_STEPS)
+        gathers = fsdp_gathers(issued)
+        want_gathers = expected_gathers(cfg, run["model"], TRAIN_STEPS)
         step_s = statistics.median(run["step_s"][1:])
         tokens = TRAIN_B * TRAIN_S
         moved = param_sums(model)
@@ -1877,11 +1908,14 @@ def launch_phase(card: str) -> dict:
             f"{[round(t * 1e3, 1) for t in run['step_s']]} ms), {tokens / step_s:.0f} tok/s, "
             f"peak memory {peak / 2**30:.2f} GiB; losses {run['losses']}; checkpoint gathered "
             f"and written in {run['ckpt_s']:.2f} s; launches {launches} (expected {want}); "
-            f"issued {by_site} ({card})")
+            f"issued {by_site}; FSDP gathers on the 1-rank data axis (calls, collectives) "
+            f"{gathers} ({card})")
         check(all(np.isfinite(run["losses"])), "launch: non-finite loss")
         check(not still, f"launch: parameters that did not move: {still[:5]}")
         check(launches == want, f"launch: launches {launches}, expected {want}")
         check(by_site == want_sites, f"launch: issued {by_site}, expected {want_sites}")
+        check(gathers == want_gathers,
+              f"launch: FSDP gathers {gathers}, expected {want_gathers} (none a collective)")
 
         trained = params_to_jax(cfg, model)
         losses, steps_s, write_s = run["losses"], run["step_s"], run["ckpt_s"]
@@ -1921,7 +1955,8 @@ def launch_phase(card: str) -> dict:
     free()
     out.update(step_ms=step_s * 1e3, step_ms_all=[x * 1e3 for x in steps_s],
                tokens_per_s=tokens / step_s, peak_bytes=peak, losses=losses,
-               launches=launches, issued=by_site, ckpt_write_s=write_s, ckpt_read_s=read_s,
+               launches=launches, issued=by_site, fsdp_gathers=gathers,
+               ckpt_write_s=write_s, ckpt_read_s=read_s,
                ckpt_fallback_step=fell_to)
 
     # (c) one sited forward and backward beside the unsited one, same weights

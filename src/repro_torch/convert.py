@@ -16,11 +16,16 @@ with numpy leaves (``jax.tree.map(np.asarray, params)``) and returns a
 inverse, and ``opt_state_from_jax`` converts the reference's AdamW state
 (its ``mu`` and ``nu`` mirror the parameter tree) to the port's.
 
-Tensor parallelism: with ``mesh=`` the two ``*_from_jax`` give one rank's
-state dict of a model sharded in place (``models.model.shard_``): the
-dense trunk's MLP weights cut to this rank's columns of gate and up and
-rows of down.  ``params_to_jax`` of a sharded model gathers the shards
-over its mesh (every rank of it must call it) and returns the full tree.
+Placements: with ``mesh=`` the two ``*_from_jax`` give one rank's state
+dict of a model placed on that mesh (``models.model.shard_``): ``mesh`` is
+``{"data": Mesh, "model": Mesh}``, and each leaf is cut to this rank's
+slice of every dim those axes split (``parallel.sharding.place``); one
+``Mesh`` is the model axis alone, which cuts the dense trunk's MLP weights.
+``params_to_jax`` of a placed model gathers each leaf over the axes that
+split it (every rank of them must call it), one leaf at a time, each to
+the host before the next is gathered.  ``reference_layout`` gives each
+port parameter's reference path and shape, from which
+``sharding.port_specs`` maps the reference's rules onto the port.
 """
 from __future__ import annotations
 
@@ -31,9 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.launch.mesh import as_mesh
-from repro_torch.models.model import mlp_shard_dims, sharded_params, tp_mesh
-from repro_torch.parallel.collectives import all_gather_rows
+from repro_torch.parallel import sharding
 
 _LEAF_NAMES = {"w": "weight", "b": "bias", "table": "weight"}
 
@@ -69,70 +72,75 @@ def _name(path: Tuple[str, ...]) -> str:
     return ".".join(path[:-1] + (_LEAF_NAMES.get(path[-1], path[-1]),))
 
 
-def _shard(cfg, sd: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """This rank's shards of the MLP weights of ``sd`` over ``mesh``."""
-    m = as_mesh(mesh)
-    if m.size == 1:
-        return sd
-    for name, dim in mlp_shard_dims(cfg).items():
-        k = sd[name].shape[dim] // m.size
-        sd[name] = sd[name].narrow(dim, m.rank * k, k).contiguous()
-    return sd
-
-
 def params_from_jax(cfg, tree, mesh=None) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree (numpy leaves) -> the port's
-    state_dict; with ``mesh``, this rank's state dict of the model sharded
-    over it."""
+    state_dict; with ``mesh``, this rank's state dict of the model placed
+    on it (module docstring)."""
     stacked = stacked_axes(cfg)
     out: Dict[str, torch.Tensor] = {}
+    layout: Dict[str, sharding.RefLeaf] = {}
     for path, a in _flatten(tree):
-        lead = stacked.get(path[:2])
-        if lead is None:
-            out[_name(path)] = _tensor(path, a)
-            continue
+        lead = stacked.get(path[:2], ())
         if a.shape[:len(lead)] != lead:
             raise ValueError(f"{'.'.join(path)}: stacked axes {a.shape[:len(lead)]}, "
                              f"config {cfg.name} has {lead}")
+        leaf = sharding.RefLeaf("/".join(path), a.shape, len(lead), path[-1] == "w")
         for idx in itertools.product(*(range(n) for n in lead)):
-            out[_name(path[:2] + tuple(map(str, idx)) + path[2:])] = _tensor(path, a[idx])
-    return out if mesh is None else _shard(cfg, out, mesh)
+            name = _name(path[:2] + tuple(map(str, idx)) + path[2:] if lead else path)
+            out[name], layout[name] = _tensor(path, a[idx] if lead else a), leaf
+    if mesh is None:
+        return out
+    place = sharding.place(layout, mesh)
+    return {k: place.local(k, v) for k, v in out.items()}
 
 
-def _gathered(cfg, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """``model``'s state dict with any MLP shards gathered over the mesh
-    the model is sharded over."""
-    sd = model.state_dict()
-    with torch.no_grad():
-        for name, dim in sharded_params(cfg, model).items():
-            t = sd[name] if dim == 0 else sd[name].T
-            g = all_gather_rows(t.contiguous(), tp_mesh(model))
-            sd[name] = g if dim == 0 else g.T
-    return sd
+def _reference_leaf(mods, key: str, stacked):
+    """(path, layer index, stacked axes, transposed) in the reference's tree
+    of the port's state-dict entry ``key``."""
+    parts = key.split(".")
+    mod, leaf = mods[".".join(parts[:-1])], parts[-1]
+    transposed = False
+    if isinstance(mod, nn.Embedding):
+        leaf = "table"
+    elif isinstance(mod, nn.Linear):
+        transposed = leaf == "weight"
+        leaf = {"weight": "w", "bias": "b"}[leaf]
+    lead = stacked.get(tuple(parts[:2]), ())
+    path = parts[:2] + parts[2 + len(lead):-1] + [leaf] if lead else parts[:-1] + [leaf]
+    return tuple(path), tuple(int(i) for i in parts[2:2 + len(lead)]), lead, transposed
+
+
+def reference_layout(cfg, model: nn.Module) -> Dict[str, sharding.RefLeaf]:
+    """Each entry of the (whole, not yet placed) ``model``'s state dict ->
+    its leaf in the reference's tree: key path, shape (stacked axes
+    included), the count of stacked axes, and whether it is transposed."""
+    mods = dict(model.named_modules())
+    stacked = stacked_axes(cfg)
+    out = {}
+    for key, t in model.state_dict().items():
+        path, _, lead, transposed = _reference_leaf(mods, key, stacked)
+        shape = tuple(t.shape)[::-1] if transposed else tuple(t.shape)
+        out[key] = sharding.RefLeaf("/".join(path), lead + shape, len(lead), transposed)
+    return out
 
 
 def params_to_jax(cfg, model: nn.Module):
     """The inverse of ``params_from_jax``: the port's model -> the
     reference's nested tree of numpy arrays (layers restacked, linear
-    weights transposed back, embeddings as ``table``); a sharded model's
-    MLP shards gathered into the full weights."""
+    weights transposed back, embeddings as ``table``); a placed model's
+    leaves gathered whole, one at a time, on every rank that splits them."""
     mods = dict(model.named_modules())
     stacked = stacked_axes(cfg)
+    place = getattr(model, "placement", None)
     tree: Dict = {}
     parts_of: Dict[Tuple[str, ...], Dict] = {}
-    for key, t in _gathered(cfg, model).items():
-        parts = key.split(".")
-        mod, leaf = mods[".".join(parts[:-1])], parts[-1]
+    for key, t in model.state_dict().items():
+        path, idx, lead, transposed = _reference_leaf(mods, key, stacked)
+        if place is not None:
+            t = place.full(key, t)
         a = t.detach().cpu().numpy()
-        if isinstance(mod, nn.Embedding):
-            leaf = "table"
-        elif isinstance(mod, nn.Linear):
-            a = a.T if leaf == "weight" else a
-            leaf = {"weight": "w", "bias": "b"}[leaf]
-        lead = stacked.get(tuple(parts[:2]), ())
-        path = parts[:2] + parts[2 + len(lead):-1] + [leaf] if lead else parts[:-1] + [leaf]
-        idx = tuple(int(i) for i in parts[2:2 + len(lead)])
-        parts_of.setdefault(tuple(path), {"lead": lead})[idx] = a
+        del t
+        parts_of.setdefault(path, {"lead": lead})[idx] = a.T if transposed else a
     for path, got in parts_of.items():
         lead = got.pop("lead")
         node = tree

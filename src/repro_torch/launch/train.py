@@ -7,31 +7,43 @@ on the card unless ``--device cpu`` is asked for.
 
 The flags are the reference's, with ``--plan-hardware`` defaulting to
 ``h100-sxm``, plus ``--device``.  Without ``--mesh`` one process trains
-(``train.trainer.train_loop``).  With ``--mesh DxM`` (or ``--mesh D``) the
-launcher runs under ``torchrun``, one process a card: the world size must
-be D·M, each rank takes the card ``LOCAL_RANK``, and the process group is
-NCCL on the card and gloo for ``--device cpu`` (a group the caller already
-initialised is used as it is).
+(``train.trainer.train_loop``).  With ``--mesh DxM`` the launcher runs
+under ``torchrun``, one process a card: the world size must be D·M, each
+rank takes the card ``LOCAL_RANK``, and the process group is NCCL on the
+card and gloo for ``--device cpu`` (a group the caller already initialised
+is used as it is).  Pure FSDP over D ranks is ``--mesh Dx1``; ``--mesh D``
+raises ``ValueError`` naming it (the reference's launcher fails there with
+``KeyError: 'model'``).
 
-  * The ``model`` axis always runs the sited trunk: every layer's MLP over
-    the explicit chunked collectives at ``tp.layer{i}.mlp.ag|rs``, resolved
-    against the plan ``--tuned-plan`` or ``--plan-repo`` installs; with no
-    plan each site takes its default structure, numerically the
-    reference's GSPMD scan.  Each rank holds its MLP shards as parameters.
-    Attention, the norms, the embedding and the head stay replicated on
-    every rank (the reference shards them too, by ``parallel/sharding.py``,
-    which the port does not have).
-  * The ``data`` axis: each data rank takes its contiguous slice of the
-    global batch, and the gradients, the loss and its metrics are averaged
-    over the axis (``TrainConfig.data_axis``), so the printed loss is the
-    global batch's, as the reference's.
+Every rank draws the weights from seed 0 and then keeps its slice of each
+(``models.model.shard_``, the reference's ``parallel/sharding.py`` rules,
+as its launcher places the parameters with ``device_put``):
+
+  * the ``data`` axis splits every F dim that it divides (FSDP): each
+    layer gathers its weights over ``data`` inside its checkpoint, the
+    head once for the loss and the embedding once for the lookup, and
+    the gradients come back reduce-scattered.  Each data rank takes its
+    rows of the global batch (``sharding.batch_specs``), and the gradients
+    of the leaves that stay whole, the loss and its metrics are averaged
+    over the axis, so the printed loss is the global batch's, as the
+    reference's.
+  * the ``model`` axis splits the MLP's T dims and always runs the sited
+    trunk: every layer's MLP over the explicit chunked collectives at
+    ``tp.layer{i}.mlp.ag|rs``, resolved against the plan ``--tuned-plan``
+    or ``--plan-repo`` installs; with no plan each site takes its default
+    structure, numerically the reference's GSPMD scan.  Attention's, the
+    embedding's and the head's T dims stay whole (the reference splits
+    them too; ROADMAP queue 1).
+  * ``constraints.use_axes(("data",), "model")`` is installed, as the
+    reference's launcher does; its helpers check that each activation
+    holds this rank's share of the batch.
   * ``--accumulate`` only sets ``--grad-accum``, as in the reference: the
     launcher does not run ACCO.
 
-The weights are random, drawn from seed 0 on every rank alike.  ``--ckpt``
-writes the final parameters as the reference's tree (the MLP shards
-gathered) from global rank 0, in the reference's checkpoint layout
-(``train.checkpoint``), which ``repro.train.checkpoint.restore`` reads.
+``--ckpt`` writes the final parameters as the reference's tree in its
+checkpoint layout (``train.checkpoint``), which
+``repro.train.checkpoint.restore`` reads: every rank gathers each leaf
+whole, one at a time, to the host, and global rank 0 writes them.
 """
 from __future__ import annotations
 
@@ -51,6 +63,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.plan import apply_tuned_plan, resolve_plan_repo
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel import constraints as CT, sharding
 from repro_torch.train import checkpoint
 from repro_torch.train.trainer import TrainConfig, make_train_step, train_loop
 
@@ -72,34 +85,55 @@ def _init_distributed(device) -> torch.device:
     return dev
 
 
+def mesh_shape(spec: str):
+    """``--mesh DxM`` -> (D, M); one number raises, naming ``Dx1``."""
+    shape = tuple(int(x) for x in spec.split("x"))
+    if len(shape) != 2:
+        raise ValueError(f"--mesh {spec}: the mesh is data x model; pure FSDP over "
+                         f"{shape[0]} ranks is --mesh {shape[0]}x1")
+    return shape
+
+
+def _rows(batch, specs, data_m):
+    """This data rank's rows of each leaf of the global ``batch``, by its
+    ``sharding.batch_specs`` spec (the whole leaf where the batch is not
+    split)."""
+    out = {}
+    for n, a in batch.items():
+        if specs[n][0] is None:
+            out[n] = a
+        else:
+            k = a.shape[0] // data_m.size
+            out[n] = a[data_m.rank * k:(data_m.rank + 1) * k]
+    return out
+
+
 def _train_on_mesh(cfg, tcfg, data, args):
     """``args.steps`` steps on the (data, model) mesh; returns (model,
     losses, step seconds)."""
-    shape = tuple(int(x) for x in args.mesh.split("x"))
-    axes = ("data", "model")[:len(shape)]
+    shape = mesh_shape(args.mesh)
     dev = _init_distributed(args.device)
-    meshes = make_mesh(shape, axes)
-    data_m, model_m = meshes["data"], meshes.get("model")
-    if args.batch % data_m.size:
-        raise ValueError(f"--batch {args.batch} does not split over {data_m.size} data ranks")
+    meshes = make_mesh(shape, ("data", "model"))
+    data_m, model_m = meshes["data"], meshes["model"]
+    sizes = {"data": data_m.size, "model": model_m.size}
     tcfg = dataclasses.replace(tcfg, sited_mesh=model_m,
                                data_axis=data_m if data_m.size > 1 else None)
-    model = M.init_params(cfg, 0, device=dev)
-    if model_m is not None:
-        M.shard_(cfg, model, model_m)
+    model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), meshes)
     opt_state = adamw.init_state(dict(model.named_parameters()))
     step_fn = make_train_step(cfg, tcfg)
-    k = args.batch // data_m.size
-    rows = slice(data_m.rank * k, (data_m.rank + 1) * k)
     losses, times = [], []
-    for step in range(args.steps):
-        batch = {n: torch.as_tensor(a[rows], device=dev) for n, a in next(data).items()}
-        t = time.perf_counter()
-        model, opt_state, metrics = step_fn(model, opt_state, batch, step)
-        losses.append(float(metrics["loss"]))
-        times.append(time.perf_counter() - t)
-        if dist.get_rank() == 0 and step % args.log_every == 0:
-            print(f"step {step:4d} loss {losses[-1]:.4f}  {times[-1] * 1e3:.1f} ms")
+    with CT.use_axes(("data",), "model", sizes=sizes, batch=args.batch):
+        for step in range(args.steps):
+            batch = next(data)
+            specs = sharding.batch_specs(cfg, {n: a.shape for n, a in batch.items()}, sizes)
+            batch = {n: torch.as_tensor(a, device=dev)
+                     for n, a in _rows(batch, specs, data_m).items()}
+            t = time.perf_counter()
+            model, opt_state, metrics = step_fn(model, opt_state, batch, step)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t)
+            if dist.get_rank() == 0 and step % args.log_every == 0:
+                print(f"step {step:4d} loss {losses[-1]:.4f}  {times[-1] * 1e3:.1f} ms")
     return model, losses, times
 
 
@@ -120,7 +154,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 2x4 -> (data=2, model=4); the world size must match")
+                    help="DxM, e.g. 2x4 -> (data=2, model=4), 4x1 pure FSDP; the "
+                         "world size must be D*M")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--tuned-plan", default=None,
@@ -198,7 +233,7 @@ def main(argv=None):
             losses, times = history["loss"], history["step_time"]
         if args.ckpt:
             t = time.perf_counter()
-            tree = params_to_jax(cfg, model)       # every rank: gathers the shards
+            tree = params_to_jax(cfg, model)       # every rank: gathers each leaf
             if not dist.is_initialized() or dist.get_rank() == 0:
                 checkpoint.save(args.ckpt, tree, step=args.steps)
                 print(f"checkpoint written to {args.ckpt}")

@@ -26,11 +26,13 @@ layer from its input, as the reference's ``jax.checkpoint`` per layer does;
 on the sited path the recompute issues the layer's forward collectives
 again, on every rank in the same order (backward layer order).  Every
 collective helper has a backward (``parallel.collectives``), so the sited
-trunk trains at any mesh size.  For training, ``shard_trunk_`` shards the
-trunk in place: each layer's MLP becomes this rank's shard, the parameter
-itself (under the same state-dict names), and the sited trunk runs it;
-serving keeps the whole MLPs and hands ``trunk_fwd`` copies
-(``shard_trunk``).
+trunk trains at any mesh size.  For training, ``models.model.shard_``
+places the model in place: each layer's MLP weights become this rank's
+shards over ``model`` (under the same state-dict names), which the sited
+trunk runs (``Trunk.mlp_mesh``); serving keeps the whole MLPs and hands
+``trunk_fwd`` copies (``shard_trunk``).  On a model placed over ``data``
+(FSDP) each layer's weights are this rank's slices and ``trunk_fwd``'s
+``gather`` gathers them inside the layer's checkpoint.
 
 Not ported here, and raising ``NotImplementedError`` naming the slice that
 brings them: MoE feed-forwards, MLA, sliding windows, ALiBi, ``qk_norm``
@@ -49,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import layers as L
+from repro_torch.parallel import constraints as CT
 from repro_torch.parallel.collectives import (all_gather_rows, mm_reduce_scatter,
                                               ring_ag_matmul, shard_rows)
 
@@ -144,25 +147,6 @@ def shard_trunk(p: "Trunk", mesh) -> List[L.MLP]:
     return [shard_mlp(lp.mlp, mesh) for lp in p.dense_layers]
 
 
-# the dim of each MLP weight (``nn.Linear`` layout) that the shards split
-MLP_SHARD_DIMS = {"gate": 0, "up": 0, "down": 1}
-
-
-def shard_trunk_(p: "Trunk", mesh) -> "Trunk":
-    """Shard ``p`` in place for tensor-parallel training: each
-    ``dense_layers.{i}.mlp`` becomes this rank's ``shard_mlp`` (the
-    ``d_ff/n`` columns of gate and up, rows of down), a parameter under the
-    same state-dict names, and ``p.mlp_mesh`` records the mesh, which the
-    sited trunk then requires.  The whole MLPs are dropped."""
-    m = as_mesh(mesh)
-    if p.mlp_mesh is not None:
-        raise ValueError(f"the trunk is already sharded over {p.mlp_mesh}")
-    for lp in p.dense_layers:
-        lp.mlp = shard_mlp(lp.mlp, m)
-    p.mlp_mesh = m
-    return p
-
-
 def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[Dict[str, object]], *, backend: Optional[str] = None,
               mesh=None, site: str = "", serve: bool = False,
@@ -172,8 +156,7 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
     switches the MLP onto the explicit plan-aware collectives, with ``mlp``
     this rank's shard (default ``p.mlp``, the whole MLP), ``site`` the
     layer's SiteId prefix and ``serve`` marking the decode-shape layout."""
-    # parallel/constraints.py is not ported: the reference's CT.btd pins a
-    # sharding at this boundary, which is a no-op on one device.
+    x = CT.btd(x)
     h = L.norm(p.ln1, x, cfg.norm_kind, backend=backend)
     attn_out, new_cache = L.attention(p.attn, cfg, h, positions, cache=cache,
                                       backend=backend)
@@ -202,7 +185,7 @@ class Trunk(nn.Module):
         check_supported(cfg)
         self.dense_layers = nn.ModuleList(
             Layer(cfg, device=device, dtype=dtype) for _ in range(cfg.num_layers))
-        self.mlp_mesh = None     # the mesh of the MLP shards, once shard_trunk_ ran
+        self.mlp_mesh = None     # the mesh of the MLP shards, once placed (model.shard_)
 
 
 def init_trunk(cfg, *, device=None, dtype=None) -> Trunk:
@@ -236,20 +219,25 @@ def _sited_applicable_serve(cfg, x, mesh) -> Tuple[bool, str]:
 def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
               caches: Optional[Caches] = None, *, backend: Optional[str] = None,
               mesh=None, shards: Optional[List[L.MLP]] = None, remat: bool = False,
-              ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+              gather=None) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """caches: None | {"dense_layers": stacked cache}.  Returns (x, caches,
     aux); aux is the MoE load-balancing loss, zero for the dense trunk.
 
     ``mesh`` opts into the plan-aware sited path (module docstring): layer
     ``i``'s MLP runs at ``tp.layer{i}.mlp`` without caches and at
     ``serve.layer{i}.mlp`` with them.  A trunk sharded in place
-    (``shard_trunk_``) runs its own MLPs, the shards, and needs its mesh;
+    (``models.model.shard_``) runs its own MLPs, the shards, and needs its mesh;
     otherwise ``shards`` are this rank's MLP shards (default
     ``shard_trunk(p, mesh)``, copies made anew for the call, which carry no
     gradient to ``p``; engines make them once).  Shapes the explicit helpers
     cannot split fall back to the unsited loop with a ``RuntimeWarning``,
     as the reference falls back to its scan (a sharded trunk raises).
-    ``remat`` (without caches) recomputes each layer in the backward."""
+    ``remat`` (without caches) recomputes each layer in the backward.
+
+    ``gather(i, lp)`` (a placed model's, ``models.model``) gives layer
+    ``i`` as it runs, its data-split weights gathered whole; it is called
+    inside the layer's checkpoint, so remat's recompute gathers them again
+    and no gathered layer outlives its use."""
     seg = caches["dense_layers"] if caches is not None else None
     kind = "tp" if caches is None else "serve"
     if p.mlp_mesh is not None and (mesh is None or as_mesh(mesh) != p.mlp_mesh
@@ -265,14 +253,12 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
             warnings.warn(f"plan-aware trunk disabled: {why}; using the "
                           "unsited layer loop", RuntimeWarning, stacklevel=2)
             mesh = None
-        elif p.mlp_mesh is not None:
-            shards = [lp.mlp for lp in p.dense_layers]
-        elif shards is None:
+        elif shards is None and p.mlp_mesh is None:
             if as_mesh(mesh).size > 1 and torch.is_grad_enabled() and any(
                     q.requires_grad for q in p.dense_layers[0].mlp.parameters()):
                 raise ValueError(
                     f"training at mesh size {as_mesh(mesh).size} needs the MLP shards "
-                    "as parameters: shard the trunk in place first (shard_trunk_)")
+                    "as parameters: shard the trunk in place first (models.model.shard_)")
             shards = shard_trunk(p, mesh)
     for i, lp in enumerate(p.dense_layers):
         lc = None
@@ -281,9 +267,13 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
                   "pos": seg["pos"]}
 
         def fl(x, lp=lp, lc=lc, i=i):
-            return layer_fwd(lp, cfg, x, positions, lc, backend=backend, mesh=mesh,
+            lq = lp if gather is None else gather(i, lp)
+            mlp = None
+            if mesh is not None:
+                mlp = lq.mlp if p.mlp_mesh is not None else shards[i]
+            return layer_fwd(lq, cfg, x, positions, lc, backend=backend, mesh=mesh,
                              site=f"{kind}.layer{i}.mlp", serve=seg is not None,
-                             mlp=shards[i] if mesh is not None else None)[0]
+                             mlp=mlp)[0]
 
         if remat and seg is None:
             # the backward may recompute the layer on autograd's device

@@ -263,11 +263,3 @@ def mlp(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind != "swiglu":
         raise NotImplementedError(f"mlp_kind {kind!r} arrives with {OTHER_FAMILIES}")
     return linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x))
-
-
-def embed(p: nn.Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p(tokens)
-
-
-def unembed(p: nn.Embedding, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.weight.T

@@ -6,7 +6,7 @@ for the dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
     x, caches, aux = forward_hidden(cfg, model, batch[, caches])        # prefill
     caches = init_caches(cfg, batch_size, seq_len, device="cuda")       # serving
     logits, caches = decode_step(cfg, model, tokens, caches)            # decode
-    shard_(cfg, model, mesh)        # tensor-parallel training: MLP shards in place
+    shard_(cfg, model, meshes)      # training on a (data, model) mesh: placed in place
 
 ``batch``: {"tokens": (B,S) int}, and for the loss "targets" (B,S) int and
 optionally "mask" (B,S) float.  Entry points run on the card unless the
@@ -30,7 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.convert import reference_layout
 from repro_torch.models import dense, layers as L, rwkv6, zamba2
+from repro_torch.parallel import constraints as CT, sharding
 
 Caches = Dict[str, object]
 
@@ -47,35 +49,34 @@ def _trunk(cfg):
 
 
 def shard_(cfg, model: "Model", mesh) -> "Model":
-    """Shard ``model`` in place over the tensor-parallel ``mesh`` for
-    training (``dense.shard_trunk_``): each rank then holds its MLP shards
-    as parameters, and ``forward_hidden`` and ``loss_and_metrics`` run it
-    with ``mesh=`` that mesh.  Attention, the norms, the embedding and the
-    head stay whole on every rank."""
+    """Place ``model`` in place on ``mesh`` for training.  ``mesh`` is this
+    rank's ``{"data": Mesh, "model": Mesh}`` (``launch.mesh.make_mesh``):
+    every parameter becomes this rank's slice of the reference's placement
+    (``parallel.sharding.place``: the F dims over ``data`` where they divide;
+    the MLP's T dims over ``model``, so ``mlp.gate.weight`` is (d_ff/m,
+    D/d)); the norm scales, and attention's, the embedding's and the head's
+    T dims, stay whole.  One ``Mesh`` is the model axis alone: the MLP
+    shards only.  ``model.placement`` records which axis splits which dim
+    (``sharding.Placement``); ``forward_hidden`` and the loss gather each
+    data-split weight where it is used, and the trunk runs its MLP shards
+    on the model axis (``trunk.mlp_mesh``)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"tensor-parallel training of the {cfg.family!r} "
                                   f"family arrives with {RECURRENT_TRAINING}")
-    dense.shard_trunk_(model.trunk, mesh)
+    if model.placement is not None:
+        raise ValueError("the model is already sharded: place it once")
+    place = sharding.place(reference_layout(cfg, model), mesh)
+    with torch.no_grad():
+        for name, p in list(model.named_parameters()):
+            t = place.local(name, p)
+            if t is not p:
+                owner, _, leaf = name.rpartition(".")
+                setattr(model.get_submodule(owner), leaf,
+                        nn.Parameter(t, requires_grad=p.requires_grad))
+    if "model" in place.meshes:
+        model.trunk.mlp_mesh = place.meshes["model"]
+    model.placement = place
     return model
-
-
-def tp_mesh(model: "Model"):
-    """The mesh ``model``'s MLPs are sharded over (``shard_``), or None."""
-    return getattr(model.trunk, "mlp_mesh", None)
-
-
-def mlp_shard_dims(cfg) -> Dict[str, int]:
-    """State-dict name of each dense-trunk MLP weight -> the dim its
-    tensor-parallel shards split (``nn.Linear`` layout)."""
-    return {f"trunk.dense_layers.{i}.mlp.{k}.weight": d
-            for i in range(cfg.num_layers) for k, d in dense.MLP_SHARD_DIMS.items()}
-
-
-def sharded_params(cfg, model: "Model") -> Dict[str, int]:
-    """``mlp_shard_dims`` if ``model`` is sharded over more than one rank,
-    else empty: the parameters that are this rank's shards."""
-    m = tp_mesh(model)
-    return mlp_shard_dims(cfg) if m is not None and m.size > 1 else {}
 
 
 def resolve_device(device) -> torch.device:
@@ -101,6 +102,7 @@ class Model(nn.Module):
         self.ln_f = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         self.head = None if cfg.tie_embeddings else nn.Linear(
             cfg.d_model, cfg.vocab_size, bias=False, **kw)
+        self.placement: Optional[sharding.Placement] = None     # shard_
 
 
 @torch.no_grad()
@@ -157,7 +159,7 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     B, S = tokens.shape
     t0 = caches["pos"] if caches is not None else 0
     positions = _positions(cfg, B, S, t0, tokens.device)
-    x = L.embed(p.embed, tokens)
+    x = F.embedding(tokens, _weight(p, "embed.weight", "fsdp.embed.ag_params"))
     tc = caches["trunk"] if caches is not None else None
     x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh,
                                 shards=shards, remat=remat)
@@ -165,10 +167,30 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     return L.norm(p.ln_f, x, cfg.norm_kind, backend=backend), new_caches, aux
 
 
+def _weight(p: Model, name: str, site: str) -> torch.Tensor:
+    """The parameter ``name`` of ``p`` whole: gathered over ``data`` (logged
+    at ``site``) when the placement splits it there."""
+    w = p.get_parameter(name)
+    return w if p.placement is None else p.placement.gather(name, w, site)
+
+
+def _layer_gather(p: Model):
+    """``dense.trunk_fwd``'s ``gather`` for a model placed over ``data``: layer
+    ``i``'s modules over its weights gathered at ``fsdp.layer{i}.ag_params``."""
+    if p.placement is None or "data" not in p.placement.meshes:
+        return None
+
+    def gather(i, lp):
+        return sharding.gathered(lp, f"trunk.dense_layers.{i}.", p.placement,
+                                 f"fsdp.layer{i}.ag_params")
+
+    return gather
+
+
 def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards, remat=False):
     if cfg.family == "dense":
         return dense.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, mesh=mesh,
-                               shards=shards, remat=remat)
+                               shards=shards, remat=remat, gather=_layer_gather(p))
     if remat:
         raise NotImplementedError(f"remat of the {cfg.family!r} trunk arrives with "
                                   f"{RECURRENT_TRAINING}")
@@ -176,12 +198,20 @@ def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards, remat=
     return _trunk(cfg).trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend)
 
 
-def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
-    # parallel/constraints.py is not ported: the reference's CT.logits is a
-    # sharding hint, a no-op on one device.
+def _head(cfg, p: Model) -> torch.Tensor:
+    """The unembedding weight (V, D), whole: the head's, or the embedding's
+    when tied."""
     if cfg.tie_embeddings:
-        return L.unembed(p.embed, x)
-    return L.linear(p.head, x)
+        return _weight(p, "embed.weight", "fsdp.embed.ag_params")
+    return _weight(p, "head.weight", "fsdp.head.ag_params")
+
+
+def _logits(cfg, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return x @ w.T if cfg.tie_embeddings else F.linear(x, w)
+
+
+def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
+    return _logits(cfg, _head(cfg, p), x)
 
 
 # ---------------------------------------------------------------------------
@@ -189,8 +219,8 @@ def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
 # materialized; each chunk's logits are recomputed in the backward)
 # ---------------------------------------------------------------------------
 
-def _chunk_ce(cfg, p: Model, xb, tb, mb) -> torch.Tensor:
-    logits = _unembed(cfg, p, xb).float()
+def _chunk_ce(cfg, w, xb, tb, mb) -> torch.Tensor:
+    logits = CT.logits(_logits(cfg, w, CT.btd(xb)).float())
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, tb[..., None])[..., 0]
     return ((lse - tgt) * mb).sum()
@@ -202,7 +232,9 @@ def chunked_ce(cfg, p: Model, x, targets, mask, *, chunk: int = 256) -> torch.Te
     multiple, the pad masked out).  Each chunk runs under
     ``torch.utils.checkpoint``, so only one chunk's (B, chunk, V) logits
     exist at a time, in the backward too; the chunks' sums add up in order
-    in fp32, as the reference's scan does."""
+    in fp32, as the reference's scan does.  The unembedding weight is
+    gathered once for all chunks (a placed model's head is split over
+    ``data``), and its gradient reduce-scattered once."""
     S = x.shape[1]
     pad = (-S) % chunk
     if pad:
@@ -210,10 +242,11 @@ def chunked_ce(cfg, p: Model, x, targets, mask, *, chunk: int = 256) -> torch.Te
         targets = F.pad(targets, (0, pad))
         mask = F.pad(mask, (0, pad))
     targets = targets.long()
+    w = _head(cfg, p)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, x.shape[1], chunk):
         sl = slice(c0, c0 + chunk)
-        tot = tot + checkpoint(_chunk_ce, cfg, p, x[:, sl], targets[:, sl], mask[:, sl],
+        tot = tot + checkpoint(_chunk_ce, cfg, w, x[:, sl], targets[:, sl], mask[:, sl],
                                use_reentrant=False, preserve_rng_state=False)
     return tot / torch.clamp(mask.sum(), min=1.0)
 
@@ -274,7 +307,7 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
     positions = _positions(cfg, B, 1, t0, tokens.device)
     if pos_offset is not None:
         positions = positions - pos_offset.to(positions.device, positions.dtype)[:, None]
-    x = L.embed(p.embed, tokens)
+    x = F.embedding(tokens, _weight(p, "embed.weight", "fsdp.embed.ag_params"))
     x, new_tc, _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"], backend=backend,
                               mesh=mesh, shards=shards)
     x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)

@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.parallel import constraints as CT
 
 Caches = Dict[str, Dict[str, torch.Tensor]]
 
@@ -170,6 +171,7 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, cache: Optional[Dict[str, torch.Te
     or None).  The cache's WKV state is updated in place and is the new
     cache's "wkv"; its token shifts are new tensors, and the cache's are not
     modified."""
+    x = CT.btd(x)
     st = cache or {}
     tm_out, wkv, tm_last = time_mix(p.tm, cfg, L.norm(p.ln1, x, "layernorm"),
                                     st.get("wkv"), st.get("shift_tm"), backend=backend)

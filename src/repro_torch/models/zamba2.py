@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
+from repro_torch.parallel import constraints as CT
 
 Caches = Dict[str, Dict[str, object]]
 
@@ -45,7 +46,7 @@ class MambaLayer(nn.Module):
 
 
 def mamba_layer_fwd(p: MambaLayer, cfg, x, cache, *, backend=None):
-    # parallel/constraints.py is not ported: CT.btd is a no-op on one device
+    x = CT.btd(x)
     h, nc = mamba2.block_fwd(p.mamba, cfg, L.norm(p.ln, x, "rmsnorm", backend=backend),
                              cache, backend=backend)
     return x + h, nc
@@ -89,6 +90,7 @@ def init_trunk(cfg, *, device=None, dtype=None) -> Trunk:
 
 def _shared_block_fwd(shared: SharedBlock, app_in: nn.Linear, cfg, x, x0, positions,
                       cache, *, backend=None):
+    x = CT.btd(x)
     h = L.linear(app_in, torch.cat([x, x0], dim=-1))
     a = L.norm(shared.ln1, h, "rmsnorm", backend=backend)
     attn_out, new_cache = L.attention(shared.attn, cfg, a, positions, cache=cache,

@@ -7,17 +7,18 @@ Where the reference returns new arrays, the port updates the parameters
 and the state in place under ``torch.no_grad()``: at llama3-8b's width a
 second copy of parameters and moments would not fit the card.
 
-Under tensor parallelism some leaves are this rank's shards (the MLP
-weights, ``models.model.sharded_params``) and the rest are replicated:
-the global norm sums the shards' squares over the model group and counts
-the replicated leaves once, so every rank clips by the same norm and the
-replicated parameters stay equal across ranks.  The moments of a shard are
-the shard's.
+On a placed model (``models.model.shard_``) a leaf is this rank's slice
+of a tensor split over none, one or both of the ``data`` and ``model``
+axes (``parallel.sharding.Placement``): the global norm sums each leaf's
+squares over the groups of exactly the axes that split it and counts a
+leaf no axis splits once, so every rank clips by the same factor, to the
+bit, and the replicated parameters stay equal across ranks.  The moments
+of a slice are the slice's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Collection, Dict, Mapping
+from typing import Dict, Mapping
 
 import torch
 
@@ -46,32 +47,37 @@ def init_state(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
             "count": torch.zeros((), dtype=torch.int64, device=first.device)}
 
 
-def global_norm(tree: Mapping[str, torch.Tensor], *, sharded: Collection[str] = (),
-                mesh=None) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor], *, placement=None) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(x²), in fp32 (each leaf's norm
-    without an fp32 copy of the leaf).  The leaves named in ``sharded`` are
-    this rank's shards of tensors split over ``mesh``: their squares are
-    summed over its ranks, the other leaves' counted once."""
+    without an fp32 copy of the leaf).  With ``placement``, a leaf split
+    over some axes is this rank's slice: the squares of the leaves split
+    over the same axes are summed, then over each of those axes' groups;
+    the groups' sums are added in one order on every rank."""
     def sq(x):
         return torch.linalg.vector_norm(x, dtype=torch.float32).square()
 
-    total = torch.sum(torch.stack([sq(x) for k, x in tree.items() if k not in sharded]))
-    parts = [sq(x) for k, x in tree.items() if k in sharded]
-    if parts:
-        total = total + collectives.psum_tree(torch.sum(torch.stack(parts)), mesh)
+    groups: Dict[tuple, list] = {}
+    for k, x in tree.items():
+        groups.setdefault(placement.axes(k) if placement is not None else (), []).append(sq(x))
+    total = None
+    for axes in sorted(groups, key=lambda a: (len(a), a)):
+        part = torch.sum(torch.stack(groups[axes]))
+        for axis in axes:
+            part = collectives.psum_tree(part, placement.meshes[axis])
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
                   state: Dict[str, object], cfg: AdamWConfig, lr_scale=1.0, *,
-                  sharded: Collection[str] = (), mesh=None) -> Dict[str, torch.Tensor]:
+                  placement=None) -> Dict[str, torch.Tensor]:
     """One AdamW step: ``params``, ``state["mu"]``, ``state["nu"]`` and
     ``state["count"]`` are updated in place.  Gradients are clipped by the
-    pre-clip global norm (``global_norm``, with ``sharded`` the leaves split
-    over ``mesh``), which is returned as ``grad_norm`` with the step's
-    ``lr`` (the reference's metrics)."""
-    gnorm = global_norm(grads, sharded=sharded, mesh=mesh)
+    pre-clip global norm (``global_norm``, over ``placement``'s groups),
+    which is returned as ``grad_norm`` with the step's ``lr`` (the
+    reference's metrics)."""
+    gnorm = global_norm(grads, placement=placement)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = state["count"]
     count += 1

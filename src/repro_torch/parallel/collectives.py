@@ -51,7 +51,9 @@ may run it on its own device thread, where the plan's context variables
 are not set), keeps the forward's overlap (hop or chunk k+1 in flight
 under product k), and logs an ``Issued`` row of its own (``op`` suffixed
 ``.bwd``).  The sequence-parallel pair keeps every rank's gradients of
-the replicated parameters equal without an all-reduce.
+the replicated parameters equal without an all-reduce.  ``gather_param``
+is FSDP's gather on use: a parameter's slices all-gathered along the dim
+the data axis splits, its gradient reduce-scattered back.
 """
 from __future__ import annotations
 
@@ -297,7 +299,8 @@ class Issued:
     calls it issued (one ring hop's ``batch_isend_irecv`` counts once).
     A backward pass logs its own row, ``op`` suffixed ``.bwd``."""
     site: str
-    op: str              # ring_ag_matmul | mm_reduce_scatter | all_to_all | psum, or *.bwd
+    op: str              # ring_ag_matmul | mm_reduce_scatter | all_to_all | psum |
+                         # all_gather (gather_param), or *.bwd
     num_chunks: int
     matmuls: int
     collectives: int
@@ -452,6 +455,65 @@ def all_gather_rows(y: torch.Tensor, mesh) -> torch.Tensor:
     if m.size == 1:
         return y
     return _AllGatherRows.apply(y, m)
+
+
+# ---------------------------------------------------------------------------
+# gather on use: a parameter split over the data axis (FSDP), gathered for
+# the layer that uses it.  Not a plan site; each call logs an ``Issued`` row.
+# ---------------------------------------------------------------------------
+
+def _dim_gather(t: torch.Tensor, m: Mesh, dim: int) -> torch.Tensor:
+    """All-gather of ``t`` over ``m`` along ``dim``, slices in rank order.
+    The collectives split dim 0 of a flat buffer (gloo splits nothing
+    else), so another ``dim`` goes through a contiguous buffer with it moved
+    to the front; the result is that buffer's view, moved back."""
+    s = t.movedim(dim, 0).contiguous()
+    out = s.new_empty((m.size,) + tuple(s.shape))
+    _all_gather(out.view(-1), s.view(-1), group=m.group)
+    return out.view((-1,) + tuple(s.shape[1:])).movedim(0, dim)
+
+
+def _dim_reduce_scatter(g: torch.Tensor, m: Mesh, dim: int) -> torch.Tensor:
+    """The sum over ``m`` of ``g``, scattered along ``dim``: this rank's
+    slice, contiguous."""
+    s = g.movedim(dim, 0).contiguous()
+    out = s.new_empty((s.shape[0] // m.size,) + tuple(s.shape[1:]))
+    _reduce_scatter(out.view(-1), s.view(-1), group=m.group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, m, dim, site, log):
+        ctx.m, ctx.dim, ctx.site, ctx.log = m, dim, site, log
+        one = m.size == 1
+        _issued(site, "all_gather", 1, 0, 0 if one else 1, log)
+        return w.view_as(w) if one else _dim_gather(w, m, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        one = ctx.m.size == 1
+        _issued(ctx.site, "all_gather.bwd", 1, 0, 0 if one else 1, ctx.log)
+        return (g if one else _dim_reduce_scatter(g, ctx.m, ctx.dim)), None, None, None, None
+
+
+def gather_param(w: torch.Tensor, mesh, dim: int, *, site: str = "fsdp.ag_params",
+                 ) -> torch.Tensor:
+    """The whole parameter of this rank's slice ``w``, split along ``dim``
+    over the mesh (the data axis), slices in rank order.  Its backward
+    reduce-scatters the whole gradient back to the slice: the sum over the
+    ranks, each of which used the whole parameter on its own rows.  At mesh
+    size 1 it is ``w`` and issues nothing.  Logs an ``Issued`` row at
+    ``site`` (``fsdp.layer{i}.ag_params`` for a layer's weights) for the
+    gather and one (``op`` ``all_gather.bwd``) for the reduce-scatter."""
+    return _GatherParam.apply(w, as_mesh(mesh), dim % w.ndim, site, _ISSUED_LOG.get())
+
+
+@torch.no_grad()
+def gather_full(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """``gather_param`` without a gradient or a log row, contiguous."""
+    m = as_mesh(mesh)
+    return t if m.size == 1 else _dim_gather(t, m, dim).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,341 @@
+"""Sharding rules of the port (counterpart of ``repro.parallel.sharding``):
+which mesh axis splits which dim of each parameter, batch and decode cache.
+
+The rules are the reference's, copied: every matrix shards its
+"feature-parallel" dim over the ``model`` axis (attention heads, FFN
+hidden, experts, vocab) and its other dim over the FSDP axes (``data``);
+1-D leaves (norm scales) are replicated; a dim that an axis does not divide
+stays whole on that axis (the per-dim fallback).  Templates use ``F`` for
+the fsdp axes and ``T`` for ``model``; a rule's spec matches the *trailing*
+dims of the array, and stacked leading dims are replicated (None).
+
+Where the reference takes a pytree and a ``jax.sharding.Mesh`` and returns
+``PartitionSpec``s, these take ``{key path: shape}`` (the reference's
+paths, ``"trunk/dense_layers/attn/q/w"``) and ``{axis: size}``, and return
+one tuple a path: the spec's entries, ``()`` for a replicated leaf.  A mesh
+without the ``model`` axis raises ``ValueError`` (the reference raises
+``KeyError: 'model'``): pure FSDP over D ranks is the mesh ``Dx1``.
+
+The port's layout (``port_specs``): its state dict unstacks the layers and
+holds linear weights as ``nn.Linear``'s (d_out, d_in), so a reference
+spec maps onto a port leaf by dropping the stacked dims and, for ``w``
+leaves, reversing it (``convert.reference_layout`` gives each leaf's
+reference path, shape and both facts).  The F dim is then dim 1 of
+``attn.{q,k,v}.weight``, ``mlp.{gate,up}.weight``, ``head.weight`` and
+``embed.weight``, and dim 0 of ``attn.o.weight`` and ``mlp.down.weight``.
+
+``Placement`` is what a model placed on a mesh holds (``models.model.
+shard_``): each leaf's spec in the port's layout and the ``launch.mesh.
+Mesh`` of each axis.  Its F dims are split over ``data``; of its T dims
+only the MLP's (``TP_HELD``) are split over ``model``: attention, the
+embedding and the head keep their T dims whole (ROADMAP queue 1, item 8).
+A leaf split over ``data`` is gathered where it is used
+(``collectives.gather_param``, whose backward reduce-scatters its
+gradient), so each rank keeps only its slice between uses.
+"""
+from __future__ import annotations
+
+import math
+import re
+from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.launch.mesh import as_mesh
+from repro_torch.parallel.collectives import gather_full, gather_param
+
+Spec = Tuple[Any, ...]
+
+# (path regex, spec template applied to trailing dims)
+# Templates: "F"->fsdp, "T"->model, None->replicated.
+_RULES: Sequence[Tuple[str, Tuple[Any, ...]]] = (
+    # embeddings / head
+    (r"embed/table$",              ("T", "F")),
+    (r"head/w$",                   ("F", "T")),
+    (r"dec_pos$",                  ("F", None)),
+    (r"enc_pos$",                  (None, None)),
+    # attention (gqa)
+    (r"attn/[qkv]/w$",             ("F", "T")),
+    (r"attn/[qkv]/b$",             ("T",)),
+    (r"attn/o/w$",                 ("T", "F")),
+    (r"attn/o/b$",                 (None,)),
+    (r"(self|cross)_attn/[qkv]/w$", ("F", "T")),
+    (r"(self|cross)_attn/[qkv]/b$", ("T",)),
+    (r"(self|cross)_attn/o/w$",    ("T", "F")),
+    (r"(self|cross)_attn/o/b$",    (None,)),
+    # attention (mla)
+    (r"attn/q/w$",                 ("F", "T")),
+    (r"attn/q_a/w$",               ("F", None)),
+    (r"attn/q_b/w$",               (None, "T")),
+    (r"attn/kv_a/w$",              ("F", None)),
+    (r"attn/kv_b/w$",              (None, "T")),
+    # mlps
+    (r"(mlp|shared)/(gate|up)/w$", ("F", "T")),
+    (r"(mlp|shared)/(gate|up)/b$", ("T",)),
+    (r"(mlp|shared)/down/w$",      ("T", "F")),
+    (r"(mlp|shared)/down/b$",      (None,)),
+    # moe
+    (r"moe/router/w$",             ("F", None)),
+    (r"moe/(gate|up)$",            ("T", "F", None)),
+    (r"moe/down$",                 ("T", None, "F")),
+    (r"moe/shared_gate/w$",        (None, None)),
+    # rwkv6 time-mix / channel-mix
+    (r"tm/W[rkvg]$",               ("F", "T")),
+    (r"tm/Wo$",                    ("T", "F")),
+    (r"tm/maa_w1$",                ("F", None)),
+    (r"tm/decay_w1$",              ("F", None)),
+    (r"tm/decay_w2$",              (None, "F")),
+    (r"tm/bonus$",                 ("T", None)),
+    (r"cm/Wk$",                    ("F", "T")),
+    (r"cm/Wv$",                    ("T", "F")),
+    (r"cm/Wr$",                    ("F", "T")),
+    # mamba2
+    (r"mamba/(z_proj|xbc_proj)/w$", ("F", "T")),
+    (r"mamba/dt_proj/w$",          ("F", None)),
+    (r"mamba/out_proj/w$",         ("T", "F")),
+    (r"mamba/conv_w$",             (None, "T")),
+    (r"mamba/conv_b$",             ("T",)),
+    # zamba2 per-application adapters
+    (r"app_in/w$",                 ("F", "T")),
+)
+
+# the leaves whose T dim the port splits over ``model`` (the dense MLP, run
+# by the sited trunk); every other T dim stays whole in this slice
+TP_HELD = r"mlp/(gate|up|down)/w$"
+
+
+def _expand(template, fsdp, tp):
+    out = []
+    for t in template:
+        if t == "F":
+            out.append(fsdp if len(fsdp) > 1 else fsdp[0])
+        elif t == "T":
+            out.append(tp)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def _size(ax, mesh_shape) -> int:
+    return math.prod(mesh_shape[a] for a in (ax if isinstance(ax, tuple) else (ax,)))
+
+
+def _check_axis(mesh_shape: Mapping[str, int], tp_axis) -> None:
+    if tp_axis is not None and tp_axis not in mesh_shape:
+        d = math.prod(mesh_shape.values())
+        raise ValueError(f"the mesh {dict(mesh_shape)} has no {tp_axis!r} axis; pure FSDP "
+                         f"over {d} data ranks is the mesh {d}x1 (--mesh {d}x1)")
+
+
+def param_specs(shapes: Mapping[str, Sequence[int]], mesh_shape: Mapping[str, int], *,
+                fsdp_axes: Tuple[str, ...] = ("data",),
+                tp_axis: Optional[str] = "model") -> Dict[str, Spec]:
+    """The spec of each parameter: ``shapes`` maps the reference's key paths
+    to shapes, ``mesh_shape`` an axis name to its size."""
+    _check_axis(mesh_shape, tp_axis)
+
+    def one(pstr, shape):
+        for rx, template in _RULES:
+            if re.search(rx, pstr):
+                spec = _expand(template, fsdp_axes, tp_axis)
+                lead = len(shape) - len(spec)
+                if lead < 0:
+                    break
+                full = (None,) * lead + spec
+                # drop axes that don't divide evenly (fall back per-dim)
+                return tuple(ax if ax is not None and shape[i] % _size(ax, mesh_shape) == 0
+                             else None for i, ax in enumerate(full))
+        return ()  # replicate (norms, scalars, loras)
+
+    return {path: one(path, tuple(shape)) for path, shape in shapes.items()}
+
+
+def batch_specs(cfg, shapes: Mapping[str, Optional[Sequence[int]]],
+                mesh_shape: Mapping[str, int], *,
+                dp_axes: Tuple[str, ...] = ("data",)) -> Dict[str, Optional[Spec]]:
+    """Batch dim over the data-parallel axes when divisible, else replicate
+    (a None leaf stays None)."""
+    dp = _size(dp_axes, mesh_shape)
+    dp_spec = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+
+    def one(shape):
+        if shape is None:
+            return None
+        shape = tuple(shape)
+        B = shape[0] if shape else 0
+        lead = dp_spec if B and B % dp == 0 else None
+        return (lead,) + (None,) * (len(shape) - 1)
+
+    return {path: one(shape) for path, shape in shapes.items()}
+
+
+def cache_specs(cfg, shapes: Mapping[str, Sequence[int]], mesh_shape: Mapping[str, int], *,
+                dp_axes: Tuple[str, ...] = ("data",),
+                tp_axis: Optional[str] = "model") -> Dict[str, Spec]:
+    """Decode-cache sharding.  Layout per leaf (after any stacked leading
+    dims): KV caches (B, S, N, h) — batch over data when divisible else
+    sequence over data; heads over model.  States (B, H, K, V) — heads over
+    model.  Conv/shift small leaves: batch over data if divisible."""
+    _check_axis(mesh_shape, tp_axis)
+    dp = _size(dp_axes, mesh_shape)
+    tp = mesh_shape[tp_axis] if tp_axis else 10**9   # None -> never divides
+    dp_spec = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+
+    def one(pstr, shape):
+        shape = tuple(shape)
+        nd = len(shape)
+        if nd == 0 or pstr.endswith("pos") or "slot_pos" in pstr:
+            return ()
+        spec = [None] * nd
+        if re.search(r"(^|/)(k|v|c_kv|k_rope)$", pstr):
+            # (..., B, S, N, h) or (..., B, S, rank)
+            b_ax = nd - (4 if pstr.endswith(("k", "v", "k_rope")) else 3)
+            s_ax = b_ax + 1
+            if shape[b_ax] % dp == 0:
+                spec[b_ax] = dp_spec
+            elif shape[s_ax] % dp == 0:
+                spec[s_ax] = dp_spec           # context parallelism (B too small)
+            if pstr.endswith(("k", "v")) and shape[nd - 2] % tp == 0:
+                spec[nd - 2] = tp_axis          # kv heads over model
+            elif spec[s_ax] is None and shape[s_ax] % tp == 0:
+                spec[s_ax] = tp_axis            # kv heads don't divide tp:
+                                                # shard the sequence instead
+            elif not pstr.endswith(("k", "v")) and shape[nd - 1] % tp == 0:
+                spec[nd - 1] = tp_axis          # MLA latent rank over model
+        elif re.search(r"(wkv|state)$", pstr):
+            # (..., B, H, K/P, V/N)
+            b_ax = nd - 4
+            if shape[b_ax] % dp == 0:
+                spec[b_ax] = dp_spec
+            if shape[nd - 3] % tp == 0:
+                spec[nd - 3] = tp_axis
+        elif re.search(r"(shift_tm|shift_cm|conv|memory)$", pstr):
+            b_ax = max(0, nd - 3)
+            if shape[b_ax] % dp == 0:
+                spec[b_ax] = dp_spec
+            if shape[nd - 1] % tp == 0 and pstr.endswith("conv"):
+                spec[nd - 1] = tp_axis
+        return tuple(spec)
+
+    return {path: one(path, shape) for path, shape in shapes.items()}
+
+
+# ---------------------------------------------------------------------------
+# the port's layout
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RefLeaf:
+    """Where a port parameter comes from in the reference's tree."""
+    path: str                   # the reference's key path
+    shape: Tuple[int, ...]      # its shape there, stacked layer axes included
+    lead: int                   # stacked layer axes the port unstacks
+    transposed: bool            # a ``w`` leaf: nn.Linear holds its transpose
+
+
+def port_specs(layout: Mapping[str, RefLeaf], mesh_shape: Mapping[str, int]) -> Dict[str, Spec]:
+    """``param_specs`` of the reference's leaves on the mesh ``{data,
+    model}``, in the port's layout: one spec a state-dict name of
+    ``layout`` (``convert.reference_layout``), one entry a dim of the
+    port's tensor.  Only the leaves ``TP_HELD`` matches keep ``model``."""
+    ref = param_specs({leaf.path: leaf.shape for leaf in layout.values()}, mesh_shape)
+    out = {}
+    for name, leaf in layout.items():
+        spec = ref[leaf.path]
+        spec = (spec + (None,) * (len(leaf.shape) - len(spec)))[leaf.lead:]
+        if leaf.transposed:
+            spec = spec[::-1]
+        if not re.search(TP_HELD, leaf.path):
+            spec = tuple(None if ax == "model" else ax for ax in spec)
+        out[name] = spec
+    return out
+
+
+@dataclass
+class Placement:
+    """A placed model's record: ``specs[name]`` names the mesh axis (or
+    None) that splits each dim of the parameter ``name`` in the port's
+    layout; ``meshes[axis]`` is this rank's ``launch.mesh.Mesh`` of that
+    axis.  An axis absent from ``meshes`` splits nothing."""
+    specs: Dict[str, Spec]
+    meshes: Dict[str, Any]
+
+    def dim(self, name: str, axis: str) -> Optional[int]:
+        """The dim of ``name`` that ``axis`` splits, or None."""
+        if axis not in self.meshes:
+            return None
+        spec = self.specs.get(name, ())
+        return spec.index(axis) if axis in spec else None
+
+    def axes(self, name: str) -> Tuple[str, ...]:
+        """The axes of more than one rank that split ``name``, in mesh order."""
+        return tuple(a for a, m in self.meshes.items()
+                     if m.size > 1 and self.dim(name, a) is not None)
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``t`` on every axis, a copy where split."""
+        for axis, m in self.meshes.items():
+            d = self.dim(name, axis)
+            if d is not None and m.size > 1:
+                if t.shape[d] % m.size:
+                    raise ValueError(f"{name}: dim {d} of {tuple(t.shape)} does not split "
+                                     f"over {m.size} {axis} ranks")
+                k = t.shape[d] // m.size
+                t = t.narrow(d, m.rank * k, k).contiguous()
+        return t
+
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of this rank's slice ``t``, gathered over every
+        axis that splits it (no gradient; every rank of those axes calls it)."""
+        for axis in reversed(self.axes(name)):
+            t = gather_full(t, self.meshes[axis], self.dim(name, axis))
+        return t
+
+    def gather(self, name: str, t: torch.Tensor, site: str) -> torch.Tensor:
+        """``t``, this rank's slice of ``name``, gathered over ``data`` for
+        its use (differentiable; ``t`` itself when ``data`` splits nothing)."""
+        d = self.dim(name, "data")
+        return t if d is None else gather_param(t, self.meshes["data"], d, site=site)
+
+
+def place(layout: Mapping[str, RefLeaf], mesh) -> Placement:
+    """The placement of a model of ``layout`` (``convert.reference_layout``)
+    on ``mesh``: this rank's ``{"data": Mesh, "model": Mesh}``, or one
+    ``Mesh``, the model axis alone (tensor parallelism without FSDP)."""
+    meshes = dict(mesh) if isinstance(mesh, Mapping) else {"model": as_mesh(mesh)}
+    shape = {"data": 1, "model": 1, **{a: m.size for a, m in meshes.items()}}
+    return Placement(port_specs(layout, shape), meshes)
+
+
+class _LinearView:
+    """An ``nn.Linear`` as its forward uses it, with other weights."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor]):
+        self.weight, self.bias = weight, bias
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+def gathered(module: nn.Module, prefix: str, placement: Placement, site: str):
+    """``module`` (state-dict names under ``prefix``) as its forward uses
+    it: each ``nn.Linear`` a view over its weights gathered over ``data``
+    (``Placement.gather``, logged at ``site``), each container a namespace
+    of its children's; a module with no split parameter is itself."""
+    if not any(placement.dim(prefix + n, "data") is not None
+               for n, _ in module.named_parameters()):
+        return module
+    if isinstance(module, nn.Linear):
+        def g(leaf, t):
+            return None if t is None else placement.gather(prefix + leaf, t, site)
+        return _LinearView(g("weight", module.weight), g("bias", module.bias))
+    children = dict(module.named_children())
+    if not children:
+        raise NotImplementedError(f"{prefix}: a {type(module).__name__} split over "
+                                  "data is not gathered for its use")
+    return SimpleNamespace(**{n: gathered(c, f"{prefix}{n}.", placement, site)
+                              for n, c in children.items()})

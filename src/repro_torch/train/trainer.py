@@ -36,6 +36,18 @@ ranks that hold the other slices of the global batch) averages the
 gradients, the loss and its metrics over that group after the backward:
 the reduction that GSPMD inserts implicitly in the reference.  An ACCO
 step reduces over its ``accum_axis`` instead, which is then that group.
+
+FSDP placements: on a model placed over ``data`` (``models.model.shard_``
+with a data mesh of more than one rank, which must be ``data_axis``), each
+data-split weight is gathered for its use and its gradient comes back
+reduce-scattered, the sum over the data ranks: it is only divided by the
+data size.  The leaves that stay whole are summed over ``data_axis`` as
+above.  In the microbatch modes each microbatch's backward reduce-scatters,
+which sums as the accumulation does.  ACCO on such a model raises
+``NotImplementedError``: the reference's GSPMD launcher does not combine
+them either.  Each microbatch's activations run under
+``constraints.microbatches(n)``, so the constraint checks (installed by the
+launcher) expect this rank's share of one microbatch.
 """
 from __future__ import annotations
 
@@ -47,7 +59,7 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, schedules
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, constraints as CT
 from repro_torch.train import metrics as MET
 
 
@@ -73,6 +85,10 @@ class TrainConfig:
 
 
 def _split(batch: Dict[str, torch.Tensor], n: int, strided: bool):
+    rows = batch["tokens"].shape[0]
+    if rows % n:
+        raise ValueError(f"the batch of {rows} rows (this rank's) does not split into {n} "
+                         "microbatches")
     if strided:
         return [{k: a[i::n] for k, a in batch.items()} for i in range(n)]
     return [{k: a.reshape((n, a.shape[0] // n) + a.shape[1:])[i] for k, a in batch.items()}
@@ -95,21 +111,32 @@ def make_train_step(cfg, tcfg: TrainConfig):
     opt_state, metrics); ``batch`` holds tensors on the model's device."""
     sched = getattr(schedules, tcfg.schedule)
 
-    def value_and_grad(model, params, b):
-        loss, m = M.loss_and_metrics(cfg, model, b, remat=tcfg.remat,
-                                     backend=tcfg.backend, mesh=tcfg.sited_mesh)
-        grads = torch.autograd.grad(loss, list(params.values()))
+    def value_and_grad(model, params, b, n=1):
+        with CT.microbatches(n):
+            loss, m = M.loss_and_metrics(cfg, model, b, remat=tcfg.remat,
+                                         backend=tcfg.backend, mesh=tcfg.sited_mesh)
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), {k: v.detach() for k, v in m.items()}, dict(zip(params, grads))
 
     def train_step(model, opt_state, batch, step):
         params = dict(model.named_parameters())
+        place = model.placement
+        split = {k for k in params if place is not None and "data" in place.axes(k)}
         acco = tcfg.grad_accum > 1 and tcfg.accum_axis is not None
+        if acco and place is not None and "data" in place.meshes:
+            raise NotImplementedError(
+                "ACCO (accum_axis) on a model placed over data: the reference's GSPMD "
+                "launcher does not combine them either")
+        if split and (tcfg.data_axis is None or collectives.axis_size(tcfg.data_axis)
+                       != place.meshes["data"].size):
+            raise ValueError("a model placed over data trains with data_axis= its data "
+                             f"mesh (size {place.meshes['data'].size})")
         if acco:
             n = tcfg.grad_accum
             mesh = tcfg.accum_axis
             gsum, pending, tot_loss, metrics = None, None, 0.0, None
             for k, b in enumerate(_split(batch, n, strided=True)):
-                l, metrics, g = value_and_grad(model, params, b)
+                l, metrics, g = value_and_grad(model, params, b, n)
                 if pending is not None:          # k-1's reduce ran under k's compute
                     gsum = _add(gsum, collectives.psum_tree_wait(pending), fp32=True)
                 pending = collectives.psum_tree_chunked_issue(
@@ -124,7 +151,7 @@ def make_train_step(cfg, tcfg: TrainConfig):
             n = tcfg.grad_accum
             gsum, tot_loss, metrics = None, 0.0, None
             for b in _split(batch, n, strided=False):
-                l, metrics, g = value_and_grad(model, params, b)
+                l, metrics, g = value_and_grad(model, params, b, n)
                 gsum = _add(gsum, g, fp32=True)
                 tot_loss = tot_loss + l
             grads = {k: a / n for k, a in gsum.items()}
@@ -133,7 +160,7 @@ def make_train_step(cfg, tcfg: TrainConfig):
             n = tcfg.microbatches
             gsum, tot_loss, metrics = None, 0.0, None
             for b in _split(batch, n, strided=True):
-                l, metrics, g = value_and_grad(model, params, b)
+                l, metrics, g = value_and_grad(model, params, b, n)
                 gsum = _add(gsum, g, fp32=False)
                 tot_loss = tot_loss + l
             grads = {k: a / n for k, a in gsum.items()}
@@ -141,16 +168,18 @@ def make_train_step(cfg, tcfg: TrainConfig):
         else:
             loss, metrics, grads = value_and_grad(model, params, batch)
         if tcfg.data_axis is not None and not acco:
+            # a data-split leaf's gradient arrived reduce-scattered (the sum
+            # over the data ranks); the others are summed here
             d = collectives.axis_size(tcfg.data_axis)
-            grads, mean = collectives.psum_tree((grads, dict(metrics, loss=loss)),
-                                                tcfg.data_axis)
-            grads = {k: a / d for k, a in grads.items()}
+            whole, mean = collectives.psum_tree(
+                ({k: a for k, a in grads.items() if k not in split},
+                 dict(metrics, loss=loss)), tcfg.data_axis)
+            grads = {k: (a if k in split else whole[k]) / d for k, a in grads.items()}
             metrics = {k: a / d for k, a in mean.items()}
             loss = metrics.pop("loss")
         lr_scale = sched(step, warmup=tcfg.warmup, total=tcfg.total_steps)
         opt_metrics = adamw.apply_updates(params, grads, opt_state, tcfg.opt, lr_scale,
-                                          sharded=M.sharded_params(cfg, model),
-                                          mesh=M.tp_mesh(model))
+                                          placement=place)
         return model, opt_state, dict(metrics, **opt_metrics, loss=loss)
 
     return train_step

@@ -258,10 +258,13 @@ def test_train_launcher_needs_a_process_group_for_a_mesh(no_plan, monkeypatch):
 
 
 _PORT_RANK = r"""
-import json, sys, numpy as np, torch
+import json, sys, numpy as np, torch, torch.distributed as dist
 from repro_torch.models import model as M
 from repro_torch.launch import train
 sd, argv, out = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+ckpt = argv[argv.index("--ckpt") + 1] if "--ckpt" in argv else None
+if ckpt:           # the group outlives the launcher's run: the restore below gathers
+    dist.init_process_group("gloo")
 real = M.init_params
 
 def reference_weights(cfg, seed=0, *, device="cuda"):      # the reference's weights
@@ -271,8 +274,28 @@ def reference_weights(cfg, seed=0, *, device="cuda"):      # the reference's wei
 
 M.init_params = reference_weights
 res = train.main(argv)
+log = {"losses": res["losses"]}
+if ckpt:           # the checkpoint restored into this rank's slices, exactly
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_jax, params_to_jax
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+    cfg = get_smoke_config("llama3-8b")
+    model = res["model"]
+    tree = params_to_jax(cfg, model)
+    meshes = make_mesh(train.mesh_shape(argv[argv.index("--mesh") + 1]), ("data", "model"))
+    back, step = checkpoint.restore(ckpt, tree)
+    mine = params_from_jax(cfg, back, meshes)
+    log.update(step=step, shapes={k: list(v.shape) for k, v in mine.items()},
+               restored_equal=all(torch.equal(mine[k], v) for k, v in model.state_dict().items()))
+    if dist.get_rank() == 0:
+        def flat(t, pre=""):
+            for k, v in t.items():
+                yield from flat(v, pre + k + "/") if isinstance(v, dict) else [(pre + k, v)]
+        np.savez(out + ".npz", **dict(flat(tree)))
+    dist.destroy_process_group()
 with open(out, "w") as f:
-    json.dump(res["losses"], f)
+    json.dump(log, f)
 """
 
 _REFERENCE_LAUNCH = r"""
@@ -303,16 +326,16 @@ with open(out, "w") as f:
 """
 
 
-def test_mesh_2x2_launch_matches_reference_launcher(ref, tmp_path):
-    """``--mesh 2x2`` on 4 gloo ranks (a ``torchrun`` environment: RANK,
-    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR=localhost) against the reference
-    launcher with the same flags on 4 host devices: each step's loss (the
-    global batch's, averaged over the data axis) within 1e-5; every rank
-    reports the same losses."""
+def _launch_pair(ref, tmp_path, mesh, port_flags=()):
+    """``--mesh`` on 4 gloo ranks (a ``torchrun`` environment: RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR=localhost) and the reference
+    launcher with the same flags on 4 host devices, concurrently, from the
+    reference's weights; returns (each rank's log, rank 0's output, the
+    reference's losses)."""
     cfg, jp = ref
     torch.save(params_from_jax(cfg, jp), tmp_path / "params.pt")
     argv = ["--arch", ARCH, "--smoke", "--steps", "3", "--seq", "32", "--batch", "4",
-            "--mesh", "2x2", "--log-every", "1"]
+            "--mesh", mesh, "--log-every", "1"]
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -321,7 +344,7 @@ def test_mesh_2x2_launch_matches_reference_launcher(ref, tmp_path):
                 WORLD_SIZE="4")
     procs = [subprocess.Popen(
         [sys.executable, "-c", _PORT_RANK, str(tmp_path / "params.pt"),
-         json.dumps(argv + ["--device", "cpu"]), str(tmp_path / f"rank{r}.json")],
+         json.dumps(argv + ["--device", "cpu", *port_flags]), str(tmp_path / f"rank{r}.json")],
         env=dict(base, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(4)]
     procs.append(subprocess.Popen(
@@ -337,8 +360,49 @@ def test_mesh_2x2_launch_matches_reference_launcher(ref, tmp_path):
         assert p.returncode == 0, text[-4000:]
     want = json.loads((tmp_path / "reference.json").read_text())
     assert len(want) == 3
-    for r in range(4):
-        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(4)]
+    for r, got in enumerate(ranks):
+        got = got["losses"]
         assert len(got) == 3 and max(abs(a - b) for a, b in zip(got, want)) < LOSS_BOUND, (
             r, got, want)
-    assert "step    2 loss" in logs[0]
+    return ranks, logs[0], want
+
+
+def test_mesh_2x2_launch_matches_reference_launcher(ref, tmp_path):
+    """``--mesh 2x2`` against the reference launcher on its 2x2 mesh of
+    host devices: each step's loss (the global batch's, averaged over the
+    data axis) within 1e-5; every rank reports the same losses."""
+    _, out, _ = _launch_pair(ref, tmp_path, "2x2")
+    assert "step    2 loss" in out
+
+
+def test_mesh_4x1_launch_matches_reference_launcher_and_checkpoints(ref, tmp_path):
+    """``--mesh 4x1`` (pure FSDP: each rank holds a quarter of every F dim
+    and one row of the batch) against the reference launcher's 4x1 within
+    1e-5 a step.  Its checkpoint, written from the slices, restores in
+    ``repro.train.checkpoint`` equal to the gathered parameters, and back
+    into each rank's slices exactly."""
+    cfg, jp = ref
+    ranks, out, _ = _launch_pair(ref, tmp_path, "4x1", ("--ckpt", str(tmp_path / "ck")))
+    assert "step    2 loss" in out and "checkpoint written to" in out
+    tree, step = JCK.restore(str(tmp_path / "ck"), jp)
+    gathered = dict(np.load(tmp_path / "rank0.json.npz"))
+    flat = {"/".join(x.key for x in k): np.asarray(v)
+            for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert step == 3 and set(flat) == set(gathered)
+    for k, v in flat.items():
+        assert v.dtype == gathered[k].dtype and np.array_equal(v, gathered[k]), k
+    whole = params_from_jax(cfg, jp)
+    for log in ranks:
+        assert log["step"] == 3 and log["restored_equal"]
+        q = log["shapes"]["trunk.dense_layers.0.attn.q.weight"]
+        assert q == [whole["trunk.dense_layers.0.attn.q.weight"].shape[0],
+                     whole["trunk.dense_layers.0.attn.q.weight"].shape[1] // 4]
+
+
+def test_train_launcher_refuses_a_one_axis_mesh(no_plan):
+    """``--mesh 4`` raises, naming ``--mesh 4x1`` (the reference's launcher
+    fails there with ``KeyError: 'model'``), before any process group."""
+    with pytest.raises(ValueError, match=r"--mesh 4x1"):
+        train.main(["--arch", ARCH, "--smoke", "--steps", "1", "--seq", "32", "--batch", "4",
+                    "--mesh", "4", "--device", "cpu"])

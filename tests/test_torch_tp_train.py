@@ -32,6 +32,7 @@ jax = pytest.importorskip("jax")
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,7 +72,6 @@ modes = json.loads(str(d["modes"]))
 full = torch.load(sd)
 batch = {n: torch.from_numpy(d[n]) for n in ("tokens", "targets", "mask")}
 meshes = {"1x4": make_mesh((1, 4), ("data", "model")), "2x2": make_mesh((2, 2), ("data", "model"))}
-dims = M.mlp_shard_dims(cfg)
 res, log = {}, {}
 
 def fresh(mesh):
@@ -79,11 +79,12 @@ def fresh(mesh):
     model.load_state_dict(full)
     return M.shard_(cfg, model, mesh["model"])
 
-def gather(name, t, mesh):
-    dim = dims.get(name)
-    if dim is None or mesh["model"].size == 1:
+def gather(name, t, model):
+    place = model.placement
+    if "model" not in place.axes(name):
         return t
-    g = C.all_gather_rows((t if dim == 0 else t.T).contiguous(), mesh["model"])
+    dim = place.dim(name, "model")
+    g = C.all_gather_rows((t if dim == 0 else t.T).contiguous(), place.meshes["model"])
     return g if dim == 0 else g.T
 
 def rows_of(mesh):
@@ -99,7 +100,7 @@ with C.use_runtime_plan(plan), C.record_issued() as rows:
     grads = torch.autograd.grad(loss, params)
 res["grads.loss"] = loss.detach()
 for n, g in zip(names, grads):
-    res[f"grads.{n}"] = gather(n, g, mesh)
+    res[f"grads.{n}"] = gather(n, g, model)
 log["grads"] = [dataclasses.astuple(r) for r in rows]
 
 def one_step(tag, mesh, kw, acco, clip=None):
@@ -112,9 +113,9 @@ def one_step(tag, mesh, kw, acco, clip=None):
     with C.use_runtime_plan(plan):
         model, state, m = T.make_train_step(cfg, tcfg)(model, state, rows_of(mesh), 1)
     for n, p in model.named_parameters():
-        res[f"{tag}.{n}"] = gather(n, p.detach(), mesh)
+        res[f"{tag}.{n}"] = gather(n, p.detach(), model)
         for k in ("mu", "nu"):
-            res[f"{tag}.{k}.{n}"] = gather(n, state[k][n], mesh)
+            res[f"{tag}.{k}.{n}"] = gather(n, state[k][n], model)
     for k in ("loss", "grad_norm"):
         res[f"{tag}.{k}"] = m[k]
 
@@ -335,15 +336,16 @@ def test_replicated_parameters_stay_bit_equal(runs, mesh):
     rank, and each MLP shard on the ranks that hold the same shard."""
     cfg, ranks, _ = runs
     digests = [log["digests"][mesh] for _, log in ranks]
-    dims = M.mlp_shard_dims(cfg)
     model = 4 if mesh == "1x4" else 2
+    place = M.shard_(cfg, M.init_params(cfg, 0, device="cpu"),
+                     Mesh(None, model, 0, "model")).placement
     for name in digests[0]:
-        if name in dims:
+        if place.axes(name):
             for r in range(N):
                 assert digests[r][name] == digests[r % model][name], (name, r)
         else:
             assert len({d[name] for d in digests}) == 1, name
-    assert any(name in dims for name in digests[0])
+    assert any(place.axes(name) for name in digests[0])
 
 
 def test_mesh_lays_ranks_out_as_the_reference():

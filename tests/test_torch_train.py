@@ -365,7 +365,8 @@ def test_sharding_guards(ref):
         M.loss_and_metrics(cfg, model, b, mesh=Mesh(None, size=2))
     mesh = Mesh(None)
     M.shard_(cfg, model, mesh)
-    assert M.tp_mesh(model) is mesh and M.sharded_params(cfg, model) == {}
+    assert model.trunk.mlp_mesh is mesh
+    assert all(model.placement.axes(n) == () for n, _ in model.named_parameters())
     for kw in ({}, dict(mesh=Mesh(None, size=2))):
         with pytest.raises(ValueError, match="run it on that mesh"):
             M.loss_and_metrics(cfg, model, b, **kw)

@@ -31,10 +31,31 @@ port) and waits for them.  Each rank:
     the same weights (each rank runs it on its own card first): the loss
     and every parameter this rank holds within 1e-5 relative (AdamW with
     eps = 1e-3, as phase 8's parity step).  Each site's forward and
-    backward ``Issued`` rows must equal the code's, and the replicated
-    parameters must be bit-equal on every rank after the steps.  It
+    backward ``Issued`` rows must equal the code's, and after the steps
+    each parameter must be bit-equal (sha256 of its bytes) on the ranks
+    that hold the same slice of it, a replicated one on every rank.  It
     prints step ms, tokens/s, peak memory and, of one more step under the
-    profiler, device ms by class (NCCL, GEMM, other) beside its wall ms.
+    profiler, device ms by class (NCCL, GEMM, other) beside its wall ms;
+  * trains the same 4-layer model with FSDP placements
+    (``models.model.shard_`` on a (data, model) mesh, every F dim split
+    over ``data``): 3 plain steps at 4x1 (B = 4), 3 ``grad_accum=2`` steps
+    at 4x1 (B = 8, so that each rank's two rows make its two microbatches)
+    and 3 plain steps at 2x2 under ``TRAIN_PLAN``, under
+    ``constraints.use_axes``.  Step 1 is held to the one-card step as
+    above; each rank must hold exactly its slices, the leaves ranks hold
+    alike must be bit-equal (sha256) after the steps, and the ``fsdp.*`` and
+    ``tp.*`` ``Issued`` rows must be the code's.  The 4x1 plain model's
+    parameters are then gathered leaf by leaf, written by rank 0 in the
+    reference's checkpoint layout and restored into every rank's slices,
+    exactly;
+  * trains llama3-8b at its full 32 layers under 4x1 (B = 4 x S = 2048,
+    fp32, remat, lr 3e-5, 3 steps): step 1's loss within 1e-5 relative of
+    a one-card ``no_grad`` forward of the same weights on the same global
+    batch (each rank on its card, before it keeps its slices), every
+    parameter moved, peak memory under 80 GB; it prints step ms (median
+    of steps 2-3), tokens/s, MFU on the fp32 peak, peak GiB and device ms
+    by class of one more step under the profiler.
+``--sections`` runs a subset of helpers, train, fsdp, deep and launcher.
 Then it runs the launcher once, under ``torch.distributed.run``
 (torchrun): ``repro_torch.launch.train --config`` (the same model, batch
 and sequence, 3 steps) ``--mesh 1x4 --tuned-plan`` a plan the port tunes
@@ -46,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -66,15 +88,22 @@ N = 4
 BOUNDS = {"ring_ag_matmul": 1e-4, "mm_reduce_scatter": 1e-3, "chunked_all_to_all": 1e-6,
           "psum_tree_chunked": 1e-6}
 TRUNK_BOUND = 1e-4
-WAIT_S = 600                      # the workers' time, after which they are stopped
+WAIT_S = 1500                     # the workers' time, after which they are stopped
 LAUNCH_WAIT_S = 300               # the launcher's
 PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer1.mlp.ag": ("ring", 4),
         "serve.layer0.mlp.ag": ("ring", 2), "serve.layer1.mlp.ag": ("ring", 4)}
 TRAIN_PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
               "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
 TRAIN = dict(layers=4, B=4, S=2048, steps=3)          # --smoke: 2 layers, S = 64
+SECTIONS = ("helpers", "train", "fsdp", "deep", "launcher")
 GATE_OPT = dict(lr=3e-4, eps=1e-3)
 GATE_REL = 1e-5
+# FSDP placements at 4 layers: (mesh, shape, mode, global batch); grad_accum=2 at
+# 4x1 takes 8 rows, so that each rank's two rows split into its two microbatches
+FSDP_RUNS = (("4x1", (4, 1), "plain", 4), ("4x1", (4, 1), "grad_accum=2", 8),
+             ("2x2", (2, 2), "plain", 4))
+DEEP = dict(layers=32, B=4, S=2048, steps=3, lr=3e-5)   # --smoke: smoke widths, 4 layers
+CARD_BYTES = 80e9
 # Issued rows a layer's sites log in one forward and backward pass with remat:
 # gate and up ring twice (forward, recompute) and once backward each; down
 # reduce-scatter twice and once backward
@@ -127,14 +156,14 @@ def device_ms_by_class(run, dev) -> dict:
     return out
 
 
-def expected_rows(cfg, passes: int, steps: int) -> dict:
+def expected_rows(cfg, passes: int, steps: int, plan=TRAIN_PLAN) -> dict:
     """``{site: {op: [chunks, ...]}}`` that ``steps`` steps of ``passes``
-    passes log: TRAIN_PLAN's chunk counts, 1 at the layers it leaves out."""
+    passes log: ``plan``'s chunk counts, 1 at the layers it leaves out."""
     out = {}
     for i in range(cfg.num_layers):
         for k, ops in ROWS_A_PASS.items():
             site = f"tp.layer{i}.mlp.{k}"
-            nc = TRAIN_PLAN.get(site, ("", 1))[1]
+            nc = plan.get(site, ("", 1))[1]
             out[site] = {op: [nc] * n * passes * steps for op, n in ops.items()}
     return out
 
@@ -142,8 +171,6 @@ def expected_rows(cfg, passes: int, steps: int) -> dict:
 def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
     """Tensor-parallel training at 1x4 and 2x2 against the one-card
     unsited steps (module docstring)."""
-    import torch.distributed as dist
-
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     from repro_torch.launch.mesh import make_mesh
@@ -180,7 +207,6 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
                           float(m["loss"]))      # on the host: the card's peak is the run's
         del model, state, step, m
         release()
-    dims = M.mlp_shard_dims(cfg)
     runs = []
     meshes = {}
     for name, shape, mode, steps in (("1x4", (1, 4), "plain", TRAIN["steps"]),
@@ -212,10 +238,7 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
                     want, want_loss = one_card[mode]
                     worst, at = 0.0, ""
                     for n, p in model.named_parameters():
-                        w = want[n].to(dev)
-                        if n in dims and mm.size > 1:
-                            f = w.shape[dims[n]] // mm.size
-                            w = w.narrow(dims[n], mm.rank * f, f)
+                        w = model.placement.local(n, want[n].to(dev))
                         rel = ((p.detach() - w).abs().max() / w.abs().max()).item()
                         if rel > worst:
                             worst, at = rel, n
@@ -229,11 +252,7 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
         b = {n: a[rows] for n, a in batches[steps].items()}
         with C.use_runtime_plan(plan):
             prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
-        marks = {n: p.detach().view(torch.int32).to(torch.int64).sum().item()
-                 for n, p in model.named_parameters() if n not in dims}
-        every = [None] * dist.get_world_size()
-        dist.all_gather_object(every, marks)
-        replicated_equal = all(e == marks for e in every)
+        replicated_equal = held_alike(model)
         step_s = statistics.median(times[1:] or times)
         row = {"mesh": name, "mode": mode, "steps": steps, "step_ms": step_s * 1e3,
                "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": B * S / step_s,
@@ -254,17 +273,416 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
     res["train"] = {"layers": cfg.num_layers, "batch": B, "seq": S, "runs": runs}
 
 
-def worker(rank: int, port: int, smoke: bool, out: str) -> int:
+def _one_card_step(cfg, mode_kw: dict, batch, dev):
+    """The unsited step 1 of a mode from seed 0 on this card: (parameters on
+    the host, loss)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as T
+
+    model = M.init_params(cfg, 0, device=dev)
+    state = adamw.init_state(dict(model.named_parameters()))
+    step = T.make_train_step(cfg, T.TrainConfig(opt=adamw.AdamWConfig(**GATE_OPT), warmup=2,
+                                                total_steps=100, **mode_kw))
+    model, state, m = step(model, state, batch, 1)
+    out = ({n: p.detach().cpu() for n, p in model.named_parameters()}, float(m["loss"]))
+    del model, state, step, m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of ``t``'s bytes, read on the host."""
+    return hashlib.sha256(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                          .cpu().numpy()).hexdigest()
+
+
+def held_alike(model) -> bool:
+    """Whether every leaf is bit-equal (its ``digest``) on the ranks that
+    hold the same slice of it (the same rank on each axis that splits it):
+    a replicated leaf on every rank."""
     import torch.distributed as dist
 
+    place = model.placement
+    marks = {n: ([place.meshes[a].rank for a in place.axes(n)], digest(p))
+             for n, p in model.named_parameters()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, marks)
+    for n in marks:
+        seen = {}
+        for e in every:
+            key, mark = tuple(e[n][0]), e[n][1]
+            if seen.setdefault(key, mark) != mark:
+                return False
+    return True
+
+
+def fsdp_rows(rows, cfg, passes: int, steps: int, per_layer: int) -> bool:
+    """Whether the ``fsdp.*`` ``Issued`` rows are the code's: a pass gathers
+    each layer's ``per_layer`` split weights twice (forward, remat's
+    recompute) and reduce-scatters them once, the embedding and the head
+    once each way."""
+    got = {}
+    for r in rows:
+        if r.site.startswith("fsdp."):
+            got.setdefault(r.site, {}).setdefault(r.op, 0)
+            got[r.site][r.op] += 1
+    n = passes * steps
+    want = {f"fsdp.layer{i}.ag_params": {"all_gather": 2 * per_layer * n,
+                                         "all_gather.bwd": per_layer * n}
+            for i in range(cfg.num_layers)}
+    want.update({f"fsdp.{k}.ag_params": {"all_gather": n, "all_gather.bwd": n}
+                 for k in ("embed", "head")})
+    return got == want
+
+
+def fsdp_section(rank: int, dev, smoke: bool, res: dict, shared: str) -> None:
+    """FSDP placements at 4 layers (``FSDP_RUNS``) against the one-card
+    steps, and a checkpoint round trip at 4x1 (module docstring)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C, constraints as CT
+    from repro_torch.train import trainer as T
+
+    cfg = (get_smoke_config if smoke else get_config)("llama3-8b").replace(
+        num_layers=2 if smoke else TRAIN["layers"])
+    S = 64 if smoke else TRAIN["S"]
+    batches = {}
+    for B in sorted({b for *_, b in FSDP_RUNS}):
+        corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                            global_batch=B))
+        batches[B] = [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()}
+                      for k in range(TRAIN["steps"] + 1)]
+    modes = {"plain": {}, "grad_accum=2": dict(grad_accum=2)}
+    one_card = {(mode, B): _one_card_step(cfg, modes[mode], batches[B][0], dev)
+                for _, _, mode, B in FSDP_RUNS}
+    runs, meshes, steps = [], {}, TRAIN["steps"]
+    for name, shape, mode, B in FSDP_RUNS:
+        if name not in meshes:
+            meshes[name] = make_mesh(shape, ("data", "model"))
+        mesh = meshes[name]
+        dm, mm = mesh["data"], mesh["model"]
+        k = B // dm.size
+        rows = slice(dm.rank * k, (dm.rank + 1) * k)
+        knobs = TRAIN_PLAN if mm.size > 1 else {}          # the plan on a model axis
+        plan = {site: C.CollectiveRuntime(*v) for site, v in knobs.items()}
+        model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mesh)
+        place = model.placement
+        state = adamw.init_state(dict(model.named_parameters()))
+        step_fn = T.make_train_step(cfg, T.TrainConfig(
+            opt=adamw.AdamWConfig(**GATE_OPT), warmup=2, total_steps=100, sited_mesh=mm,
+            data_axis=dm if dm.size > 1 else None, **modes[mode]))
+        want, want_loss = one_card[(mode, B)]
+        shapes_ok = all(list(p.shape) == list(place.local(n, want[n]).shape)
+                        and (not place.axes(n) or p.shape != want[n].shape)
+                        for n, p in model.named_parameters())
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        sizes = {"data": dm.size, "model": mm.size}
+        times, losses, gate = [], [], None
+        with C.use_runtime_plan(plan), CT.use_axes(("data",), "model", sizes=sizes, batch=B), \
+                C.record_issued() as issued:
+            for i in range(steps):
+                b = {n: a[rows] for n, a in batches[B][i].items()}
+                _sync(dev)
+                t = time.perf_counter()
+                model, state, m = step_fn(model, state, b, i + 1)
+                losses.append(float(m["loss"]))
+                _sync(dev)
+                times.append(time.perf_counter() - t)
+                if i == 0:
+                    worst, at = 0.0, ""
+                    for n, p in model.named_parameters():
+                        w = place.local(n, want[n].to(dev))
+                        rel = ((p.detach() - w).abs().max() / w.abs().max()).item()
+                        if rel > worst:
+                            worst, at = rel, n
+                    gate = {"param_rel": worst, "at": at,
+                            "loss_rel": abs(losses[0] - want_loss) / abs(want_loss)}
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        launches, launches_ok = launches_as_code(cfg, modes[mode].get("grad_accum", 1),
+                                                 steps, dev)
+        by_site = {}
+        for r in issued:
+            if r.site.startswith("tp."):
+                by_site.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
+        passes = modes[mode].get("grad_accum", 1)
+        per_layer = sum(1 for n in place.specs
+                        if n.startswith("trunk.dense_layers.0.") and "data" in place.axes(n))
+        rows_ok = (by_site == expected_rows(cfg, passes, steps, knobs)
+                   and fsdp_rows(issued, cfg, passes, steps, per_layer))
+        b = {n: a[rows] for n, a in batches[B][steps].items()}
+        with C.use_runtime_plan(plan), CT.use_axes(("data",), "model", sizes=sizes, batch=B):
+            prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
+        alike = held_alike(model)
+        step_s = statistics.median(times[1:] or times)
+        row = {"mesh": name, "mode": mode, "batch": B, "steps": steps, "step_ms": step_s * 1e3,
+               "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": B * S / step_s,
+               "peak_bytes": peak, "profiled_step_ms": prof_ms, "losses": losses,
+               "gate": gate, "issued_as_code": rows_ok, "held_alike_equal": alike,
+               "shapes_are_slices": shapes_ok, "launches": launches}
+        runs.append(row)
+        tag = f"fsdp {name} {mode}"
+        if not (gate["param_rel"] <= GATE_REL and gate["loss_rel"] <= GATE_REL):
+            res["failed"].append(f"{tag}: step 1 against one card {gate}")
+        if not rows_ok:
+            res["failed"].append(f"{tag}: issued rows differ from the code's")
+        if not launches_ok:
+            res["failed"].append(f"{tag}: kernel launches {launches}")
+        if not alike:
+            res["failed"].append(f"{tag}: leaves held alike differ between ranks")
+        if not shapes_ok:
+            res["failed"].append(f"{tag}: a rank does not hold exactly its slices")
+        if not all(map(math.isfinite, losses)):
+            res["failed"].append(f"{tag}: losses {losses}")
+        if name == "4x1" and mode == "plain":
+            res["ckpt"] = ckpt_round_trip(cfg, model, mesh, shared, res)
+        del model, state, step_fn
+        _release(dev)
+    res["fsdp"] = {"layers": cfg.num_layers, "seq": S, "runs": runs}
+
+
+def ckpt_round_trip(cfg, model, mesh, shared: str, res: dict) -> dict:
+    """The placed model's parameters gathered leaf by leaf and written by
+    rank 0 in the reference's checkpoint layout, then restored on every
+    rank into its slices: equal, exactly."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import params_from_jax, params_to_jax
+    from repro_torch.train import checkpoint
+
+    path = os.path.join(shared, "ckpt")
+    t = time.perf_counter()
+    tree = params_to_jax(cfg, model)
+    if dist.get_rank() == 0:
+        checkpoint.save(path, tree, step=TRAIN["steps"])
+    dist.barrier()
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back, step = checkpoint.restore(path, tree)
+    del tree
+    mine = params_from_jax(cfg, back, mesh)
+    del back
+    read_s = time.perf_counter() - t
+    sd = model.state_dict()
+    equal = step == TRAIN["steps"] and all(torch.equal(mine[k], v.cpu()) for k, v in sd.items())
+    del mine
+    dist.barrier()
+    if not equal:
+        res["failed"].append("checkpoint: restored slices differ from the trained ones")
+    return {"write_s": write_s, "read_s": read_s, "restored_equal": equal}
+
+
+def deep_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """llama3-8b at its full 32 layers under 4x1 (module docstring)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C, constraints as CT
+    from repro_torch.train import metrics as MET, trainer as T
+
+    cfg = (get_smoke_config if smoke else get_config)("llama3-8b").replace(
+        num_layers=4 if smoke else DEEP["layers"])
+    B, S, steps = DEEP["B"], 64 if smoke else DEEP["S"], DEEP["steps"]
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()}
+               for k in range(steps + 1)]
+    model = M.init_params(cfg, 0, device=dev)
+    t = time.perf_counter()
+    with torch.no_grad():                 # the one-card forward of the same weights
+        want = float(M.loss_and_metrics(cfg, model, batches[0], remat=False)[0])
+    forward_s = time.perf_counter() - t
+    mesh = make_mesh((N, 1), ("data", "model"))
+    dm, mm = mesh["data"], mesh["model"]
+    M.shard_(cfg, model, mesh)
+    _release(dev)
+    before = {n: p.detach().double().sum().item() for n, p in model.named_parameters()}
+    state = adamw.init_state(dict(model.named_parameters()))
+    step_fn = T.make_train_step(cfg, T.TrainConfig(
+        opt=adamw.AdamWConfig(lr=DEEP["lr"]), warmup=2, total_steps=100, sited_mesh=mm,
+        data_axis=dm))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    k = B // dm.size
+    rows = slice(dm.rank * k, (dm.rank + 1) * k)
+    times, losses = [], []
+    axes = CT.use_axes(("data",), "model", sizes={"data": dm.size, "model": mm.size}, batch=B)
+    with axes:
+        for i in range(steps):
+            b = {n: a[rows] for n, a in batches[i].items()}
+            _sync(dev)
+            t = time.perf_counter()
+            model, state, m = step_fn(model, state, b, i + 1)
+            losses.append(float(m["loss"]))
+            _sync(dev)
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        launches, launches_ok = launches_as_code(cfg, 1, steps, dev)
+        b = {n: a[rows] for n, a in batches[steps].items()}
+        with C.record_issued() as issued:
+            prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
+    still = [n for n, p in model.named_parameters()
+             if p.detach().double().sum().item() == before[n]]
+    step_s = statistics.median(times[1:] or times)
+    tokens = B * S
+    loss_rel = abs(losses[0] - want) / abs(want)
+    gathers = sum(r.collectives for r in issued if r.op == "all_gather")
+    res["deep"] = {"layers": cfg.num_layers, "batch": B, "seq": S, "lr": DEEP["lr"],
+                   "params": cfg.param_count(), "losses": losses, "one_card_loss": want,
+                   "one_card_forward_s": forward_s, "loss_rel": loss_rel,
+                   "step_ms": step_s * 1e3, "step_ms_all": [x * 1e3 for x in times],
+                   "tokens_per_s": tokens / step_s,
+                   "mfu_fp32": MET.mfu(cfg, tokens, step_s, chips=N, peak=MET.H100_FP32_PEAK),
+                   "peak_bytes": peak, "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
+                   "gathers_a_step": gathers, "not_moved": still, "launches": launches}
+    if not loss_rel <= GATE_REL:
+        res["failed"].append(f"deep: step 1 loss {losses[0]} against the one-card {want}")
+    if still:
+        res["failed"].append(f"deep: parameters that did not move: {still[:5]}")
+    if not launches_ok:
+        res["failed"].append(f"deep: kernel launches {launches}")
+    if not peak < CARD_BYTES:
+        res["failed"].append(f"deep: peak memory {peak} bytes")
+    if not all(map(math.isfinite, losses)):
+        res["failed"].append(f"deep: losses {losses}")
+    del model, state, step_fn
+    _release(dev)
+
+
+def launches_as_code(cfg, passes: int, steps: int, dev) -> tuple:
+    """(the kernels' launches since the last reset, whether they are the
+    code's for ``steps`` steps of ``passes`` passes with remat: a layer's
+    ln1, ln2 and flash forward twice (forward, recompute), ln_f once, each
+    backward once).  The CPU takes the plain versions: nothing launches."""
+    from repro_torch.kernels import ops
+
+    got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    L, n = cfg.num_layers, passes * steps
+    want = {} if dev.type != "cuda" else {
+        "rmsnorm": n * (4 * L + 1), "rmsnorm_bwd": n * (2 * L + 1),
+        "flash_attention": n * 2 * L, "flash_attention_bwd": n * L}
+    return got, got == want
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _release(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def helpers_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """The collective helpers against their oracles, timed beside their
+    parts, and the sited trunk against the unsited (module docstring)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     from repro_torch.parallel import collectives as C
 
+    mesh = make_mesh()
+    cfg = get_smoke_config("llama3-8b") if smoke else get_config("llama3-8b")
+    D, F, T = cfg.d_model, cfg.d_ff, (64 if smoke else 4096)
+    gen = torch.Generator(device=dev).manual_seed(0)     # the same on every rank
+    x = torch.randn((1, T, D), generator=gen, device=dev)
+    w = torch.randn((D, F), generator=gen, device=dev) / D ** 0.5
+    h = torch.randn((1, T, F), generator=gen, device=dev)
+    wd = torch.randn((F, D), generator=gen, device=dev) / F ** 0.5
+    tl, fl = T // N, F // N
+    xl = x[:, rank * tl:(rank + 1) * tl].contiguous()
+    wl = w[:, rank * fl:(rank + 1) * fl].contiguous()
+    hl = h[..., rank * fl:(rank + 1) * fl].contiguous()
+    wdl = wd[rank * fl:(rank + 1) * fl].contiguous()
+    leaves = {"gate": wl, "down": wdl}
+    want = {"ring_ag_matmul": C.ag_matmul_ref(x, wl),
+            "mm_reduce_scatter": C.mm_rs_ref(h, wd)[:, rank * tl:(rank + 1) * tl],
+            "chunked_all_to_all": torch.cat([t.chunk(N, 1)[rank] for t in
+                                             (x[:, j * tl:(j + 1) * tl] for j in range(N))], 0),
+            "psum_tree_chunked": {"gate": sum(w.split(fl, 1)), "down": sum(wd.split(fl, 0))}}
+    for nc in (1, 2, 4):
+        calls = {"ring_ag_matmul": lambda: C.ring_ag_matmul(xl, wl, mesh, num_chunks=nc),
+                 "mm_reduce_scatter": lambda: C.mm_reduce_scatter(hl, wdl, mesh,
+                                                                  num_chunks=nc),
+                 "chunked_all_to_all": lambda: C.chunked_all_to_all(
+                     xl, mesh, split_axis=1, concat_axis=0, num_chunks=nc),
+                 "psum_tree_chunked": lambda: C.psum_tree_chunked(leaves, mesh,
+                                                                  num_chunks=nc)}
+        for name, fn in calls.items():
+            y = fn()
+            if isinstance(y, dict):
+                err = max((y[k] - want[name][k]).abs().max().item() for k in y)
+            else:
+                err = (y - want[name]).abs().max().item()
+            row = {"helper": name, "num_chunks": nc, "max_abs_err": err,
+                   "ms": timed(fn, dev)}
+            res["helpers"].append(row)
+            if not err <= BOUNDS[name]:
+                res["failed"].append(f"{name} x{nc}: err {err}")
+    res["parts_ms"] = {
+        "product of the whole sequence": timed(lambda: x @ wl, dev),
+        "all-gather alone": timed(lambda: C.all_gather_rows(xl, mesh), dev),
+        "all-gather, then product": timed(lambda: C.all_gather_rows(xl, mesh) @ wl, dev),
+        "product (down)": timed(lambda: hl @ wdl, dev),
+        "product, then one reduce-scatter": timed(
+            lambda: C.mm_reduce_scatter(hl, wdl, mesh, num_chunks=1), dev)}
+    del x, w, h, wd, xl, wl, hl, wdl, leaves, want
+
+    cfg2 = cfg.replace(num_layers=2)
+    model = M.init_params(cfg2, 0, device=dev)
+    g = torch.Generator().manual_seed(1)
+    B, S = (4, 16) if smoke else (8, 512)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(dev)
+    nxt = torch.randint(0, cfg.vocab_size, (B, 2), generator=g).to(dev)
+    plan = {k: C.CollectiveRuntime(*v) for k, v in PLAN.items()}
+
+    def served(m):
+        caches = M.init_caches(cfg2, B, S + 4, device=dev)
+        caches = M.forward_hidden(cfg2, model, {"tokens": toks}, caches, mesh=m)[1]
+        cur, outs = toks[:, -1:], []
+        for j in range(2):
+            logits, caches = M.decode_step(cfg2, model, cur, caches, mesh=m)
+            outs.append(logits[:, -1])
+            cur = nxt[:, j:j + 1]
+        return torch.stack(outs, 1)
+
+    with torch.inference_mode(), C.use_runtime_plan(plan), C.record_issued() as rows:
+        tp = M._unembed(cfg2, model, M.forward_hidden(cfg2, model, {"tokens": toks},
+                                                      mesh=mesh)[0])
+        tp_plain = M._unembed(cfg2, model, M.forward_hidden(cfg2, model,
+                                                            {"tokens": toks})[0])
+        sv, sv_plain = served(mesh), served(None)
+    res["trunk"] = {"tp_logits_err": (tp - tp_plain).abs().max().item(),
+                    "serve_logits_err": (sv - sv_plain).abs().max().item(),
+                    "issued": sorted({(r.site, r.op, r.num_chunks, r.collectives)
+                                      for r in rows})}
+    for key in ("tp_logits_err", "serve_logits_err"):
+        if not res["trunk"][key] <= TRUNK_BOUND:
+            res["failed"].append(f"trunk {key} {res['trunk'][key]}")
+    del model, tp, tp_plain, sv, sv_plain
+    if not smoke:
+        torch.cuda.empty_cache()
+
+
+def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> int:
+    import torch.distributed as dist
+
     faulthandler.dump_traceback_later(WAIT_S - 60, exit=True)   # a hang shows its stack
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cpu") if smoke else torch.device("cuda", rank)
+    if smoke:       # four processes share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or N) // N))
     kw = {}
     if not smoke:
         # NCCL's batch_isend_irecv (the ring) and the port's kernels use the
@@ -272,91 +690,17 @@ def worker(rank: int, port: int, smoke: bool, out: str) -> int:
         torch.cuda.set_device(dev)
         kw = dict(device_id=dev)
     dist.init_process_group("gloo" if smoke else "nccl", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=N, timeout=timedelta(seconds=180), **kw)
+                            rank=rank, world_size=N, timeout=timedelta(seconds=600), **kw)
     res = {"rank": rank, "helpers": [], "failed": []}
     try:
-        mesh = make_mesh()
-        cfg = get_smoke_config("llama3-8b") if smoke else get_config("llama3-8b")
-        D, F, T = cfg.d_model, cfg.d_ff, (64 if smoke else 4096)
-        gen = torch.Generator(device=dev).manual_seed(0)     # the same on every rank
-        x = torch.randn((1, T, D), generator=gen, device=dev)
-        w = torch.randn((D, F), generator=gen, device=dev) / D ** 0.5
-        h = torch.randn((1, T, F), generator=gen, device=dev)
-        wd = torch.randn((F, D), generator=gen, device=dev) / F ** 0.5
-        tl, fl = T // N, F // N
-        xl = x[:, rank * tl:(rank + 1) * tl].contiguous()
-        wl = w[:, rank * fl:(rank + 1) * fl].contiguous()
-        hl = h[..., rank * fl:(rank + 1) * fl].contiguous()
-        wdl = wd[rank * fl:(rank + 1) * fl].contiguous()
-        leaves = {"gate": wl, "down": wdl}
-        want = {"ring_ag_matmul": C.ag_matmul_ref(x, wl),
-                "mm_reduce_scatter": C.mm_rs_ref(h, wd)[:, rank * tl:(rank + 1) * tl],
-                "chunked_all_to_all": torch.cat([t.chunk(N, 1)[rank] for t in
-                                                 (x[:, j * tl:(j + 1) * tl] for j in range(N))], 0),
-                "psum_tree_chunked": {"gate": sum(w.split(fl, 1)), "down": sum(wd.split(fl, 0))}}
-        for nc in (1, 2, 4):
-            calls = {"ring_ag_matmul": lambda: C.ring_ag_matmul(xl, wl, mesh, num_chunks=nc),
-                     "mm_reduce_scatter": lambda: C.mm_reduce_scatter(hl, wdl, mesh,
-                                                                      num_chunks=nc),
-                     "chunked_all_to_all": lambda: C.chunked_all_to_all(
-                         xl, mesh, split_axis=1, concat_axis=0, num_chunks=nc),
-                     "psum_tree_chunked": lambda: C.psum_tree_chunked(leaves, mesh,
-                                                                      num_chunks=nc)}
-            for name, fn in calls.items():
-                y = fn()
-                if isinstance(y, dict):
-                    err = max((y[k] - want[name][k]).abs().max().item() for k in y)
-                else:
-                    err = (y - want[name]).abs().max().item()
-                row = {"helper": name, "num_chunks": nc, "max_abs_err": err,
-                       "ms": timed(fn, dev)}
-                res["helpers"].append(row)
-                if not err <= BOUNDS[name]:
-                    res["failed"].append(f"{name} x{nc}: err {err}")
-        res["parts_ms"] = {
-            "product of the whole sequence": timed(lambda: x @ wl, dev),
-            "all-gather alone": timed(lambda: C.all_gather_rows(xl, mesh), dev),
-            "all-gather, then product": timed(lambda: C.all_gather_rows(xl, mesh) @ wl, dev),
-            "product (down)": timed(lambda: hl @ wdl, dev),
-            "product, then one reduce-scatter": timed(
-                lambda: C.mm_reduce_scatter(hl, wdl, mesh, num_chunks=1), dev)}
-        del x, w, h, wd, xl, wl, hl, wdl, leaves, want
-
-        cfg2 = cfg.replace(num_layers=2)
-        model = M.init_params(cfg2, 0, device=dev)
-        g = torch.Generator().manual_seed(1)
-        B, S = (4, 16) if smoke else (8, 512)
-        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(dev)
-        nxt = torch.randint(0, cfg.vocab_size, (B, 2), generator=g).to(dev)
-        plan = {k: C.CollectiveRuntime(*v) for k, v in PLAN.items()}
-
-        def served(m):
-            caches = M.init_caches(cfg2, B, S + 4, device=dev)
-            caches = M.forward_hidden(cfg2, model, {"tokens": toks}, caches, mesh=m)[1]
-            cur, outs = toks[:, -1:], []
-            for j in range(2):
-                logits, caches = M.decode_step(cfg2, model, cur, caches, mesh=m)
-                outs.append(logits[:, -1])
-                cur = nxt[:, j:j + 1]
-            return torch.stack(outs, 1)
-
-        with torch.inference_mode(), C.use_runtime_plan(plan), C.record_issued() as rows:
-            tp = M._unembed(cfg2, model, M.forward_hidden(cfg2, model, {"tokens": toks},
-                                                          mesh=mesh)[0])
-            tp_plain = M._unembed(cfg2, model, M.forward_hidden(cfg2, model,
-                                                                {"tokens": toks})[0])
-            sv, sv_plain = served(mesh), served(None)
-        res["trunk"] = {"tp_logits_err": (tp - tp_plain).abs().max().item(),
-                        "serve_logits_err": (sv - sv_plain).abs().max().item(),
-                        "issued": sorted({(r.site, r.op, r.num_chunks, r.collectives)
-                                          for r in rows})}
-        for key in ("tp_logits_err", "serve_logits_err"):
-            if not res["trunk"][key] <= TRUNK_BOUND:
-                res["failed"].append(f"trunk {key} {res['trunk'][key]}")
-        del model, tp, tp_plain, sv, sv_plain
-        if not smoke:
-            torch.cuda.empty_cache()
-        train_section(rank, dev, smoke, res)
+        if "helpers" in sections:
+            helpers_section(rank, dev, smoke, res)
+        if "train" in sections:
+            train_section(rank, dev, smoke, res)
+        if "fsdp" in sections:
+            fsdp_section(rank, dev, smoke, res, os.path.dirname(out))
+        if "deep" in sections:
+            deep_section(rank, dev, smoke, res)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
@@ -416,9 +760,14 @@ def main() -> int:
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--out", default="")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help=f"comma-separated, of {SECTIONS} (default: all)")
     args = ap.parse_args()
+    sections = tuple(args.sections.split(","))
+    if not set(sections) <= set(SECTIONS):
+        ap.error(f"--sections: unknown {sorted(set(sections) - set(SECTIONS))}")
     if args.rank is not None:
-        return worker(args.rank, args.port, args.smoke, args.out)
+        return worker(args.rank, args.port, args.smoke, args.out, sections)
     if not args.smoke and torch.cuda.device_count() < N:
         print(f"four_rank_check: needs {N} cards, found {torch.cuda.device_count()}",
               file=sys.stderr)
@@ -437,7 +786,8 @@ def main() -> int:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(N)]
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(N)]
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
-                                   "--port", str(port), "--out", outs[r]]
+                                   "--port", str(port), "--out", outs[r],
+                                   "--sections", args.sections]
                                   + (["--smoke"] if args.smoke else []),
                                   stdout=logs[r], stderr=subprocess.STDOUT)
                  for r in range(N)]
@@ -463,11 +813,12 @@ def main() -> int:
         for o in outs:
             with open(o) as f:
                 ranks.append(json.load(f))
-        launcher = run_launcher(args.smoke, tmp)
+        launcher = run_launcher(args.smoke, tmp) if "launcher" in sections else None
     print(json.dumps({"cards": card, "ranks": ranks, "launcher": launcher}))
     failed = [f for r in ranks for f in r["failed"]]
-    if launcher["rc"] != 0 or not any(line.startswith(f"step {TRAIN['steps'] - 1:4d} loss")
-                                      for line in launcher["last_lines"]):
+    if launcher is not None and (launcher["rc"] != 0 or not any(
+            line.startswith(f"step {TRAIN['steps'] - 1:4d} loss")
+            for line in launcher["last_lines"])):
         failed.append(f"launcher: exit code {launcher['rc']}")
     if failed:
         print(f"four_rank_check: failed {failed}", file=sys.stderr)
