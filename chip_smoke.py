@@ -111,12 +111,33 @@ Phases, each of which exits non-zero on a failed check:
      backward through the collectives' backwards beside the unsited one
      from the same weights (B = 1, S = 2048): the loss and every gradient
      within 1e-5 (of max|g|).
+  10. the MoE family: the kernels at the path's new shapes against their
+     plain versions (RMSNorm over qk_norm's rows of head_dim 128, forward
+     and backward; flash attention at a GQA group of 1, Hq = Hkv = 16,
+     h = 128, forward timed, backward against autograd in fp64);
+     ``olmoe-1b-7b`` served at full width and all 16 layers with phase
+     4's prompts, as phase 4 serves (launches equal to the code's; the
+     profile gives the MoE dispatch and combine a class of their own);
+     then on the 1-rank NCCL group under plan (a), the port's tune of its
+     ep:8 decode workload for h100-sxm, and plan (b), which chunks layer
+     0's and layer 1's dispatch by 2 and 4, beside the unplanned engine in
+     turns: teacher-forced logits within 1e-4, each
+     ``serve.layer{i}.moe.a2a_*`` site's ``Issued`` rows at its plan's
+     chunk count; slice parity of olmoe-1b-7b at 2 layers and
+     ``deepseek-moe-16b`` at 4 (full width) against ``backend="ref"``
+     within 1e-3, the plain run replaying the kernels' routing
+     (``layers.record_routing``: two candidate experts' probabilities can
+     differ by less than the runs' rounding; the choices the plain run
+     makes differently on its own are printed); one training step of
+     olmoe-1b-7b at 2 layers (B = 1, S = 512) against ``backend="ref"``
+     and the sited trunk under a plan of 1, 2 and 4 chunks, phase 8's
+     parity bounds.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
-Phases 7 to 9 share one 1-rank NCCL group from a ``FileStore``.  Then it
+Phases 7 to 10 share one 1-rank NCCL group from a ``FileStore``.  Then it
 prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
-``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"kernels":
-[...]}`` line and, last, the device line.
+``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"moe": ...}``
+line, one ``{"kernels": [...]}`` line and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -1095,8 +1116,9 @@ def expected_launches(cfg) -> dict:
     """Each kernel's launches for one served batch (a prefill and MAX_NEW
     decode steps), counted from the model code."""
     fwd, L = 1 + MAX_NEW, cfg.num_layers
-    if cfg.family == "dense":      # ln1, ln2 per layer and ln_f; flash at prefill
-        return dict(NO_LAUNCHES, rmsnorm=(2 * L + 1) * fwd, flash_attention=L)
+    if cfg.family in ("dense", "moe"):   # ln1, ln2 (and qk_norm's two) per layer and
+        norms = 4 if cfg.qk_norm else 2  # ln_f; flash at prefill
+        return dict(NO_LAUNCHES, rmsnorm=(norms * L + 1) * fwd, flash_attention=L)
     if cfg.family == "hybrid":     # ln and the gated inner norm per Mamba2 layer,
         groups = L // cfg.shared_attn_every    # ln1 and ln2 per shared-block application
         return dict(NO_LAUNCHES, rmsnorm=(2 * L + 2 * groups + 1) * fwd,
@@ -1110,17 +1132,18 @@ def check_outputs(outs, vocab: int, what: str) -> None:
     check(all(0 <= t < vocab for o in outs for t in o), f"{what}: token out of range")
 
 
-def device_ms_by_kernel(run) -> dict:
+def device_ms_by_kernel(run, extra=None) -> dict:
     """Device time of the kernels one call of ``run`` launches, by class, in
     ms, from a torch.profiler trace (kernels on one stream do not overlap,
-    so the sum is the time the card was busy)."""
+    so the sum is the time the card was busy).  ``extra`` maps more
+    classes to name fragments, looked up after the kernels' own."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     out = {"gemm": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0, "ssd": 0.0, "wkv6": 0.0,
-           "other": 0.0}
+           **{k: 0.0 for k in (extra or {})}, "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1129,18 +1152,20 @@ def device_ms_by_kernel(run) -> dict:
                 "rmsnorm" if "rmsnorm_kernel" in name else
                 "ssd" if ("ssd_fwd_kernel" in name or "ssd_step_kernel" in name) else
                 "wkv6" if ("wkv6_fwd_kernel" in name or "wkv6_step_kernel" in name) else
-                "gemm" if ("gemm" in name or "gemv" in name) else "other")
+                "gemm" if ("gemm" in name or "gemv" in name) else
+                next((k for k, frags in (extra or {}).items()
+                      if any(f in name for f in frags)), "other"))
         out[kind] += ev.self_device_time_total / 1e3
     return out
 
 
-def breakdown_phase(engine, prompts, tag: str) -> None:
+def breakdown_phase(engine, prompts, tag: str, extra=None) -> dict:
     """Where the time of a served batch goes: the prefill with one decode
     step, and four more decode steps (the difference of two profiled runs),
     device time by kernel class beside the host's wall time."""
     runs = {}
     for n in (1, 5):
-        dev = device_ms_by_kernel(lambda: engine.generate(prompts, max_new=n))
+        dev = device_ms_by_kernel(lambda: engine.generate(prompts, max_new=n), extra)
         runs[n] = (dev, engine.last_timing)
     dev1, t1 = runs[1]
     dev5, t5 = runs[5]
@@ -1154,6 +1179,7 @@ def breakdown_phase(engine, prompts, tag: str) -> None:
             continue
         say(f"profile {tag} {span}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
             f"({busy / wall:.1%}); " + ", ".join(f"{k} {v:.1f} ms" for k, v in dev.items()))
+    return {span: {"wall_ms": wall, "device_ms": dev} for span, (dev, wall) in spans.items()}
 
 
 def init_model(cfg):
@@ -1171,7 +1197,7 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
-def serving_phase(cfg, model, init_s: float, prompts) -> dict:
+def serving_phase(cfg, model, init_s: float, prompts, extra=None) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     engine = make_engine(cfg, model, mode="fixed", batch_size=BATCH, max_seq=MAX_SEQ)
     engine.generate(prompts, max_new=2)          # warm-up: cuBLAS handles, allocator
@@ -1203,11 +1229,12 @@ def serving_phase(cfg, model, init_s: float, prompts) -> dict:
     check(bool(torch.isfinite(forced).all()), f"{tag}: non-finite logits")
     check(forced.argmax(-1).tolist() == outs,
           f"{tag}: greedy tokens are not the argmax of their teacher-forced logits")
-    breakdown_phase(engine, prompts, tag)
+    profile = breakdown_phase(engine, prompts, tag, extra)
     del engine, forced
     free()
     return {"arch": cfg.name, "launches": launches, "prefill_ms": prefill_ms,
-            "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak}
+            "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak,
+            "profile": profile}
 
 
 def slice_parity_phase(cfg, prompts) -> None:
@@ -1570,12 +1597,13 @@ PARITY_OPT = dict(lr=3e-4, eps=1e-3)
 
 def expected_train_launches(cfg, passes: int) -> dict:
     """Each kernel's launches in one train step of ``passes`` forward and
-    backward passes with per-layer remat: a layer's ln1, ln2 and flash run
-    in the forward and again in its recompute, ln_f once; each backward
-    pass runs each once."""
-    L = cfg.num_layers
-    return dict(NO_LAUNCHES, rmsnorm=passes * (4 * L + 1), rmsnorm_bwd=passes * (2 * L + 1),
-                flash_attention=passes * 2 * L, flash_attention_bwd=passes * L)
+    backward passes with per-layer remat: a layer's ln1, ln2 (and qk_norm's
+    two) and flash run in the forward and again in its recompute, ln_f
+    once; each backward pass runs each once."""
+    L, n = cfg.num_layers, (4 if cfg.qk_norm else 2)
+    return dict(NO_LAUNCHES, rmsnorm=passes * (2 * n * L + 1),
+                rmsnorm_bwd=passes * (n * L + 1), flash_attention=passes * 2 * L,
+                flash_attention_bwd=passes * L)
 
 
 def train_ms_by_class(run) -> dict:
@@ -1995,6 +2023,280 @@ def launch_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family (olmoe-1b-7b at full size, plain and plan-bound on
+# the 1-rank NCCL group; slice parity; one training step)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_PARITY_LAYERS = {"olmoe-1b-7b": 2, "deepseek-moe-16b": 4}
+MOE_PLAN_PARALLEL = "ep:8"
+# plan (b): layer 0 and layer 1 chunk their dispatch differently
+MOE_PLAN_B = {"serve.layer0.moe.a2a_disp": ("chunked", 2),
+              "serve.layer1.moe.a2a_disp": ("chunked", 4)}
+# the parity step's plan on the sited trunk: 1, 2 and 4 chunks
+MOE_TRAIN_PLAN = {"ep.layer0.moe.a2a_disp": ("chunked", 2),
+                  "ep.layer0.moe.a2a_comb": ("chunked", 4)}
+# the MoE dispatch and combine by kernel name: the router's top-k (a sort),
+# the positions (one-hot, cumsum, gather), the scatter into the capacity
+# buffers (repeat, index_add) and the combine (index_select)
+MOE_DISPATCH = {"moe_dispatch": ("index", "scatter", "gather", "sort", "scan", "repeat",
+                                 "one_hot")}
+
+
+def moe_kernels_phase(gen) -> dict:
+    """The kernels at the MoE path's new shapes, each against its plain
+    version: RMSNorm over qk_norm's rows of head_dim 128 (olmoe's prefill:
+    8 x 512 tokens x 16 heads), forward and backward; flash attention at a
+    GQA group of 1 (Hq = Hkv = 16, h = 128), forward at the prefill shape
+    (timed) and backward at the parity step's (B = 1, S = 512) against
+    autograd of the plain version in fp64."""
+    rows, h = BATCH * PROMPT_LENS[1] * 16, 128
+    x, dy = randn((rows, h), torch.float32, gen), randn((rows, h), torch.float32, gen)
+    scale = torch.linspace(0.5, 1.5, h, device="cuda")
+    y = ops.rmsnorm(x, scale, backend="cuda")
+    err = (y - ref.rmsnorm_ref(x, scale)).abs().max().item()
+    got = grads_of(lambda a, b: ops.rmsnorm(a, b, backend="cuda"), (x, scale), dy)
+    want = grads_of(ref.rmsnorm_ref, (x.double(), scale.double()), dy.double())
+    gerr = max((g.double() - w).abs().max().item() / w.abs().max().item()
+               for g, w in zip(got, want))
+    say(f"moe kernels: rmsnorm ({rows}, {h}) fp32 (qk_norm's rows): max abs err {err:.3e} "
+        f"(bound {RMS_BOUND_F32}); backward {gerr:.3e} of max|g| (bound {RMS_GRAD_BOUND})")
+    check(err <= RMS_BOUND_F32, f"moe kernels: rmsnorm at D=128 err {err}")
+    check(gerr <= RMS_GRAD_BOUND, f"moe kernels: rmsnorm backward at D=128 err {gerr}")
+    fwd = flash_timed(gen, BATCH, PROMPT_LENS[1], 16, 16, 128)
+    q, do = randn((1, 512, 16, h), torch.float32, gen), randn((1, 512, 16, h), torch.float32, gen)
+    k, v = randn((1, 512, 16, h), torch.float32, gen), randn((1, 512, 16, h), torch.float32, gen)
+    got = grads_of(lambda *a: ops.flash_attention(*a, causal=True, backend="cuda"),
+                   (q, k, v), do)
+    want = grads_of(lambda *a: ref.flash_attention_ref(*a, causal=True),
+                    (q.double(), k.double(), v.double()), do.double())
+    gmax = max(w.abs().max().item() for w in want)
+    ferr = max((g.double() - w).abs().max().item() for g, w in zip(got, want)) / gmax
+    say(f"moe kernels: flash backward B=1 S=512 Hq=16 Hkv=16 h=128 causal fp32: "
+        f"{ferr:.3e} of max|g| (bound {FLASH_GRAD_BOUND}) against autograd of the plain "
+        f"version in fp64")
+    check(ferr <= FLASH_GRAD_BOUND, f"moe kernels: flash backward at group 1 err {ferr}")
+    del x, dy, y, got, want, q, k, v, do
+    free()
+    return {"rmsnorm_d128": {"max_abs_err": err, "grad_err_of_max_g": gerr},
+            "flash_group1": {"forward": fwd, "grad_err_of_max_g": ferr}}
+
+
+def moe_plan_phase(cfg, model, prompts, card: str, mesh) -> dict:
+    """olmoe-1b-7b at full size on the 1-rank NCCL mesh under plan (a), tuned
+    by the port for its ep:8 decode workload on h100-sxm, and plan (b)
+    (``MOE_PLAN_B``), beside the unplanned engine, in turns: times, the
+    teacher-forced logits' difference, and the ``serve.layer{i}.moe.a2a_*``
+    rows, each at its plan's chunk count."""
+    wl = extract_decode_workload(cfg, parse_parallel(MOE_PLAN_PARALLEL), global_batch=BATCH,
+                                 seq=MAX_SEQ)
+    t0 = time.perf_counter()
+    tuned = tune(wl, "h100-sxm", method="lagom")
+    tune_s = time.perf_counter() - t0
+    plans = {"a": tuned,
+             "b": {k: collectives.CollectiveRuntime(*v) for k, v in MOE_PLAN_B.items()}}
+    engines = {"none": make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ)}
+    for name, plan in plans.items():
+        engines[name] = make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ,
+                                    plan=plan, mesh=mesh)
+    for e in engines.values():
+        e.generate(prompts, max_new=2)          # warm-up
+    times = {name: [] for name in engines}
+    record = {}
+    for name in ("none", "a", "b", "b", "a", "none"):
+        collectives.reset_degraded_warnings()
+        ops.reset_launches()
+        with warnings.catch_warnings(record=True) as ws, \
+                collectives.record_issued() as issued:
+            warnings.simplefilter("always")
+            outs = engines[name].generate(prompts, max_new=MAX_NEW)
+        t = engines[name].last_timing
+        times[name].append((t["prefill_s"] * 1e3, statistics.median(t["decode_s"]) * 1e3))
+        if name not in record:
+            record[name] = {"outs": outs, "launches": dict(ops.LAUNCHES), "rows": issued,
+                            "degraded": sum(issubclass(w.category,
+                                                       collectives.CollectiveDegradedWarning)
+                                            for w in ws)}
+    base = record["none"]["outs"]
+    check_outputs(base, cfg.vocab_size, "moe plan serving, unplanned")
+    forced = {name: e.teacher_forced_logits(prompts, base) for name, e in engines.items()}
+    want_launches = expected_launches(cfg)
+    out = {"parallel": MOE_PLAN_PARALLEL, "tune_s": tune_s, "plans": {}, "card": card}
+    for name, plan in plans.items():
+        r = record[name]
+        with collectives.use_runtime_plan(plan.runtime_plan() if name == "a" else plan):
+            knobs = {f"serve.layer{i}.moe.{k}": collectives.runtime_for(
+                f"serve.layer{i}.moe.{k}", "a2a").num_chunks
+                for i in range(cfg.num_layers) for k in ("a2a_disp", "a2a_comb")}
+        by_site = issued_by_site(r["rows"])
+        want_rows = {s: {"all_to_all": [nc] * (1 + MAX_NEW)} for s, nc in knobs.items()}
+        err = (forced[name] - forced["none"]).abs().max().item()
+        say(f"moe plan serving: plan ({name}): prefill {times[name][0][0]:.1f} / "
+            f"{times[name][1][0]:.1f} ms, decode {times[name][0][1]:.2f} / "
+            f"{times[name][1][1]:.2f} ms/token (unplanned {times['none'][0][0]:.1f} / "
+            f"{times['none'][1][0]:.1f}, {times['none'][0][1]:.2f} / "
+            f"{times['none'][1][1]:.2f}); teacher-forced logits max abs diff from unplanned "
+            f"{err:.3e} (bound {PLAN_SERVE_BOUND}); tokens equal: {r['outs'] == base}; "
+            f"CollectiveDegradedWarnings {r['degraded']}; launches {r['launches']}; "
+            f"chunks by site of layers 0-1 "
+            f"{ {s: v for s, v in knobs.items() if s.startswith(('serve.layer0.', 'serve.layer1.'))} } "
+            f"({card})")
+        check(err <= PLAN_SERVE_BOUND, f"moe plan ({name}): logits differ by {err}")
+        check(r["launches"] == want_launches,
+              f"moe plan ({name}): launches {r['launches']}, expected {want_launches}")
+        check(by_site == want_rows, f"moe plan ({name}): issued {by_site}, expected "
+                                    f"{want_rows}")
+        out["plans"][name] = {"prefill_ms": [p for p, _ in times[name]],
+                              "decode_ms": [d for _, d in times[name]],
+                              "max_abs_logit_diff": err, "tokens_equal": r["outs"] == base,
+                              "degraded_warnings": r["degraded"], "launches": r["launches"],
+                              "chunks": knobs, "issued": issued_summary(r["rows"])}
+    out["unplanned"] = {"prefill_ms": [p for p, _ in times["none"]],
+                        "decode_ms": [d for _, d in times["none"]]}
+    check(out["plans"]["b"]["chunks"]["serve.layer0.moe.a2a_disp"] == 2
+          and out["plans"]["b"]["chunks"]["serve.layer1.moe.a2a_disp"] == 4,
+          "moe plan (b) did not chunk layers 0 and 1 as it says")
+    del engines, forced
+    free()
+    return out
+
+
+def moe_slice_parity(cfg, prompts) -> dict:
+    """A cut-depth MoE model at full width through the kernels and through
+    ``backend="ref"``: teacher-forced logits within 1e-3, the plain run
+    replaying the kernels' routing (``layers.record_routing``), as the
+    tokens are forced; how many (token, slot) choices the plain run makes
+    differently on its own is printed beside it."""
+    from repro_torch.models import layers as L
+
+    cfg2 = cfg.replace(num_layers=MOE_PARITY_LAYERS[cfg.name])
+    model = M.init_params(cfg2, SEED + 1, device="cuda")
+    kern = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ)
+    plain = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ, backend="ref")
+    outs = kern.generate(prompts, max_new=MAX_NEW)
+    check_outputs(outs, cfg.vocab_size, "moe slice parity")
+    with L.record_routing() as routing:
+        lk = kern.teacher_forced_logits(prompts, outs)
+    ops.reset_launches()
+    with L.record_routing(replay=routing):
+        lr = plain.teacher_forced_logits(prompts, outs)
+    check(ops.LAUNCHES == NO_LAUNCHES, "moe slice parity: backend='ref' launched a kernel")
+    with L.record_routing() as own:
+        plain.teacher_forced_logits(prompts, outs)
+    choices = sum(t.numel() for c in routing.calls.values() for t in c)
+    differ = sum(int((a != b).sum()) for site, c in routing.calls.items()
+                 for a, b in zip(c, own.calls[site]))
+    err = (lk - lr).abs().max().item()
+    say(f"moe slice parity {cfg.name} ({cfg2.num_layers} layers, full width): teacher-forced "
+        f"logits max abs err {err:.3e} (bound {SLICE_LOGITS_BOUND}), the plain run on the "
+        f"kernels' routing; on its own routing the plain run chose {differ} of {choices} "
+        f"(token, slot) experts differently")
+    check(bool(torch.isfinite(lk).all()), "moe slice parity: non-finite logits")
+    check(err <= SLICE_LOGITS_BOUND, f"moe slice parity: logits err {err}")
+    del kern, plain, model, lk, lr, routing, own
+    free()
+    return {"arch": cfg.name, "layers": cfg2.num_layers, "max_abs_err": err,
+            "routing_choices": choices, "routing_differs_unforced": differ}
+
+
+def moe_train_parity(card: str, mesh) -> dict:
+    """One train step of olmoe-1b-7b at full width and 2 layers (B = 1,
+    S = 512) through the kernels, then through ``backend="ref"`` and through
+    the sited trunk on the 1-rank NCCL mesh under ``MOE_TRAIN_PLAN``, both
+    replaying the kernels' routing; each held to the first with phase 8's
+    parity bounds (aux with the loss's).  The kernels' launches must be the
+    code's; the sited step's dispatch and combine rows its plan's."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as T
+
+    P = PARITY_TRAIN
+    cfg = get_config(MOE_ARCH).replace(num_layers=P["layers"])
+    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=P["S"],
+                                       global_batch=P["B"], seed=SEED + 3)).batch(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    plan = {k: collectives.CollectiveRuntime(*v) for k, v in MOE_TRAIN_PLAN.items()}
+
+    def one_step(routing, backend=None, sited=False):
+        model = M.init_params(cfg, SEED + 2, device="cuda")
+        state = adamw.init_state(dict(model.named_parameters()))
+        step_fn = T.make_train_step(cfg, T.TrainConfig(
+            opt=adamw.AdamWConfig(**PARITY_OPT), warmup=2, total_steps=100, backend=backend,
+            sited_mesh=mesh if sited else None))
+        ops.reset_launches()
+        with collectives.use_runtime_plan(plan if sited else {}), \
+                collectives.record_issued() as issued, L.record_routing(routing) as rec:
+            model, state, m = step_fn(model, state, batch, 1)
+        torch.cuda.synchronize()
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        return (params, state["mu"], {k: float(m[k]) for k in ("loss", "aux", "grad_norm")},
+                dict(ops.LAUNCHES), list(issued), rec)
+
+    params, mu, met, launches, issued, routing = one_step(None)
+    want = expected_train_launches(cfg, 1)
+    check(all(np.isfinite(list(met.values()))), "moe train parity: non-finite loss")
+    check(launches == want, f"moe train parity: launches {launches}, expected {want}")
+    out = {"arch": cfg.name, "layers": P["layers"], "B": P["B"], "S": P["S"], **met,
+           "launches": launches}
+    for name, kw in (("ref", dict(backend="ref")), ("sited", dict(sited=True))):
+        p2, mu2, met2, launches2, issued2, _ = one_step(routing, **kw)
+        if name == "ref":
+            check(launches2 == NO_LAUNCHES, "moe train parity: backend='ref' launched a kernel")
+        else:
+            check(launches2 == launches, f"moe train parity: the sited step launched "
+                                         f"{launches2}, the unsited one {launches}")
+            want_rows = {f"ep.layer{j}.moe.{k}": {
+                "all_to_all": [MOE_TRAIN_PLAN.get(f"ep.layer{j}.moe.{k}", ("", 1))[1]] * 2,
+                "all_to_all.bwd": [MOE_TRAIN_PLAN.get(f"ep.layer{j}.moe.{k}", ("", 1))[1]]}
+                for j in range(cfg.num_layers) for k in ("a2a_disp", "a2a_comb")}
+            check(issued_by_site(issued2) == want_rows,
+                  f"moe train parity: sited rows {issued_by_site(issued2)}, expected {want_rows}")
+        err = max((p - p2[n]).abs().max().item() for n, p in params.items())
+        mu_err, mu_at = max(
+            (((m - mu2[n]).abs().max() / m.abs().max().clamp_min(1e-30)).item(), n)
+            for n, m in mu.items())
+        rel = {k: abs(met2[k] - met[k]) / abs(met[k]) for k in met}
+        say(f"moe train parity, kernels against {name} ({P['layers']} layers, full width, "
+            f"B={P['B']}, S={P['S']}, routing replayed): updated parameters max abs diff "
+            f"{err:.3e} (bound {P['bound']}); mu {mu_err:.3e} of its max, at {mu_at} (bound "
+            f"{P['mu_bound']}); loss, aux, grad_norm {met} / {met2}, relative {rel} (bound "
+            f"{P['rel_bound']})" + (f"; issued {issued_by_site(issued2)}" if issued2 else "")
+            + f" ({card})")
+        check(err <= P["bound"], f"moe train parity {name}: parameters differ by {err}")
+        check(mu_err <= P["mu_bound"], f"moe train parity {name}: mu differs by {mu_err}")
+        check(all(r <= P["rel_bound"] for r in rel.values()),
+              f"moe train parity {name}: {rel}")
+        out[name] = {"max_abs_param_diff": err, "mu_err_of_max": mu_err, **met2, "rel": rel}
+        del p2, mu2
+        free()
+    del params, mu
+    free()
+    return out
+
+
+def moe_phase(card: str, mesh) -> dict:
+    """Phase 10: olmoe-1b-7b served at full width and all 16 layers with
+    phase 4's prompts (launches, a profile with the dispatch and combine as
+    a class of their own), then plan-bound on the 1-rank NCCL mesh; the
+    kernels at the path's new shapes; slice parity of olmoe-1b-7b at 2
+    layers and deepseek-moe-16b at 4; one training step at 2 layers."""
+    kernels = moe_kernels_phase(torch.Generator(device="cuda").manual_seed(SEED + 7))
+    cfg = get_config(MOE_ARCH)
+    prompts = make_prompts(cfg)
+    model, init_s = init_model(cfg)
+    served = serving_phase(cfg, model, init_s, prompts, extra=MOE_DISPATCH)
+    planned = moe_plan_phase(cfg, model, prompts, card, mesh)
+    del model
+    free()
+    parity = [moe_slice_parity(get_config(arch), make_prompts(get_config(arch)))
+              for arch in MOE_PARITY_LAYERS]
+    return {"served": served, "plan_serving": planned, "kernels": kernels,
+            "slice_parity": parity, "train_parity": moe_train_parity(card, mesh),
+            "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -2047,6 +2349,7 @@ def main() -> int:
                 slice_parity_phase(cfg, prompts)
             trained = train_phase(card, mesh)
             launched = launch_phase(card)
+            moe = moe_phase(card, mesh)
         finally:
             dist.destroy_process_group()
 
@@ -2054,6 +2357,7 @@ def main() -> int:
     say(json.dumps({"plan_serving": plan_served}))
     say(json.dumps({"train": trained}))
     say(json.dumps({"launch": launched}))
+    say(json.dumps({"moe": moe}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -2063,6 +2367,10 @@ def main() -> int:
                                        for name, run in trained["modes"].items()})
         k["launches_by_model"][f"{PLAN_ARCH} launch.train (1x1)"] = \
             launched["launches"][k["name"]]
+        k["launches_by_model"][MOE_ARCH] = moe["served"]["launches"][k["name"]]
+        k["launches_by_model"].update(
+            {f"{MOE_ARCH} plan ({name})": run["launches"][k["name"]]
+             for name, run in moe["plan_serving"]["plans"].items()})
         k["launches"] = sum(k["launches_by_model"].values())
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
     say(json.dumps({"kernels": kernels}))

@@ -2,14 +2,17 @@
 
 The reference keeps parameters as a nested dict: linear weights ``w`` of
 shape (d_in, d_out), embeddings ``table``, and the trunk's layers stacked
-on leading axes: ``trunk.dense_layers`` (L, ...) for the dense family,
-``trunk.layers`` (L, ...) for rwkv6, and for zamba2 ``trunk.groups``
+on leading axes: ``trunk.dense_layers`` (L, ...) for the dense family (a
+MoE model's leading dense layers) and ``trunk.moe_layers`` (L - those,
+...) for the moe family, ``trunk.layers`` (L, ...) for rwkv6, and for
+zamba2 ``trunk.groups``
 (G, every, ...), ``trunk.app_in`` (G, ...) and ``trunk.tail`` (T, ...).
 The port keeps one module per layer (nested ``nn.ModuleList``s, indexed
 ``groups.{g}.{j}``) and ``nn.Linear``'s (d_out, d_in) weights, so ``w``
 leaves are transposed.  Every other leaf keeps the reference's layout,
-rwkv6's raw matrices (``Wr``, ``maa_w1``, ``maa_w2``, ``decay_w1``, ...)
-and mamba2's ``conv_w`` (K, C) included: the port multiplies them as the
+rwkv6's raw matrices (``Wr``, ``maa_w1``, ``maa_w2``, ``decay_w1``, ...),
+mamba2's ``conv_w`` (K, C) and the experts' ``gate``, ``up`` (E, d, f)
+and ``down`` (E, f, d), padded experts included: the port multiplies them as the
 reference does (``x @ W``).  ``params_from_jax`` takes the reference's tree
 with numpy leaves (``jax.tree.map(np.asarray, params)``) and returns a
 ``state_dict`` for ``Model.load_state_dict``; ``params_to_jax`` is its
@@ -20,7 +23,8 @@ Placements: with ``mesh=`` the two ``*_from_jax`` give one rank's state
 dict of a model placed on that mesh (``models.model.shard_``): ``mesh`` is
 ``{"data": Mesh, "model": Mesh}``, and each leaf is cut to this rank's
 slice of every dim those axes split (``parallel.sharding.place``); one
-``Mesh`` is the model axis alone, which cuts the dense trunk's MLP weights.
+``Mesh`` is the model axis alone, which cuts the trunk's MLP weights and
+experts.
 ``params_to_jax`` of a placed model gathers each leaf over the axes that
 split it (every rank of them must call it), one leaf at a time, each to
 the host before the next is gathered.  ``reference_layout`` gives each
@@ -51,7 +55,9 @@ def stacked_axes(cfg) -> Dict[Tuple[str, str], Tuple[int, ...]]:
                 ("trunk", "tail"): (tail,)}
     if cfg.family == "ssm":
         return {("trunk", "layers"): (cfg.num_layers,)}
-    return {("trunk", "dense_layers"): (cfg.num_layers,)}
+    n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
+    return {("trunk", "dense_layers"): (n_dense,),
+            ("trunk", "moe_layers"): (cfg.num_layers - n_dense,)}
 
 
 def _flatten(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:

@@ -5,13 +5,14 @@ KV cache, on one card by default.
         --prompt-len 512 --max-new 32 --max-seq 1024
     python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
 
-``--arch`` is one of llama3-8b, zamba2-7b and rwkv6-1.6b.  The weights are
+``--arch`` is one of llama3-8b, zamba2-7b, rwkv6-1.6b and the MoE models
+olmoe-1b-7b, deepseek-moe-16b and qwen2-moe-a2.7b.  The weights are
 random, drawn from ``--seed``; so are the prompts, all ``--prompt-len``
 long (the recurrent families need equal lengths).
 
 Plan-aware, as the reference's launcher: ``--tuned-plan`` / ``--plan-repo``
-hand the plan to the engine, which decodes a dense model under it through
-the sited explicit-collective path (``serve.layer{i}.*`` SiteIds).
+hand the plan to the engine, which decodes a dense or MoE model under it
+through the sited explicit-collective path (``serve.layer{i}.*`` SiteIds).
 ``--engine continuous`` swaps in the continuous-batching engine, which
 re-resolves the repository plan as the in-flight batch shape drifts.
 ``--fault-schedule`` arms per-site drift detection and demotion, and

@@ -4,6 +4,13 @@ on the card unless ``--device cpu`` is asked for.
     python -m repro_torch.launch.train --arch llama3-8b --smoke --steps 50
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --config run.json \\
         --mesh 1x4 --tuned-plan plan.json --ckpt ckpt/
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --mesh 1x4 --seq 2048 --batch 4 --lr 3e-5
+
+``--arch`` takes the dense family (llama3-8b) and the MoE models
+(olmoe-1b-7b, deepseek-moe-16b, qwen2-moe-a2.7b); the loss adds
+``router_aux_coef`` times the routers' load-balancing loss, printed as
+``aux``.
 
 The flags are the reference's, with ``--plan-hardware`` defaulting to
 ``h100-sxm``, plus ``--device``.  Without ``--mesh`` one process trains
@@ -27,9 +34,11 @@ as its launcher places the parameters with ``device_put``):
     of the leaves that stay whole, the loss and its metrics are averaged
     over the axis, so the printed loss is the global batch's, as the
     reference's.
-  * the ``model`` axis splits the MLP's T dims and always runs the sited
-    trunk: every layer's MLP over the explicit chunked collectives at
-    ``tp.layer{i}.mlp.ag|rs``, resolved against the plan ``--tuned-plan``
+  * the ``model`` axis splits the MLP's and the experts' T dims and always
+    runs the sited trunk: every dense layer's MLP over the explicit chunked
+    collectives at ``tp.layer{i}.mlp.ag|rs``, every MoE layer's experts
+    over the chunked all-to-alls at ``ep.layer{j}.moe.a2a_disp|comb``
+    (expert parallelism), resolved against the plan ``--tuned-plan``
     or ``--plan-repo`` installs; with no plan each site takes its default
     structure, numerically the reference's GSPMD scan.  Attention's, the
     embedding's and the head's T dims stay whole (the reference splits
@@ -133,7 +142,8 @@ def _train_on_mesh(cfg, tcfg, data, args):
             losses.append(float(metrics["loss"]))
             times.append(time.perf_counter() - t)
             if dist.get_rank() == 0 and step % args.log_every == 0:
-                print(f"step {step:4d} loss {losses[-1]:.4f}  {times[-1] * 1e3:.1f} ms")
+                print(f"step {step:4d} loss {losses[-1]:.4f}  aux "
+                      f"{float(metrics['aux']):.4f}  {times[-1] * 1e3:.1f} ms")
     return model, losses, times
 
 

@@ -1,24 +1,33 @@
-"""Dense decoder trunk of the port (PyTorch counterpart of
-``repro.models.dense``).
+"""Decoder trunk of the port (PyTorch counterpart of
+``repro.models.dense``): dense GQA attention and a SwiGLU or MoE
+feed-forward, for the dense and moe families.
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; eager PyTorch has nothing to trace, so the port keeps one
-``Layer`` module per layer in an ``nn.ModuleList`` and loops over it.  The
-KV caches keep the reference's stacked layout (a leading layer axis), and
-each layer reads and writes its slice in place.
+``Layer`` module per layer in an ``nn.ModuleList`` for each of the
+reference's two segments, ``dense_layers`` (every layer of a dense model,
+the leading ``first_dense_layers`` of a MoE model) and ``moe_layers``,
+and loops over them.  The KV caches keep the reference's stacked layout
+(a leading layer axis per segment), and each layer reads and writes its
+slice in place.
 
-Plan-aware (sited) path: ``trunk_fwd(mesh=...)`` runs every layer's MLP
-over the explicit chunked collectives of ``parallel.collectives``
-(``ring_ag_matmul`` for gate and up, ``mm_reduce_scatter`` for down), each
-addressed by its SiteId: ``tp.layer{i}.mlp.ag|rs`` without a cache,
-``serve.layer{i}.mlp.ag|rs`` with one (global layer indices, as
+Plan-aware (sited) path: ``trunk_fwd(mesh=...)`` runs every layer's
+feed-forward over the explicit chunked collectives of
+``parallel.collectives``, each addressed by its SiteId.  A dense layer's
+MLP: ``ring_ag_matmul`` for gate and up, ``mm_reduce_scatter`` for down,
+at ``tp.layer{i}.mlp.ag|rs`` without a cache and ``serve.layer{i}.mlp.ag|rs``
+with one.  A MoE layer's experts: the dispatch and combine all-to-alls of
+``layers.moe_block`` at ``ep.layer{j}.moe.a2a_disp|comb`` without a cache
+(j counted within the segment, as the reference counts it) and
+``serve.layer{i}.moe.a2a_*`` with one (i global, as
 ``core.extract.extract_decode_workload`` names them).  Each site resolves
 its knobs against the active plan when it runs, so one plan can drive two
-layers to different chunk structure.  Attention stays replicated on every
-rank; each rank holds a column shard of ``gate``/``up`` and a row shard of
-``down`` (``shard_trunk``), and the sequence-sharded MLP output is gathered
-back explicitly (``collectives.all_gather_rows``) where GSPMD gathers it
-implicitly in the reference.
+layers to different chunk structure.  Attention stays replicated on
+every rank; each rank holds a column shard of ``gate``/``up`` and a row
+shard of ``down`` of a dense MLP (``shard_trunk``) and runs its E/n
+experts of a MoE layer, and the sharded outputs are gathered back explicitly
+(``collectives.all_gather_rows``) where GSPMD gathers them implicitly in
+the reference.
 
 Training: ``trunk_fwd(remat=True)`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant), so the backward recomputes a
@@ -27,22 +36,23 @@ on the sited path the recompute issues the layer's forward collectives
 again, on every rank in the same order (backward layer order).  Every
 collective helper has a backward (``parallel.collectives``), so the sited
 trunk trains at any mesh size.  For training, ``models.model.shard_``
-places the model in place: each layer's MLP weights become this rank's
-shards over ``model`` (under the same state-dict names), which the sited
-trunk runs (``Trunk.mlp_mesh``); serving keeps the whole MLPs and hands
-``trunk_fwd`` copies (``shard_trunk``).  On a model placed over ``data``
-(FSDP) each layer's weights are this rank's slices and ``trunk_fwd``'s
-``gather`` gathers them inside the layer's checkpoint.
+places the model in place: each layer's MLP weights and experts become
+this rank's shards over ``model`` (under the same state-dict names), which
+the sited trunk runs (``Trunk.mlp_mesh``); serving keeps the whole
+weights and hands ``trunk_fwd`` copies (``shard_trunk``).  On a model
+placed over ``data`` (FSDP) each layer's weights are this rank's slices
+and ``trunk_fwd``'s ``gather`` gathers them inside the layer's checkpoint,
+and the routers route the global batch over ``data``
+(``layers.moe_block``).
 
 Not ported here, and raising ``NotImplementedError`` naming the slice that
-brings them: MoE feed-forwards, MLA, sliding windows, ALiBi, ``qk_norm``
-and ``parallel_block``.
+brings them: MLA, sliding windows, ALiBi and ``parallel_block``.
 """
 from __future__ import annotations
 
 import contextvars
 import warnings
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,32 +67,42 @@ from repro_torch.parallel.collectives import (all_gather_rows, mm_reduce_scatter
 
 Caches = Dict[str, Dict[str, object]]
 
-MOE_SLICE = "the port's pipeline-and-MoE slice (ROADMAP.md, queue 1)"
+SEGMENTS = ("dense_layers", "moe_layers")
 
 
 def check_supported(cfg) -> None:
     """Raise for the parts of the dense/moe/vlm trunk that are not ported yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with a later slice of the port "
             "(ROADMAP.md, queue 1)")
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE feed-forwards arrive with {MOE_SLICE}")
     if cfg.parallel_block:
         raise NotImplementedError(f"parallel_block arrives with {L.OTHER_FAMILIES}")
     L.check_attention_supported(cfg)
 
 
-class Layer(nn.Module):
-    """One pre-norm decoder layer: ln1 -> attention, ln2 -> SwiGLU MLP."""
+def segment_sizes(cfg) -> Dict[str, int]:
+    """Layers of each segment: a MoE model's leading ``first_dense_layers``
+    are dense, the rest MoE; a dense model's are all dense."""
+    n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
+    return {"dense_layers": n_dense, "moe_layers": cfg.num_layers - n_dense}
 
-    def __init__(self, cfg, *, device=None, dtype=None):
+
+class Layer(nn.Module):
+    """One pre-norm decoder layer: ln1 -> attention, ln2 -> SwiGLU MLP
+    (``mlp``) or, with ``use_moe``, routed experts (``moe``)."""
+
+    def __init__(self, cfg, *, use_moe: bool = False, ep_pad: int = 1, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln1 = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         self.attn = L.Attention(cfg, **kw)
         self.ln2 = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
+        if use_moe:
+            self.moe = L.MoE(cfg, ep_pad=ep_pad, **kw)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -141,35 +161,57 @@ def shard_mlp(p: L.MLP, mesh) -> L.MLP:
     return shard
 
 
-def shard_trunk(p: "Trunk", mesh) -> List[L.MLP]:
-    """Every layer's ``shard_mlp``: what an engine makes once, at
+def layers_of(p: "Trunk") -> Iterator[Tuple[str, int, int, Layer]]:
+    """(segment, index in it, global index, layer) of every layer, in order."""
+    li = 0
+    for seg in SEGMENTS:
+        for j, lp in enumerate(getattr(p, seg, ())):
+            yield seg, j, li, lp
+            li += 1
+
+
+def shard_trunk(p: "Trunk", mesh) -> list:
+    """Every layer's feed-forward shard in layer order: ``shard_mlp`` of a
+    dense layer's MLP, a MoE layer's whole experts (``layers.moe_block``
+    takes this rank's rows of them as views); what an engine makes once, at
     construction, and hands to ``trunk_fwd(shards=...)``."""
-    return [shard_mlp(lp.mlp, mesh) for lp in p.dense_layers]
+    return [lp.moe if seg == "moe_layers" else shard_mlp(lp.mlp, mesh)
+            for seg, _, _, lp in layers_of(p)]
 
 
 def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[Dict[str, object]], *, backend: Optional[str] = None,
-              mesh=None, site: str = "", serve: bool = False,
-              mlp: Optional[L.MLP] = None,
-              ) -> Tuple[torch.Tensor, Optional[Dict[str, object]]]:
-    """One decoder layer.  Returns (x, updated cache or None).  ``mesh``
-    switches the MLP onto the explicit plan-aware collectives, with ``mlp``
-    this rank's shard (default ``p.mlp``, the whole MLP), ``site`` the
-    layer's SiteId prefix and ``serve`` marking the decode-shape layout."""
+              mesh=None, site: str = "", serve: bool = False, ff=None,
+              experts: Optional[int] = None, data=None, groups: int = 1,
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, object]], torch.Tensor]:
+    """One decoder layer.  Returns (x, updated cache or None, aux).
+    ``mesh`` switches the feed-forward onto the explicit plan-aware
+    collectives, with ``ff`` this rank's shard of it (default ``p.mlp`` or
+    ``p.moe``, the whole), ``site`` the layer's SiteId prefix and ``serve``
+    marking the decode-shape layout of a dense MLP.  A MoE layer takes
+    ``experts`` (its padded expert count), ``data`` and ``groups``
+    (``layers.moe_block``)."""
     x = CT.btd(x)
     h = L.norm(p.ln1, x, cfg.norm_kind, backend=backend)
     attn_out, new_cache = L.attention(p.attn, cfg, h, positions, cache=cache,
                                       backend=backend)
     x = x + attn_out
     h2 = L.norm(p.ln2, x, cfg.norm_kind, backend=backend)
+    use_moe = hasattr(p, "moe")
+    if ff is None:
+        ff = p.moe if use_moe else p.mlp
+    if use_moe:
+        out, aux = L.moe_block(ff, cfg, h2, experts=experts, mesh=mesh, data=data,
+                               site=site or "ep.moe", groups=groups)
+        return x + out, new_cache, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mesh is None:
-        return x + L.mlp(p.mlp, h2, cfg.mlp_kind), new_cache
-    mlp = p.mlp if mlp is None else mlp
+        return x + L.mlp(ff, h2, cfg.mlp_kind), new_cache, aux
     if serve:
-        ff = serve_mlp(mlp, h2, cfg.mlp_kind, mesh, site=site or "serve.mlp")
+        out = serve_mlp(ff, h2, cfg.mlp_kind, mesh, site=site or "serve.mlp")
     else:
-        ff = tp_mlp(mlp, h2, cfg.mlp_kind, mesh, site=site or "tp.mlp")
-    return x + ff, new_cache
+        out = tp_mlp(ff, h2, cfg.mlp_kind, mesh, site=site or "tp.mlp")
+    return x + out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -177,19 +219,26 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Trunk(nn.Module):
-    """``dense_layers``: the per-layer stack (state-dict keys
-    ``dense_layers.{i}.*``, the reference's ``dense_layers`` unstacked)."""
+    """The reference's two segments unstacked: ``dense_layers`` (state-dict
+    keys ``dense_layers.{i}.*``) and, for a MoE model, ``moe_layers``
+    (``moe_layers.{j}.*``); a segment with no layer is absent, as in the
+    reference's tree."""
 
-    def __init__(self, cfg, *, device=None, dtype=None):
+    def __init__(self, cfg, *, ep_pad: int = 1, device=None, dtype=None):
         super().__init__()
         check_supported(cfg)
-        self.dense_layers = nn.ModuleList(
-            Layer(cfg, device=device, dtype=dtype) for _ in range(cfg.num_layers))
-        self.mlp_mesh = None     # the mesh of the MLP shards, once placed (model.shard_)
+        kw = dict(device=device, dtype=dtype)
+        for seg, n in segment_sizes(cfg).items():
+            if n:
+                setattr(self, seg, nn.ModuleList(
+                    Layer(cfg, use_moe=seg == "moe_layers", ep_pad=ep_pad, **kw)
+                    for _ in range(n)))
+        self.mlp_mesh = None     # the mesh of the feed-forward shards, once placed
+                                 # (model.shard_)
 
 
-def init_trunk(cfg, *, device=None, dtype=None) -> Trunk:
-    return Trunk(cfg, device=device, dtype=dtype)
+def init_trunk(cfg, *, ep_pad: int = 1, device=None, dtype=None) -> Trunk:
+    return Trunk(cfg, ep_pad=ep_pad, device=device, dtype=dtype)
 
 
 def _sited_applicable(cfg, x, mesh) -> Tuple[bool, str]:
@@ -216,34 +265,44 @@ def _sited_applicable_serve(cfg, x, mesh) -> Tuple[bool, str]:
     return True, ""
 
 
+def _ff(lp: Layer) -> nn.Module:
+    return lp.moe if hasattr(lp, "moe") else lp.mlp
+
+
 def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
               caches: Optional[Caches] = None, *, backend: Optional[str] = None,
-              mesh=None, shards: Optional[List[L.MLP]] = None, remat: bool = False,
-              gather=None) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
-    """caches: None | {"dense_layers": stacked cache}.  Returns (x, caches,
-    aux); aux is the MoE load-balancing loss, zero for the dense trunk.
+              mesh=None, shards: Optional[list] = None, remat: bool = False,
+              gather=None, data=None, route_rows: bool = False,
+              ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+    """caches: None | {segment: stacked cache}.  Returns (x, caches, aux);
+    aux is the sum of the MoE layers' load-balancing losses (zero for a
+    dense trunk).
 
-    ``mesh`` opts into the plan-aware sited path (module docstring): layer
-    ``i``'s MLP runs at ``tp.layer{i}.mlp`` without caches and at
-    ``serve.layer{i}.mlp`` with them.  A trunk sharded in place
-    (``models.model.shard_``) runs its own MLPs, the shards, and needs its mesh;
-    otherwise ``shards`` are this rank's MLP shards (default
-    ``shard_trunk(p, mesh)``, copies made anew for the call, which carry no
-    gradient to ``p``; engines make them once).  Shapes the explicit helpers
-    cannot split fall back to the unsited loop with a ``RuntimeWarning``,
-    as the reference falls back to its scan (a sharded trunk raises).
-    ``remat`` (without caches) recomputes each layer in the backward.
+    ``mesh`` opts into the plan-aware sited path (module docstring):
+    dense layer ``i``'s MLP runs at ``tp.layer{i}.mlp`` without caches and
+    at ``serve.layer{i}.mlp`` with them, MoE layer ``j`` (the ``i``-th in
+    all) at ``ep.layer{j}.moe`` and ``serve.layer{i}.moe``.  A trunk
+    sharded in place (``models.model.shard_``) runs its own feed-forwards,
+    the shards, and needs its mesh; otherwise ``shards`` are this rank's
+    (default ``shard_trunk(p, mesh)``, copies made anew for the call, which
+    carry no gradient to ``p``; engines make them once).  Shapes the
+    explicit helpers cannot split fall back to the unsited loop with a
+    ``RuntimeWarning``, as the reference falls back to its scan (a sharded
+    trunk raises).  ``remat`` (without caches) recomputes each layer in
+    the backward.
 
-    ``gather(i, lp)`` (a placed model's, ``models.model``) gives layer
-    ``i`` as it runs, its data-split weights gathered whole; it is called
-    inside the layer's checkpoint, so remat's recompute gathers them again
-    and no gathered layer outlives its use."""
-    seg = caches["dense_layers"] if caches is not None else None
+    ``gather(name, i, lp)`` (a placed model's, ``models.model``) gives
+    layer ``i`` (``name``: ``"{segment}.{j}"``) as it runs, its data-split
+    weights gathered whole; it is called inside the layer's checkpoint, so
+    remat's recompute gathers them again and no gathered layer outlives its
+    use.  ``data`` is the data axis the routers route the global batch
+    over; ``route_rows`` routes each row of the batch alone (the
+    continuous engine's slots)."""
     kind = "tp" if caches is None else "serve"
     if p.mlp_mesh is not None and (mesh is None or as_mesh(mesh) != p.mlp_mesh
                                    or shards is not None):
-        raise ValueError(f"the trunk's MLPs are this rank's shards over {p.mlp_mesh}: "
-                         "run it on that mesh, without other shards")
+        raise ValueError(f"the trunk's feed-forwards are this rank's shards over "
+                         f"{p.mlp_mesh}: run it on that mesh, without other shards")
     if mesh is not None:
         check = _sited_applicable if caches is None else _sited_applicable_serve
         ok, why = check(cfg, x, mesh)
@@ -254,50 +313,62 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
                           "unsited layer loop", RuntimeWarning, stacklevel=2)
             mesh = None
         elif shards is None and p.mlp_mesh is None:
+            first = _ff(next(layers_of(p))[3])
             if as_mesh(mesh).size > 1 and torch.is_grad_enabled() and any(
-                    q.requires_grad for q in p.dense_layers[0].mlp.parameters()):
+                    q.requires_grad for q in first.parameters()):
                 raise ValueError(
-                    f"training at mesh size {as_mesh(mesh).size} needs the MLP shards "
-                    "as parameters: shard the trunk in place first (models.model.shard_)")
+                    f"training at mesh size {as_mesh(mesh).size} needs the feed-forward "
+                    "shards as parameters: shard the trunk in place first "
+                    "(models.model.shard_)")
             shards = shard_trunk(p, mesh)
-    for i, lp in enumerate(p.dense_layers):
+    groups = x.shape[0] if route_rows else 1
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg, j, i, lp in layers_of(p):
+        sc = caches[seg] if caches is not None else None
         lc = None
-        if seg is not None:
-            lc = {"k": seg["k"][i], "v": seg["v"][i], "slot_pos": seg["slot_pos"][i],
-                  "pos": seg["pos"]}
+        if sc is not None:
+            lc = {"k": sc["k"][j], "v": sc["v"][j], "slot_pos": sc["slot_pos"][j],
+                  "pos": sc["pos"]}
+        use_moe = seg == "moe_layers"
+        if caches is not None:
+            site = f"serve.layer{i}.{'moe' if use_moe else 'mlp'}"
+        else:
+            site = f"ep.layer{j}.moe" if use_moe else f"tp.layer{i}.mlp"
 
-        def fl(x, lp=lp, lc=lc, i=i):
-            lq = lp if gather is None else gather(i, lp)
-            mlp = None
+        def fl(x, lp=lp, lc=lc, i=i, name=f"{seg}.{j}", site=site, use_moe=use_moe):
+            lq = lp if gather is None else gather(name, i, lp)
+            ff = None
             if mesh is not None:
-                mlp = lq.mlp if p.mlp_mesh is not None else shards[i]
-            return layer_fwd(lq, cfg, x, positions, lc, backend=backend, mesh=mesh,
-                             site=f"{kind}.layer{i}.mlp", serve=seg is not None,
-                             mlp=mlp)[0]
+                ff = _ff(lq) if p.mlp_mesh is not None else shards[i]
+            x, _, a = layer_fwd(lq, cfg, x, positions, lc, backend=backend, mesh=mesh,
+                                site=site, serve=caches is not None, ff=ff,
+                                experts=lp.moe.experts if use_moe else None,
+                                data=data, groups=groups)
+            return x, a
 
-        if remat and seg is None:
+        if remat and caches is None:
             # the backward may recompute the layer on autograd's device
             # thread: run it in this context (the plan scopes and issued-
             # collective logs are context variables) both times
-            x = checkpoint(contextvars.copy_context().run, fl, x, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(contextvars.copy_context().run, fl, x, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = fl(x)
+            x, a = fl(x)
+        aux = aux + a
     new_caches = None
-    if seg is not None:
-        new_caches = {"dense_layers": dict(seg, pos=seg["pos"] + x.shape[1])}
-    return x, new_caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    if caches is not None:
+        new_caches = {seg: dict(sc, pos=sc["pos"] + x.shape[1]) for seg, sc in caches.items()}
+    return x, new_caches, aux
 
 
 def init_trunk_caches(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
                       device=None) -> Caches:
-    """Stacked decode caches: k, v (L,B,W,Hkv,h), slot_pos (L,B,W), and one
-    ``pos`` for all layers (the reference stacks a per-layer copy): a
-    Python int, or a (B,) tensor of per-row positions (the continuous
-    engine's slots)."""
+    """Stacked decode caches per segment: k, v (L,B,W,Hkv,h), slot_pos
+    (L,B,W), and one ``pos`` for all of the segment's layers (the
+    reference stacks a per-layer copy): a Python int, or a (B,) tensor of
+    per-row positions (the continuous engine's slots)."""
     check_supported(cfg)
-    n = cfg.num_layers
     one = L.init_kv_cache(cfg, batch, seq_len, dtype=dtype, device=device)
-    stacked = {name: a.expand(n, *a.shape).clone() if torch.is_tensor(a) else a
-               for name, a in one.items()}
-    return {"dense_layers": stacked}
+    return {seg: {name: a.expand(n, *a.shape).clone() if torch.is_tensor(a) else a
+                  for name, a in one.items()}
+            for seg, n in segment_sizes(cfg).items() if n}

@@ -1,19 +1,25 @@
-"""Dense building blocks of the port (PyTorch counterpart of
-``repro.models.layers``): norms, RoPE, GQA attention with a KV cache,
-the SwiGLU MLP, and embeddings.
+"""Building blocks of the port (PyTorch counterpart of
+``repro.models.layers``): norms, RoPE, GQA attention with a KV cache and
+optional ``qk_norm``, the SwiGLU MLP, and the capacity-based mixture of
+experts (``MoE``, ``moe_block``) with its explicit expert-parallel FFN.
 
 Parameters live in ``nn.Module``s; the functions take the module as their
 ``p`` argument, as the reference's functions take a parameter dict.  Linear
 weights follow ``nn.Linear``: ``(d_out, d_in)``, the transpose of the
 reference's ``(d_in, d_out)`` (``convert.params_from_jax`` transposes).
-RMSNorm and prefill attention go through ``kernels.ops``, so on the card
-they run the CUDA kernels; decode attention is plain PyTorch, as the
-reference's is plain jnp.  Architectural variants that the dense llama
-path does not use raise ``NotImplementedError`` naming the slice of the
-port that brings them (ROADMAP.md, queue 1).
+RMSNorm (``qk_norm``'s per-head norms included) and prefill attention go
+through ``kernels.ops``, so on the card they run the CUDA kernels; decode
+attention is plain PyTorch, as the reference's is plain jnp, and so are
+the MoE's router, scatter, expert products (batched GEMMs, as the
+reference's ``einsum``) and combine: the reference computes them outside
+any Pallas kernel.  Architectural variants that no ported family uses
+raise ``NotImplementedError`` naming the slice of the port that brings
+them (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Dict, Optional, Tuple
 
@@ -23,6 +29,9 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.launch.mesh import as_mesh
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import constraints as CT
 
 Cache = Dict[str, object]
 
@@ -107,7 +116,8 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    """GQA projections: q (d -> Hq·h), k and v (d -> Hkv·h), o (Hq·h -> d)."""
+    """GQA projections: q (d -> Hq·h), k and v (d -> Hkv·h), o (Hq·h -> d);
+    with ``qk_norm``, RMSNorms ``q_norm`` and ``k_norm`` over ``head_dim``."""
 
     def __init__(self, cfg, *, device=None, dtype=None):
         super().__init__()
@@ -117,6 +127,9 @@ class Attention(nn.Module):
         self.k = nn.Linear(d, cfg.kv_dim, bias=bias, **kw)
         self.v = nn.Linear(d, cfg.kv_dim, bias=bias, **kw)
         self.o = nn.Linear(cfg.q_dim, d, bias=bias, **kw)
+        if cfg.qk_norm:
+            self.q_norm = Norm(cfg.head_dim, "rmsnorm", **kw)
+            self.k_norm = Norm(cfg.head_dim, "rmsnorm", **kw)
 
 
 def check_attention_supported(cfg) -> None:
@@ -126,8 +139,6 @@ def check_attention_supported(cfg) -> None:
         raise NotImplementedError(f"pos_kind {cfg.pos_kind!r} arrives with {OTHER_FAMILIES}")
     if cfg.sliding_window:
         raise NotImplementedError(f"sliding-window attention arrives with {OTHER_FAMILIES}")
-    if cfg.qk_norm:
-        raise NotImplementedError(f"qk_norm arrives with {OTHER_FAMILIES}")
 
 
 def _gqa_scores_to_out(q, k, v, bias, scale):
@@ -169,6 +180,9 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     q = linear(p.q, x).view(B, Sq, N * G, h)
     k = linear(p.k, x).view(B, Sq, N, h)
     v = linear(p.v, x).view(B, Sq, N, h)
+    if cfg.qk_norm:            # per head, over head_dim, before RoPE
+        q = norm(p.q_norm, q, "rmsnorm", backend=backend)
+        k = norm(p.k_norm, k, "rmsnorm", backend=backend)
     q, k = apply_rope(q, k, positions, head_dim=h, fraction=cfg.rope_fraction,
                       theta=cfg.rope_theta)
 
@@ -263,3 +277,252 @@ def mlp(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind != "swiglu":
         raise NotImplementedError(f"mlp_kind {kind!r} arrives with {OTHER_FAMILIES}")
     return linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x))
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (capacity-based scatter dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_pad_experts(num_experts: int, ep_size: int) -> int:
+    """Experts padded up to a multiple of the expert-parallel axis (e.g.
+    qwen2-moe's 60 -> 64 on a 16-way axis).  The router has only the real
+    experts' logits, so padded experts never receive a token."""
+    return ((num_experts + ep_size - 1) // ep_size) * ep_size
+
+
+class MoE(nn.Module):
+    """Routed experts: ``router`` (d -> the real expert count, fp32, no
+    bias); ``gate``, ``up`` (E, d, f) and ``down`` (E, f, d), E padded by
+    ``ep_pad`` (``moe_pad_experts``), multiplied as ``x @ W`` (the
+    reference's layout, not ``nn.Linear``'s); optional shared experts
+    ``shared`` (a SwiGLU ``MLP``) and their ``shared_gate`` (d -> 1).
+    ``experts`` is E: on a model placed over ``model`` the tensors hold
+    this rank's E / n experts and ``experts`` stays E."""
+
+    def __init__(self, cfg, *, ep_pad: int = 1, device=None, dtype=None):
+        super().__init__()
+        E = moe_pad_experts(cfg.num_experts, ep_pad)
+        d, f = cfg.d_model, cfg.moe_d_ff
+        kw = dict(device=device, dtype=dtype)
+        self.experts = E
+        self.router = nn.Linear(d, cfg.num_experts, bias=False, device=device,
+                                dtype=torch.float32)
+        self.gate = nn.Parameter(torch.empty((E, d, f), **kw))
+        self.up = nn.Parameter(torch.empty((E, d, f), **kw))
+        self.down = nn.Parameter(torch.empty((E, f, d), **kw))
+        if cfg.num_shared_experts:
+            sf = cfg.shared_d_ff or cfg.moe_d_ff * cfg.num_shared_experts
+            self.shared = MLP(d, sf, "swiglu", **kw)
+            if cfg.shared_expert_gate:
+                self.shared_gate = nn.Linear(d, 1, bias=False, **kw)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """The reference's scheme: ``gate`` and ``up`` N(0, 1/d), ``down``
+        N(0, 1/f) (the linears are drawn by ``models.model``)."""
+        d, f = self.gate.shape[1], self.gate.shape[2]
+        self.gate.normal_(0.0, 1.0 / math.sqrt(d), generator=gen)
+        self.up.normal_(0.0, 1.0 / math.sqrt(d), generator=gen)
+        self.down.normal_(0.0, 1.0 / math.sqrt(f), generator=gen)
+
+
+class Routing:
+    """The experts each ``moe_block`` call chose (its ``top_e``), by site in
+    call order: recorded, or replayed into another run of the same calls
+    (``record_routing``)."""
+
+    def __init__(self):
+        self.calls: Dict[str, list] = {}
+        self._next: Dict[str, int] = {}
+
+    def replay(self, site: str, rows: Optional[slice]) -> torch.Tensor:
+        k = self._next.get(site, 0)
+        self._next[site] = k + 1
+        top_e = self.calls[site][k]
+        return top_e if rows is None else top_e[rows]
+
+
+_ROUTING: contextvars.ContextVar = contextvars.ContextVar("repro_torch_routing",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def record_routing(replay: Optional[Routing] = None, rows: Optional[slice] = None):
+    """Record the experts every ``moe_block`` call in the ``with`` block
+    chooses (yields the ``Routing``); with ``replay``, each call takes them
+    from that record instead (the k-th call at a site the k-th recorded
+    there; ``rows`` the slice of its tokens, for a data rank replaying a
+    whole batch's record), its combine weights its own probabilities at
+    those experts.  Comparisons of two runs of one model whose numbers
+    differ in the last bits (the kernels against their plain versions, four
+    ranks against one card) force the discrete routing equal, as they
+    force the tokens equal; the gap between two candidate experts' router
+    probabilities can be smaller than those bits."""
+    rec = Routing() if replay is None else replay
+    rec._next = {}                     # each replay starts at every site's first call
+    token = _ROUTING.set((rec, replay is not None, rows))
+    try:
+        yield rec
+    finally:
+        _ROUTING.reset(token)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last dim, largest first, the lower index
+    first among equals (``lax.top_k``'s order: the order of a token's k
+    slots sets their positions in the capacity buffers)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _experts_ffn(b: torch.Tensor, gate, up, down) -> torch.Tensor:
+    """SwiGLU of each expert over its rows: b (E, c, d) -> (E, c, d)."""
+    return torch.bmm(F.silu(torch.bmm(b, gate)) * torch.bmm(b, up), down)
+
+
+def _local_experts(p, E: int, m) -> Tuple[torch.Tensor, ...]:
+    """(gate, up, down) of this rank's E / n experts: ``p``'s own when it
+    holds a shard (a placed model's), else views of its rows (a served
+    model's whole experts: rows ``r·E/n ... (r+1)·E/n``, no copy)."""
+    el = E // m.size
+    ws = (p.gate, p.up, p.down)
+    if ws[0].shape[0] == el:
+        return ws
+    return tuple(w.narrow(0, m.rank * el, el) for w in ws)
+
+
+def _moe_ffn_explicit(p, buf: torch.Tensor, E: int, mesh, *, site: str) -> torch.Tensor:
+    """The expert FFN with the dispatch and combine all-to-alls explicit,
+    over the ``model`` mesh: this rank's slice of the buffer's capacity
+    slots (``shard_rows``) goes through a chunked all-to-all at
+    ``{site}.a2a_disp``, (E, cap/n, D) -> (E/n, cap, D); the local experts'
+    three products run as batched GEMMs; a chunked all-to-all at
+    ``{site}.a2a_comb`` takes (E/n, cap, D) back to (E, cap/n, D), and the
+    slices are gathered back (``all_gather_rows``), where GSPMD gathers
+    them in the reference.  Chunk counts resolve per site against the
+    active plan; numerically the plain expert FFN."""
+    m = as_mesh(mesh)
+    b = C.chunked_all_to_all(C.shard_rows(buf, m), m, split_axis=0, concat_axis=1,
+                             site=f"{site}.a2a_disp")
+    y = _experts_ffn(b, *_local_experts(p, E, m))
+    y = C.chunked_all_to_all(y, m, split_axis=1, concat_axis=0, site=f"{site}.a2a_comb")
+    return C.all_gather_rows(y, m)
+
+
+def _moe_ffn_degraded(p, buf: torch.Tensor, E: int, mesh) -> torch.Tensor:
+    """The expert FFN when the buffer does not split over the mesh (the
+    reference's GSPMD expert layout): with the experts split over the
+    ranks, each computes its experts' rows of the replicated buffer and
+    the rows are gathered over the expert axis; with every expert whole on
+    every rank (n does not divide E), each computes them all."""
+    m = as_mesh(mesh)
+    if E % m.size:
+        return _experts_ffn(buf, p.gate, p.up, p.down)
+    _, c, d = buf.shape
+    mine = C.shard_rows(buf.view(E, c * d), m).view(E // m.size, c, d)
+    y = _experts_ffn(mine, *_local_experts(p, E, m))
+    return C.all_gather_rows(y.reshape(-1, c * d), m).view(E, c, d)
+
+
+def moe_block(p, cfg, x: torch.Tensor, *, capacity_factor: Optional[float] = None,
+              experts: Optional[int] = None, mesh=None, data=None, site: str = "moe",
+              groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with capacity-bounded scatter dispatch and
+    optional shared experts: x (B, S, D) -> (out (B, S, D), aux), as the
+    reference's ``moe_block``.
+
+    The router's softmax over the real experts, the top k, renormalised;
+    the Switch load-balancing loss ``aux``; each (token, slot)'s position
+    in its expert by a cumsum over the flat T·k order; the capacity
+    ``cap = max(1, int(T·k·cf / E_real))``; the scatter into (E, cap, D)
+    by ``index_add`` (an add: overflow rows are clipped onto the last slot
+    with zeroed values, which must not overwrite the token that holds it),
+    the experts, and the gather that combines each token's k slots.
+
+    ``experts`` is the padded expert count E (default: ``p.gate``'s rows,
+    the whole tensor).  ``mesh`` (the ``model`` axis) runs the explicit
+    expert-parallel FFN at ``{site}.a2a_disp|comb``; where n does not
+    divide E or cap, the site warns once (``warn_degraded``) and the
+    degraded layout runs, numerically the same.  ``data`` (the data axis
+    of a model trained on (data, model)) routes the global batch, as
+    GSPMD's global arrays do in the reference: the per-expert counts are
+    all-gathered over ``data`` for each rank's offsets, ``cap`` comes from
+    the global T, and the statistics of ``aux`` are summed over ``data``
+    (``collectives.sum_over``).  Each rank's buffer holds its own tokens
+    at their global slots.  ``groups`` routes each of that many equal
+    runs of rows alone, with its own capacity (the continuous engine's
+    slots, which the reference vmaps over); their buffers lie side by side
+    along the capacity axis, and ``aux`` is the groups' mean."""
+    B, S, D = x.shape
+    T = B * S
+    E_real, k = cfg.num_experts, cfg.top_k
+    E = p.gate.shape[0] if experts is None else experts
+    cf = capacity_factor or cfg.capacity_factor
+    dm = as_mesh(data)
+    if groups > 1 and dm.size > 1:
+        raise ValueError("routing groups of rows and a data axis do not combine")
+    G, Tg = groups, T // groups
+    T_all = Tg * dm.size                    # the tokens one routing sees
+    cap = max(1, int(T_all * k * cf / E_real))
+    xt = x.reshape(T, D)
+
+    probs = torch.softmax(linear(p.router, xt.float()), dim=-1)      # (T, E_real)
+    top_p, top_e = _top_k(probs, k)
+    routing = _ROUTING.get()
+    if routing is not None:
+        rec, replaying, rows = routing
+        if replaying:
+            top_e = rec.replay(site, rows).to(top_e.device)
+            top_p = probs.gather(-1, top_e)
+        else:
+            rec.calls.setdefault(site, []).append(top_e.detach())
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(G, Tg * k)
+    # the one-hot laid out (G, E, Tg·k): the cumsum runs along the innermost
+    # dim (along the outer one, a scan over 32k rows of 64 took 6.6 ms)
+    seen = (flat_e[:, None, :] == torch.arange(E, device=x.device)[:, None]).cumsum(-1)
+    counts = seen[:, :, -1]                                          # (G, E)
+    pos = seen.gather(1, flat_e[:, None, :])[:, 0] - 1               # (G, Tg·k)
+    del seen
+    me = probs.view(G, Tg, E_real).mean(1)
+    if dm.size > 1:                         # the global batch's routing
+        every = C.gather_full(counts[0], dm, 0).view(dm.size, E)
+        pos = pos + every[:dm.rank].sum(0)[flat_e]
+        counts = every.sum(0, keepdim=True)
+        me = C.sum_over(me, dm) / dm.size
+    ce = counts[:, :E_real].float() / (T_all * k)
+    aux = (E_real * torch.sum(me * ce, dim=-1)).mean()
+
+    keep = pos < cap
+    row = torch.clamp(flat_e * cap + pos, 0, E * cap - 1)           # within a group
+    if G > 1:         # group g's slot c of expert e at e·G·cap + g·cap + c
+        gi = torch.arange(G, device=x.device)[:, None]
+        row = (row // cap) * (G * cap) + gi * cap + row % cap
+    row, keep = row.reshape(-1), keep.reshape(-1)
+    vals = xt.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
+    buf = x.new_zeros((E * G * cap, D)).index_add(0, row, vals).view(E, G * cap, D)
+    del vals
+
+    n = as_mesh(mesh).size if mesh is not None else 1
+    if mesh is not None and (E % n or cap % n):
+        C.warn_degraded(site, f"expert buffer (E={E}, cap={cap}) is not divisible by the "
+                              f"'model' axis ({n}); using the GSPMD expert layout instead "
+                              "of explicit all-to-alls", stacklevel=3)
+        y = _moe_ffn_degraded(p, CT.ecd(buf), E, mesh)
+    elif mesh is not None:
+        y = _moe_ffn_explicit(p, buf, E, mesh, site=site)
+    else:
+        y = _experts_ffn(CT.ecd(buf), p.gate, p.up, p.down)
+
+    gathered = y.reshape(-1, D).index_select(0, row)                 # (T·k, D)
+    w = (top_p.reshape(-1) * keep).to(x.dtype)
+    out = (gathered * w[:, None]).view(T, k, D).sum(dim=1)
+    shared = getattr(p, "shared", None)
+    if shared is not None:
+        sh = mlp(shared, xt, "swiglu")
+        gate = getattr(p, "shared_gate", None)
+        if gate is not None:
+            sh = sh * torch.sigmoid(linear(gate, xt))
+        out = out + sh
+    return out.view(B, S, D), aux

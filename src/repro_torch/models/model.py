@@ -1,7 +1,7 @@
 """Model API of the port (PyTorch counterpart of ``repro.models.model``)
-for the dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
+for the dense, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
 
-    model = init_params(cfg, seed, device="cuda")                      # nn.Module
+    model = init_params(cfg, seed, device="cuda"[, ep_pad=n])          # nn.Module
     loss, metrics = loss_and_metrics(cfg, model, batch)                 # train
     x, caches, aux = forward_hidden(cfg, model, batch[, caches])        # prefill
     caches = init_caches(cfg, batch_size, seq_len, device="cuda")       # serving
@@ -15,10 +15,12 @@ The weights are random, drawn on the target device from a
 ``torch.Generator`` seeded with ``seed`` (the reference draws from
 ``jax.random``; the tests convert its weights with
 ``convert.params_from_jax`` instead of reseeding).  The loss
-(``loss_and_metrics``, chunked cross-entropy) trains the dense family; the
-recurrent families are forward-only (their scan kernels have no backward).
-The ``moe``, ``audio`` and ``vlm`` families raise ``NotImplementedError``
-naming the slice of the port that brings them.
+(``loss_and_metrics``, chunked cross-entropy plus ``router_aux_coef``
+times the routers' load-balancing loss) trains the dense and moe families,
+which share the trunk of ``models.dense``; the recurrent families are
+forward-only (their scan kernels have no backward).  The ``audio`` and
+``vlm`` families raise ``NotImplementedError`` naming the slice of the
+port that brings them.
 """
 from __future__ import annotations
 
@@ -36,9 +38,10 @@ from repro_torch.parallel import constraints as CT, sharding
 
 Caches = Dict[str, object]
 
-_TRUNKS = {"dense": dense, "ssm": rwkv6, "hybrid": zamba2}
-_LATER = {"moe": dense.MOE_SLICE, "audio": L.OTHER_FAMILIES, "vlm": L.OTHER_FAMILIES}
+_TRUNKS = {"dense": dense, "moe": dense, "ssm": rwkv6, "hybrid": zamba2}
+_LATER = {"audio": L.OTHER_FAMILIES, "vlm": L.OTHER_FAMILIES}
 RECURRENT_TRAINING = "the recurrent-training slice (ROADMAP.md, queue 1)"
+DECODER = ("dense", "moe")       # the families of ``models.dense``'s trunk
 
 
 def _trunk(cfg):
@@ -53,16 +56,21 @@ def shard_(cfg, model: "Model", mesh) -> "Model":
     rank's ``{"data": Mesh, "model": Mesh}`` (``launch.mesh.make_mesh``):
     every parameter becomes this rank's slice of the reference's placement
     (``parallel.sharding.place``: the F dims over ``data`` where they divide;
-    the MLP's T dims over ``model``, so ``mlp.gate.weight`` is (d_ff/m,
-    D/d)); the norm scales, and attention's, the embedding's and the head's
-    T dims, stay whole.  One ``Mesh`` is the model axis alone: the MLP
-    shards only.  ``model.placement`` records which axis splits which dim
-    (``sharding.Placement``); ``forward_hidden`` and the loss gather each
-    data-split weight where it is used, and the trunk runs its MLP shards
-    on the model axis (``trunk.mlp_mesh``)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"tensor-parallel training of the {cfg.family!r} "
-                                  f"family arrives with {RECURRENT_TRAINING}")
+    the MLP's and the experts' T dims over ``model``, so ``mlp.gate.weight``
+    is (d_ff/m, D/d) and ``moe.gate`` (E/m, D/d, f)); the norm scales, the
+    routers, the shared experts, and attention's, the embedding's and the
+    head's T dims, stay whole.  One ``Mesh`` is the model axis alone: the
+    feed-forward shards only.  ``model.placement`` records which axis
+    splits which dim (``sharding.Placement``); ``forward_hidden`` and the
+    loss gather each data-split weight where it is used, the trunk runs its
+    shards on the model axis (``trunk.mlp_mesh``), and its routers route
+    the global batch over ``data``."""
+    if cfg.family not in DECODER:
+        later = (RECURRENT_TRAINING if cfg.family in ("ssm", "hybrid")
+                 else _LATER.get(cfg.family, "a later slice of the port (ROADMAP.md, "
+                                 "queue 1)"))
+        raise NotImplementedError(f"training the {cfg.family!r} family on a mesh "
+                                  f"arrives with {later}")
     if model.placement is not None:
         raise ValueError("the model is already sharded: place it once")
     place = sharding.place(reference_layout(cfg, model), mesh)
@@ -92,13 +100,15 @@ def _dtype(cfg) -> torch.dtype:
 
 
 class Model(nn.Module):
-    """embed -> trunk -> ln_f -> head (untied) or embedᵀ (tied)."""
+    """embed -> trunk -> ln_f -> head (untied) or embedᵀ (tied).  ``ep_pad``
+    pads a MoE model's experts to a multiple of it (``layers.moe_pad_experts``)."""
 
-    def __init__(self, cfg, *, device=None, dtype=None):
+    def __init__(self, cfg, *, ep_pad: int = 1, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, **kw)
-        self.trunk = _trunk(cfg).init_trunk(cfg, **kw)
+        self.trunk = (dense.init_trunk(cfg, ep_pad=ep_pad, **kw) if cfg.family in DECODER
+                      else _trunk(cfg).init_trunk(cfg, **kw))
         self.ln_f = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         self.head = None if cfg.tie_embeddings else nn.Linear(
             cfg.d_model, cfg.vocab_size, bias=False, **kw)
@@ -109,8 +119,8 @@ class Model(nn.Module):
 def _init_weights(model: Model, gen: torch.Generator) -> None:
     """The reference's scheme: linear weights N(0, 1/d_in), biases 0,
     embeddings N(0, 0.02²), norm scales 1 and biases 0; modules with other
-    leaves (the Mamba2 block, RWKV6's time- and channel-mix) draw those
-    themselves (``init_weights``)."""
+    leaves (the Mamba2 block, RWKV6's time- and channel-mix, the experts)
+    draw those themselves (``init_weights``)."""
     for mod in model.modules():
         if hasattr(mod, "init_weights"):
             mod.init_weights(gen)
@@ -126,12 +136,13 @@ def _init_weights(model: Model, gen: torch.Generator) -> None:
                 mod.bias.zero_()
 
 
-def init_params(cfg, seed: int = 0, *, device="cuda") -> Model:
+def init_params(cfg, seed: int = 0, *, device="cuda", ep_pad: int = 1) -> Model:
     """A model with random weights, made on ``device`` (never on the host
-    and copied: llama3-8b in fp32 is 32 GB)."""
+    and copied: llama3-8b in fp32 is 32 GB), its experts padded by
+    ``ep_pad``."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = Model(cfg, dtype=_dtype(cfg))
+        model = Model(cfg, ep_pad=ep_pad, dtype=_dtype(cfg))
     model = model.to_empty(device=dev)
     _init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return model
@@ -149,12 +160,15 @@ def _positions(cfg, B: int, S: int, t0, device) -> torch.Tensor:
 
 def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
                    remat: bool = False, backend: Optional[str] = None, mesh=None,
-                   shards=None) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+                   shards=None, route_rows: bool = False,
+                   ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """Runs the trunk over batch["tokens"].  If ``caches`` is given, this is a
     cached prefill into fresh caches (filled in place).  ``remat`` recomputes
-    each dense layer in the backward.  ``mesh`` opts the dense family into
-    the plan-aware sited trunk (``dense.trunk_fwd``, with ``shards`` this
-    rank's MLP shards); the other families ignore it."""
+    each decoder layer in the backward.  ``mesh`` opts the dense and moe
+    families into the plan-aware sited trunk (``dense.trunk_fwd``, with
+    ``shards`` this rank's feed-forward shards); the other families ignore
+    it.  ``route_rows`` routes each row's tokens alone through the experts
+    (the continuous engine: the reference vmaps over its slots)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     t0 = caches["pos"] if caches is not None else 0
@@ -162,7 +176,7 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     x = F.embedding(tokens, _weight(p, "embed.weight", "fsdp.embed.ag_params"))
     tc = caches["trunk"] if caches is not None else None
     x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh,
-                                shards=shards, remat=remat)
+                                shards=shards, remat=remat, route_rows=route_rows)
     new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S}
     return L.norm(p.ln_f, x, cfg.norm_kind, backend=backend), new_caches, aux
 
@@ -180,17 +194,20 @@ def _layer_gather(p: Model):
     if p.placement is None or "data" not in p.placement.meshes:
         return None
 
-    def gather(i, lp):
-        return sharding.gathered(lp, f"trunk.dense_layers.{i}.", p.placement,
+    def gather(name, i, lp):
+        return sharding.gathered(lp, f"trunk.{name}.", p.placement,
                                  f"fsdp.layer{i}.ag_params")
 
     return gather
 
 
-def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards, remat=False):
-    if cfg.family == "dense":
+def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards, remat=False,
+               route_rows=False):
+    if cfg.family in DECODER:
+        data = None if p.placement is None else p.placement.meshes.get("data")
         return dense.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, mesh=mesh,
-                               shards=shards, remat=remat, gather=_layer_gather(p))
+                               shards=shards, remat=remat, gather=_layer_gather(p),
+                               data=data, route_rows=route_rows)
     if remat:
         raise NotImplementedError(f"remat of the {cfg.family!r} trunk arrives with "
                                   f"{RECURRENT_TRAINING}")
@@ -285,15 +302,15 @@ def _kv_slots(tc) -> Optional[int]:
 
 def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
                 backend: Optional[str] = None, mesh=None, shards=None,
-                pos_offset: Optional[torch.Tensor] = None,
+                pos_offset: Optional[torch.Tensor] = None, route_rows: bool = False,
                 ) -> Tuple[torch.Tensor, Caches]:
     """One token per sequence: tokens (B,1) -> logits (B,1,vocab).
 
     ``caches["pos"]`` is one int for the batch, or a (B,) tensor of per-row
     positions (the continuous engine's slots; every cache ``pos`` inside
-    holds the same tensor).  ``mesh`` opts the dense family into the sited
-    decode path (``serve.layer{i}.*`` sites, ``shards`` this rank's MLP
-    shards).  ``pos_offset`` (B,) subtracts a per-sequence gap from the
+    holds the same tensor).  ``mesh`` opts the dense and moe families into
+    the sited decode path (``serve.layer{i}.*`` sites, ``shards`` this
+    rank's feed-forward shards); ``route_rows`` as in ``forward_hidden``.  ``pos_offset`` (B,) subtracts a per-sequence gap from the
     shared position counter: how the fixed-batch engine keeps right-padded
     ragged prompts on their true RoPE positions (the pad slots themselves
     are excluded by the per-row ``slot_pos`` mask)."""
@@ -309,6 +326,6 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
         positions = positions - pos_offset.to(positions.device, positions.dtype)[:, None]
     x = F.embedding(tokens, _weight(p, "embed.weight", "fsdp.embed.ag_params"))
     x, new_tc, _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"], backend=backend,
-                              mesh=mesh, shards=shards)
+                              mesh=mesh, shards=shards, route_rows=route_rows)
     x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)
     return _unembed(cfg, p, x), {"trunk": new_tc, "pos": t0 + 1}

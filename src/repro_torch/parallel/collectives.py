@@ -798,6 +798,32 @@ def _all_reduce(a: torch.Tensor, m: Mesh):
     return dist.all_reduce(out, group=m.group, async_op=True), out
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, m):
+        ctx.m = m
+        work, out = _all_reduce(a, m)
+        _wait(work)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        work, out = _all_reduce(g, ctx.m)
+        _wait(work)
+        return out, None
+
+
+def sum_over(a: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``a`` over the mesh's ranks, differentiable, where every
+    rank then computes the same loss from the sum (the MoE router's
+    load-balancing statistics over the data axis).  Its backward sums the
+    ranks' gradients: with the trainer's mean over those ranks, each
+    rank's ``a`` gets the gradient of the one global loss.  At mesh size 1
+    it is ``a``.  Not a plan site; it logs no ``Issued`` row."""
+    m = as_mesh(mesh)
+    return a if m.size == 1 else _SumOver.apply(a, m)
+
+
 def psum_tree(tree, mesh):
     """Every leaf summed over the ranks (a new tree; the leaves are kept)."""
     m = as_mesh(mesh)

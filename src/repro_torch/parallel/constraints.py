@@ -15,7 +15,9 @@ input and on the loss chunks, ``logits`` on each chunk's logits.  The
 port keeps the vocabulary and the feed-forward features of the
 activations whole on every rank of ``model`` (the sited MLP gathers its
 output back), so ``btf`` and ``logits`` check the batch dim only, and
-``ecd`` (MoE expert buffers, not ported yet) only its rank.
+``ecd`` (the MoE capacity buffers) nothing: each rank's buffer holds every
+expert's slots of the global batch (``layers.moe_block``), whose size
+no local shape shows.
 """
 from __future__ import annotations
 
@@ -88,7 +90,8 @@ def btf(x: torch.Tensor) -> torch.Tensor:
 
 
 def ecd(x: torch.Tensor) -> torch.Tensor:
-    """(E, cap, D) MoE expert buffers: unchecked until MoE is ported."""
+    """(E, cap, D) MoE capacity buffers, unchecked: a rank's buffer is the
+    global batch's (``layers.moe_block``), the same shape on every rank."""
     return x
 
 

@@ -22,13 +22,16 @@ spec maps onto a port leaf by dropping the stacked dims and, for ``w``
 leaves, reversing it (``convert.reference_layout`` gives each leaf's
 reference path, shape and both facts).  The F dim is then dim 1 of
 ``attn.{q,k,v}.weight``, ``mlp.{gate,up}.weight``, ``head.weight`` and
-``embed.weight``, and dim 0 of ``attn.o.weight`` and ``mlp.down.weight``.
+``embed.weight``, and dim 0 of ``attn.o.weight`` and ``mlp.down.weight``;
+the experts' ``moe.gate``, ``moe.up`` (E, d, f) and ``moe.down`` (E, f,
+d) keep the reference's layout, E their T dim.
 
 ``Placement`` is what a model placed on a mesh holds (``models.model.
 shard_``): each leaf's spec in the port's layout and the ``launch.mesh.
 Mesh`` of each axis.  Its F dims are split over ``data``; of its T dims
-only the MLP's (``TP_HELD``) are split over ``model``: attention, the
-embedding and the head keep their T dims whole (ROADMAP queue 1, item 8).
+only the dense MLP's and the experts' (``TP_HELD``) are split over
+``model``: attention, the shared experts, the embedding and the head keep
+their T dims whole (ROADMAP queue 1, item 8).
 A leaf split over ``data`` is gathered where it is used
 (``collectives.gather_param``, whose backward reduce-scatters its
 gradient), so each rank keeps only its slice between uses.
@@ -103,9 +106,9 @@ _RULES: Sequence[Tuple[str, Tuple[Any, ...]]] = (
     (r"app_in/w$",                 ("F", "T")),
 )
 
-# the leaves whose T dim the port splits over ``model`` (the dense MLP, run
-# by the sited trunk); every other T dim stays whole in this slice
-TP_HELD = r"mlp/(gate|up|down)/w$"
+# the leaves whose T dim the port splits over ``model`` (the dense MLP and the
+# routed experts, run by the sited trunk); every other T dim stays whole
+TP_HELD = r"mlp/(gate|up|down)/w$|moe/(gate|up|down)$"
 
 
 def _expand(template, fsdp, tp):
@@ -325,17 +328,23 @@ def gathered(module: nn.Module, prefix: str, placement: Placement, site: str):
     """``module`` (state-dict names under ``prefix``) as its forward uses
     it: each ``nn.Linear`` a view over its weights gathered over ``data``
     (``Placement.gather``, logged at ``site``), each container a namespace
-    of its children's; a module with no split parameter is itself."""
+    of its children's and of its own parameters, gathered (the experts'
+    ``gate``, ``up``, ``down``); a module with no split parameter is
+    itself."""
     if not any(placement.dim(prefix + n, "data") is not None
                for n, _ in module.named_parameters()):
         return module
+
+    def g(leaf, t):
+        return None if t is None else placement.gather(prefix + leaf, t, site)
+
     if isinstance(module, nn.Linear):
-        def g(leaf, t):
-            return None if t is None else placement.gather(prefix + leaf, t, site)
         return _LinearView(g("weight", module.weight), g("bias", module.bias))
     children = dict(module.named_children())
+    own = dict(module.named_parameters(recurse=False))
     if not children:
         raise NotImplementedError(f"{prefix}: a {type(module).__name__} split over "
                                   "data is not gathered for its use")
     return SimpleNamespace(**{n: gathered(c, f"{prefix}{n}.", placement, site)
-                              for n, c in children.items()})
+                              for n, c in children.items()},
+                           **{n: g(n, t) for n, t in own.items()})

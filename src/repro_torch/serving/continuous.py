@@ -6,7 +6,11 @@ Here every slot has its own position: the slots are the batch rows of one
 set of caches whose ``pos`` is a (slots,) tensor, and one decode call
 advances them all (the reference vmaps its single-sequence decode over a
 slot axis).  Finished slots are refilled from the queue without disturbing
-the others.
+the others.  A MoE model's experts route each slot's tokens alone, with
+its own capacity, at admit and at every step (``route_rows``), as the
+reference's vmap over slots routes each sequence alone: a batch-wide
+routing would let the slots, idle ones included, take each other's
+capacity.
 
 Admits prefill fresh caches at position 0 through the same cached-prefill
 path as the fixed engine (flash attention on the card), mark the right-pad
@@ -68,6 +72,8 @@ def _with_pos(tree, pos):
 
 class ContinuousEngine(PlannedEngine):
     """``slots`` independent sequences decoded as one batch."""
+
+    route_rows = True
 
     def __init__(self, cfg, params, *, slots: int, max_seq: int,
                  eos_id: Optional[int] = None, backend: Optional[str] = None,

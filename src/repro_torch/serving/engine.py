@@ -3,17 +3,18 @@
 one pass, then decode greedily in lockstep.
 
 On the card the prefill and every decode step run the port's CUDA kernels
-(``kernels.ops`` counts the launches): RMSNorm and, at prefill, flash
-attention for the dense and hybrid families, the SSD scan for zamba2's
-Mamba2 layers and the WKV6 scan for rwkv6.  The recurrent families
+(``kernels.ops`` counts the launches): RMSNorm (``qk_norm``'s included)
+and, at prefill, flash attention for the dense, moe and hybrid families,
+the SSD scan for zamba2's Mamba2 layers and the WKV6 scan for rwkv6.  The recurrent families
 (``ssm``, ``hybrid``) need equal-length prompts, as in the reference: a
 recurrent state would absorb the right padding, so ragged prompts raise
 ``ValueError`` (the reference asserts).
 
 Plan-aware serving: pass ``plan=`` (a ``TunedPlan``, its JSON path or a
-runtime dict) or ``repo=`` (a ``PlanRepository``) and a dense model
-decodes under that plan's per-site knobs at the ``serve.layer{i}.mlp.*``
-SiteIds, through the sited trunk over ``mesh`` (by default
+runtime dict) or ``repo=`` (a ``PlanRepository``) and a dense or MoE
+model decodes under that plan's per-site knobs at the
+``serve.layer{i}.mlp.*`` and ``serve.layer{i}.moe.*`` SiteIds, through the
+sited trunk over ``mesh`` (by default
 ``launch.mesh.make_mesh()``: the initialised process group, or a size-1
 mesh that issues no collective).  Each plan's prefill and decode step are
 kept per plan digest and run under that plan's scope, so a ``set_plan``
@@ -59,14 +60,17 @@ def _make_retune(binding, retune):
     return RetuneService(binding, **opts)
 
 
-def make_serve_step(cfg, *, backend: Optional[str] = None, mesh=None, shards=None):
+def make_serve_step(cfg, *, backend: Optional[str] = None, mesh=None, shards=None,
+                    route_rows: bool = False):
     """serve_step(params, tokens (B,1), caches[, pos_offset (B,)]) ->
-    (next (B,1), caches).  ``mesh`` opts the dense family into the sited
-    decode path (``serve.layer{i}.*``), with ``shards`` this rank's MLP
-    shards (``models.dense.shard_trunk``)."""
+    (next (B,1), caches).  ``mesh`` opts the dense and moe families into
+    the sited decode path (``serve.layer{i}.*``), with ``shards`` this
+    rank's feed-forward shards (``models.dense.shard_trunk``);
+    ``route_rows`` routes each row alone through the experts."""
     def serve_step(params, tokens, caches, pos_offset=None):
         logits, caches = M.decode_step(cfg, params, tokens, caches, backend=backend,
-                                       mesh=mesh, shards=shards, pos_offset=pos_offset)
+                                       mesh=mesh, shards=shards, pos_offset=pos_offset,
+                                       route_rows=route_rows)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], caches
     return serve_step
 
@@ -94,8 +98,11 @@ def check_equal_lengths(cfg, lens) -> None:
 
 class PlannedEngine:
     """The plan surface both engines share: the ``PlanBinding``, the fault
-    and re-tune lifecycle, the mesh and this rank's MLP shards, and the
-    per-plan steps keyed on the plan digest."""
+    and re-tune lifecycle, the mesh and this rank's feed-forward shards,
+    and the per-plan steps keyed on the plan digest.  ``route_rows``: the
+    experts route each row alone (the continuous engine's slots)."""
+
+    route_rows = False
 
     def _bind_plan(self, cfg, params, *, max_seq: int, backend, plan, repo,
                    plan_hardware, plan_parallel, plan_band, mesh, fault_schedule,
@@ -115,9 +122,10 @@ class PlannedEngine:
         if mesh is None and self._binding.bound and cfg.family in ("dense", "moe", "vlm"):
             mesh = make_mesh()
         self.mesh = mesh
-        # this rank's MLP shards, made once (at mesh size 1: the weights themselves)
+        # this rank's feed-forward shards, made once (at mesh size 1: the
+        # weights themselves)
         self._shards = (dense.shard_trunk(params.trunk, mesh)
-                        if mesh is not None and cfg.family == "dense" else None)
+                        if mesh is not None and cfg.family in M.DECODER else None)
         self._fns: Dict[tuple, Tuple[Callable, Callable]] = {}   # plan digest -> steps
 
     # ------------------------------------------------------------------
@@ -157,7 +165,7 @@ class PlannedEngine:
         if key not in self._fns:
             scope = self._binding.scope
             serve_step = make_serve_step(self.cfg, backend=self.backend, mesh=self.mesh,
-                                         shards=self._shards)
+                                         shards=self._shards, route_rows=self.route_rows)
 
             def step(tokens, caches, pos_offset=None):
                 with scope(rt):
@@ -167,7 +175,8 @@ class PlannedEngine:
                 with scope(rt):
                     return M.forward_hidden(self.cfg, self.params, batch, caches,
                                             backend=self.backend, mesh=self.mesh,
-                                            shards=self._shards)[1]
+                                            shards=self._shards,
+                                            route_rows=self.route_rows)[1]
 
             self._fns[key] = (step, prefill)
         return self._fns[key]

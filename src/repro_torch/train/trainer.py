@@ -193,7 +193,8 @@ def train_loop(cfg, tcfg: TrainConfig, data_iter, *, steps: int, seed: int = 0,
     RNG state is read) on ``device``.  Returns the trained model and
     ``history`` with each step's ``loss``, ``step_time`` (host seconds,
     after the loss reached the host) and ``mfu`` (against the H100's bf16
-    peak, ``train.metrics``)."""
+    peak, ``train.metrics``).  The log line shows the routers'
+    load-balancing loss ``aux`` beside the loss (0 without experts)."""
     if model is None:
         model = M.init_params(cfg, seed, device=device)
     dev = next(model.parameters()).device
@@ -218,7 +219,7 @@ def train_loop(cfg, tcfg: TrainConfig, data_iter, *, steps: int, seed: int = 0,
         if callback:
             callback(step, metrics)
         if log_every and step % log_every == 0:
-            print(f"step {step:5d}  loss {loss:.4f}  "
+            print(f"step {step:5d}  loss {loss:.4f}  aux {float(metrics['aux']):.4f}  "
                   f"grad_norm {float(metrics['grad_norm']):.3f}  "
                   f"tok/s {m['tokens_per_s']:.0f}")
     return model, history

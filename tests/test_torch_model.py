@@ -218,8 +218,8 @@ def test_registered_archs_build_or_name_their_slice(arch):
         assert "slice" in str(e)
 
 
-@pytest.mark.parametrize("change", [dict(sliding_window=16), dict(num_experts=4, top_k=2),
-                                    dict(qk_norm=True), dict(parallel_block=True),
+@pytest.mark.parametrize("change", [dict(sliding_window=16), dict(mlp_kind="gelu"),
+                                    dict(pos_kind="alibi"), dict(parallel_block=True),
                                     dict(attn_kind="mla"), dict(family="audio")])
 def test_unported_variants_raise(change):
     cfg = get_smoke_config(ARCH).replace(**change)

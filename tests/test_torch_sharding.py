@@ -5,7 +5,7 @@ activation checks (``parallel.constraints``) against the reference's.
 reference's, as tuples, for all 15 configs at full size (``jax.eval_shape``
 trees, no memory) on stub meshes of (4,1), (2,2), (1,4), (2,4) and (8,1)
 (data x model), whose non-dividing dims take the per-dim fallback.  The
-port-layout specs of smoke dense, hybrid and ssm models must be the
+port-layout specs of smoke dense, moe, hybrid and ssm models must be the
 reference's specs carried through ``convert``'s transposes and unstacking:
 each leaf's reference array holds its own flat indices, so the converted
 tensor says which reference dim each of its dims is.
@@ -133,14 +133,17 @@ def test_mesh_without_a_model_axis_names_dx1():
 # the port's layout
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-7b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-7b", "rwkv6-1.6b", "deepseek-moe-16b",
+                                  "olmoe-1b-7b", "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_port_layout_specs_follow_convert(arch, mesh):
     """Each port leaf's spec (``port_specs`` of ``convert.reference_layout``)
     is the reference's spec of its leaf, dim by dim through ``convert``:
     the dims ``params_from_jax`` unstacks are dropped and a transposed
-    ``w`` leaf's are reversed; the model axis is kept on the MLP weights
-    only (``TP_HELD``), as ``place`` records it."""
+    ``w`` leaf's are reversed; the model axis is kept on the dense MLP
+    weights and the routed experts only (``TP_HELD``: E over ``model``, d
+    over ``data``), as ``place`` records it; the shared experts and the
+    router keep their T dims whole."""
     cfg = get_smoke_config(arch)
     jt = jax.eval_shape(lambda k: JM.init_params(jget_smoke(arch), k), jax.random.PRNGKey(0))
     jt = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), jt)
@@ -165,10 +168,11 @@ def test_port_layout_specs_follow_convert(arch, mesh):
             moved = [k for k in range(len(ref_dims)) if step[k] != origin[k]]
             assert len(moved) == 1, (name, d)
             want = full[moved[0]]
-            if want == "model" and ".mlp." not in name:
+            held = ".mlp." in name or name.endswith((".moe.gate", ".moe.up", ".moe.down"))
+            if want == "model" and not held:
                 want = None
             assert got[name][d] == want, (name, d, got[name], full)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         held = SH.place(layout, {"data": Mesh(None, mesh[0], 0, "data"),
                                  "model": Mesh(None, mesh[1], 0, "model")}).specs
         assert held == got

@@ -54,8 +54,23 @@ port) and waits for them.  Each rank:
     batch (each rank on its card, before it keeps its slices), every
     parameter moved, peak memory under 80 GB; it prints step ms (median
     of steps 2-3), tokens/s, MFU on the fp32 peak, peak GiB and device ms
-    by class of one more step under the profiler.
-``--sections`` runs a subset of helpers, train, fsdp, deep and launcher.
+    by class of one more step under the profiler;
+  * trains olmoe-1b-7b at full width (fp32, remat, B = 4 x S = 2048, 3
+    steps) with its experts split over ``model`` (expert parallelism: the
+    dispatch and combine all-to-alls at ``ep.layer{j}.moe.a2a_disp|comb``)
+    under ``MOE_PLAN``, which chunks layer 0's dispatch by 2 and layer 1's
+    by 4: at 4 layers under 1x4 and 2x2 (eps = 1e-3), step 1's parameters
+    within 1e-5 relative of the one-card step (each rank on its card
+    first); at all 16 layers under 1x4 and 2x2 (lr 3e-5), step 1's loss
+    within 1e-5 relative of a one-card ``no_grad`` forward of the same
+    weights, every parameter moved, peak memory under 80 GB.  Each step 1
+    replays the one-card run's routing (``layers.record_routing``; a data
+    rank its rows of it): a routing choice whose two experts' router
+    probabilities differ by less than the runs' rounding would otherwise
+    flip.  The dispatch and combine ``Issued`` rows, the kernels' launches
+    and the leaves held alike (sha256) must be the code's; it prints step
+    ms, tokens/s, peak GiB and device ms by class of one more step.
+``--sections`` runs a subset of helpers, train, fsdp, deep, moe and launcher.
 Then it runs the launcher once, under ``torch.distributed.run``
 (torchrun): ``repro_torch.launch.train --config`` (the same model, batch
 and sequence, 3 steps) ``--mesh 1x4 --tuned-plan`` a plan the port tunes
@@ -66,6 +81,7 @@ failed on any rank or the launcher failed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import hashlib
 import json
@@ -95,7 +111,7 @@ PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer1.mlp.ag": ("ring", 4),
 TRAIN_PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
               "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
 TRAIN = dict(layers=4, B=4, S=2048, steps=3)          # --smoke: 2 layers, S = 64
-SECTIONS = ("helpers", "train", "fsdp", "deep", "launcher")
+SECTIONS = ("helpers", "train", "fsdp", "deep", "moe", "launcher")
 GATE_OPT = dict(lr=3e-4, eps=1e-3)
 GATE_REL = 1e-5
 # FSDP placements at 4 layers: (mesh, shape, mode, global batch); grad_accum=2 at
@@ -104,6 +120,10 @@ FSDP_RUNS = (("4x1", (4, 1), "plain", 4), ("4x1", (4, 1), "grad_accum=2", 8),
              ("2x2", (2, 2), "plain", 4))
 DEEP = dict(layers=32, B=4, S=2048, steps=3, lr=3e-5)   # --smoke: smoke widths, 4 layers
 CARD_BYTES = 80e9
+# olmoe-1b-7b with its experts split over ``model``: 4 layers against the
+# one-card step, 16 (all) against the one-card forward; --smoke: 2 and 4
+MOE = dict(arch="olmoe-1b-7b", layers=(4, 16), B=4, S=2048, steps=3, lr=3e-5)
+MOE_PLAN = {"ep.layer0.moe.a2a_disp": ("chunked", 2), "ep.layer1.moe.a2a_disp": ("chunked", 4)}
 # Issued rows a layer's sites log in one forward and backward pass with remat:
 # gate and up ring twice (forward, recompute) and once backward each; down
 # reduce-scatter twice and once backward
@@ -562,16 +582,167 @@ def deep_section(rank: int, dev, smoke: bool, res: dict) -> None:
 def launches_as_code(cfg, passes: int, steps: int, dev) -> tuple:
     """(the kernels' launches since the last reset, whether they are the
     code's for ``steps`` steps of ``passes`` passes with remat: a layer's
-    ln1, ln2 and flash forward twice (forward, recompute), ln_f once, each
-    backward once).  The CPU takes the plain versions: nothing launches."""
+    ln1, ln2 (and qk_norm's two) and flash forward twice (forward,
+    recompute), ln_f once, each backward once).  The CPU takes the plain
+    versions: nothing launches."""
     from repro_torch.kernels import ops
 
     got = {k: v for k, v in ops.LAUNCHES.items() if v}
-    L, n = cfg.num_layers, passes * steps
+    L, n, norms = cfg.num_layers, passes * steps, 4 if cfg.qk_norm else 2
     want = {} if dev.type != "cuda" else {
-        "rmsnorm": n * (4 * L + 1), "rmsnorm_bwd": n * (2 * L + 1),
+        "rmsnorm": n * (2 * norms * L + 1), "rmsnorm_bwd": n * (norms * L + 1),
         "flash_attention": n * 2 * L, "flash_attention_bwd": n * L}
     return got, got == want
+
+
+def _twice(routing):
+    """A one-pass routing record for a step with remat: each site's choices
+    for its forward and again for its recompute."""
+    from repro_torch.models import layers as L
+
+    out = L.Routing()
+    out.calls = {site: [c[0], c[0]] for site, c in routing.calls.items()}
+    return out
+
+
+def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """olmoe-1b-7b with expert parallelism at 1x4 and 2x2 (module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L, model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C, constraints as CT
+    from repro_torch.train import metrics as MET, trainer as T
+
+    base = (get_smoke_config if smoke else get_config)(MOE["arch"])
+    short, deep = (2, 4) if smoke else MOE["layers"]
+    B, S, steps = MOE["B"], 64 if smoke else MOE["S"], MOE["steps"]
+    corpus = SyntheticCorpus(DataConfig(vocab_size=base.vocab_size, seq_len=S, global_batch=B))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()}
+               for k in range(steps + 1)]
+    plan = {k: C.CollectiveRuntime(*v) for k, v in MOE_PLAN.items()}
+    meshes = {"1x4": make_mesh((1, N), ("data", "model")),
+              "2x2": make_mesh((2, 2), ("data", "model"))}
+    runs = []
+    for layers in (short, deep):
+        cfg = base.replace(num_layers=layers)
+        gated_step = layers == short
+        opt = adamw.AdamWConfig(**GATE_OPT) if gated_step else adamw.AdamWConfig(lr=MOE["lr"])
+        model = M.init_params(cfg, 0, device=dev)
+        t = time.perf_counter()
+        if gated_step:            # the one-card step of the same weights, on this card
+            state = adamw.init_state(dict(model.named_parameters()))
+            with L.record_routing() as routing:
+                model, state, m = T.make_train_step(cfg, T.TrainConfig(
+                    opt=opt, warmup=2, total_steps=100))(model, state, batches[0], 1)
+            want = {n: p.detach().cpu() for n, p in model.named_parameters()}
+            want_loss = float(m["loss"])
+            del state, m
+        else:                     # the one-card forward of the same weights
+            with torch.no_grad(), L.record_routing() as once:
+                want_loss = float(M.loss_and_metrics(cfg, model, batches[0], remat=False)[0])
+            routing, want = _twice(once), None
+        one_card_s = time.perf_counter() - t
+        del model
+        _release(dev)
+        for name, mesh in meshes.items():
+            dm, mm = mesh["data"], mesh["model"]
+            k = B // dm.size
+            rows = slice(dm.rank * k, (dm.rank + 1) * k)
+            model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mesh)
+            place = model.placement
+            _release(dev)
+            before = {n: p.detach().double().sum().item() for n, p in model.named_parameters()}
+            state = adamw.init_state(dict(model.named_parameters()))
+            step_fn = T.make_train_step(cfg, T.TrainConfig(
+                opt=opt, warmup=2, total_steps=100, sited_mesh=mm,
+                data_axis=dm if dm.size > 1 else None))
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            sizes = {"data": dm.size, "model": mm.size}
+            times, losses, auxes, gate = [], [], [], None
+            tok_rows = slice(dm.rank * k * S, (dm.rank + 1) * k * S)
+            with C.use_runtime_plan(plan), CT.use_axes(("data",), "model", sizes=sizes,
+                                                       batch=B), \
+                    C.record_issued() as issued:
+                for i in range(steps):
+                    b = {n: a[rows] for n, a in batches[i].items()}
+                    replay = L.record_routing(routing, rows=tok_rows) if i == 0 else \
+                        contextlib.nullcontext()
+                    _sync(dev)
+                    t = time.perf_counter()
+                    with replay:
+                        model, state, m = step_fn(model, state, b, i + 1)
+                    losses.append(float(m["loss"]))
+                    auxes.append(float(m["aux"]))
+                    _sync(dev)
+                    times.append(time.perf_counter() - t)
+                    if i == 0:
+                        gate = {"loss_rel": abs(losses[0] - want_loss) / abs(want_loss)}
+                        if want is not None:
+                            worst, at = 0.0, ""
+                            for n, p in model.named_parameters():
+                                w = place.local(n, want[n].to(dev))
+                                rel = ((p.detach() - w).abs().max() / w.abs().max()).item()
+                                if rel > worst:
+                                    worst, at = rel, n
+                            gate.update(param_rel=worst, at=at)
+                peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+                launches, launches_ok = launches_as_code(cfg, 1, steps, dev)
+                b = {n: a[rows] for n, a in batches[steps].items()}
+                prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
+            by_site = {}
+            for r in issued:
+                if r.site.startswith("ep."):
+                    by_site.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
+            want_rows = {}
+            for j in range(layers):
+                for kind in ("a2a_disp", "a2a_comb"):
+                    site = f"ep.layer{j}.moe.{kind}"
+                    nc = MOE_PLAN.get(site, ("", 1))[1]
+                    want_rows[site] = {"all_to_all": [nc] * 2 * (steps + 1),
+                                       "all_to_all.bwd": [nc] * (steps + 1)}
+            rows_ok = by_site == want_rows
+            still = [n for n, p in model.named_parameters()
+                     if p.detach().double().sum().item() == before[n]]
+            alike = held_alike(model)
+            step_s = statistics.median(times[1:] or times)
+            tokens = B * S
+            row = {"mesh": name, "layers": layers, "batch": B, "seq": S, "lr": opt.lr,
+                   "eps": opt.eps, "one_card_s": one_card_s, "step_ms": step_s * 1e3,
+                   "step_ms_all": [x * 1e3 for x in times], "tokens_per_s": tokens / step_s,
+                   "mfu_fp32": MET.mfu(cfg, tokens, step_s, chips=N, peak=MET.H100_FP32_PEAK),
+                   "peak_bytes": peak, "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
+                   "losses": losses, "aux": auxes, "one_card_loss": want_loss, "gate": gate,
+                   "issued_as_code": rows_ok, "held_alike_equal": alike, "not_moved": still,
+                   "launches": launches}
+            runs.append(row)
+            tag = f"moe {name} {layers} layers"
+            if not (gate["loss_rel"] <= GATE_REL and gate.get("param_rel", 0.0) <= GATE_REL):
+                res["failed"].append(f"{tag}: step 1 against one card {gate}")
+            if not rows_ok:
+                res["failed"].append(f"{tag}: issued {by_site}")
+            if not launches_ok:
+                res["failed"].append(f"{tag}: kernel launches {launches}")
+            if not alike:
+                res["failed"].append(f"{tag}: leaves held alike differ between ranks")
+            if still:
+                res["failed"].append(f"{tag}: parameters that did not move: {still[:5]}")
+            if not peak < CARD_BYTES:
+                res["failed"].append(f"{tag}: peak memory {peak} bytes")
+            if not all(map(math.isfinite, losses)):
+                res["failed"].append(f"{tag}: losses {losses}")
+            del model, state, step_fn, place
+            _release(dev)
+            dist.barrier()
+        del want, routing
+        _release(dev)
+    res["moe"] = {"arch": base.name, "plan": MOE_PLAN, "runs": runs}
 
 
 def _sync(dev) -> None:
@@ -701,6 +872,8 @@ def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> in
             fsdp_section(rank, dev, smoke, res, os.path.dirname(out))
         if "deep" in sections:
             deep_section(rank, dev, smoke, res)
+        if "moe" in sections:
+            moe_section(rank, dev, smoke, res)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
