@@ -132,12 +132,33 @@ Phases, each of which exits non-zero on a failed check:
      olmoe-1b-7b at 2 layers (B = 1, S = 512) against ``backend="ref"``
      and the sited trunk under a plan of 1, 2 and 4 chunks, phase 8's
      parity bounds.
+  11. the dense families: the flash kernel's new variants against their
+     plain versions, each timed beside SDPA's efficient backend (with
+     ``is_causal`` where the mask is causal only, else the equivalent
+     float mask) and bounded by the pairs inside the mask (head dim 80 at
+     phi2-2b's prefill, B 8, S 512, 32/32 heads; ALiBi at mpt-7b's, h 128;
+     a window of 256 at S 2048 on h2o-danube's 32/8 heads, h 80; and
+     h2o-danube's served prefill, S 4080 under its window of 4096, at
+     B 2); ``phi2-2b`` (parallel block, GELU with biases), ``mpt-7b``
+     (ALiBi), ``phi4-mini-3.8b``, ``stablelm-3b`` and ``h2o-danube-1.8b``
+     served at full width and depth as phase 4 serves (h2o-danube over
+     eight prompts of 4064-4080 tokens at max_seq 4160, so decode wraps its
+     4096-slot ring), launches equal to the code's (none of RMSNorm in the
+     LayerNorm models); phi2-2b under plan (b) on the 1-rank NCCL group
+     beside the unplanned engine (logits within 1e-4, layer 0 and 1 at
+     their chunks); slice parity of each at 2 layers against
+     ``backend="ref"`` within 1e-3, and of h2o-danube with its window cut
+     to 256 over prompts of 200-256 tokens, so its ring wraps there too.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
-Phases 7 to 10 share one 1-rank NCCL group from a ``FileStore``.  Then it
+Phases 7 to 11 share one 1-rank NCCL group from a ``FileStore``.  Then it
 prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
 ``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"moe": ...}``
-line, one ``{"kernels": [...]}`` line and, last, the device line.
+line, one ``{"families": ...}`` line, one ``{"kernels": [...]}`` line (the
+flash kernel's instantiations of phase 11, h = 80 and ALiBi, as entries
+of their own with the launches of the models that run them, which the
+base flash entry does not count again; the h = 80 entry carries its
+window checks) and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -1101,24 +1122,28 @@ def ssd_phase(gen) -> dict:
 # phases 4 and 5: serving
 # ---------------------------------------------------------------------------
 
-def make_prompts(cfg):
-    """Ragged prompts of 384-512 tokens for the dense family; 512 each for the
-    recurrent families, which need equal lengths."""
+def make_prompts(cfg, lens=PROMPT_LENS):
+    """Ragged prompts of 384-512 tokens (``lens``, inclusive) for the dense
+    family; 512 each for the recurrent families, which need equal lengths."""
     rs = np.random.default_rng(SEED)
-    lens = rs.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=BATCH)
-    lens[0] = PROMPT_LENS[1]
+    n = rs.integers(lens[0], lens[1] + 1, size=BATCH)
+    n[0] = lens[1]
     if cfg.family in ("ssm", "hybrid"):
-        lens[:] = PROMPT_LENS[1]
-    return [rs.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+        n[:] = lens[1]
+    return [rs.integers(0, cfg.vocab_size, k).astype(np.int32) for k in n]
 
 
 def expected_launches(cfg) -> dict:
     """Each kernel's launches for one served batch (a prefill and MAX_NEW
     decode steps), counted from the model code."""
     fwd, L = 1 + MAX_NEW, cfg.num_layers
-    if cfg.family in ("dense", "moe"):   # ln1, ln2 (and qk_norm's two) per layer and
-        norms = 4 if cfg.qk_norm else 2  # ln_f; flash at prefill
-        return dict(NO_LAUNCHES, rmsnorm=(norms * L + 1) * fwd, flash_attention=L)
+    if cfg.family in ("dense", "moe"):
+        # per layer ln1 and ln2 (ln1 alone in a parallel block) where they are
+        # RMSNorms (LayerNorms are plain PyTorch), qk_norm's two, and ln_f;
+        # flash at prefill
+        rms = cfg.norm_kind == "rmsnorm"
+        norms = (1 if cfg.parallel_block else 2) * rms + 2 * cfg.qk_norm
+        return dict(NO_LAUNCHES, rmsnorm=(norms * L + rms) * fwd, flash_attention=L)
     if cfg.family == "hybrid":     # ln and the gated inner norm per Mamba2 layer,
         groups = L // cfg.shared_attn_every    # ln1 and ln2 per shared-block application
         return dict(NO_LAUNCHES, rmsnorm=(2 * L + 2 * groups + 1) * fwd,
@@ -1197,9 +1222,10 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
-def serving_phase(cfg, model, init_s: float, prompts, extra=None) -> dict:
+def serving_phase(cfg, model, init_s: float, prompts, extra=None,
+                  max_seq: int = MAX_SEQ) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
-    engine = make_engine(cfg, model, mode="fixed", batch_size=BATCH, max_seq=MAX_SEQ)
+    engine = make_engine(cfg, model, mode="fixed", batch_size=BATCH, max_seq=max_seq)
     engine.generate(prompts, max_new=2)          # warm-up: cuBLAS handles, allocator
 
     torch.cuda.reset_peak_memory_stats()
@@ -1218,7 +1244,7 @@ def serving_phase(cfg, model, init_s: float, prompts, extra=None) -> dict:
     tag = f"serving {cfg.name}"
     say(f"{tag}: {n_params} params fp32, {L} layers, init {init_s:.2f} s")
     say(f"{tag}: batch {BATCH}, prompts {[len(p) for p in prompts]} "
-        f"({prompt_tokens} tokens), max_new {MAX_NEW}, max_seq {MAX_SEQ}")
+        f"({prompt_tokens} tokens), max_new {MAX_NEW}, max_seq {max_seq}")
     say(f"{tag}: prefill {prefill_ms:.1f} ms ({prompt_tokens / timing['prefill_s']:.0f} "
         f"prompt tok/s); decode {decode_ms:.2f} ms/token (median step); "
         f"{tok_s:.1f} generated tok/s; peak memory {peak / 2**30:.2f} GiB")
@@ -1234,14 +1260,14 @@ def serving_phase(cfg, model, init_s: float, prompts, extra=None) -> dict:
     free()
     return {"arch": cfg.name, "launches": launches, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak,
-            "profile": profile}
+            "prompt_tokens": prompt_tokens, "max_seq": max_seq, "profile": profile}
 
 
-def slice_parity_phase(cfg, prompts) -> None:
-    cfg2 = cfg.replace(num_layers=PARITY_LAYERS[cfg.name])
+def slice_parity_phase(cfg, prompts, *, layers=None, max_seq: int = MAX_SEQ) -> dict:
+    cfg2 = cfg.replace(num_layers=layers or PARITY_LAYERS[cfg.name])
     model = M.init_params(cfg2, SEED + 1, device="cuda")
-    kern = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ)
-    plain = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ, backend="ref")
+    kern = make_engine(cfg2, model, batch_size=BATCH, max_seq=max_seq)
+    plain = make_engine(cfg2, model, batch_size=BATCH, max_seq=max_seq, backend="ref")
     outs_k = kern.generate(prompts, max_new=MAX_NEW)
     ops.reset_launches()
     outs_r = plain.generate(prompts, max_new=MAX_NEW)
@@ -1258,6 +1284,9 @@ def slice_parity_phase(cfg, prompts) -> None:
     check(err <= SLICE_LOGITS_BOUND, f"slice parity: logits err {err} > {SLICE_LOGITS_BOUND}")
     del kern, plain, model
     free()
+    return {"arch": cfg.name, "layers": cfg2.num_layers, "window": cfg2.sliding_window,
+            "prompts": [len(p) for p in prompts], "max_seq": max_seq, "max_abs_err": err,
+            "tokens_equal": same}
 
 
 # ---------------------------------------------------------------------------
@@ -2297,6 +2326,244 @@ def moe_phase(card: str, mesh) -> dict:
             "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dense families of Lagom's Table 2 (phi2-2b, mpt-7b) and
+# three configs that share their features (phi4-mini-3.8b, stablelm-3b,
+# h2o-danube-1.8b)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("phi2-2b", "mpt-7b", "phi4-mini-3.8b", "stablelm-3b", "h2o-danube-1.8b")
+SWA_ARCH = "h2o-danube-1.8b"
+# h2o-danube's prompts fill its 4096-slot ring nearly full, so 32 new tokens
+# wrap it; its ring (4096 slots of 24 layers x 8 rows x 8 KV heads x 80) is
+# 4.03 GB in fp32
+SWA_PROMPT_LENS, SWA_MAX_SEQ = (4064, 4080), 4160
+FAMILY_PARITY_LAYERS = 2
+# the parity run of h2o-danube also cuts its window to 256 with prompts of
+# 200-256 tokens (a prefill must fit the ring), so its ring wraps there too
+SWA_PARITY_WINDOW, SWA_PARITY_LENS = 256, (200, 256)
+FAMILY_PLAN_ARCH = "phi2-2b"
+# the flash kernel's instantiations this phase adds, each at a served model's
+# prefill shape and with an entry of its own in the kernels line:
+# (name, instance, B, S, Hq, Hkv, h, window, alibi)
+FLASH_VARIANTS = (
+    ("flash_attention (h = 80)", "h80", BATCH, PROMPT_LENS[1], 32, 32, 80, 0, False),
+    ("flash_attention (ALiBi)", "alibi", BATCH, PROMPT_LENS[1], 32, 32, 128, 0, True),
+)
+# the h = 80 instantiation's run-time window, held to the plain version as
+# checks of that entry: a window of 256 that masks at S 2048 on danube's
+# heads, and danube's served prefill itself (its longest prompt, 4080
+# tokens, under its window of 4096, which masks no key there), at B 2 so
+# the plain version's scores fit (2 x 32 x 4080^2 fp32 is 4.3 GB); the
+# per-row arithmetic does not depend on B
+FLASH_WINDOW_CHECKS = (
+    ("flash_attention (h = 80, window 256)", BATCH, 2048, 32, 8, 80, 256, False),
+    ("flash_attention (h = 80, danube's prefill)", 2, SWA_PROMPT_LENS[1], 32, 8, 80,
+     4096, False),
+)
+
+
+def flash_instance(cfg) -> str:
+    """The flash kernel's instantiation a model's prefill launches: the
+    ALiBi one, the h = 80 one, or the base ones (h 112 and 128 without
+    ALiBi) of the earlier phases."""
+    return "alibi" if cfg.pos_kind == "alibi" else "h80" if cfg.head_dim == 80 else "base"
+
+
+def masked_pairs(Sq: int, Sk: int, window: int) -> int:
+    """(query, key) pairs a causal mask with a window (0 = none) keeps."""
+    return sum(min(i + 1, Sk, window or Sk) for i in range(Sq))
+
+
+def sdpa_masked(q, k, v, bias):
+    """SDPA on its memory-efficient backend with an additive fp32 bias (the
+    causal mask, the window and ALiBi in one (1, 1 | Hq, Sq, Sk) tensor)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+def flash_variant_phase(gen, name, B, S, Hq, Hkv, h, window, alibi) -> dict:
+    """The flash kernel at a served model's prefill shape, causal fp32, with
+    a window (0 = none) and ALiBi as given: held against its plain version
+    on the same inputs, timed beside it and beside SDPA's efficient backend
+    (with ``is_causal`` where the mask is causal only, else with the
+    equivalent additive mask; null where that backend refuses it), and
+    bounded by the pairs inside the mask at the 3xTF32 rate."""
+    from repro_torch.models.layers import alibi_slopes
+
+    q = randn((B, S, Hq, h), torch.float32, gen)
+    k = randn((B, S, Hkv, h), torch.float32, gen)
+    v = randn((B, S, Hkv, h), torch.float32, gen)
+    slopes = alibi_slopes(Hq).cuda() if alibi else None
+    kw = dict(causal=True, window=window, alibi_slopes=slopes)
+    o = ops.flash_attention(q, k, v, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    o_ref = ref.flash_attention_ref(q, k, v, **kw)
+    err = (o - o_ref).abs().max().item()
+    check(o.shape == q.shape and bool(torch.isfinite(o).all()), f"{name}: bad output")
+    check(err <= FLASH_BOUND, f"{name}: max abs err {err} > {FLASH_BOUND}")
+    del o, o_ref
+    free()
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, backend="cuda", **kw))
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), samples=5, per_sample=2)
+    G = Hq // Hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    if alibi or 0 < window < S:
+        pos = torch.arange(S, device="cuda")
+        dist = (pos[None, :] - pos[:, None]).float()                   # kpos - qpos
+        keep = dist <= 0
+        if window:
+            keep &= -dist < window
+        bias = slopes.view(1, Hq, 1, 1) * dist if alibi else torch.zeros_like(dist)[None, None]
+        bias = bias.masked_fill(~keep, float("-inf")).contiguous()
+        del pos, dist, keep
+        lib_call, lib_how = (lambda: sdpa_masked(qt, kt, vt, bias)), "its additive mask"
+    else:                               # causal only: the library skips the masked tiles
+        lib_call, lib_how = (lambda: sdpa_efficient(qt, kt, vt, True)), "is_causal"
+    lib, err_lib, lib_note = None, None, ""
+    try:
+        err_lib = (lib_call().transpose(1, 2) - ref.flash_attention_ref(q, k, v, **kw)
+                   ).abs().max().item()
+        lib = time_ms(lib_call)
+    except RuntimeError as e:           # the backend refuses the mask: no library time
+        lib_note = f" (refused: {str(e).splitlines()[0][:120]})"
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + (4 * Hq if alibi else 0)
+    flops = 4 * h * B * Hq * masked_pairs(S, S, window)
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_AS_3XTF32)
+    say(f"{name}: B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal window={window} alibi={alibi} "
+        f"fp32: max abs err {err:.3e} (bound {FLASH_BOUND}); {ms:.4f} ms; plain "
+        f"{plain:.4f} ms; sdpa[{SDPA_BACKEND}] with {lib_how} "
+        + (f"{lib:.4f} ms (its err vs plain {err_lib:.1e})" if lib is not None else "null")
+        + f"{lib_note}; bound {b_ms:.4f} ms ({b_by}, 3xTF32 tensor cores, pairs inside the "
+        f"mask; {b_ms / ms:.1%} of it reached)")
+    del q, k, v, qt, kt, vt, lib_call
+    free()
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash.cu",
+            "replaces": "src/repro/kernels/flash.py:65", "shape": [B, S, Hq, Hkv, h],
+            "window": window, "alibi": alibi, "dtype": "float32", "max_abs_err": err,
+            "bound": FLASH_BOUND, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib, "library_backend": SDPA_BACKEND,
+            "library_call": lib_how, "library_max_abs_err": err_lib}
+
+
+def family_plan_phase(cfg, model, prompts, card: str, mesh) -> dict:
+    """phi2-2b at full size on the 1-rank NCCL mesh under plan (b) (layer 0
+    and layer 1 ring their up projection by 2 and 4) beside the unplanned
+    engine, in turns: the GELU ``serve_mlp`` with its biases and the
+    parallel block on the sited trunk; teacher-forced logits within 1e-4."""
+    plan = {k: collectives.CollectiveRuntime(*v) for k, v in PLAN_B.items()}
+    engines = {"none": make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ),
+               "b": make_engine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ, plan=plan,
+                                mesh=mesh)}
+    for e in engines.values():
+        e.generate(prompts, max_new=2)          # warm-up
+    times = {name: [] for name in engines}
+    record = {}
+    for name in ("none", "b", "b", "none"):
+        collectives.reset_degraded_warnings()
+        ops.reset_launches()
+        with warnings.catch_warnings(record=True) as ws, \
+                collectives.record_issued() as issued:
+            warnings.simplefilter("always")
+            outs = engines[name].generate(prompts, max_new=MAX_NEW)
+        t = engines[name].last_timing
+        times[name].append((t["prefill_s"] * 1e3, statistics.median(t["decode_s"]) * 1e3))
+        if name not in record:
+            record[name] = {"outs": outs, "launches": dict(ops.LAUNCHES), "rows": issued,
+                            "degraded": sum(issubclass(w.category,
+                                                       collectives.CollectiveDegradedWarning)
+                                            for w in ws)}
+    base = record["none"]["outs"]
+    check_outputs(base, cfg.vocab_size, "family plan serving, unplanned")
+    forced = {name: e.teacher_forced_logits(prompts, base) for name, e in engines.items()}
+    r = record["b"]
+    err = (forced["b"] - forced["none"]).abs().max().item()
+    by_site = issued_by_site(r["rows"])
+    chunks = {s: sorted(set(v.get("ring_ag_matmul", []))) for s, v in by_site.items()
+              if s.startswith(("serve.layer0.", "serve.layer1.")) and s.endswith(".ag")}
+    want = expected_launches(cfg)
+    say(f"family plan serving {cfg.name}: plan (b): prefill {times['b'][0][0]:.1f} / "
+        f"{times['b'][1][0]:.1f} ms, decode {times['b'][0][1]:.2f} / {times['b'][1][1]:.2f} "
+        f"ms/token (unplanned {times['none'][0][0]:.1f} / {times['none'][1][0]:.1f}, "
+        f"{times['none'][0][1]:.2f} / {times['none'][1][1]:.2f}); teacher-forced logits max "
+        f"abs diff from unplanned {err:.3e} (bound {PLAN_SERVE_BOUND}); tokens equal: "
+        f"{r['outs'] == base}; CollectiveDegradedWarnings {r['degraded']}; launches "
+        f"{r['launches']}; ring chunks of layers 0-1 {chunks}; issued "
+        f"{issued_summary(r['rows'])} ({card})")
+    check(bool(torch.isfinite(forced["b"]).all()), "family plan (b): non-finite logits")
+    check(err <= PLAN_SERVE_BOUND, f"family plan (b): logits differ by {err}")
+    check(r["launches"] == want, f"family plan (b): launches {r['launches']}, expected {want}")
+    check(chunks == {"serve.layer0.mlp.ag": [2], "serve.layer1.mlp.ag": [4]},
+          f"family plan (b) did not chunk layers 0 and 1 as it says: {chunks}")
+    check(all(f"serve.layer{i}.mlp.rs" in by_site for i in range(cfg.num_layers)),
+          "family plan (b): a layer's down projection issued no reduce-scatter")
+    out = {"arch": cfg.name, "max_abs_logit_diff": err, "tokens_equal": r["outs"] == base,
+           "degraded_warnings": r["degraded"], "launches": r["launches"], "chunks": chunks,
+           "issued": issued_summary(r["rows"]),
+           "prefill_ms": {k: [p for p, _ in v] for k, v in times.items()},
+           "decode_ms": {k: [d for _, d in v] for k, v in times.items()}, "card": card}
+    del engines, forced
+    free()
+    return out
+
+
+def families_phase(card: str, mesh) -> dict:
+    """Phase 11: the flash kernel's new variants against their plain
+    versions (h = 80 with its window checks, ALiBi); the five models served
+    at full width and depth as phase 4 serves (h2o-danube-1.8b over
+    prompts that fill its ring, so decode wraps it); phi2-2b under plan (b) on the
+    1-rank NCCL mesh; slice parity of each at 2 layers against
+    ``backend="ref"``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    kernels = {v[1]: flash_variant_phase(gen, v[0], *v[2:]) for v in FLASH_VARIANTS}
+    kernels["h80"]["window_checks"] = [flash_variant_phase(gen, *c)
+                                       for c in FLASH_WINDOW_CHECKS]
+    served, planned = [], None
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        swa = arch == SWA_ARCH
+        prompts = make_prompts(cfg, SWA_PROMPT_LENS if swa else PROMPT_LENS)
+        model, init_s = init_model(cfg)
+        served.append(serving_phase(cfg, model, init_s, prompts,
+                                    max_seq=SWA_MAX_SEQ if swa else MAX_SEQ))
+        served[-1]["flash_instance"] = flash_instance(cfg)
+        if swa:
+            ring = M.init_caches(cfg, BATCH, SWA_MAX_SEQ, device="meta")["trunk"]
+            slots = ring["dense_layers"]["k"].shape[2]
+            kv_bytes = sum(ring["dense_layers"][n].numel() * 4 for n in ("k", "v"))
+            wrapped = max(len(p) for p in prompts) + MAX_NEW > slots
+            say(f"serving {arch}: a ring of {slots} slots (window {cfg.sliding_window}), "
+                f"{kv_bytes / 1e9:.2f} GB of K and V; decode wrapped it: {wrapped}")
+            check(slots == cfg.sliding_window and wrapped, f"{arch}: the ring did not wrap")
+            served[-1].update(ring_slots=slots, kv_bytes=kv_bytes)
+        if arch == FAMILY_PLAN_ARCH:
+            planned = family_plan_phase(cfg, model, prompts, card, mesh)
+        del model
+        free()
+    parity = []
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        parity.append(slice_parity_phase(cfg, make_prompts(cfg), layers=FAMILY_PARITY_LAYERS))
+    cfg = get_config(SWA_ARCH).replace(sliding_window=SWA_PARITY_WINDOW)
+    parity.append(slice_parity_phase(cfg, make_prompts(cfg, SWA_PARITY_LENS),
+                                     layers=FAMILY_PARITY_LAYERS))
+    planned["flash_instance"] = flash_instance(get_config(FAMILY_PLAN_ARCH))
+    for instance, k in kernels.items():   # each model's flash launches, by instantiation
+        k["launches_by_model"] = {s["arch"]: s["launches"]["flash_attention"]
+                                  for s in served if s["flash_instance"] == instance}
+        if planned["flash_instance"] == instance:
+            k["launches_by_model"][f"{FAMILY_PLAN_ARCH} plan (b)"] = \
+                planned["launches"]["flash_attention"]
+        k["launches"] = sum(k["launches_by_model"].values())
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
+    kernels = list(kernels.values())
+    return {"kernels": kernels, "served": served, "plan_serving": planned,
+            "slice_parity": parity, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -2350,6 +2617,7 @@ def main() -> int:
             trained = train_phase(card, mesh)
             launched = launch_phase(card)
             moe = moe_phase(card, mesh)
+            families = families_phase(card, mesh)
         finally:
             dist.destroy_process_group()
 
@@ -2358,6 +2626,7 @@ def main() -> int:
     say(json.dumps({"train": trained}))
     say(json.dumps({"launch": launched}))
     say(json.dumps({"moe": moe}))
+    say(json.dumps({"families": {k: v for k, v in families.items() if k != "kernels"}}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -2371,8 +2640,19 @@ def main() -> int:
         k["launches_by_model"].update(
             {f"{MOE_ARCH} plan ({name})": run["launches"][k["name"]]
              for name, run in moe["plan_serving"]["plans"].items()})
+        # the flash entry counts its base instantiations; phase 11's own
+        # instantiations count theirs in their entries
+        k["launches_by_model"].update({s["arch"]: s["launches"][k["name"]]
+                                       for s in families["served"]
+                                       if k["name"] != "flash_attention"
+                                       or s["flash_instance"] == "base"})
+        fp = families["plan_serving"]
+        if k["name"] != "flash_attention" or fp["flash_instance"] == "base":
+            k["launches_by_model"][f"{FAMILY_PLAN_ARCH} plan (b)"] = \
+                fp["launches"][k["name"]]
         k["launches"] = sum(k["launches_by_model"].values())
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
+    kernels += families["kernels"]     # flash's new instantiations, their launches by model
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

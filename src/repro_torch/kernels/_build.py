@@ -70,7 +70,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_rmsnorm_bwd.restype = i
     lib.rt_rmsnorm_bwd_blocks.argtypes = [i]
     lib.rt_rmsnorm_bwd_blocks.restype = i
-    lib.rt_flash_attention.argtypes = [p] * 5 + [i] * 7 + [f, i, p]
+    lib.rt_flash_attention.argtypes = [p] * 6 + [i] * 8 + [f, i, p]
     lib.rt_flash_attention.restype = i
     lib.rt_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
     lib.rt_flash_attention_bwd.restype = i

@@ -1,5 +1,6 @@
-// Forward flash attention, causal or full, with grouped KV heads (GQA), on
-// the tensor cores with fp32-exact products.
+// Forward flash attention, causal or full, with grouped KV heads (GQA), an
+// optional sliding window and optional ALiBi biases, on the tensor cores
+// with fp32-exact products.
 //
 // Replaces repro/kernels/flash.py::flash_attention (_flash_kernel, the
 // pl.pallas_call at flash.py:79).  The TPU kernel walks a sequential KV grid
@@ -38,14 +39,35 @@
 //   * rows are padded (Q, K to h + 8 floats, V to h + 4), so the 8-byte
 //     (g, 2t) reads of QKᵀ and the (keys 2t, 2t + 1, column g) reads of P·V
 //     hit distinct banks at every supported h, and rows stay 16-byte
-//     aligned;
-//   * shared memory is Q + 2 × (K + V): 202 KB at h = 128 and 178 KB at
-//     h = 112, one block of eight warps per SM; a 128-row tile shares each
+//     aligned.  A half-warp's 8-byte reads of rows g = 0..3 start at banks
+//     g·(h + 8) mod 32, which is {0, 8, 16, 24} in some order for every h
+//     with h + 8 ≡ 8 or 24 mod 32 (h = 16, 32, 64, 80, 112, 128); the P·V
+//     reads of rows 2t and 2t + 1 start at 2t·(h + 4) and (2t + 1)·(h + 4)
+//     mod 32, again four distinct multiples of 8 plus g = 0..7 when
+//     h + 4 ≡ 4, 12, 20 or 28 mod 32, as it is for each of those h;
+//   * shared memory is Q + 2 × (K + V): 202 KB at h = 128, 178 KB at
+//     h = 112 and 130 KB at h = 80, one block of eight warps per SM; a
+//     128-row tile shares each
 //     K/V tile among eight warps (64-row tiles with 32-key tiles, two
 //     blocks of four warps per SM, were slower on the card);
 //   * causal KV tiles past the query tile's last row are never loaded, a
 //     warp skips a tile that lies wholly past its own last row, and the
 //     longest causal query tiles are launched first;
+//   * a sliding window of W keys (key kpos is seen from row qpos when
+//     qpos − kpos < W, the reference's mask; 0 = no window) is a run-time
+//     argument: KV tiles wholly before the query tile's first window are
+//     never loaded, a warp skips a tile wholly before its first row's
+//     window, and the causal test and the window's are one unsigned
+//     compare, (qpos − kpos) < W with W = INT_MAX for none, so the kernel
+//     without a window runs the instructions it ran before.  A row's first
+//     tiles may be wholly outside its window (the warp's other rows need
+//     them); its masked scores then add garbage at m = −1e30, which the
+//     first tile that holds one of its keys scales by exp2(−1e30 − m) = 0;
+//   * ALiBi (a per-query-head slope s, the score gaining s·(kpos − qpos))
+//     is a template flag, as LSE is: scores are in log2 units, so the
+//     bias enters as s·log2(e)·(kpos − qpos), on the inside path too.  The
+//     variant with it is built for fp32 only (its one user is the fp32
+//     model; bf16 and fp16 would double the build's instantiations);
 //   * rows past Sq and keys past Sk are zero-filled by cp.async's source
 //     size and masked, so no length has to be a tile multiple;
 //   * for training, the launcher may ask for each row's log-sum-exp of its
@@ -55,6 +77,8 @@
 //     run-time test in the epilogue cost serving's kernel 2 %).
 // The constants are the TPU kernel's: masked scores -1e30, the denominator
 // clamped at 1e-20, scores scaled by 1/sqrt(h) after QKᵀ.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -98,11 +122,12 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, size_t strid
   }
 }
 
-template <typename T, int HD, bool LSE>
+template <typename T, int HD, bool LSE, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Sk, int Hq, int Hkv, int causal, float scale) {
+                 const float* __restrict__ slopes, int Sq, int Sk, int Hq, int Hkv,
+                 int causal, int win, float scale) {
   static_assert(HD % 8 == 0, "the head dim must be a whole number of 8-wide tiles");
   using L = Layout<HD>;
   constexpr int NH = HD / 8;        // 8-wide tiles of the head dim
@@ -123,6 +148,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp_first = q0 + warp * 16;       // the warp's query positions
   const int warp_last = warp_first + 15;
   const float scale_log2 = scale * 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
+  float slope_log2 = 0.f;
+  if constexpr (ALIBI) slope_log2 = slopes[hq] * 1.4426950408889634f;
 
   const size_t q_stride = static_cast<size_t>(Hq) * HD;    // between positions
   const size_t kv_stride = static_cast<size_t>(Hkv) * HD;
@@ -133,9 +160,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int ntiles = (k_end + BK - 1) / BK;
+  const int j0 = max(0, q0 - win + 1) / BK;     // the first tile in a row's window
   load_rows<T, HD, BQ, L::LDQ>(Qs, qb, q_stride, q0, Sq);
-  load_rows<T, HD, BK, L::LDK>(Ks, kb, kv_stride, 0, Sk);
-  load_rows<T, HD, BK, L::LDV>(Vs, vb, kv_stride, 0, Sk);
+  load_rows<T, HD, BK, L::LDK>(Ks + (j0 & 1) * L::K, kb, kv_stride, j0 * BK, Sk);
+  load_rows<T, HD, BK, L::LDV>(Vs + (j0 & 1) * L::V, vb, kv_stride, j0 * BK, Sk);
   cp_async_commit();
 
   float acc[NH][4];
@@ -146,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};          // this lane's share of the row sums
 
-  for (int j = 0; j < ntiles; ++j) {
+  for (int j = j0; j < ntiles; ++j) {
     const int k0 = j * BK;
     if (j + 1 < ntiles) {           // the next tile flies while this one runs
       const int nb = (j + 1) & 1;
@@ -159,7 +187,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();                // tile j (and Q) visible to every warp
 
-    if (!causal || k0 <= warp_last) {          // warp-uniform
+    // warp-uniform: the tile holds a key of one of the warp's rows
+    if ((!causal || k0 <= warp_last) && k0 + BK - 1 > warp_first - win) {
       const float* Kt = Ks + (j & 1) * L::K;
       const float* Vt = Vs + (j & 1) * L::V;
 
@@ -189,17 +218,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // scale (into log2 units) and mask; the running max over the quad
-      // that shares a row.  A tile wholly inside the mask skips the tests.
-      const bool inside = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= warp_first);
+      // scale (into log2 units), bias and mask; the running max over the
+      // quad that shares a row.  A tile wholly inside the mask (and every
+      // row's window) skips the tests.
+      const bool inside = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= warp_first) &&
+                          k0 > warp_last - win;
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kpos = k0 + 8 * n + 2 * t + (i & 1);
-          const bool ok = inside || (kpos < Sk && (!causal || kpos <= qpos[i / 2]));
-          s[n][i] = ok ? s[n][i] * scale_log2 : kNegInf;
+          const int d = qpos[i / 2] - kpos;
+          const bool ok = inside || (kpos < Sk && (causal ? static_cast<unsigned>(d) <
+                                                                static_cast<unsigned>(win)
+                                                          : d < win));
+          float sc = s[n][i] * scale_log2;
+          if constexpr (ALIBI) sc = fmaf(slope_log2, static_cast<float>(-d), sc);
+          s[n][i] = ok ? sc : kNegInf;
           mx[i / 2] = fmaxf(mx[i / 2], s[n][i]);
         }
       float corr[2];
@@ -263,10 +299,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool LSE>
-int run(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-        int Sq, int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD, LSE>;
+template <typename T, int HD, bool LSE, bool ALIBI>
+int run(const void* q, const void* k, const void* v, void* o, float* lse,
+        const float* slopes, int B, int Sq, int Sk, int Hq, int Hkv, int causal, int win,
+        float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, HD, LSE, ALIBI>;
   constexpr size_t smem = Layout<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -274,27 +311,36 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, scale);
+      static_cast<T*>(o), lse, slopes, Sq, Sk, Hq, Hkv, causal, win, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-           int Sq, int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-  return lse != nullptr
-             ? run<T, HD, true>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale, stream)
-             : run<T, HD, false>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           const float* slopes, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+           int win, float scale, cudaStream_t stream) {
+#define RT_ARGS q, k, v, o, lse, slopes, B, Sq, Sk, Hq, Hkv, causal, win, scale, stream
+  if (slopes != nullptr) {          // ALiBi: fp32 only, without lse
+    if constexpr (std::is_same_v<T, float>) {
+      if (lse == nullptr) return run<T, HD, false, true>(RT_ARGS);
+    }
+    return RT_UNSUPPORTED;
+  }
+  return lse != nullptr ? run<T, HD, true, false>(RT_ARGS)
+                        : run<T, HD, false, false>(RT_ARGS);
+#undef RT_ARGS
 }
 
 template <typename T>
-int launch_h(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-             int Sq, int Sk, int Hq, int Hkv, int h, int causal, float scale,
-             cudaStream_t s) {
-#define RT_ARGS q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s
+int launch_h(const void* q, const void* k, const void* v, void* o, float* lse,
+             const float* slopes, int B, int Sq, int Sk, int Hq, int Hkv, int h,
+             int causal, int win, float scale, cudaStream_t s) {
+#define RT_ARGS q, k, v, o, lse, slopes, B, Sq, Sk, Hq, Hkv, causal, win, scale, s
   switch (h) {
     case 16: return launch<T, 16>(RT_ARGS);
     case 32: return launch<T, 32>(RT_ARGS);
     case 64: return launch<T, 64>(RT_ARGS);
+    case 80: return launch<T, 80>(RT_ARGS);
     case 112: return launch<T, 112>(RT_ARGS);
     case 128: return launch<T, 128>(RT_ARGS);
   }
@@ -305,19 +351,23 @@ int launch_h(const void* q, const void* k, const void* v, void* o, float* lse, i
 }  // namespace
 
 // q, o: (B, Sq, Hq, h); k, v: (B, Sk, Hkv, h); all contiguous, one dtype,
-// 16-byte aligned when fp32 (cp.async); lse: (B, Hq, Sq) fp32, or null.  Returns a cudaError_t, or
-// RT_UNSUPPORTED for shapes the kernel does not take (h outside {16, 32, 64,
-// 112, 128}, Hq not a multiple of Hkv, a grid dimension over its limit).
+// 16-byte aligned when fp32 (cp.async); lse: (B, Hq, Sq) fp32, or null;
+// slopes: Hq fp32 ALiBi slopes, or null; window: keys a row sees back from
+// itself (0 = all).  Returns a cudaError_t, or RT_UNSUPPORTED for what the
+// kernel does not take (h outside {16, 32, 64, 80, 112, 128}, Hq not a
+// multiple of Hkv, a grid dimension over its limit, a negative window,
+// slopes with a dtype other than fp32 or with lse).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, float* lse, int B, int Sq, int Sk, int Hq,
-                                  int Hkv, int h, int causal, float scale, int dtype,
-                                  void* stream) {
+                                  void* o, float* lse, const float* slopes, int B, int Sq,
+                                  int Sk, int Hq, int Hkv, int h, int causal, int window,
+                                  float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      B > 65535 || Hq > 65535)
+      B > 65535 || Hq > 65535 || window < 0)
     return RT_UNSUPPORTED;
+  const int win = window > 0 ? window : INT_MAX;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-#define RT_ARGS q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, h, causal, scale, s
+#define RT_ARGS q, k, v, o, lse, slopes, B, Sq, Sk, Hq, Hkv, h, causal, win, scale, s
     case RT_F32: return launch_h<float>(RT_ARGS);
     case RT_BF16: return launch_h<__nv_bfloat16>(RT_ARGS);
     case RT_F16: return launch_h<__half>(RT_ARGS);

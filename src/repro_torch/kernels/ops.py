@@ -36,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.flash import flash_attention_bwd_cuda, flash_attention_cuda
+from repro_torch.kernels.flash import (BWD_HEAD_DIMS, flash_attention_bwd_cuda,
+                                      flash_attention_cuda)
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd import ssd_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
@@ -86,13 +87,24 @@ class RMSNormFn(torch.autograd.Function):
         return dx, dscale, None
 
 
+DENSE_TRAINING = "the dense families' training slice (ROADMAP.md, queue 1)"
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention through the CUDA kernels: the forward writes each
     row's log-sum-exp beside o; the backward recomputes P from q, k and
-    lse and launches ``csrc/flash_bwd.cu``."""
+    lse and launches ``csrc/flash_bwd.cu``.  The backward kernels take
+    neither head dim 80, a window nor ALiBi: the forward refuses them
+    (never a quiet route to the plain version)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, window=0, alibi_slopes=None):
+        h = q.shape[-1]
+        if h not in BWD_HEAD_DIMS or window or alibi_slopes is not None:
+            what = (f"head dim {h}" if h not in BWD_HEAD_DIMS else
+                    f"a window of {window}" if window else "ALiBi")
+            raise NotImplementedError(f"the flash backward kernels with {what} arrive "
+                                      f"with {DENSE_TRAINING}")
         o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
         LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, o, lse)
@@ -105,7 +117,7 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do.contiguous(),
                                               causal=ctx.causal)
         LAUNCHES["flash_attention_bwd"] += 1
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, backend: Optional[str] = None,
@@ -120,13 +132,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, backend: Optional[str] = No
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, backend: Optional[str] = None) -> torch.Tensor:
-    """q (B,Sq,Hq,h); k,v (B,Sk,Hkv,h) -> (B,Sq,Hq,h)."""
+                    causal: bool = True, backend: Optional[str] = None, window: int = 0,
+                    alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,Sq,Hq,h); k,v (B,Sk,Hkv,h) -> (B,Sq,Hq,h).  ``window`` > 0 and
+    ``alibi_slopes`` (Hq,) fp32 as in ``ref.flash_attention_ref``."""
     if _backend(q, backend) == "ref":
-        return _ref.flash_attention_ref(q, k, v, causal=causal)
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        alibi_slopes=alibi_slopes)
     if _needs_grad(q, k, v):
-        return FlashAttentionFn.apply(q, k, v, causal)
-    o = flash_attention_cuda(q, k, v, causal=causal)
+        return FlashAttentionFn.apply(q, k, v, causal, window, alibi_slopes)
+    o = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                             alibi_slopes=alibi_slopes)
     LAUNCHES["flash_attention"] += 1
     return o
 

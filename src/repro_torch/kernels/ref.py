@@ -14,6 +14,7 @@ tests run.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -36,12 +37,16 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torc
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense GQA softmax attention.  q (B,Sq,Hq,h); k,v (B,Sk,Hkv,h) with
     Hq % Hkv == 0; query head i reads KV head i // G.  Any Sq, Sk.  The
     causal mask counts both query and key positions from 0, as the TPU
-    kernel does.  Computes in fp32 (fp64 for fp64 q).  Returns (B,Sq,Hq,h)
-    in q's dtype."""
+    kernel does.  ``window`` > 0 also masks key kpos from row qpos where
+    qpos − kpos >= window; ``alibi_slopes`` (Hq,) adds slope·(kpos − qpos)
+    to query head i's scaled scores with slope i (the reference's
+    ``bias_fn``, repro/models/layers.py).  Computes in fp32 (fp64 for fp64
+    q).  Returns (B,Sq,Hq,h) in q's dtype."""
     B, Sq, Hq, h = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:
@@ -50,9 +55,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = _acc(q)
     qf = q.to(acc).reshape(B, Sq, Hkv, G, h)
     s = torch.einsum("bqngh,bsnh->bngqs", qf, k.to(acc)) * (1.0 / math.sqrt(h))
+    dist = (torch.arange(Sk, device=q.device)[None, :]
+            - torch.arange(Sq, device=q.device)[:, None])          # kpos − qpos
+    if alibi_slopes is not None:
+        s = s + alibi_slopes.to(acc).view(Hkv, G, 1, 1) * dist.to(acc)
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
-        keep = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Sk, device=q.device)[None, :])
+        keep &= dist <= 0
+    if window:
+        keep &= -dist < window
+    if causal or window:
         s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)

@@ -5,10 +5,13 @@ KV cache, on one card by default.
         --prompt-len 512 --max-new 32 --max-seq 1024
     python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
 
-``--arch`` is one of llama3-8b, zamba2-7b, rwkv6-1.6b and the MoE models
-olmoe-1b-7b, deepseek-moe-16b and qwen2-moe-a2.7b.  The weights are
-random, drawn from ``--seed``; so are the prompts, all ``--prompt-len``
-long (the recurrent families need equal lengths).
+``--arch`` is one of llama3-8b, zamba2-7b, rwkv6-1.6b, the MoE models
+olmoe-1b-7b, deepseek-moe-16b and qwen2-moe-a2.7b, and the dense models
+phi2-2b, mpt-7b, phi4-mini-3.8b, stablelm-3b and h2o-danube-1.8b (a
+sliding window: its cache is a ring of ``min(--max-seq, window)`` slots,
+which a prompt must fit).  The weights are random, drawn from ``--seed``;
+so are the prompts, all ``--prompt-len`` long (the recurrent families need
+equal lengths).
 
 Plan-aware, as the reference's launcher: ``--tuned-plan`` / ``--plan-repo``
 hand the plan to the engine, which decodes a dense or MoE model under it

@@ -1,6 +1,8 @@
 """Decoder trunk of the port (PyTorch counterpart of
-``repro.models.dense``): dense GQA attention and a SwiGLU or MoE
-feed-forward, for the dense and moe families.
+``repro.models.dense``): dense GQA attention (full or sliding-window, RoPE
+or ALiBi) and a SwiGLU, GELU or MoE feed-forward, in sequence or, with
+``parallel_block`` (phi-2), both reading the one norm; for the dense and
+moe families.
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; eager PyTorch has nothing to trace, so the port keeps one
@@ -14,8 +16,10 @@ slice in place.
 Plan-aware (sited) path: ``trunk_fwd(mesh=...)`` runs every layer's
 feed-forward over the explicit chunked collectives of
 ``parallel.collectives``, each addressed by its SiteId.  A dense layer's
-MLP: ``ring_ag_matmul`` for gate and up, ``mm_reduce_scatter`` for down,
-at ``tp.layer{i}.mlp.ag|rs`` without a cache and ``serve.layer{i}.mlp.ag|rs``
+MLP: ``ring_ag_matmul`` for gate and up (up alone for GELU, its bias slice
+added before the GELU), ``mm_reduce_scatter`` for down (its bias added once,
+after the reduce-scatter), at ``tp.layer{i}.mlp.ag|rs`` without a cache and
+``serve.layer{i}.mlp.ag|rs``
 with one.  A MoE layer's experts: the dispatch and combine all-to-alls of
 ``layers.moe_block`` at ``ep.layer{j}.moe.a2a_disp|comb`` without a cache
 (j counted within the segment, as the reference counts it) and
@@ -46,7 +50,7 @@ and the routers route the global batch over ``data``
 (``layers.moe_block``).
 
 Not ported here, and raising ``NotImplementedError`` naming the slice that
-brings them: MLA, sliding windows, ALiBi and ``parallel_block``.
+brings it: MLA.
 """
 from __future__ import annotations
 
@@ -76,8 +80,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with a later slice of the port "
             "(ROADMAP.md, queue 1)")
-    if cfg.parallel_block:
-        raise NotImplementedError(f"parallel_block arrives with {L.OTHER_FAMILIES}")
     L.check_attention_supported(cfg)
 
 
@@ -89,8 +91,9 @@ def segment_sizes(cfg) -> Dict[str, int]:
 
 
 class Layer(nn.Module):
-    """One pre-norm decoder layer: ln1 -> attention, ln2 -> SwiGLU MLP
-    (``mlp``) or, with ``use_moe``, routed experts (``moe``)."""
+    """One pre-norm decoder layer: ln1 -> attention, ln2 -> MLP (``mlp``)
+    or, with ``use_moe``, routed experts (``moe``); with ``parallel_block``
+    there is no ln2: the MLP reads ln1's output too."""
 
     def __init__(self, cfg, *, use_moe: bool = False, ep_pad: int = 1, device=None,
                  dtype=None):
@@ -98,7 +101,8 @@ class Layer(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.ln1 = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         self.attn = L.Attention(cfg, **kw)
-        self.ln2 = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
+        if not cfg.parallel_block:
+            self.ln2 = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         if use_moe:
             self.moe = L.MoE(cfg, ep_pad=ep_pad, **kw)
         else:
@@ -117,15 +121,22 @@ def tp_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
     projections are ring AllGather∘matmul over it (site ``{site}.ag``), the
     down projection matmul∘ReduceScatter (site ``{site}.rs``), each site's
     chunk structure resolved against the active plan; the sequence-sharded
-    output leaves gathered back to (B, S, D) (``all_gather_rows``).
+    output leaves gathered back to (B, S, D) (``all_gather_rows``).  GELU
+    (the reference's ``tp_mlp``): this rank's columns of ``up``'s bias are
+    added before the GELU, ``down``'s bias once, after the reduce-scatter.
     Numerically ``layers.mlp``, and differentiable."""
-    if kind != "swiglu":
+    if kind not in L.MLP_KINDS:
         raise NotImplementedError(f"mlp_kind {kind!r} arrives with {L.OTHER_FAMILIES}")
     m = as_mesh(mesh)
     xl = shard_rows(x, m)
-    h = (F.silu(ring_ag_matmul(xl, p.gate.weight.T, m, site=f"{site}.ag"))
-         * ring_ag_matmul(xl, p.up.weight.T, m, site=f"{site}.ag"))
+    if kind == "swiglu":
+        h = (F.silu(ring_ag_matmul(xl, p.gate.weight.T, m, site=f"{site}.ag"))
+             * ring_ag_matmul(xl, p.up.weight.T, m, site=f"{site}.ag"))
+    else:
+        h = L.gelu(ring_ag_matmul(xl, p.up.weight.T, m, site=f"{site}.ag") + p.up.bias)
     y = mm_reduce_scatter(h, p.down.weight.T, m, site=f"{site}.rs")
+    if kind == "gelu":
+        y = y + p.down.bias
     return all_gather_rows(y, m)
 
 
@@ -143,19 +154,25 @@ def serve_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
 
 def shard_mlp(p: L.MLP, mesh) -> L.MLP:
     """This rank's MLP shard: contiguous column shards of ``gate`` and
-    ``up`` and a row shard of ``down`` (in ``nn.Linear`` layout, rows of
-    ``gate``/``up`` and columns of ``down``).  At mesh size 1 the shard is
-    ``p`` itself: no copy."""
+    ``up`` (and ``up``'s bias) and a row shard of ``down`` (in
+    ``nn.Linear`` layout, rows of ``gate``/``up`` and columns of ``down``;
+    ``down``'s bias whole).  At mesh size 1 the shard is ``p`` itself: no
+    copy."""
     m = as_mesh(mesh)
     if m.size == 1:
         return p
-    d_ff, d_model = p.gate.weight.shape
+    d_ff, d_model = p.up.weight.shape
     f = d_ff // m.size
     cols = slice(m.rank * f, (m.rank + 1) * f)
-    w = p.gate.weight
-    shard = L.MLP(d_model, f, "swiglu", device=w.device, dtype=w.dtype)
+    w = p.up.weight
+    kind = "swiglu" if hasattr(p, "gate") else "gelu"
+    shard = L.MLP(d_model, f, kind, device=w.device, dtype=w.dtype)
     with torch.no_grad():
-        shard.gate.weight.copy_(p.gate.weight[cols])
+        if kind == "swiglu":
+            shard.gate.weight.copy_(p.gate.weight[cols])
+        else:
+            shard.up.bias.copy_(p.up.bias[cols])
+            shard.down.bias.copy_(p.down.bias)
         shard.up.weight.copy_(p.up.weight[cols])
         shard.down.weight.copy_(p.down.weight[:, cols])
     return shard
@@ -196,14 +213,16 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
     attn_out, new_cache = L.attention(p.attn, cfg, h, positions, cache=cache,
                                       backend=backend)
     x = x + attn_out
-    h2 = L.norm(p.ln2, x, cfg.norm_kind, backend=backend)
     use_moe = hasattr(p, "moe")
     if ff is None:
         ff = p.moe if use_moe else p.mlp
     if use_moe:
+        h2 = L.norm(p.ln2, x, cfg.norm_kind, backend=backend)
         out, aux = L.moe_block(ff, cfg, h2, experts=experts, mesh=mesh, data=data,
                                site=site or "ep.moe", groups=groups)
         return x + out, new_cache, aux
+    # phi-2's parallel block: the MLP reads the attention's norm, x + attn + mlp
+    h2 = h if cfg.parallel_block else L.norm(p.ln2, x, cfg.norm_kind, backend=backend)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mesh is None:
         return x + L.mlp(ff, h2, cfg.mlp_kind), new_cache, aux

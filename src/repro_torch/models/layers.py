@@ -1,7 +1,9 @@
 """Building blocks of the port (PyTorch counterpart of
-``repro.models.layers``): norms, RoPE, GQA attention with a KV cache and
-optional ``qk_norm``, the SwiGLU MLP, and the capacity-based mixture of
-experts (``MoE``, ``moe_block``) with its explicit expert-parallel FFN.
+``repro.models.layers``): norms, RoPE (full or partial), ALiBi, GQA
+attention with a KV cache (a ring of ``sliding_window`` slots for
+sliding-window models), a sliding window and optional ``qk_norm``, the
+SwiGLU and GELU MLPs, and the capacity-based mixture of experts (``MoE``,
+``moe_block``) with its explicit expert-parallel FFN.
 
 Parameters live in ``nn.Module``s; the functions take the module as their
 ``p`` argument, as the reference's functions take a parameter dict.  Linear
@@ -15,11 +17,19 @@ reference's ``einsum``) and combine: the reference computes them outside
 any Pallas kernel.  Architectural variants that no ported family uses
 raise ``NotImplementedError`` naming the slice of the port that brings
 them (ROADMAP.md, queue 1).
+
+ALiBi departs from the reference on purpose: the reference adds its bias
+only on the uncached path (``bias_fn``), so its cached prefill and decode
+run with no position information at all (ROADMAP.md, queue 3).  The port
+follows the uncached path, the model the reference defines and trains,
+on all three routes: the uncached flash, the cached-prefill flash and
+decode, whose bias is ``slope·(slot_pos − q_pos)`` over the valid slots.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -111,6 +121,25 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, *,
     return rope_one(q), rope_one(k)
 
 
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """The reference's ALiBi slopes, one a query head, fp32 on the CPU: for
+    2^e heads the geometric series 2^(-8/2^e)^(i+1); other head counts take
+    the odd powers of 2^(-4/2^e) for the rest."""
+    exp = math.floor(math.log2(num_heads))
+    base = 2.0 ** (-8.0 / (2 ** exp))
+    slopes = [base ** (i + 1) for i in range(2 ** exp)]
+    if len(slopes) < num_heads:  # non-power-of-two heads
+        extra_base = 2.0 ** (-4.0 / (2 ** exp))
+        slopes += [extra_base ** (2 * i + 1) for i in range(num_heads - len(slopes))]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes_on(num_heads: int, device: torch.device) -> torch.Tensor:
+    """``alibi_slopes`` on ``device``, copied there once."""
+    return alibi_slopes(num_heads).to(device)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -135,10 +164,33 @@ class Attention(nn.Module):
 def check_attention_supported(cfg) -> None:
     if cfg.attn_kind != "gqa":
         raise NotImplementedError(f"attn_kind {cfg.attn_kind!r} arrives with {OTHER_FAMILIES}")
-    if cfg.pos_kind != "rope":
+    if cfg.pos_kind not in ("rope", "alibi", "none"):
         raise NotImplementedError(f"pos_kind {cfg.pos_kind!r} arrives with {OTHER_FAMILIES}")
+
+
+def _ring(cfg, W: int) -> bool:
+    """A cache of W slots is a ring (written at ``t % W``, as the reference
+    writes it) when it holds the whole window; a cache shorter than the
+    window must not wrap, which would drop keys still inside it."""
+    return bool(cfg.sliding_window) and W >= cfg.sliding_window
+
+
+def _decode_bias(cfg, spos: torch.Tensor, q_pos: torch.Tensor, N: int, G: int
+                 ) -> torch.Tensor:
+    """The additive bias of one decode query per row over the cache's slots:
+    spos (B, W), q_pos (B, 1) -> (B, N, G, 1, W) fp32.  Valid slots hold a
+    key at or before q_pos (inside the window); ALiBi adds
+    slope·(slot_pos − q_pos) on them."""
+    valid = (spos >= 0) & (spos <= q_pos)
     if cfg.sliding_window:
-        raise NotImplementedError(f"sliding-window attention arrives with {OTHER_FAMILIES}")
+        valid &= spos > q_pos - cfg.sliding_window
+    if cfg.pos_kind == "alibi":
+        slopes = _slopes_on(cfg.num_heads, spos.device).view(1, N, G, 1, 1)
+        bias = slopes * (spos - q_pos).float()[:, None, None, None, :]
+    else:
+        bias = torch.zeros(valid.shape, dtype=torch.float32,
+                           device=spos.device)[:, None, None, None, :]
+    return bias.masked_fill(~valid[:, None, None, None, :], NEG_INF)
 
 
 def _gqa_scores_to_out(q, k, v, bias, scale):
@@ -153,23 +205,27 @@ def _gqa_scores_to_out(q, k, v, bias, scale):
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
               cache: Optional[Cache] = None, backend: Optional[str] = None
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Causal GQA self-attention.  Returns (out, updated cache).
+    """Causal GQA self-attention, with ``cfg.sliding_window`` and ALiBi
+    where the config has them.  Returns (out, updated cache).
 
     * ``cache`` None -> the whole sequence at once, through the flash route.
       ``forward_hidden`` gives positions 0..S-1 here, so the kernel's causal
-      mask by index is the reference's mask by position.
+      mask, window and ALiBi distances by index are the reference's by
+      position.
     * ``cache`` given, Sq > 1 -> prefill into an empty cache (``pos == 0``,
-      the fixed engine's only case).  K/V and ``slot_pos`` are written as the
-      reference writes them, and attention goes through the flash route:
-      over an empty cache the reference's ``slot_pos`` mask is the causal
-      mask over these Sq keys.  Prefill into a non-empty cache raises.
-    * ``cache`` given, Sq == 1 -> decode: plain PyTorch over the whole cache
-      with the per-row ``slot_pos`` mask, as the reference computes it.
-      ``pos`` is one Python int for the batch (the fixed engine) or a (B,)
-      tensor, one position a row (the continuous engine's slots, which the
-      reference vmaps over): each row writes its K/V at its own position
-      and masks by it.  The caller keeps every row's position below the
-      cache's length (``model.decode_step`` checks it).
+      the fixed engine's only case) that holds all Sq keys.  K/V and
+      ``slot_pos`` are written as the reference writes them, and attention
+      goes through the flash route: over an empty cache the reference's
+      ``slot_pos`` mask is the causal (and windowed) mask over these Sq
+      keys.  Prefill into a non-empty cache raises.
+    * ``cache`` given, Sq == 1 -> decode (``_decode_rows``): plain PyTorch
+      over the whole cache with the per-row ``slot_pos`` mask, as the
+      reference computes it.  ``pos`` is one Python int for the batch or a
+      (B,) tensor, one true position a row (both engines' rows, which the
+      reference's continuous engine vmaps over): each row writes its K/V at
+      its own position and masks by it.  A ring (``_ring``) writes position
+      t at slot ``t % W``; any other cache must hold the position (checked
+      here for an int ``pos``, by ``model.decode_step`` for a tensor).
 
     The cache is updated in place (the reference returns a new one); the
     returned dict holds the same tensors and the advanced ``pos``.
@@ -183,60 +239,59 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     if cfg.qk_norm:            # per head, over head_dim, before RoPE
         q = norm(p.q_norm, q, "rmsnorm", backend=backend)
         k = norm(p.k_norm, k, "rmsnorm", backend=backend)
-    q, k = apply_rope(q, k, positions, head_dim=h, fraction=cfg.rope_fraction,
-                      theta=cfg.rope_theta)
+    if cfg.pos_kind == "rope":
+        q, k = apply_rope(q, k, positions, head_dim=h, fraction=cfg.rope_fraction,
+                          theta=cfg.rope_theta)
+    slopes = _slopes_on(cfg.num_heads, x.device) if cfg.pos_kind == "alibi" else None
+    flash = dict(causal=True, backend=backend, window=cfg.sliding_window,
+                 alibi_slopes=slopes)
 
     new_cache = None
     if cache is None:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=True, backend=backend)
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **flash)
     else:
         ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
         W, t = ck.shape[1], cache["pos"]
+        if Sq == 1:
+            if not torch.is_tensor(t) and t >= W and not _ring(cfg, W):
+                raise ValueError(f"KV cache of {W} slots cannot take 1 more at position {t}")
+            rows = t if torch.is_tensor(t) else torch.full((B,), t, device=ck.device)
+            return _decode_rows(p, cfg, q, k, v, cache, rows, N, G, h), dict(cache, pos=t + 1)
         if torch.is_tensor(t):
-            if Sq != 1:
-                raise NotImplementedError(
-                    f"prefill into a cache at per-row positions arrives with {QUERY_OFFSET}")
-            return _decode_rows(p, q, k, v, cache, N, G, h), dict(cache, pos=t + 1)
-        if t + Sq > W:
-            raise ValueError(f"KV cache of {W} slots cannot take {Sq} more at position {t}")
-        if Sq > 1 and t != 0:
+            raise NotImplementedError(
+                f"prefill into a cache at per-row positions arrives with {QUERY_OFFSET}")
+        if t != 0:
             raise NotImplementedError(
                 f"prefill into a non-empty cache (pos {t}) arrives with {QUERY_OFFSET}")
-        ck[:, t:t + Sq] = k.to(ck.dtype)
-        cv[:, t:t + Sq] = v.to(cv.dtype)
+        if Sq > W:
+            raise ValueError(f"KV cache of {W} slots cannot take {Sq} more at position {t}")
+        ck[:, :Sq] = k.to(ck.dtype)
+        cv[:, :Sq] = v.to(cv.dtype)
         # slot_pos is per-sequence (B, W): the serving engine invalidates each
         # row's right-padded prefill slots independently (slot_pos = -1)
-        spos[:, t:t + Sq] = torch.arange(t, t + Sq, dtype=spos.dtype, device=spos.device)
-        new_cache = {"k": ck, "v": cv, "pos": t + Sq, "slot_pos": spos}
-        if Sq > 1:
-            # attend to the keys as stored in the cache, as the reference does
-            kc = k.to(ck.dtype).to(q.dtype).contiguous()
-            vc = v.to(cv.dtype).to(q.dtype).contiguous()
-            out = ops.flash_attention(q.contiguous(), kc, vc, causal=True, backend=backend)
-        else:
-            q_pos = t + torch.arange(Sq, device=spos.device)
-            valid = (spos[:, None, :] >= 0) & (spos[:, None, :] <= q_pos[None, :, None])
-            bias = torch.zeros(valid.shape, dtype=torch.float32, device=x.device)
-            bias = bias.masked_fill(~valid, NEG_INF)[:, None, None, :, :]
-            out = _gqa_scores_to_out(q.view(B, Sq, N, G, h), ck, cv, bias, 1.0 / math.sqrt(h))
+        spos[:, :Sq] = torch.arange(Sq, dtype=spos.dtype, device=spos.device)
+        new_cache = {"k": ck, "v": cv, "pos": Sq, "slot_pos": spos}
+        # attend to the keys as stored in the cache, as the reference does
+        kc = k.to(ck.dtype).to(q.dtype).contiguous()
+        vc = v.to(cv.dtype).to(q.dtype).contiguous()
+        out = ops.flash_attention(q.contiguous(), kc, vc, **flash)
     return linear(p.o, out.reshape(B, Sq, N * G * h)), new_cache
 
 
-def _decode_rows(p: Attention, q, k, v, cache: Cache, N: int, G: int, h: int):
-    """Decode at per-row positions ``cache["pos"]`` (B,): row b writes its
-    K/V and ``slot_pos`` at its own position and attends to the slots whose
-    ``slot_pos`` lies in [0, that position].  Returns the attention output
-    (B, 1, d)."""
-    ck, cv, spos, t = cache["k"], cache["v"], cache["slot_pos"], cache["pos"]
+def _decode_rows(p: Attention, cfg, q, k, v, cache: Cache, t: torch.Tensor,
+                 N: int, G: int, h: int):
+    """Decode at per-row positions t (B,): row b writes its K/V and
+    ``slot_pos`` at its own position (slot ``t % W`` in a ring) and attends
+    to the slots whose ``slot_pos`` lies in [0, that position] and in its
+    window.  Returns the attention output (B, 1, d)."""
+    ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
     B = q.shape[0]
     rows = torch.arange(B, device=ck.device)
-    ck[rows, t] = k[:, 0].to(ck.dtype)
-    cv[rows, t] = v[:, 0].to(cv.dtype)
-    spos[rows, t] = t.to(spos.dtype)
-    valid = (spos >= 0) & (spos <= t[:, None])                    # (B, W)
-    bias = torch.zeros(valid.shape, dtype=torch.float32, device=q.device)
-    bias = bias.masked_fill(~valid, NEG_INF)[:, None, None, None, :]
+    slot = t % ck.shape[1] if _ring(cfg, ck.shape[1]) else t
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    spos[rows, slot] = t.to(spos.dtype)
+    bias = _decode_bias(cfg, spos, t.to(spos.dtype)[:, None], N, G)
     out = _gqa_scores_to_out(q.view(B, 1, N, G, h), ck, cv, bias, 1.0 / math.sqrt(h))
     return linear(p.o, out.reshape(B, 1, N * G * h))
 
@@ -244,15 +299,16 @@ def _decode_rows(p: Attention, q, k, v, cache: Cache, N: int, G: int, h: int):
 def init_kv_cache(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
                   device=None) -> Cache:
     """Pre-allocated decode cache: k, v (B,W,Hkv,h), slot_pos (B,W) int32
-    (-1 = empty), and ``pos`` (tokens so far) as a Python int."""
-    if cfg.sliding_window:
-        raise NotImplementedError(f"sliding-window caches arrive with {OTHER_FAMILIES}")
-    shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    (-1 = empty), and ``pos`` (tokens so far) as a Python int.  A
+    sliding-window model keeps W = min(seq_len, window) slots, as the
+    reference does."""
+    W = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (batch, W, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": 0,
-        "slot_pos": torch.full((batch, seq_len), -1, dtype=torch.int32, device=device),
+        "slot_pos": torch.full((batch, W), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -260,22 +316,36 @@ def init_kv_cache(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
 # feed-forward and embeddings
 # ---------------------------------------------------------------------------
 
+MLP_KINDS = ("swiglu", "gelu")
+
+
 class MLP(nn.Module):
-    """SwiGLU feed-forward: gate, up (d -> d_ff) and down (d_ff -> d)."""
+    """SwiGLU feed-forward: gate, up (d -> d_ff) and down (d_ff -> d), no
+    biases; or GELU: up and down, each with a bias (the reference's
+    ``init_mlp``)."""
 
     def __init__(self, d_model: int, d_ff: int, kind: str, *, device=None, dtype=None):
         super().__init__()
-        if kind != "swiglu":
+        if kind not in MLP_KINDS:
             raise NotImplementedError(f"mlp_kind {kind!r} arrives with {OTHER_FAMILIES}")
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate = nn.Linear(d_model, d_ff, **kw)
+        kw = dict(bias=kind == "gelu", device=device, dtype=dtype)
+        if kind == "swiglu":
+            self.gate = nn.Linear(d_model, d_ff, **kw)
         self.up = nn.Linear(d_model, d_ff, **kw)
         self.down = nn.Linear(d_ff, d_model, **kw)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form (the exact erf form is
+    another function: it misses the reference by more than 1e-4)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
+    if kind not in MLP_KINDS:
         raise NotImplementedError(f"mlp_kind {kind!r} arrives with {OTHER_FAMILIES}")
+    if kind == "gelu":
+        return linear(p.down, gelu(linear(p.up, x)))
     return linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x))
 
 

@@ -302,28 +302,26 @@ def _kv_slots(tc) -> Optional[int]:
 
 def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
                 backend: Optional[str] = None, mesh=None, shards=None,
-                pos_offset: Optional[torch.Tensor] = None, route_rows: bool = False,
-                ) -> Tuple[torch.Tensor, Caches]:
+                route_rows: bool = False) -> Tuple[torch.Tensor, Caches]:
     """One token per sequence: tokens (B,1) -> logits (B,1,vocab).
 
     ``caches["pos"]`` is one int for the batch, or a (B,) tensor of per-row
-    positions (the continuous engine's slots; every cache ``pos`` inside
+    positions (each engine row's true position; every cache ``pos`` inside
     holds the same tensor).  ``mesh`` opts the dense and moe families into
     the sited decode path (``serve.layer{i}.*`` sites, ``shards`` this
-    rank's feed-forward shards); ``route_rows`` as in ``forward_hidden``.  ``pos_offset`` (B,) subtracts a per-sequence gap from the
-    shared position counter: how the fixed-batch engine keeps right-padded
-    ragged prompts on their true RoPE positions (the pad slots themselves
-    are excluded by the per-row ``slot_pos`` mask)."""
+    rank's feed-forward shards); ``route_rows`` as in ``forward_hidden``.
+    A sliding-window model's ring of ``window`` slots wraps; any other cache
+    raises at a position it does not hold."""
     B = tokens.shape[0]
     t0 = caches["pos"]
     if torch.is_tensor(t0):
         W = _kv_slots(caches["trunk"])
-        if W is not None and int(t0.max()) >= W:
+        # a ring of the whole window wraps, as the reference's does; a shorter
+        # cache must not (it would drop keys still inside the window)
+        if W is not None and not L._ring(cfg, W) and int(t0.max()) >= W:
             raise ValueError(f"KV cache of {W} slots cannot take a token at "
                              f"positions {t0.tolist()}")
     positions = _positions(cfg, B, 1, t0, tokens.device)
-    if pos_offset is not None:
-        positions = positions - pos_offset.to(positions.device, positions.dtype)[:, None]
     x = F.embedding(tokens, _weight(p, "embed.weight", "fsdp.embed.ag_params"))
     x, new_tc, _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"], backend=backend,
                               mesh=mesh, shards=shards, route_rows=route_rows)

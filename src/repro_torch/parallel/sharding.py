@@ -106,9 +106,10 @@ _RULES: Sequence[Tuple[str, Tuple[Any, ...]]] = (
     (r"app_in/w$",                 ("F", "T")),
 )
 
-# the leaves whose T dim the port splits over ``model`` (the dense MLP and the
-# routed experts, run by the sited trunk); every other T dim stays whole
-TP_HELD = r"mlp/(gate|up|down)/w$|moe/(gate|up|down)$"
+# the leaves whose T dim the port splits over ``model`` (the dense MLP, the
+# GELU MLP's up bias with it, and the routed experts, run by the sited
+# trunk); every other T dim stays whole
+TP_HELD = r"mlp/(gate|up|down)/w$|mlp/up/b$|moe/(gate|up|down)$"
 
 
 def _expand(template, fsdp, tp):

@@ -1,16 +1,16 @@
 """Continuous batching of the port (counterpart of
 ``repro.serving.continuous``): per-slot caches and a request queue.
 
-The fixed-batch Engine decodes in lockstep (one shared position counter).
-Here every slot has its own position: the slots are the batch rows of one
-set of caches whose ``pos`` is a (slots,) tensor, and one decode call
-advances them all (the reference vmaps its single-sequence decode over a
-slot axis).  Finished slots are refilled from the queue without disturbing
-the others.  A MoE model's experts route each slot's tokens alone, with
-its own capacity, at admit and at every step (``route_rows``), as the
-reference's vmap over slots routes each sequence alone: a batch-wide
-routing would let the slots, idle ones included, take each other's
-capacity.
+The fixed-batch Engine decodes one batch of prompts in lockstep until the
+last is done.  Here every slot is refilled as it frees: the slots are the
+batch rows of one set of caches whose ``pos`` is a (slots,) tensor, and
+one decode call advances them all (the reference vmaps its
+single-sequence decode over a slot axis).  Finished slots are refilled
+from the queue without disturbing the others.  A MoE model's experts
+route each slot's tokens alone, with its own capacity, at admit and at
+every step (``route_rows``), as the reference's vmap over slots routes
+each sequence alone: a batch-wide routing would let the slots, idle ones
+included, take each other's capacity.
 
 Admits prefill fresh caches at position 0 through the same cached-prefill
 path as the fixed engine (flash attention on the card), mark the right-pad
@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.serving.engine import (PlannedEngine, _invalidate_pad_slots,
-                                        check_equal_lengths)
+                                        _with_pos, check_equal_lengths)
 from repro_torch.serving.plans import DEFAULT_BAND
 from repro_torch.serving.types import Request
 
@@ -61,13 +61,6 @@ def _slot_axes(cfg, max_seq: int) -> Dict[tuple, int]:
     return {path: next(i for i, (a, b) in enumerate(zip(one[path].shape, two[path].shape))
                        if a != b)
             for path in one}
-
-
-def _with_pos(tree, pos):
-    """The cache tree with every ``pos`` entry set to ``pos``."""
-    return {name: (_with_pos(a, pos) if isinstance(a, dict) else
-                   pos if name == "pos" else a)
-            for name, a in tree.items()}
 
 
 class ContinuousEngine(PlannedEngine):

@@ -1,6 +1,8 @@
 """Fixed-batch serving engine of the port (PyTorch counterpart of
 ``repro.serving.engine``): prefill right-padded prompts into the caches in
-one pass, then decode greedily in lockstep.
+one pass, then decode greedily in lockstep, each row at its true position
+(a (B,) ``pos``, as the continuous engine's slots: the reference's shared
+padded counter would cut a windowed row's window short by its pad gap).
 
 On the card the prefill and every decode step run the port's CUDA kernels
 (``kernels.ops`` counts the launches): RMSNorm (``qk_norm``'s included)
@@ -62,15 +64,14 @@ def _make_retune(binding, retune):
 
 def make_serve_step(cfg, *, backend: Optional[str] = None, mesh=None, shards=None,
                     route_rows: bool = False):
-    """serve_step(params, tokens (B,1), caches[, pos_offset (B,)]) ->
-    (next (B,1), caches).  ``mesh`` opts the dense and moe families into
-    the sited decode path (``serve.layer{i}.*``), with ``shards`` this
-    rank's feed-forward shards (``models.dense.shard_trunk``);
-    ``route_rows`` routes each row alone through the experts."""
-    def serve_step(params, tokens, caches, pos_offset=None):
+    """serve_step(params, tokens (B,1), caches) -> (next (B,1), caches).
+    ``mesh`` opts the dense and moe families into the sited decode path
+    (``serve.layer{i}.*``), with ``shards`` this rank's feed-forward shards
+    (``models.dense.shard_trunk``); ``route_rows`` routes each row alone
+    through the experts."""
+    def serve_step(params, tokens, caches):
         logits, caches = M.decode_step(cfg, params, tokens, caches, backend=backend,
-                                       mesh=mesh, shards=shards, pos_offset=pos_offset,
-                                       route_rows=route_rows)
+                                       mesh=mesh, shards=shards, route_rows=route_rows)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], caches
     return serve_step
 
@@ -86,6 +87,13 @@ def _invalidate_pad_slots(caches, lens: torch.Tensor):
             idx = torch.arange(leaf.shape[-1], device=leaf.device)
             leaf.masked_fill_(idx[None, :] >= lens[:, None], -1)
     return caches
+
+
+def _with_pos(tree, pos):
+    """The cache tree with every ``pos`` entry set to ``pos``."""
+    return {name: (_with_pos(a, pos) if isinstance(a, dict) else
+                   pos if name == "pos" else a)
+            for name, a in tree.items()}
 
 
 def check_equal_lengths(cfg, lens) -> None:
@@ -167,9 +175,9 @@ class PlannedEngine:
             serve_step = make_serve_step(self.cfg, backend=self.backend, mesh=self.mesh,
                                          shards=self._shards, route_rows=self.route_rows)
 
-            def step(tokens, caches, pos_offset=None):
+            def step(tokens, caches):
                 with scope(rt):
-                    return serve_step(self.params, tokens, caches, pos_offset)
+                    return serve_step(self.params, tokens, caches)
 
             def prefill(batch, caches):
                 with scope(rt):
@@ -218,7 +226,10 @@ class Engine(PlannedEngine):
 
     def _start(self, prompts: List[np.ndarray], prefill):
         """Right-pad and prefill the prompts; returns (caches, first decode
-        input (B,1), per-row position offsets (B,))."""
+        input (B,1)).  Each row decodes from its true last token at its
+        true position: ``pos`` becomes the (B,) prompt lengths, so RoPE,
+        the window, ALiBi's distances and a ring's slots are each row's own
+        (the right-pad slots are marked dead and overwritten as it goes)."""
         if len(prompts) != self.batch:
             raise ValueError(f"{len(prompts)} prompts for a batch of {self.batch}")
         plen = max(len(p) for p in prompts)
@@ -230,13 +241,11 @@ class Engine(PlannedEngine):
         caches = M.init_caches(self.cfg, self.batch, self.max_seq, device=self.device)
         caches = prefill({"tokens": torch.as_tensor(toks, device=self.device)}, caches)
         if self.cfg.family not in RECURRENT:    # equal lengths: no pad slot to mark
-            _invalidate_pad_slots(caches, torch.as_tensor(lens, device=self.device))
-        # decode each row from its true last token; the shared position
-        # counter sits at plen, so subtract each row's pad gap.
+            rows = torch.as_tensor(lens, device=self.device)
+            caches = _with_pos(_invalidate_pad_slots(caches, rows), rows)
         cur = torch.as_tensor(toks[np.arange(self.batch), lens - 1][:, None],
                               device=self.device)
-        offs = torch.as_tensor(plen - lens, device=self.device)
-        return caches, cur, offs
+        return caches, cur
 
     # ------------------------------------------------------------------
     def generate(self, prompts: List[np.ndarray], *, max_new: int = 32) -> List[List[int]]:
@@ -244,14 +253,14 @@ class Engine(PlannedEngine):
         step, prefill = self._compiled(rt)
         with torch.inference_mode():
             t0 = time.perf_counter()
-            caches, cur, offs = self._start(prompts, prefill)
+            caches, cur = self._start(prompts, prefill)
             self._sync()
             prefill_s = time.perf_counter() - t0
             outs: List[List[int]] = [[] for _ in range(self.batch)]
             steps = []
             for _ in range(max_new):
                 t0 = time.perf_counter()
-                cur, caches = step(cur, caches, offs)
+                cur, caches = step(cur, caches)
                 row = cur[:, 0].tolist()             # device sync
                 dt = time.perf_counter() - t0
                 steps.append(dt)
@@ -273,12 +282,12 @@ class Engine(PlannedEngine):
         _, prefill = self._compiled(rt)
         out = []
         with torch.inference_mode():
-            caches, cur, offs = self._start(prompts, prefill)
+            caches, cur = self._start(prompts, prefill)
             with self._binding.scope(rt):
                 for j in range(forced.shape[1]):
                     logits, caches = M.decode_step(self.cfg, self.params, cur, caches,
                                                    backend=self.backend, mesh=self.mesh,
-                                                   shards=self._shards, pos_offset=offs)
+                                                   shards=self._shards)
                     out.append(logits[:, -1].float())
                     cur = forced[:, j:j + 1]
         return torch.stack(out, dim=1)
@@ -290,12 +299,11 @@ class Engine(PlannedEngine):
         with torch.inference_mode():
             caches = M.init_caches(self.cfg, self.batch, self.max_seq, device=self.device)
             cur = torch.zeros((self.batch, 1), dtype=torch.int64, device=self.device)
-            offs = torch.zeros((self.batch,), dtype=torch.int64, device=self.device)
-            cur, caches = step(cur, caches, offs)   # warm-up
+            cur, caches = step(cur, caches)   # warm-up
             self._sync()
             t0 = time.perf_counter()
             for _ in range(steps):
-                cur, caches = step(cur, caches, offs)
+                cur, caches = step(cur, caches)
             self._sync()
         dt = (time.perf_counter() - t0) / steps
         return {"s_per_token": dt, "tokens_per_s": self.batch / dt}

@@ -67,6 +67,50 @@ def test_flash_ref_matches_pallas(B, S, Hq, Hkv, h, causal):
     assert np.abs(o_port.numpy() - np.asarray(o_pallas)).max() < FLASH_BOUND
 
 
+@pytest.mark.parametrize("B,S,Hq,Hkv", [(2, 64, 4, 2), (1, 96, 8, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_matches_pallas_at_h80(B, S, Hq, Hkv, causal):
+    """Head dim 80 (phi2-2b, stablelm-3b, h2o-danube-1.8b), which the CUDA
+    kernel gained with the dense families."""
+    q, k, v = _qkv(B, S, S, Hq, Hkv, 80, seed=2)
+    o_pallas = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                      q_block=32, kv_block=32)
+    o_port = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), causal=causal)
+    assert np.abs(o_port.numpy() - np.asarray(o_pallas)).max() < FLASH_BOUND
+
+
+@pytest.mark.parametrize("change", [dict(sliding_window=16), dict(pos_kind="alibi"),
+                                    dict(sliding_window=5, head_dim=80),
+                                    dict(pos_kind="alibi", num_heads=4, num_kv_heads=1)],
+                         ids=["window", "alibi", "window-h80", "alibi-gqa"])
+@pytest.mark.parametrize("blockwise", [False, True])
+def test_flash_ref_window_alibi_match_reference_attention(change, blockwise):
+    """The plain version's window and ALiBi (through the port's attention,
+    uncached, which takes the flash route) against the reference's uncached
+    ``layers.attention`` (its ``bias_fn``): dense, and blockwise over key
+    blocks of 16 (``blockwise_threshold`` lowered to reach it)."""
+    from repro.configs import get_smoke_config as jget_smoke
+    from repro.models import layers as JL
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+
+    cfg = get_smoke_config("llama3-8b").replace(**change)
+    jcfg = jget_smoke("llama3-8b").replace(**change)
+    jp = JL.init_attention(jax.random.PRNGKey(3), jcfg)
+    attn = L.Attention(cfg)
+    attn.load_state_dict({f"{n}.weight": torch.from_numpy(np.asarray(jp[n]["w"]).T.copy())
+                          for n in "qkvo"})
+    B, S = 2, 40
+    x = np.random.default_rng(4).standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    kw = dict(blockwise_threshold=16, kv_block=16) if blockwise else {}
+    want, _ = JL.attention(jp, jcfg, jnp.asarray(x), jnp.asarray(pos), **kw)
+    with torch.no_grad():
+        got, _ = L.attention(attn, cfg, torch.from_numpy(x), torch.from_numpy(pos))
+    assert np.abs(got.numpy() - np.asarray(want)).max() < FLASH_BOUND
+
+
 @pytest.mark.parametrize("Sq,Sk", [(50, 50), (37, 81)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_ref_any_length(Sq, Sk, causal):

@@ -218,13 +218,35 @@ def test_registered_archs_build_or_name_their_slice(arch):
         assert "slice" in str(e)
 
 
-@pytest.mark.parametrize("change", [dict(sliding_window=16), dict(mlp_kind="gelu"),
-                                    dict(pos_kind="alibi"), dict(parallel_block=True),
-                                    dict(attn_kind="mla"), dict(family="audio")])
+@pytest.mark.parametrize("change", [dict(attn_kind="mla"), dict(family="audio"),
+                                    dict(pos_kind="mrope"), dict(pos_kind="learned")],
+                         ids=["mla", "audio", "mrope", "learned"])
 def test_unported_variants_raise(change):
     cfg = get_smoke_config(ARCH).replace(**change)
     with pytest.raises(NotImplementedError, match="slice"):
         M.init_params(cfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("change", [dict(sliding_window=16), dict(mlp_kind="gelu"),
+                                    dict(pos_kind="alibi"), dict(parallel_block=True),
+                                    dict(pos_kind="alibi", sliding_window=16)],
+                         ids=["sliding_window", "gelu", "alibi", "parallel_block",
+                              "alibi+window"])
+def test_ported_variants_build_and_run(change):
+    """The variants the dense families' slice ported (they raised before):
+    the model builds, runs a forward, a cached prefill and a decode step,
+    with finite outputs of the expected shapes.  Their numbers are held to
+    the reference in tests/test_torch_families.py."""
+    cfg = get_smoke_config(ARCH).replace(**change)
+    model = M.init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
+    x, _, _ = M.forward_hidden(cfg, model, {"tokens": toks})
+    assert x.shape == (2, 12, cfg.d_model) and bool(torch.isfinite(x).all())
+    caches = M.init_caches(cfg, 2, 32, device="cpu")
+    xc, caches, _ = M.forward_hidden(cfg, model, {"tokens": toks}, caches)
+    _close(xc, x, BOUND)
+    logits, _ = M.decode_step(cfg, model, toks[:, -1:], caches)
+    assert logits.shape == (2, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------

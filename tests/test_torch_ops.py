@@ -280,6 +280,83 @@ def test_flash_kernel_matches_ref(cuda, B, Sq, Sk, Hq, Hkv, h, causal, dtype):
     assert err < (FLASH_BOUND_F32 if dtype == torch.float32 else FLASH_BOUND_HALF)
 
 
+def _alibi(Hq):
+    """Slopes as the models draw them (``layers.alibi_slopes``)."""
+    from repro_torch.models.layers import alibi_slopes
+
+    return alibi_slopes(Hq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,h", [
+    (2, 200, 200, 32, 32, 80), (1, 129, 129, 4, 1, 80), (2, 1, 45, 8, 2, 80),
+    (1, 300, 300, 8, 2, 128), (2, 65, 130, 4, 4, 64), (1, 600, 600, 4, 1, 80)])
+@pytest.mark.parametrize("window", [0, 1, 16, 100, 256])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_window_alibi_h80_match_ref(cuda, B, Sq, Sk, Hq, Hkv, h, window,
+                                                 alibi, causal):
+    """Head dim 80, sliding windows (1 key, less than one K/V tile, more
+    than one, more than the query tile) and ALiBi, each alone and together,
+    fp32, against the plain version: one launch each, within 1e-4."""
+    q = _t((B, Sq, Hq, h), 1, device=cuda)
+    k, v = _t((B, Sk, Hkv, h), 2, device=cuda), _t((B, Sk, Hkv, h), 3, device=cuda)
+    slopes = _alibi(Hq).to(cuda) if alibi else None
+    ops.reset_launches()
+    o = ops.flash_attention(q, k, v, causal=causal, window=window, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and o.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, alibi_slopes=slopes)
+    assert (o - want).abs().max().item() < FLASH_BOUND_F32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_window_h80_half(cuda, dtype):
+    q = _t((2, 300, 8, 80), 1, dtype, cuda)
+    k, v = _t((2, 300, 2, 80), 2, dtype, cuda), _t((2, 300, 2, 80), 3, dtype, cuda)
+    o = ops.flash_attention(q, k, v, window=70)
+    want = ref.flash_attention_ref(q, k, v, window=70)
+    assert o.dtype == dtype and (o.float() - want.float()).abs().max().item() < FLASH_BOUND_HALF
+
+
+@pytest.mark.gpu
+def test_flash_without_window_or_alibi_is_unchanged(cuda):
+    """window = 0 and no slopes run the kernel the llama3-8b path always ran:
+    bit-equal to a window wider than every row's reach."""
+    q = _t((2, 300, 8, 128), 1, device=cuda)
+    k, v = _t((2, 300, 2, 128), 2, device=cuda), _t((2, 300, 2, 128), 3, device=cuda)
+    assert torch.equal(flash_attention_cuda(q, k, v), flash_attention_cuda(q, k, v, window=300))
+
+
+@pytest.mark.gpu
+def test_flash_alibi_kernel_refuses_what_it_does_not_take(cuda):
+    q = _t((1, 8, 4, 64), device=cuda)
+    s = _alibi(4).to(cuda)
+    with pytest.raises(ValueError, match="fp32"):
+        flash_attention_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16(), alibi_slopes=s)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_cuda(q, q, q, alibi_slopes=s, with_lse=True)
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        flash_attention_cuda(q, q, q, alibi_slopes=s[:2])
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_cuda(q, q, q, window=-1)
+
+
+@pytest.mark.parametrize("what", ["h80", "window", "alibi"])
+def test_flash_attention_fn_refuses_what_the_backward_lacks(what):
+    """The backward kernels take neither head dim 80, a window nor ALiBi:
+    ``FlashAttentionFn`` raises at its forward, naming the slice that
+    brings them, before any kernel runs (so on any device)."""
+    h = 80 if what == "h80" else 64
+    q = _t((1, 8, 4, h)).requires_grad_()
+    kw = {"window": 4} if what == "window" else {}
+    if what == "alibi":
+        kw["alibi_slopes"] = _alibi(4)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ops.FlashAttentionFn.apply(q, q, q, True, kw.get("window", 0), kw.get("alibi_slopes"))
+
+
 @pytest.mark.gpu
 def test_flash_refuses_unaligned_tensors(cuda):
     """The kernel copies fp32 rows in 16-byte pieces: a contiguous fp32 view
