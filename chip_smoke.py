@@ -6,12 +6,15 @@
 Phases, each of which exits non-zero on a failed check:
   1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     sm_90a), timed; what ptxas reports for flash attention's fp32
-     instantiations at h = 112 and 128 (forward and both backward kernels,
+     sm_90a), timed; what ptxas reports (one nvcc a source, all started at
+     once) for flash attention's fp32 forward instantiations at h = 80, 112
+     and 128 (with and without lse and ALiBi) and for every instantiation
+     of both backward kernels (each dtype and head dim, ALiBi's fp32 ones;
      each beside its dynamic shared memory), for the RMSNorm backward's
      fp32 register-path instantiations, for the SSD kernels' at P = N = 64
      and for the WKV6 kernels' at K = V = 64 (registers, spills, which fail
-     the run) beside the shared memory of their layouts and the blocks per
+     the run but for the half types' flash dK/dV kernel at h = 128, held
+     within ``FLASH_BWD_SPILL_CAP``) beside the shared memory of their layouts and the blocks per
      SM that these allow, and for the chunked scans' other fp32
      instantiations;
   3. kernel parity: each kernel (RMSNorm, flash attention at h = 128 and at
@@ -149,16 +152,37 @@ Phases, each of which exits non-zero on a failed check:
      their chunks); slice parity of each at 2 layers against
      ``backend="ref"`` within 1e-3, and of h2o-danube with its window cut
      to 256 over prompts of 200-256 tokens, so its ring wraps there too.
+  12. the dense families' training: the flash backward's new variants from
+     the forward's o and lse, each against autograd of the plain version in
+     fp64 within 1e-4 of max|g| (with o and lse), timed beside the plain
+     version's backward, SDPA's efficient backward (``is_causal`` where the
+     mask is causal only, else the equivalent float mask) and five products
+     over the pairs inside the mask at the 3xTF32 rate: head dim 80 at
+     phi2-2b's training shape (B 4, S 2048, 32/32 heads), ALiBi at mpt-7b's
+     (h 128), a window of 256 at S 2048 on h2o-danube's 32/8 heads, and
+     danube's window of 4096 at its training shape, B 2, S 8192 (held on
+     KV head 0's group: fp64 scores of all heads take 34 GB); then each
+     family at full width trained for three plain steps as phase 8 trains
+     (``phi2-2b`` at all 32 layers, B 4 x S 2048; ``h2o-danube-1.8b`` at all
+     24, B 2 x S 8192, its window masking keys in both backward kernels,
+     with a profiler trace of a fourth step by kernel class; ``mpt-7b``,
+     ``phi4-mini-3.8b``, ``stablelm-3b`` at 4 layers): step time, tokens/s,
+     MFU, peak memory, loss and grad_norm, gated on finite losses, every
+     parameter moving and launches equal to the code's (no RMSNorm in the
+     LayerNorm models); then one step of each at 2 layers (B 1, S 512, and
+     h2o-danube also with its window cut to 256) against ``backend="ref"``
+     within phase 8's parity bounds.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
 Phases 7 to 11 share one 1-rank NCCL group from a ``FileStore``.  Then it
 prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
 ``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"moe": ...}``
-line, one ``{"families": ...}`` line, one ``{"kernels": [...]}`` line (the
-flash kernel's instantiations of phase 11, h = 80 and ALiBi, as entries
-of their own with the launches of the models that run them, which the
-base flash entry does not count again; the h = 80 entry carries its
-window checks) and, last, the device line.
+line, one ``{"families": ...}`` line, one ``{"families_train": ...}`` line,
+one ``{"kernels": [...]}`` line (the flash kernels' instantiations of
+phases 11 and 12, forward and backward at h = 80 and with ALiBi, as
+entries of their own with the launches of the models that run them,
+served and trained, which the base flash entries do not count again; the
+h = 80 entries carry their window checks) and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -655,40 +679,56 @@ def flash_bwd_phase(gen) -> dict:
             "cases": cases}
 
 
-def flash_train_shape_errs(q, k, v, do, o, lse, grads) -> dict:
-    """The forward's o and lse and the backward's (dq, dk, dv) at the
-    training shape, each against the plain version in fp64 (autograd of it
-    for the gradients), one batch element at a time (each one's fp64 scores
-    take 1 GB).  Fails the run past FLASH_BOUND (o, lse) or FLASH_GRAD_BOUND
-    of max|g| over dq, dk and dv."""
+def flash_train_shape_errs(q, k, v, do, o, lse, grads, *, window: int = 0, slopes=None,
+                           group=None, what: str = "flash at the training shape") -> dict:
+    """The forward's o and lse and the backward's (dq, dk, dv) at a training
+    shape, causal, with ``window`` and the ALiBi ``slopes`` given, each
+    against the plain version in fp64 (autograd of it for the gradients),
+    one batch element at a time (each one's fp64 scores take 1 GB at
+    S 2048 and 32 heads); with ``group`` (a KV head), on that head's group
+    of query heads alone.  Fails the run past FLASH_BOUND (o, lse) or
+    FLASH_GRAD_BOUND of max|g| over dq, dk and dv."""
     B, S, Hq, h = q.shape
     G = Hq // k.shape[2]
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+    hq = slice(None) if group is None else slice(group * G, (group + 1) * G)
+    hk = slice(None) if group is None else slice(group, group + 1)
+    sl = None if slopes is None else slopes[hq].double()
+    kw = dict(causal=True, window=window, alibi_slopes=sl)
+    pos = torch.arange(S, device=q.device)
+    dist = pos[None, :] - pos[:, None]                   # kpos - qpos
+    keep = dist <= 0
+    if window:
+        keep &= -dist < window
     o_err = lse_err = g_err = g_max = 0.0
     for b in range(B):
-        leaves = [t[b:b + 1].double().requires_grad_() for t in (q, k, v)]
-        ob = ref.flash_attention_ref(*leaves, causal=True)
-        want = torch.autograd.grad(ob, leaves, do[b:b + 1].double())
-        o_err = max(o_err, (o[b:b + 1].double() - ob.detach()).abs().max().item())
-        g_err = max(g_err, max((g[b:b + 1].double() - w).abs().max().item()
-                               for g, w in zip(grads, want)))
+        leaves = [t[b:b + 1, :, hs].double().requires_grad_()
+                  for t, hs in ((q, hq), (k, hk), (v, hk))]
+        ob = ref.flash_attention_ref(*leaves, **kw)
+        want = torch.autograd.grad(ob, leaves, do[b:b + 1, :, hq].double())
+        got = (grads[0][b:b + 1, :, hq], grads[1][b:b + 1, :, hk], grads[2][b:b + 1, :, hk])
+        o_err = max(o_err, (o[b:b + 1, :, hq].double() - ob.detach()).abs().max().item())
+        g_err = max(g_err, max((g.double() - w).abs().max().item() for g, w in zip(got, want)))
         g_max = max(g_max, max(w.abs().max().item() for w in want))
         del leaves, ob, want
-        sc = torch.einsum("qhd,shd->hqs", q[b].double(),
-                          k[b].double().repeat_interleave(G, dim=1)) / h ** 0.5
-        lse_ref = torch.logsumexp(sc.masked_fill_(mask, ref.NEG_INF), dim=-1)
-        lse_err = max(lse_err, (lse[b].double() - lse_ref).abs().max().item())
+        sc = torch.einsum("qhd,shd->hqs", q[b, :, hq].double(),
+                          k[b, :, hk].double().repeat_interleave(G, dim=1)) / h ** 0.5
+        if sl is not None:
+            sc += sl.view(-1, 1, 1) * dist.double()
+        lse_ref = torch.logsumexp(sc.masked_fill_(~keep, ref.NEG_INF), dim=-1)
+        lse_err = max(lse_err, (lse[b, hq].double() - lse_ref).abs().max().item())
         del sc, lse_ref
     torch.cuda.synchronize()
-    check(all(bool(torch.isfinite(g).all()) for g in grads), "flash backward: non-finite")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"{what}: non-finite gradients")
     check(o_err <= FLASH_BOUND and lse_err <= FLASH_BOUND,
-          f"flash at the training shape: o err {o_err}, lse err {lse_err} > {FLASH_BOUND}")
-    check(g_err <= FLASH_GRAD_BOUND * g_max, f"flash backward at the training shape: "
-          f"err {g_err} > {FLASH_GRAD_BOUND} x max|g| {g_max}")
-    say(f"flash at the training shape {tuple(q.shape)} / {tuple(k.shape)} causal fp32, the "
-        f"timed calls: o max abs err {o_err:.3e}, lse {lse_err:.3e} (bound {FLASH_BOUND}); "
-        f"dq, dk, dv max abs err {g_err:.3e}, {g_err / g_max:.3e} of max|g| (bound "
-        f"{FLASH_GRAD_BOUND}) against the plain version in fp64")
+          f"{what}: o err {o_err}, lse err {lse_err} > {FLASH_BOUND}")
+    check(g_err <= FLASH_GRAD_BOUND * g_max, f"{what}: backward err {g_err} > "
+                                             f"{FLASH_GRAD_BOUND} x max|g| {g_max}")
+    held = "" if group is None else f", KV head {group}'s group of {G} query heads"
+    say(f"{what} {tuple(q.shape)} / {tuple(k.shape)} causal window={window} "
+        f"alibi={slopes is not None} fp32, the timed calls{held}: o max abs err {o_err:.3e}, "
+        f"lse {lse_err:.3e} (bound {FLASH_BOUND}); dq, dk, dv max abs err {g_err:.3e}, "
+        f"{g_err / g_max:.3e} of max|g| (bound {FLASH_GRAD_BOUND}) against the plain version "
+        f"in fp64")
     return {"o_err": o_err, "lse_err": lse_err, "grad_err": g_err,
             "grad_err_of_max_g": g_err / g_max}
 
@@ -701,34 +741,64 @@ def flash_bwd_smem_bytes(kind: str, h: int) -> int:
     return 4 * ((h + 8) * (2 * 128 + 4 * 32) + (4 * 32 if kind == "dkdv" else 0))
 
 
-def flash_bwd_build_report() -> dict:
-    """What ptxas reports for the fp32 backward kernels at h = 112 and 128
-    (registers, spills, which fail the run), printed beside each kernel's
-    dynamic shared memory and kept beside the phase's numbers."""
+# the mangled template arguments of flash_bwd.cu's kernels: <T, HD, ALIBI>
+FLASH_BWD_KERNEL = re.compile(r"flash_bwd_(dkdv|dq)_kernelI(f|13__nv_bfloat16|6__half)Li(\d+)"
+                              r"ELb([01])E")
+FLASH_BWD_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+# the backward instantiations that may spill, with the most bytes (stores and
+# loads) each may: the half types' dK/dV kernel at h = 128 spilled 28 B
+# before the window's tests (unchecked then) and spills 64 B with them; no
+# model trains in bf16 or fp16 (ROADMAP queue 2 item 2).  Every other one
+# must not spill.
+FLASH_BWD_SPILL_CAP = {"dkdv <bf16, 128>": 64, "dkdv <fp16, 128>": 64}
+
+
+def flash_bwd_build_report(entries=None) -> dict:
+    """What ptxas reports for every instantiation of the backward kernels
+    (dK/dV and dQ at each dtype and head dim, and ALiBi's, fp32 only):
+    registers, spills (any fails the run, but the half types' dK/dV
+    kernel's within ``FLASH_BWD_SPILL_CAP``) and stack, each beside its
+    dynamic shared memory, named ``dkdv <fp32, 80>``, ``dq <fp32, 128,
+    ALiBi>`` and so on; the fp32 ones printed one a line, the half types'
+    in one line, all kept beside the phase's numbers."""
+    from repro_torch.kernels.flash import HEAD_DIMS
+
     report = {}
-    for entry in ptxas_report("flash_bwd.cu"):
-        m = re.search(r"flash_bwd_(dkdv|dq)_kernelIfLi(\d+)E", entry["kernel"])
-        if not m or int(m.group(2)) not in (112, 128):
+    for entry in entries if entries is not None else ptxas_report("flash_bwd.cu"):
+        m = FLASH_BWD_KERNEL.search(entry["kernel"])
+        if not m:
             continue
-        name = f"{m.group(1)} <fp32, {m.group(2)}>"
-        smem = flash_bwd_smem_bytes(m.group(1), int(m.group(2)))
+        kind, dtype, h, alibi = m.group(1), FLASH_BWD_TYPES[m.group(2)], int(m.group(3)), \
+            m.group(4) == "1"
+        name = f"{kind} <{dtype}, {h}{', ALiBi' if alibi else ''}>"
+        smem = flash_bwd_smem_bytes(kind, h)
         report[name] = {**{k: v for k, v in entry.items() if k != "kernel"},
                         "smem_dynamic": smem}
-        say(f"ptxas flash backward {name}: {entry['registers']} registers, "
-            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads, "
-            f"{entry['stack']} B stack; {smem} B of dynamic shared memory")
-        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
-              f"flash backward {name} spills")
-    check(len(report) == 4, f"ptxas reported the backward kernels {sorted(report)}")
+        if dtype == "fp32":
+            say(f"ptxas flash backward {name}: {entry['registers']} registers, "
+                f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill "
+                f"loads, {entry['stack']} B stack; {smem} B of dynamic shared memory")
+    say("ptxas flash backward, half types, registers / spill stores / spill loads (B): " +
+        ", ".join(f"{n} {e['registers']}/{e['spill_stores']}/{e['spill_loads']}"
+                  for n, e in report.items() if "fp32" not in n))
+    spills = {n: e["spill_stores"] + e["spill_loads"] for n, e in report.items()}
+    over = {n: b for n, b in spills.items() if b > FLASH_BWD_SPILL_CAP.get(n, 0)}
+    check(not over, f"flash backward instantiations spill (B): {over}, allowed "
+                    f"{FLASH_BWD_SPILL_CAP}")
+    want = {f"{kind} <{dtype}, {h}>" for kind in ("dkdv", "dq") for h in HEAD_DIMS
+            for dtype in FLASH_BWD_TYPES.values()}
+    want |= {f"{kind} <fp32, {h}, ALiBi>" for kind in ("dkdv", "dq") for h in HEAD_DIMS}
+    check(set(report) == want, f"ptxas reported the backward kernels {sorted(report)}, "
+                               f"expected {sorted(want)}")
     return report
 
 
-def rmsnorm_bwd_build_report() -> dict:
+def rmsnorm_bwd_build_report(entries=None) -> dict:
     """What ptxas reports for the RMSNorm backward's fp32 instantiations:
     the register path holding 1, 2, 4 or 8 vectors a thread (fails on a
     spill) and the generic path (0)."""
     report = {}
-    for entry in ptxas_report("rmsnorm.cu"):
+    for entry in entries if entries is not None else ptxas_report("rmsnorm.cu"):
         m = re.search(r"rmsnorm_bwd_kernelIffLi(\d+)E", entry["kernel"])
         if not m:
             continue
@@ -743,22 +813,51 @@ def rmsnorm_bwd_build_report() -> dict:
     return report
 
 
-def ptxas_report(source: str) -> list:
-    """Compile one source of the port's ``csrc`` to a cubin with ``-Xptxas -v``
-    (the build's flags) and return, per kernel, what ptxas reports:
-    ``{"kernel", "registers", "smem_static", "stack", "spill_stores",
-    "spill_loads"}``, in bytes where not a count."""
+def ptxas_reports(*sources: str) -> dict:
+    """What ptxas reports for each of ``sources`` of the port's ``csrc``,
+    each compiled to a cubin with ``-Xptxas -v`` (the build's flags), one
+    nvcc a source, all started at once: ``{source: [{"kernel",
+    "registers", "smem_static", "stack", "spill_stores", "spill_loads"},
+    ...]}``, in bytes where not a count."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     check(CUDA_HOME is not None, "ptxas report: the CUDA toolkit was not found")
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / (os.path.splitext(source)[0] + ".cubin")
-    res = subprocess.run([nvcc, *_build.CUDA_FLAGS, "-std=c++17", "-cubin", "-Xptxas", "-v",
-                          "-o", str(out), str(_build.CSRC / source)],
-                         capture_output=True, text=True, check=True, timeout=600)
+    jobs = {}
+    for source in sources:
+        out = _build.BUILD_DIR / (os.path.splitext(source)[0] + ".cubin")
+        log = out.with_suffix(".ptxas.txt")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [nvcc, *_build.CUDA_FLAGS, "-std=c++17", "-cubin", "-Xptxas", "-v", "-o",
+                 str(out), str(_build.CSRC / source)], stdout=subprocess.DEVNULL, stderr=f)
+        jobs[source] = (proc, log)
+    try:
+        for proc, _ in jobs.values():
+            proc.wait(timeout=600)
+    finally:
+        for proc, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for source, (proc, log) in jobs.items():
+        err = log.read_text()
+        if proc.returncode:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args, stderr=err)
+        out[source] = _parse_ptxas(err)
+    return out
+
+
+def ptxas_report(source: str) -> list:
+    """What ptxas reports for one source (``ptxas_reports``)."""
+    return ptxas_reports(source)[source]
+
+
+def _parse_ptxas(err: str) -> list:
     found = []
-    for line in res.stderr.splitlines():
+    for line in err.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             found.append({"kernel": m.group(1)})
@@ -785,32 +884,40 @@ def flash_smem_bytes(h: int) -> int:
     return 4 * (128 * (h + 8) + 2 * 64 * ((h + 8) + (h + 4)))
 
 
-def flash_build_report() -> dict:
-    """What ptxas reports for the fp32 instantiations of the main path's head
-    dims (fails on a spill), beside the shared memory of the kernel's layout
-    and the blocks of 256 threads per SM that it and the registers allow."""
+FLASH_FWD_HEAD_DIMS = (80, 112, 128)        # the main paths' head dims
+
+
+def flash_build_report(entries=None) -> dict:
+    """What ptxas reports for the fp32 instantiations of the main paths'
+    head dims, each with and without lse and ALiBi and named so (``<fp32,
+    80, lse, ALiBi>``; fails on a spill), beside the shared memory of the
+    kernel's layout and the blocks of 256 threads per SM that it and the
+    registers allow."""
     report = {}
-    for entry in ptxas_report("flash.cu"):
-        m = re.search(r"flash_fwd_kernelIfLi(\d+)E", entry["kernel"])
-        if not m or int(m.group(1)) not in (112, 128):
+    for entry in entries if entries is not None else ptxas_report("flash.cu"):
+        m = re.search(r"flash_fwd_kernelIfLi(\d+)ELb([01])ELb([01])E", entry["kernel"])
+        if not m or int(m.group(1)) not in FLASH_FWD_HEAD_DIMS:
             continue
         h = int(m.group(1))
-        report[h] = {k: v for k, v in entry.items() if k != "kernel"}
+        name = (f"<fp32, {h}{', lse' if m.group(2) == '1' else ''}"
+                f"{', ALiBi' if m.group(3) == '1' else ''}>")
         smem = flash_smem_bytes(h)
         regs = -(-entry["registers"] // 8) * 8     # allocated in units of 8 a thread
         blocks = min(SM_SMEM // (smem + SM_SMEM_PER_BLOCK), SM_REGS // (regs * 256),
                      SM_THREADS // 256)
-        say(f"ptxas flash <fp32, {h}>: {entry['registers']} registers, "
+        report[name] = {**{k: v for k, v in entry.items() if k != "kernel"},
+                        "smem_dynamic": smem, "blocks_per_sm": blocks}
+        say(f"ptxas flash {name}: {entry['registers']} registers, "
             f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads, "
             f"{entry['stack']} B stack; its layout takes {smem} B of dynamic shared "
             f"memory, so {blocks} block(s) per SM")
-        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
-              f"flash <fp32, {h}> spills")
-    check(sorted(report) == [112, 128], f"ptxas reported no flash kernel for {sorted(report)}")
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0, f"flash {name} spills")
+    check(len(report) == 4 * len(FLASH_FWD_HEAD_DIMS),
+          f"ptxas reported the flash kernels {sorted(report)}")
     return report
 
 
-def ssd_build_report() -> dict:
+def ssd_build_report(entries=None) -> dict:
     """What ptxas reports for the fp32 SSD kernels at the main path's P = N = 64
     (the chunked kernel of 128 threads and the decode step of 256; fails on a
     spill), beside the blocks per SM that shared memory (the chunked kernel's
@@ -819,7 +926,7 @@ def ssd_build_report() -> dict:
     buffer rather than two at P = N = 128)."""
     lib = _build.library()
     report, others = {}, {}
-    for entry in ptxas_report("ssd.cu"):
+    for entry in entries if entries is not None else ptxas_report("ssd.cu"):
         name = entry["kernel"]
         fields = {k: v for k, v in entry.items() if k != "kernel"}
         m = re.search(r"ssd_fwd_kernelIfLi(\d+)ELi(\d+)EE", name)
@@ -856,7 +963,7 @@ def ssd_build_report() -> dict:
     return report
 
 
-def wkv6_build_report() -> dict:
+def wkv6_build_report(entries=None) -> dict:
     """What ptxas reports for the fp32 WKV6 kernels at the main path's K = V =
     64 (the chunked kernel, 256 threads; the decode step, 4 V = 256 threads;
     fails on a spill), beside the blocks
@@ -865,7 +972,9 @@ def wkv6_build_report() -> dict:
     chunked kernel, its registers, spills and shared memory."""
     lib = _build.library()
     report, others = {}, {}
-    entries = ptxas_report("wkv6.cu") + ptxas_report("wkv6_step.cu")
+    if entries is None:
+        found = ptxas_reports("wkv6.cu", "wkv6_step.cu")
+        entries = found["wkv6.cu"] + found["wkv6_step.cu"]
     for entry in entries:
         name = entry["kernel"]
         fields = {k: v for k, v in entry.items() if k != "kernel"}
@@ -1626,12 +1735,14 @@ PARITY_OPT = dict(lr=3e-4, eps=1e-3)
 
 def expected_train_launches(cfg, passes: int) -> dict:
     """Each kernel's launches in one train step of ``passes`` forward and
-    backward passes with per-layer remat: a layer's ln1, ln2 (and qk_norm's
-    two) and flash run in the forward and again in its recompute, ln_f
-    once; each backward pass runs each once."""
-    L, n = cfg.num_layers, (4 if cfg.qk_norm else 2)
-    return dict(NO_LAUNCHES, rmsnorm=passes * (2 * n * L + 1),
-                rmsnorm_bwd=passes * (n * L + 1), flash_attention=passes * 2 * L,
+    backward passes with per-layer remat: a layer's ln1, ln2 (ln1 alone in
+    a parallel block) where they are RMSNorms (LayerNorms are plain
+    PyTorch), qk_norm's two, and flash run in the forward and again in its
+    recompute, ln_f once; each backward pass runs each once."""
+    L, rms = cfg.num_layers, cfg.norm_kind == "rmsnorm"
+    n = (1 if cfg.parallel_block else 2) * rms + 2 * cfg.qk_norm
+    return dict(NO_LAUNCHES, rmsnorm=passes * (2 * n * L + rms),
+                rmsnorm_bwd=passes * (n * L + rms), flash_attention=passes * 2 * L,
                 flash_attention_bwd=passes * L)
 
 
@@ -1777,43 +1888,82 @@ def train_phase(card: str, mesh) -> dict:
             "card": card}
 
 
+def parity_batch(cfg) -> dict:
+    """The parity steps' batch (PARITY_TRAIN's B x S) on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+
+    P = PARITY_TRAIN
+    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=P["S"],
+                                       global_batch=P["B"], seed=SEED + 3)).batch(0)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def parity_step(cfg, batch, *, backend=None, sited_mesh=None, plan=None) -> tuple:
+    """One train step of ``cfg`` from SEED + 2's weights on ``batch`` with
+    PARITY_OPT, through ``backend`` (and on the sited trunk over
+    ``sited_mesh`` under ``plan``): the updated parameters, AdamW's mu,
+    loss, grad_norm, the kernels' launches and the issued collectives."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as T
+
+    model = M.init_params(cfg, SEED + 2, device="cuda")
+    state = adamw.init_state(dict(model.named_parameters()))
+    step_fn = T.make_train_step(cfg, T.TrainConfig(
+        opt=adamw.AdamWConfig(**PARITY_OPT), warmup=2, total_steps=100, backend=backend,
+        sited_mesh=sited_mesh))
+    ops.reset_launches()
+    with plan.applied() if plan is not None else contextlib.nullcontext(), \
+            collectives.record_issued() as issued:
+        model, state, m = step_fn(model, state, batch, 1)
+    torch.cuda.synchronize()
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    return (params, state["mu"], float(m["loss"]), float(m["grad_norm"]),
+            dict(ops.LAUNCHES), list(issued))
+
+
+def parity_held(tag: str, name: str, first: tuple, other: tuple, card: str,
+                note: str = "") -> dict:
+    """``other``'s step (``parity_step``) held to ``first``'s within
+    PARITY_TRAIN's bounds: updated parameters (abs), mu (of its max per
+    parameter), loss and grad_norm (relative); printed, and failing the run
+    past a bound."""
+    P = PARITY_TRAIN
+    params, mu, loss, gnorm = first[:4]
+    p2, mu2, loss2, gnorm2 = other[:4]
+    err = max((p - p2[n]).abs().max().item() for n, p in params.items())
+    mu_err, mu_at = max((((m - mu2[n]).abs().max() / m.abs().max().clamp_min(1e-30)).item(), n)
+                        for n, m in mu.items())
+    loss_rel, gnorm_rel = abs(loss2 - loss) / abs(loss), abs(gnorm2 - gnorm) / gnorm
+    say(f"{tag}, kernels against {name}: updated parameters max abs diff {err:.3e} (bound "
+        f"{P['bound']}); mu {mu_err:.3e} of its max, at {mu_at} (bound {P['mu_bound']}); loss "
+        f"{loss:.6f} / {loss2:.6f}, grad_norm {gnorm:.6f} / {gnorm2:.6f}, relative "
+        f"{loss_rel:.2e} / {gnorm_rel:.2e} (bound {P['rel_bound']}){note} ({card})")
+    check(err <= P["bound"], f"{tag} {name}: parameters differ by {err}")
+    check(mu_err <= P["mu_bound"], f"{tag} {name}: mu differs by {mu_err} of max")
+    check(loss_rel <= P["rel_bound"] and gnorm_rel <= P["rel_bound"],
+          f"{tag} {name}: loss or grad_norm differ by {loss_rel}, {gnorm_rel}")
+    return {"max_abs_param_diff": err, "mu_err_of_max": mu_err, "loss": loss2,
+            "grad_norm": gnorm2, "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel}
+
+
 def train_parity_phase(card: str, plan, mesh) -> dict:
     """One train step through the kernels, then one through backend="ref"
     and one through the sited trunk on the 1-rank NCCL mesh under ``plan``
     (its ``tp.layer{i}.mlp`` sites chunk the MLP), on the card, from the
     same weights on the same batch: llama3-8b at full width and 2 layers,
     B = 1, S = 512.  Each is held to the first."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
-    from repro_torch.optim import adamw
-    from repro_torch.train import trainer as T
-
     P = PARITY_TRAIN
     cfg = get_config(PLAN_ARCH).replace(num_layers=P["layers"])
-    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=P["S"],
-                                       global_batch=P["B"], seed=SEED + 3)).batch(0)
-    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-
-    def one_step(backend=None, sited=False):
-        model = M.init_params(cfg, SEED + 2, device="cuda")
-        state = adamw.init_state(dict(model.named_parameters()))
-        step_fn = T.make_train_step(cfg, T.TrainConfig(
-            opt=adamw.AdamWConfig(**PARITY_OPT), warmup=2, total_steps=100, backend=backend,
-            sited_mesh=mesh if sited else None))
-        ops.reset_launches()
-        with plan.applied() if sited else contextlib.nullcontext(), \
-                collectives.record_issued() as issued:
-            model, state, m = step_fn(model, state, batch, 1)
-        torch.cuda.synchronize()
-        params = {n: p.detach() for n, p in model.named_parameters()}
-        return (params, state["mu"], float(m["loss"]), float(m["grad_norm"]),
-                dict(ops.LAUNCHES), list(issued))
-
-    params, mu, loss, gnorm, launches, issued = one_step()
+    batch = parity_batch(cfg)
+    first = parity_step(cfg, batch)
+    loss, gnorm, launches, issued = first[2:]
     check(np.isfinite(loss) and np.isfinite(gnorm), "train parity: non-finite loss")
     check(not issued, "train parity: the unsited step issued a collective")
     out = {"loss": loss, "grad_norm": gnorm}
-    for name, kw in (("ref", dict(backend="ref")), ("sited", dict(sited=True))):
-        p2, mu2, loss2, gnorm2, launches2, issued2 = one_step(**kw)
+    tag = f"train parity ({P['layers']} layers, full width, B={P['B']}, S={P['S']})"
+    for name, kw in (("ref", dict(backend="ref")), ("sited", dict(sited_mesh=mesh, plan=plan))):
+        other = parity_step(cfg, batch, **kw)
+        launches2, issued2 = other[4:]
         if name == "ref":
             check(launches2 == NO_LAUNCHES, "train parity: backend='ref' launched a kernel")
         else:
@@ -1821,26 +1971,11 @@ def train_parity_phase(card: str, plan, mesh) -> dict:
                                          f"{launches2}, the unsited one {launches}")
             check(any(r.site.startswith("tp.layer") for r in issued2),
                   "train parity: the sited trunk issued nothing")
-        err = max((p - p2[n]).abs().max().item() for n, p in params.items())
-        mu_err, mu_at = max(
-            (((m - mu2[n]).abs().max() / m.abs().max().clamp_min(1e-30)).item(), n)
-            for n, m in mu.items())
-        loss_rel, gnorm_rel = abs(loss2 - loss) / abs(loss), abs(gnorm2 - gnorm) / gnorm
-        say(f"train parity, kernels against {name} ({P['layers']} layers, full width, "
-            f"B={P['B']}, S={P['S']}): updated parameters max abs diff {err:.3e} (bound "
-            f"{P['bound']}); mu {mu_err:.3e} of its max, at {mu_at} (bound {P['mu_bound']}); loss "
-            f"{loss:.6f} / {loss2:.6f}, grad_norm {gnorm:.6f} / {gnorm2:.6f}, relative "
-            f"{loss_rel:.2e} / {gnorm_rel:.2e} (bound {P['rel_bound']})"
-            + (f"; issued {issued_summary(issued2)}" if issued2 else "") + f" ({card})")
-        check(err <= P["bound"], f"train parity {name}: parameters differ by {err}")
-        check(mu_err <= P["mu_bound"], f"train parity {name}: mu differs by {mu_err} of max")
-        check(loss_rel <= P["rel_bound"] and gnorm_rel <= P["rel_bound"],
-              f"train parity {name}: loss or grad_norm differ by {loss_rel}, {gnorm_rel}")
-        out[name] = {"max_abs_param_diff": err, "mu_err_of_max": mu_err, "loss": loss2,
-                     "grad_norm": gnorm2, "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel}
-        del p2, mu2
+        out[name] = parity_held(tag, name, first, other, card,
+                                f"; issued {issued_summary(issued2)}" if issued2 else "")
+        del other
         free()
-    del params, mu
+    del first
     free()
     return {**out, "bounds": {k: P[k] for k in ("bound", "mu_bound", "rel_bound")}}
 
@@ -2384,6 +2519,25 @@ def sdpa_masked(q, k, v, bias):
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
 
 
+def sdpa_yardstick(S: int, window: int, slopes):
+    """SDPA's efficient backend for a causal mask over S positions with a
+    window (0 = none) and ALiBi ``slopes`` (or None): ``is_causal`` where the
+    mask is causal only (the library then skips the masked tiles), else the
+    equivalent additive mask.  Returns the call on (B, H, S, h) views and
+    how it masks."""
+    if slopes is None and not 0 < window < S:
+        return (lambda *a: sdpa_efficient(*a, True)), "is_causal"
+    pos = torch.arange(S, device="cuda")
+    dist = (pos[None, :] - pos[:, None]).float()                       # kpos - qpos
+    keep = dist <= 0
+    if window:
+        keep &= -dist < window
+    bias = (slopes.view(1, -1, 1, 1) * dist if slopes is not None
+            else torch.zeros_like(dist)[None, None])
+    bias = bias.masked_fill(~keep, float("-inf")).contiguous()
+    return (lambda *a: sdpa_masked(*a, bias)), "its additive mask"
+
+
 def flash_variant_phase(gen, name, B, S, Hq, Hkv, h, window, alibi) -> dict:
     """The flash kernel at a served model's prefill shape, causal fp32, with
     a window (0 = none) and ALiBi as given: held against its plain version
@@ -2411,18 +2565,8 @@ def flash_variant_phase(gen, name, B, S, Hq, Hkv, h, window, alibi) -> dict:
     G = Hq // Hkv
     qt, kt, vt = (x.transpose(1, 2) for x in
                   (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
-    if alibi or 0 < window < S:
-        pos = torch.arange(S, device="cuda")
-        dist = (pos[None, :] - pos[:, None]).float()                   # kpos - qpos
-        keep = dist <= 0
-        if window:
-            keep &= -dist < window
-        bias = slopes.view(1, Hq, 1, 1) * dist if alibi else torch.zeros_like(dist)[None, None]
-        bias = bias.masked_fill(~keep, float("-inf")).contiguous()
-        del pos, dist, keep
-        lib_call, lib_how = (lambda: sdpa_masked(qt, kt, vt, bias)), "its additive mask"
-    else:                               # causal only: the library skips the masked tiles
-        lib_call, lib_how = (lambda: sdpa_efficient(qt, kt, vt, True)), "is_causal"
+    lib_fn, lib_how = sdpa_yardstick(S, window, slopes)
+    lib_call = lambda: lib_fn(qt, kt, vt)   # noqa: E731
     lib, err_lib, lib_note = None, None, ""
     try:
         err_lib = (lib_call().transpose(1, 2) - ref.flash_attention_ref(q, k, v, **kw)
@@ -2439,7 +2583,7 @@ def flash_variant_phase(gen, name, B, S, Hq, Hkv, h, window, alibi) -> dict:
         + (f"{lib:.4f} ms (its err vs plain {err_lib:.1e})" if lib is not None else "null")
         + f"{lib_note}; bound {b_ms:.4f} ms ({b_by}, 3xTF32 tensor cores, pairs inside the "
         f"mask; {b_ms / ms:.1%} of it reached)")
-    del q, k, v, qt, kt, vt, lib_call
+    del q, k, v, qt, kt, vt, lib_fn, lib_call
     free()
     return {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash.cu",
             "replaces": "src/repro/kernels/flash.py:65", "shape": [B, S, Hq, Hkv, h],
@@ -2564,6 +2708,234 @@ def families_phase(card: str, mesh) -> dict:
             "slice_parity": parity, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dense families' training (the flash backward at h = 80, with
+# windows and with ALiBi; phi2-2b and h2o-danube-1.8b at full depth)
+# ---------------------------------------------------------------------------
+
+# the backward kernels' instantiations this phase adds, each at a family's
+# training shape and with an entry of its own in the kernels line (phi2-2b's
+# B 4, S 2048, 32/32 heads at h 80; mpt-7b's at h 128 with ALiBi):
+# (name, instance, B, S, Hq, Hkv, h, window, alibi)
+FLASH_BWD_VARIANTS = (
+    ("flash_attention_bwd (h = 80)", "h80", 4, 2048, 32, 32, 80, 0, False),
+    ("flash_attention_bwd (ALiBi)", "alibi", 4, 2048, 32, 32, 128, 0, True),
+)
+# the h = 80 instantiation's run-time window, as checks of that entry: 256
+# over S 2048 on h2o-danube's 32/8 heads, and danube's own window of 4096 at
+# its training shape (B 2, S 8192, so the window masks keys in both
+# kernels), held on one KV head's group (fp64 scores of all 32 heads at
+# S 8192 take 34 GB; the plain version's fp32 forward and backward do not
+# fit either, so its time there is null)
+FLASH_BWD_WINDOW_CHECKS = (
+    ("flash_attention_bwd (h = 80, window 256)", 4, 2048, 32, 8, 80, 256, False),
+    ("flash_attention_bwd (h = 80, danube's training shape)", 2, 8192, 32, 8, 80, 4096,
+     False),
+)
+PLAIN_SCORES_MAX = 4.3e9      # the plain version is timed where its fp32 scores fit this
+# (arch, layers or None for all, B, S): phi2-2b and h2o-danube-1.8b at full
+# depth (fp32 AdamW keeps 16 B a parameter: 41.4 and 27.3 GiB), the others
+# cut to 4 layers (mpt-7b's 32 would need 99.1 GiB, phi4-mini-3.8b's 57.2)
+FAMILY_TRAIN = (("phi2-2b", None, 4, 2048), ("h2o-danube-1.8b", None, 2, 8192),
+                ("mpt-7b", 4, 4, 2048), ("phi4-mini-3.8b", 4, 4, 2048),
+                ("stablelm-3b", 4, 4, 2048))
+FAMILY_TRAIN_PROFILE = SWA_ARCH
+
+
+def flash_bwd_variant_phase(gen, name, B, S, Hq, Hkv, h, window, alibi) -> dict:
+    """The flash backward at a family's training shape, causal fp32, with a
+    window (0 = none) and ALiBi as given: from the forward's o and lse, held
+    against autograd of the plain version in fp64 (one KV head's group where
+    S > 4096), then timed (the backward's call alone) beside the plain
+    version's backward and SDPA's efficient backend's (forward and backward
+    less forward; with ``is_causal`` where the mask is causal only, else
+    with the equivalent additive mask; null where that backend refuses it
+    or the plain version's scores do not fit), and bounded by five products
+    over the pairs inside the mask at the 3xTF32 rate."""
+    from repro_torch.kernels.flash import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.models.layers import alibi_slopes
+
+    q, do = randn((B, S, Hq, h), torch.float32, gen), randn((B, S, Hq, h), torch.float32, gen)
+    k, v = randn((B, S, Hkv, h), torch.float32, gen), randn((B, S, Hkv, h), torch.float32, gen)
+    slopes = alibi_slopes(Hq).cuda() if alibi else None
+    kw = dict(causal=True, window=window, alibi_slopes=slopes)
+    o, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    held = flash_train_shape_errs(q, k, v, do, o, lse,
+                                  flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw),
+                                  window=window, slopes=slopes,
+                                  group=0 if S > 4096 else None, what=name)
+    free()
+    ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw), samples=10,
+                 per_sample=2)
+    plain, plain_note = None, ""
+    if B * Hq * S * S * 4 <= PLAIN_SCORES_MAX:
+        plain = backward_ms(lambda *a: ref.flash_attention_ref(*a, **kw), (q, k, v), do,
+                            samples=5, per_sample=1)
+    else:
+        plain_note = f" (not timed: its fp32 scores take {B * Hq * S * S * 4 / 1e9:.1f} GB)"
+    free()
+    G = Hq // Hkv
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in
+                       (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2), do))
+    lib_call, lib_how = sdpa_yardstick(S, window, slopes)
+    lib, lib_note = None, ""
+    try:
+        lib = backward_ms(lib_call, (qt, kt, vt), dot, samples=10, per_sample=2)
+    except RuntimeError as e:           # the backend refuses the mask: no library time
+        lib_note = f" (refused: {str(e).splitlines()[0][:120]})"
+    pairs = masked_pairs(S, S, window) * B * Hq
+    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel()) + (4 * Hq if alibi else 0)
+    b_ms, b_by = bound_ms(nbytes, 5 * 2 * h * pairs, FP32_AS_3XTF32)
+    say(f"{name}: B={B} S={S} Hq={Hq} Hkv={Hkv} h={h} causal window={window} alibi={alibi} "
+        f"fp32: {ms:.4f} ms; plain (autograd) "
+        + (f"{plain:.4f} ms" if plain is not None else "null") + plain_note
+        + f"; sdpa[{SDPA_BACKEND}] backward with {lib_how} "
+        + (f"{lib:.4f} ms" if lib is not None else "null") + lib_note
+        + f"; bound {b_ms:.4f} ms ({b_by}, five products as 3xTF32 over the pairs inside "
+        f"the mask; {b_ms / ms:.1%} of it reached)")
+    del q, k, v, o, lse, do, qt, kt, vt, dot, lib_call
+    free()
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": "src/repro/kernels/flash.py:65", "shape": [B, S, Hq, Hkv, h],
+            "window": window, "alibi": alibi, "dtype": "float32",
+            "max_abs_err": held["grad_err"], "err_of_max_g": held["grad_err_of_max_g"],
+            "bound": FLASH_GRAD_BOUND, "bound_of": "max|g| over dq, dk, dv",
+            "o_max_abs_err": held["o_err"], "lse_max_abs_err": held["lse_err"],
+            "held_on": "all heads" if S <= 4096 else "KV head 0's group",
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "library_backend": SDPA_BACKEND, "library_call": lib_how,
+            "library": f"sdpa[{SDPA_BACKEND}] forward+backward less forward"}
+
+
+def family_train_phase(card: str, arch: str, layers, B: int, S: int) -> dict:
+    """One family at full width (and ``layers`` deep, or all), fp32, trained
+    for three plain steps from the port's SyntheticCorpus (B x S, remat,
+    warmup_cosine, phase 8's lr): step time, tokens/s, MFU, peak memory,
+    loss and grad_norm; gated on finite losses, every parameter moving and
+    the kernels' launches equal to the code's; a profiler trace of a fourth
+    step by kernel class for ``FAMILY_TRAIN_PROFILE``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.optim import adamw
+    from repro_torch.train import metrics as MET, trainer as T
+
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=layers) if layers else cfg
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                        seed=SEED))
+    tokens = B * S
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gib = 16 * n_params / 2**30
+    tag = f"train {arch}"
+    say(f"{tag}: {cfg.num_layers} layers at full width, {n_params} params fp32 (AdamW "
+        f"state {state_gib:.1f} GiB), init {time.perf_counter() - t0:.2f} s; batch {B} x "
+        f"seq {S}, remat, warmup_cosine; flash instance {flash_instance(cfg)} ({card})")
+    before = param_sums(model)
+    step_fn = T.make_train_step(cfg, T.TrainConfig(opt=adamw.AdamWConfig(**TRAIN_OPT),
+                                                   warmup=2, total_steps=100))
+    state = adamw.init_state(dict(model.named_parameters()))
+    times, losses, norms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in corpus.batch(step).items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, state, m = step_fn(model, state, batch, step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: TRAIN_STEPS * v for k, v in expected_train_launches(cfg, 1).items()}
+    step_s = statistics.median(times[1:])
+    mfu = MET.mfu(cfg, tokens, step_s, peak=MET.H100_FP32_PEAK)
+    say(f"{tag}: step {step_s * 1e3:.1f} ms (median of steps 2-3; all "
+        f"{[round(t * 1e3, 1) for t in times]} ms), {tokens / step_s:.0f} tok/s, MFU "
+        f"{mfu:.4f} of the fp32 CUDA-core peak (67 TFLOP/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; loss {losses}, grad_norm {norms} ({card})")
+    say(f"{tag}: launches {launches} (expected {want})")
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)), f"{tag}: non-finite")
+    after = param_sums(model)
+    still = [n for n in before if before[n] == after[n]]
+    check(not still, f"{tag}: parameters that did not move: {still[:5]}")
+    out = {"arch": arch, "layers": cfg.num_layers, "params": n_params, "batch": B, "seq": S,
+           "adamw_state_gib": state_gib, "flash_instance": flash_instance(cfg),
+           "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": tokens / step_s, "mfu_fp32": mfu, "peak_bytes": peak,
+           "loss": losses, "grad_norm": norms, "launches": launches}
+    if arch == FAMILY_TRAIN_PROFILE:
+        t = time.perf_counter()
+        dev = train_ms_by_class(lambda: step_fn(model, state, batch, TRAIN_STEPS))
+        wall = (time.perf_counter() - t) * 1e3
+        busy = sum(dev.values())
+        say(f"{tag} profile, one plain step: wall {wall:.1f} ms (profiled), device busy "
+            f"{busy:.1f} ms; " + ", ".join(f"{k} {v:.1f} ms" for k, v in dev.items()) +
+            f" ({card})")
+        check(busy > 0, f"{tag} profile: the profiler saw no kernel")
+        out.update(profile_ms=dev, profile_wall_ms=wall)
+    del model, state, step_fn, batch
+    free()
+    return out
+
+
+def family_train_parity(card: str, cfg) -> dict:
+    """One train step of ``cfg`` at full width and 2 layers (B = 1, S = 512)
+    through the kernels, then one through ``backend="ref"`` from the same
+    weights on the same batch, held to each other with phase 8's parity
+    bounds (PARITY_TRAIN); the kernels' launches must be the code's."""
+    P = PARITY_TRAIN
+    cfg = cfg.replace(num_layers=P["layers"])
+    batch = parity_batch(cfg)
+    first = parity_step(cfg, batch)
+    loss, gnorm, launches = first[2:5]
+    want = expected_train_launches(cfg, 1)
+    window = f", window {cfg.sliding_window}" if cfg.sliding_window else ""
+    tag = f"train parity {cfg.name} ({P['layers']} layers, full width, B={P['B']}, " \
+          f"S={P['S']}{window})"
+    check(np.isfinite(loss) and np.isfinite(gnorm), f"{tag}: non-finite loss")
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    other = parity_step(cfg, batch, backend="ref")
+    check(other[4] == NO_LAUNCHES, f"{tag}: backend='ref' launched a kernel")
+    held = parity_held(tag, "ref", first, other, card)
+    del first, other
+    free()
+    return {"arch": cfg.name, "layers": P["layers"], "window": cfg.sliding_window,
+            "loss": loss, "grad_norm": gnorm, "launches": launches, "ref": held}
+
+
+def families_train_phase(card: str) -> dict:
+    """Phase 12: the flash backward's new variants (h = 80 with its window
+    checks, ALiBi) against autograd of their plain versions in fp64, timed;
+    the five families trained at full width (phi2-2b and h2o-danube-1.8b at
+    full depth); one step of each at 2 layers against ``backend="ref"``
+    (h2o-danube also with its window cut to 256, so the window masks at
+    S 512).  The new backward entries carry each model's launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    kernels = {v[1]: flash_bwd_variant_phase(gen, v[0], *v[2:]) for v in FLASH_BWD_VARIANTS}
+    kernels["h80"]["window_checks"] = [flash_bwd_variant_phase(gen, *c)
+                                       for c in FLASH_BWD_WINDOW_CHECKS]
+    trained = [family_train_phase(card, *t) for t in FAMILY_TRAIN]
+    parity = [family_train_parity(card, get_config(arch)) for arch in FAMILY_ARCHS]
+    parity.append(family_train_parity(
+        card, get_config(SWA_ARCH).replace(sliding_window=SWA_PARITY_WINDOW)))
+    for instance, k in kernels.items():   # each model's backward launches, by instantiation
+        k["launches_by_model"] = {f"{t['arch']} train": t["launches"]["flash_attention_bwd"]
+                                  for t in trained if t["flash_instance"] == instance}
+        k["launches"] = sum(k["launches_by_model"].values())
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
+    seconds = time.perf_counter() - t0
+    say(f"phase 12 (the dense families' training) took {seconds:.1f} s")
+    return {"kernels": list(kernels.values()), "trained": trained, "parity": parity,
+            "seconds": seconds, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -2571,6 +2943,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2583,11 +2956,16 @@ def main() -> int:
     say(f"build: kernels compiled with nvcc for sm_90a in {_build.BUILD_SECONDS:.1f} s "
         f"({_build.BUILD_DIR})")
 
-    flash_ptxas = flash_build_report()
-    flash_bwd_ptxas = flash_bwd_build_report()
-    rmsnorm_bwd_ptxas = rmsnorm_bwd_build_report()
-    ssd_ptxas = ssd_build_report()
-    wkv6_ptxas = wkv6_build_report()
+    # what ptxas says of each source, its nvccs all started at once
+    t0 = time.perf_counter()
+    found = ptxas_reports("flash.cu", "flash_bwd.cu", "rmsnorm.cu", "ssd.cu", "wkv6.cu",
+                          "wkv6_step.cu")
+    say(f"ptxas reports of six sources in {time.perf_counter() - t0:.1f} s")
+    flash_ptxas = flash_build_report(found["flash.cu"])
+    flash_bwd_ptxas = flash_bwd_build_report(found["flash_bwd.cu"])
+    rmsnorm_bwd_ptxas = rmsnorm_bwd_build_report(found["rmsnorm.cu"])
+    ssd_ptxas = ssd_build_report(found["ssd.cu"])
+    wkv6_ptxas = wkv6_build_report(found["wkv6.cu"] + found["wkv6_step.cu"])
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [rmsnorm_phase(gen), flash_phase(gen), ssd_phase(gen), wkv6_phase(gen),
@@ -2618,6 +2996,7 @@ def main() -> int:
             launched = launch_phase(card)
             moe = moe_phase(card, mesh)
             families = families_phase(card, mesh)
+            families_train = families_train_phase(card)
         finally:
             dist.destroy_process_group()
 
@@ -2627,6 +3006,8 @@ def main() -> int:
     say(json.dumps({"launch": launched}))
     say(json.dumps({"moe": moe}))
     say(json.dumps({"families": {k: v for k, v in families.items() if k != "kernels"}}))
+    say(json.dumps({"families_train": {k: v for k, v in families_train.items()
+                                       if k != "kernels"}}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -2650,9 +3031,23 @@ def main() -> int:
         if k["name"] != "flash_attention" or fp["flash_instance"] == "base":
             k["launches_by_model"][f"{FAMILY_PLAN_ARCH} plan (b)"] = \
                 fp["launches"][k["name"]]
+        # phase 12's training: the flash entries count the base instantiations
+        k["launches_by_model"].update({f"{t['arch']} train": t["launches"][k["name"]]
+                                       for t in families_train["trained"]
+                                       if not k["name"].startswith("flash_attention")
+                                       or t["flash_instance"] == "base"})
         k["launches"] = sum(k["launches_by_model"].values())
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
-    kernels += families["kernels"]     # flash's new instantiations, their launches by model
+    for k in families["kernels"]:      # phase 11's forward instantiations, trained in phase 12
+        instance = "alibi" if k["alibi"] else "h80"
+        k["launches_by_model"].update({f"{t['arch']} train": t["launches"]["flash_attention"]
+                                       for t in families_train["trained"]
+                                       if t["flash_instance"] == instance})
+        k["launches"] = sum(k["launches_by_model"].values())
+    # flash's new instantiations, forward (phase 11) and backward (phase 12),
+    # with their launches by model
+    kernels += families["kernels"] + families_train["kernels"]
+    say(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -72,7 +72,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_rmsnorm_bwd_blocks.restype = i
     lib.rt_flash_attention.argtypes = [p] * 6 + [i] * 8 + [f, i, p]
     lib.rt_flash_attention.restype = i
-    lib.rt_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
+    lib.rt_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, i, p]
     lib.rt_flash_attention_bwd.restype = i
     lib.rt_ssd.argtypes = [p] * 9 + [i] * 6 + [ll] * 6 + [i, p]
     lib.rt_ssd.restype = i

@@ -67,7 +67,8 @@
 //     is a template flag, as LSE is: scores are in log2 units, so the
 //     bias enters as s·log2(e)·(kpos − qpos), on the inside path too.  The
 //     variant with it is built for fp32 only (its one user is the fp32
-//     model; bf16 and fp16 would double the build's instantiations);
+//     model; bf16 and fp16 would double the build's instantiations), with
+//     and without lse (training's backward recomputes P from it);
 //   * rows past Sq and keys past Sk are zero-filled by cp.async's source
 //     size and masked, so no length has to be a tile multiple;
 //   * for training, the launcher may ask for each row's log-sum-exp of its
@@ -320,10 +321,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const float* slopes, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
            int win, float scale, cudaStream_t stream) {
 #define RT_ARGS q, k, v, o, lse, slopes, B, Sq, Sk, Hq, Hkv, causal, win, scale, stream
-  if (slopes != nullptr) {          // ALiBi: fp32 only, without lse
-    if constexpr (std::is_same_v<T, float>) {
-      if (lse == nullptr) return run<T, HD, false, true>(RT_ARGS);
-    }
+  if (slopes != nullptr) {          // ALiBi: fp32 only
+    if constexpr (std::is_same_v<T, float>)
+      return lse != nullptr ? run<T, HD, true, true>(RT_ARGS)
+                            : run<T, HD, false, true>(RT_ARGS);
     return RT_UNSUPPORTED;
   }
   return lse != nullptr ? run<T, HD, true, false>(RT_ARGS)
@@ -356,7 +357,7 @@ int launch_h(const void* q, const void* k, const void* v, void* o, float* lse,
 // itself (0 = all).  Returns a cudaError_t, or RT_UNSUPPORTED for what the
 // kernel does not take (h outside {16, 32, 64, 80, 112, 128}, Hq not a
 // multiple of Hkv, a grid dimension over its limit, a negative window,
-// slopes with a dtype other than fp32 or with lse).
+// slopes with a dtype other than fp32).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, float* lse, const float* slopes, int B, int Sq,
                                   int Sk, int Hq, int Hkv, int h, int causal, int window,

@@ -1,12 +1,14 @@
-// Backward flash attention, causal or full, with grouped KV heads (GQA), on
-// the tensor cores with fp32-exact products.
+// Backward flash attention, causal or full, with grouped KV heads (GQA), an
+// optional sliding window and optional ALiBi biases, on the tensor cores
+// with fp32-exact products.
 //
 // The TPU kernel it pairs with, repro/kernels/flash.py::flash_attention (the
 // pl.pallas_call at flash.py:79), has no backward: the reference trains
 // through plain jnp attention.  The port's training path runs its forward
 // kernel (flash.cu) on the card, so it needs this one.  From q, k, v, the
 // forward's output o and its per-row log-sum-exp lse, and the output's
-// gradient dO, with P = exp(scale * q kᵀ - lse) recomputed tile by tile:
+// gradient dO, with P = exp(scale * q kᵀ + bias - lse) recomputed tile by
+// tile (bias = slope·(kpos − qpos) with ALiBi, else 0):
 //   D  = rowsum(dO ∘ O)                    (flash_bwd_dot_kernel)
 //   dV = Pᵀ dO,  dK = scale * dSᵀ Q        (flash_bwd_dkdv_kernel)
 //   dQ = scale * dS K                      (flash_bwd_dq_kernel)
@@ -60,6 +62,27 @@
 //     and the blocks with the most tiles are launched first (the grid's
 //     slow axis is the tile, reversed for the dQ kernel).
 //
+// Sliding window.  A window of W keys (key kpos is seen from row qpos when
+// qpos − kpos < W, the reference's mask; 0 = none) is a run-time argument,
+// as in the forward: W = INT_MAX for none, and the causal test and the
+// window's are one unsigned compare, (unsigned)(qpos − kpos) < W, so the
+// kernels without a window run the code they ran before, with one more
+// compare per tile.  The dK/dV kernel's query tiles run from the block's
+// first key (causal) to the tile of the last query that sees its last key,
+// k0 + 127 + W − 1; the dQ kernel's key tiles start at the tile holding
+// q0 − W + 1, the first key in its first row's window.  The warp-uniform
+// skip and the inside test check the window's far edge beside the causal
+// one.
+//
+// ALiBi (a per-query-head slope s, the score gaining s·(kpos − qpos)) is a
+// template flag, built for fp32 only as the forward's is.  P is recomputed
+// as exp2(fmaf(s·log2 e, kpos − qpos, S·scale·log2 e) − lse·log2 e), the
+// forward's order of operations, the distance an exact float from the
+// positions the mask already holds.  dS needs no bias term (the slopes are
+// constants).  The dQ kernel reads its head's slope once; the dK/dV kernel
+// walks all G query heads of its KV head, so it reads the slope of tile i's
+// head, hk·G + i / per_head, once a tile.
+//
 // Shared-memory banks.  K in the dQ kernel and Q, dO in the dK/dV kernel
 // are each read two ways: by row pairs, (row 8n + g, columns 2t, 2t + 1),
 // as the B operand of QKᵀ-like products, and by column, (rows 2t, 2t + 1,
@@ -75,24 +98,34 @@
 // read starts at bank 2t·pitch + g + 8·[t ≥ 2] (+ pitch for row 2t + 1),
 // which mod 32 is {0, 16, 8, 24} + g (row 2t) and {8, 24, 16, 0} + g (row
 // 2t + 1) at h = 128 and {0, 16, 8, 24} + g and {24, 8, 0, 16} + g at
-// h = 112: 32 distinct banks.  h = 16, 32, 64 have pitches ≡ 24, 8, 8.
+// h = 112: 32 distinct banks.  h = 16, 32, 64 have pitches ≡ 24, 8, 8, and
+// h = 80's pitch of 88 is ≡ 24 as h = 112's 120 is, so the count for
+// h = 112 holds for it unchanged.
 //
 // Shared memory at h = 128 (pitch 136, fp32): the dQ kernel keeps Q and dO
 // of 128 rows (2 x 69.6 KB) and double-buffers K and V tiles of 32 keys
 // (4 x 17.4 KB): 208,896 B; the dK/dV kernel keeps K and V of 128 keys and
 // double-buffers Q and dO tiles of 32 queries with their lse and D
-// (2 x 2 x 128 B): 209,408 B.  At h = 112, 184,320 and 184,832 B.  One
-// block of eight warps per SM.
+// (2 x 2 x 128 B): 209,408 B.  At h = 112, 184,320 and 184,832 B; at
+// h = 80 (pitch 88), 135,168 and 135,680 B.  One block of eight warps per
+// SM.
 //
 // Registers.  The dK/dV kernel holds dK and dV of 16 keys x h columns (2h/4
-// registers a lane: 128 at h = 128) beside Sᵀ and dPᵀ of 16 keys x 32
-// queries (32 more) and a pair of column steps' tile sums (8); with the
-// 32-query tile ptxas fits it in 255 with no spill.  The dQ kernel holds
-// dQ (h/4) and S, dP of 16 rows x 32 keys (32).
+// registers a lane: 128 at h = 128, 80 at h = 80) beside Sᵀ and dPᵀ of 16
+// keys x 32 queries (32 more) and a pair of column steps' tile sums (8);
+// with the 32-query tile ptxas fits it in 255 with no spill in fp32 at
+// h = 128, with ALiBi too (241 at h = 80), and at h = 112 with one column
+// step at a time (tile_mma).  The half types' instantiation at h = 128
+// spills (64 B; 28 B before the window's tests).  The dQ kernel holds dQ
+// (h/4) and S, dP of 16 rows x 32 keys (32).
 //
 // Lengths need not be tile multiples: rows past Sq and keys past Sk are
-// zero-filled by cp.async's source size and masked.  The causal mask
-// counts query and key positions from 0, as the forward's does.
+// zero-filled by cp.async's source size and masked (but for the dK/dV
+// kernel's own keys past Sk, whose rows feed only their own dK and dV rows,
+// never stored).  The causal mask counts query and key positions from 0, as
+// the forward's does.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -200,11 +233,13 @@ __device__ __forceinline__ void split_c(const float (&c)[4], uint32_t (&big)[4],
 // against 9.2e-7 and 1.5e-6 this way; tools/bwd_variants.py).  Column
 // steps go in pairs, each pair's two MMA chains independent, with A split
 // again for each pair: on an H100 80GB HBM3 at 700 W pairs beat one step
-// at a time by 3 %.
+// at a time by 3 %.  At h = 112 (NH = 14) they go one at a time: there,
+// with the window's tests, the dK/dV kernel's pairs need more than 255
+// registers (ptxas spilled 12 B at <fp32, 112>), and one at a time do not.
 template <int NC, int NH, int LD>
 __device__ __forceinline__ void tile_mma(float (&acc)[NH][4], const float (&a)[NC][4],
                                          const Cols<LD>& b) {
-  constexpr int NG = 2;
+  constexpr int NG = NH == 14 ? 1 : 2;
   static_assert(NH % NG == 0, "whole pairs of column steps");
 #pragma unroll
   for (int n0 = 0; n0 < NH; n0 += NG) {
@@ -257,13 +292,14 @@ __global__ void flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restric
 
 // dK and dV for the keys [k0, k0 + BKV) of KV head hk, summed over the G
 // query heads of its group and every query tile the mask lets see them.
-template <typename T, int HD>
+template <typename T, int HD, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dO,
                       const float* __restrict__ lse, const float* __restrict__ Dv,
-                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int Hq,
-                      int Hkv, int causal, float scale) {
+                      const float* __restrict__ slopes, T* __restrict__ dk,
+                      T* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int causal,
+                      int win, float scale) {
   constexpr int LD = HD + 8, NH = HD / 8, NQ = TQ / 8;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                 // BKV x LD
@@ -285,10 +321,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_stride = static_cast<size_t>(Hkv) * HD;
   const size_t kv_base = (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
 
-  // the tiles: G heads x the query tiles from qt0 on (causal: earlier
-  // queries see none of these keys)
+  // the tiles: G heads x the query tiles from qt0 (causal: earlier queries
+  // see none of these keys) to the one holding the last query whose window
+  // reaches the block's last key (exclusive end k0 + BKV - 1 + win)
   const int qt0 = causal ? k0 / TQ : 0;
-  const int per_head = max((Sq + TQ - 1) / TQ - qt0, 0);
+  const int q_end = win < Sq - (k0 + BKV - 1) ? k0 + BKV - 1 + win : Sq;
+  const int per_head = max((q_end + TQ - 1) / TQ - qt0, 0);
   const int ntiles = G * per_head;
   auto issue = [&](int i) {
     const int hq = hk * G + i / per_head, q0 = (qt0 + i % per_head) * TQ, buf = i & 1;
@@ -327,7 +365,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                // tile j (and K, V) visible to every warp
 
     const int q0 = (qt0 + j % per_head) * TQ;
-    if (warp_first < Sk && (!causal || warp_first <= q0 + TQ - 1)) {   // warp-uniform
+    // warp-uniform: some query of the tile sees one of the warp's keys
+    if (warp_first < Sk && (!causal || warp_first <= q0 + TQ - 1) && q0 - warp_last < win) {
       const float* Qt = Qs + (j & 1) * TQ * LD;
       const float* dOt = dOs + (j & 1) * TQ * LD;
       const float* lse_t = stats + (j & 1) * 2 * TQ;
@@ -352,9 +391,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // Pᵀ and dSᵀ in place of Sᵀ and dPᵀ; lse and D per query (column)
-      const bool inside = q0 + TQ <= Sq && warp_first + 16 <= Sk &&
-                          (!causal || warp_last <= q0);
+      // Pᵀ and dSᵀ in place of Sᵀ and dPᵀ; lse and D per query (column); a
+      // tile wholly inside the mask (and every key's window) skips the tests.
+      // Keys past Sk are not masked: their rows of Pᵀ and dSᵀ feed only their
+      // own rows of dK and dV, which are never stored (the test cost the
+      // h = 112 kernels registers they did not have)
+      const bool inside = q0 + TQ <= Sq && (!causal || warp_last <= q0) &&
+                          q0 + TQ - 1 - warp_first < win;
+      float slope2 = 0.f;           // this tile's head's slope, in log2 units
+      if constexpr (ALIBI) slope2 = slopes[hk * G + j / per_head] * kLog2e;
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * n + 2 * t);
@@ -363,9 +408,18 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < 4; ++i) {
           const int qpos = q0 + 8 * n + 2 * t + (i & 1);
           const int kp = kpos[i / 2];
-          const bool ok = inside || (qpos < Sq && kp < Sk && (!causal || kp <= qpos));
+          const int d = qpos - kp;
+          const bool ok = inside ||
+                          (qpos < Sq &&
+                           (causal ? static_cast<unsigned>(d) < static_cast<unsigned>(win)
+                                   : d < win));
           const float lq = (i & 1) ? l2.y : l2.x, dq = (i & 1) ? dd.y : dd.x;
-          const float p = ok ? exp2f(fmaf(s[n][i], sl2, -lq * kLog2e)) : 0.f;
+          float e;
+          if constexpr (ALIBI)
+            e = exp2f(fmaf(slope2, static_cast<float>(-d), s[n][i] * sl2) - lq * kLog2e);
+          else
+            e = exp2f(fmaf(s[n][i], sl2, -lq * kLog2e));
+          const float p = ok ? e : 0.f;
           s[n][i] = p;
           dp[n][i] = p * (dp[n][i] - dq);
         }
@@ -396,13 +450,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dQ for the query rows [q0, q0 + BQ) of head hq, over every key tile the
 // mask lets them see.
-template <typename T, int HD>
+template <typename T, int HD, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ Dv,
-                    T* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int causal,
-                    float scale) {
+                    const float* __restrict__ slopes, T* __restrict__ dq, int Sq, int Sk,
+                    int Hq, int Hkv, int causal, int win, float scale) {
   constexpr int LD = HD + 8, NH = HD / 8, NK = TK / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                 // BQ x LD
@@ -419,6 +473,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos[2] = {q0 + row, q0 + row + 8};
   const int warp_first = q0 + warp * 16, warp_last = warp_first + 15;
   const float sl2 = scale * kLog2e;
+  float slope2 = 0.f;               // this head's slope, in log2 units
+  if constexpr (ALIBI) slope2 = slopes[hq] * kLog2e;
   const size_t q_stride = static_cast<size_t>(Hq) * HD;
   const size_t kv_stride = static_cast<size_t>(Hkv) * HD;
   const size_t q_base = (static_cast<size_t>(b) * Sq * Hq + hq) * HD;
@@ -427,10 +483,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int ntiles = (k_end + TK - 1) / TK;
+  const int j0 = max(0, q0 - win + 1) / TK;     // the first tile in a row's window
   load_tile<T, HD, BQ>(Qs, q + q_base, q_stride, q0, Sq);
   load_tile<T, HD, BQ>(dOs, dO + q_base, q_stride, q0, Sq);
-  load_tile<T, HD, TK>(Ks, k + kv_base, kv_stride, 0, Sk);
-  load_tile<T, HD, TK>(Vs, v + kv_base, kv_stride, 0, Sk);
+  load_tile<T, HD, TK>(Ks + (j0 & 1) * TK * LD, k + kv_base, kv_stride, j0 * TK, Sk);
+  load_tile<T, HD, TK>(Vs + (j0 & 1) * TK * LD, v + kv_base, kv_stride, j0 * TK, Sk);
   cp_async_commit();
 
   float l2[2], Dr[2];               // lse in log2 units and D of this lane's rows
@@ -448,7 +505,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
   const RowPairs qa(Qs, LD, row, t), da(dOs, LD, row, t);
-  for (int j = 0; j < ntiles; ++j) {
+  for (int j = j0; j < ntiles; ++j) {
     const int k0 = j * TK;
     if (j + 1 < ntiles) {           // the next tile flies while this one runs
       const int nb = (j + 1) & 1;
@@ -461,7 +518,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();                // tile j (and Q, dO) visible to every warp
 
-    if (!causal || k0 <= warp_last) {          // warp-uniform
+    // warp-uniform: the tile holds a key of one of the warp's rows
+    if ((!causal || k0 <= warp_last) && k0 + TK - 1 > warp_first - win) {
       const float* Kt = Ks + (j & 1) * TK * LD;
       const float* Vt = Vs + (j & 1) * TK * LD;
 
@@ -484,17 +542,27 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // dS = P ∘ (dP − D) in place of S; a tile wholly inside the mask
-      // skips the tests
-      const bool inside = k0 + TK <= Sk && (!causal || k0 + TK - 1 <= warp_first);
+      // dS = P ∘ (dP − D) in place of S; a tile wholly inside the mask (and
+      // every row's window) skips the tests
+      const bool inside = k0 + TK <= Sk && (!causal || k0 + TK - 1 <= warp_first) &&
+                          k0 > warp_last - win;
 #pragma unroll
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kpos = k0 + 8 * n + 2 * t + (i & 1);
           const int r = i / 2;
-          const bool ok = inside || (kpos < Sk && (!causal || kpos <= qpos[r]));
-          const float p = ok ? exp2f(fmaf(s[n][i], sl2, -l2[r])) : 0.f;
+          const int d = qpos[r] - kpos;
+          const bool ok = inside ||
+                          (kpos < Sk &&
+                           (causal ? static_cast<unsigned>(d) < static_cast<unsigned>(win)
+                                   : d < win));
+          float e;
+          if constexpr (ALIBI)
+            e = exp2f(fmaf(slope2, static_cast<float>(-d), s[n][i] * sl2) - l2[r]);
+          else
+            e = exp2f(fmaf(s[n][i], sl2, -l2[r]));
+          const float p = ok ? e : 0.f;
           s[n][i] = p * (dp[n][i] - Dr[r]);
         }
 
@@ -503,6 +571,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();                // tile j consumed before its buffer refills
   }
+  cp_async_wait<0>();               // Q and dO, where no tile was in a row's window
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -523,13 +592,16 @@ template <int HD>
 constexpr size_t dq_smem() {
   return sizeof(float) * (HD + 8) * (2 * BQ + 4 * TK);
 }
-static_assert(dkdv_smem<128>() == 209408 && dq_smem<128>() == 208896,
+static_assert(dkdv_smem<128>() == 209408 && dq_smem<128>() == 208896 &&
+                  dkdv_smem<112>() == 184832 && dq_smem<112>() == 184320 &&
+                  dkdv_smem<80>() == 135680 && dq_smem<80>() == 135168,
               "the layout's bytes stated in the header note");
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* dO,
-           const float* lse, float* Dv, void* dq, void* dk, void* dv, int B, int Sq,
-           int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+template <typename T, int HD, bool ALIBI>
+int run(const void* q, const void* k, const void* v, const void* o, const void* dO,
+        const float* lse, const float* slopes, float* Dv, void* dq, void* dk, void* dv, int B,
+        int Sq, int Sk, int Hq, int Hkv, int causal, int win, float scale,
+        cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -540,36 +612,55 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  auto kv_kernel = flash_bwd_dkdv_kernel<T, HD>;
+  auto kv_kernel = flash_bwd_dkdv_kernel<T, HD, ALIBI>;
   constexpr size_t kv_smem = dkdv_smem<HD>();
   err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kv_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kv_kernel<<<dim3(B * Hkv, (Sk + BKV - 1) / BKV), THREADS, kv_smem, stream>>>(
-      qp, kp, vp, gp, lse, Dv, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, Hq, Hkv,
-      causal, scale);
+      qp, kp, vp, gp, lse, Dv, slopes, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, Hq,
+      Hkv, causal, win, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  auto q_kernel = flash_bwd_dq_kernel<T, HD>;
+  auto q_kernel = flash_bwd_dq_kernel<T, HD, ALIBI>;
   constexpr size_t q_smem = dq_smem<HD>();
   err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(q_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   q_kernel<<<dim3(B * Hq, (Sq + BQ - 1) / BQ), THREADS, q_smem, stream>>>(
-      qp, kp, vp, gp, lse, Dv, static_cast<T*>(dq), Sq, Sk, Hq, Hkv, causal, scale);
+      qp, kp, vp, gp, lse, Dv, slopes, static_cast<T*>(dq), Sq, Sk, Hq, Hkv, causal, win,
+      scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dO,
+           const float* lse, const float* slopes, float* Dv, void* dq, void* dk, void* dv,
+           int B, int Sq, int Sk, int Hq, int Hkv, int causal, int win, float scale,
+           cudaStream_t stream) {
+#define RT_ARGS q, k, v, o, dO, lse, slopes, Dv, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, win, \
+                scale, stream
+  if (slopes != nullptr) {          // ALiBi: fp32 only, as the forward
+    if constexpr (std::is_same_v<T, float>) return run<T, HD, true>(RT_ARGS);
+    return RT_UNSUPPORTED;
+  }
+  return run<T, HD, false>(RT_ARGS);
+#undef RT_ARGS
 }
 
 template <typename T>
 int launch_h(const void* q, const void* k, const void* v, const void* o, const void* dO,
-             const float* lse, float* Dv, void* dq, void* dk, void* dv, int B, int Sq,
-             int Sk, int Hq, int Hkv, int h, int causal, float scale, cudaStream_t s) {
-#define RT_ARGS q, k, v, o, dO, lse, Dv, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, scale, s
+             const float* lse, const float* slopes, float* Dv, void* dq, void* dk, void* dv,
+             int B, int Sq, int Sk, int Hq, int Hkv, int h, int causal, int win, float scale,
+             cudaStream_t s) {
+#define RT_ARGS q, k, v, o, dO, lse, slopes, Dv, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, win, \
+                scale, s
   switch (h) {
     case 16: return launch<T, 16>(RT_ARGS);
     case 32: return launch<T, 32>(RT_ARGS);
     case 64: return launch<T, 64>(RT_ARGS);
+    case 80: return launch<T, 80>(RT_ARGS);
     case 112: return launch<T, 112>(RT_ARGS);
     case 128: return launch<T, 128>(RT_ARGS);
   }
@@ -581,21 +672,25 @@ int launch_h(const void* q, const void* k, const void* v, const void* o, const v
 
 // q, o, dO, dq: (B, Sq, Hq, h); k, v, dk, dv: (B, Sk, Hkv, h); all contiguous,
 // one dtype, 16-byte aligned when fp32 (cp.async).  lse: (B, Hq, Sq) fp32
-// from the forward (rt_flash_attention); Dv: (B, Hq, Sq) fp32 scratch.
-// Returns a cudaError_t, or RT_UNSUPPORTED for shapes the kernels do not
-// take (as rt_flash_attention, and B·Hq over 2^31 − 1 or more than 65535
-// tiles of 128 rows).
+// from the forward (rt_flash_attention, with the same window and slopes);
+// slopes: Hq fp32 ALiBi slopes, or null; window: keys a row sees back from
+// itself (0 = all); Dv: (B, Hq, Sq) fp32 scratch.  Returns a cudaError_t, or
+// RT_UNSUPPORTED for what the kernels do not take (as rt_flash_attention,
+// and B·Hq over 2^31 − 1 or more than 65535 tiles of 128 rows).
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* o, const void* dO, const float* lse,
-                                      float* Dv, void* dq, void* dk, void* dv, int B, int Sq,
-                                      int Sk, int Hq, int Hkv, int h, int causal, float scale,
-                                      int dtype, void* stream) {
+                                      const float* slopes, float* Dv, void* dq, void* dk,
+                                      void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int h,
+                                      int causal, int window, float scale, int dtype,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B > 65535 ||
       Hq > 65535 || static_cast<long long>(B) * Hq > 0x7fffffff ||
-      (Sq + BQ - 1) / BQ > 65535 || (Sk + BKV - 1) / BKV > 65535)
+      (Sq + BQ - 1) / BQ > 65535 || (Sk + BKV - 1) / BKV > 65535 || window < 0)
     return RT_UNSUPPORTED;
+  const int win = window > 0 ? window : INT_MAX;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RT_ARGS q, k, v, o, dO, lse, Dv, dq, dk, dv, B, Sq, Sk, Hq, Hkv, h, causal, scale, s
+#define RT_ARGS q, k, v, o, dO, lse, slopes, Dv, dq, dk, dv, B, Sq, Sk, Hq, Hkv, h, causal, win, \
+                scale, s
   switch (dtype) {
     case RT_F32: return launch_h<float>(RT_ARGS);
     case RT_BF16: return launch_h<__nv_bfloat16>(RT_ARGS);

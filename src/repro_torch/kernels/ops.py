@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.flash import (BWD_HEAD_DIMS, flash_attention_bwd_cuda,
+from repro_torch.kernels.flash import (check_window_alibi, flash_attention_bwd_cuda,
                                       flash_attention_cuda)
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd import ssd_cuda
@@ -87,35 +87,30 @@ class RMSNormFn(torch.autograd.Function):
         return dx, dscale, None
 
 
-DENSE_TRAINING = "the dense families' training slice (ROADMAP.md, queue 1)"
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention through the CUDA kernels: the forward writes each
-    row's log-sum-exp beside o; the backward recomputes P from q, k and
-    lse and launches ``csrc/flash_bwd.cu``.  The backward kernels take
-    neither head dim 80, a window nor ALiBi: the forward refuses them
-    (never a quiet route to the plain version)."""
+    row's log-sum-exp beside o; the backward recomputes P from q, k, lse,
+    the window and the ALiBi slopes and launches ``csrc/flash_bwd.cu``.
+    What the kernels do not take (ALiBi in bf16 or fp16) raises
+    ``ValueError`` before any launch (never a quiet route to the plain
+    version)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window=0, alibi_slopes=None):
-        h = q.shape[-1]
-        if h not in BWD_HEAD_DIMS or window or alibi_slopes is not None:
-            what = (f"head dim {h}" if h not in BWD_HEAD_DIMS else
-                    f"a window of {window}" if window else "ALiBi")
-            raise NotImplementedError(f"the flash backward kernels with {what} arrive "
-                                      f"with {DENSE_TRAINING}")
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+        check_window_alibi(q, window, alibi_slopes)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True, window=window,
+                                      alibi_slopes=alibi_slopes)
         LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window, ctx.alibi_slopes = causal, window, alibi_slopes
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do.contiguous(),
-                                              causal=ctx.causal)
+                                              causal=ctx.causal, window=ctx.window,
+                                              alibi_slopes=ctx.alibi_slopes)
         LAUNCHES["flash_attention_bwd"] += 1
         return dq, dk, dv, None, None, None
 

@@ -7,10 +7,12 @@ on the card unless ``--device cpu`` is asked for.
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch olmoe-1b-7b \\
         --mesh 1x4 --seq 2048 --batch 4 --lr 3e-5
 
-``--arch`` takes the dense family (llama3-8b) and the MoE models
-(olmoe-1b-7b, deepseek-moe-16b, qwen2-moe-a2.7b); the loss adds
-``router_aux_coef`` times the routers' load-balancing loss, printed as
-``aux``.
+``--arch`` takes the dense family (llama3-8b), the dense families of
+Lagom's Table 2 and their kin (phi2-2b, mpt-7b, phi4-mini-3.8b,
+stablelm-3b, h2o-danube-1.8b: parallel block, GELU, ALiBi, LayerNorm,
+a sliding window) and the MoE models (olmoe-1b-7b, deepseek-moe-16b,
+qwen2-moe-a2.7b); the loss adds ``router_aux_coef`` times the routers'
+load-balancing loss, printed as ``aux``.
 
 The flags are the reference's, with ``--plan-hardware`` defaulting to
 ``h100-sxm``, plus ``--device``.  Without ``--mesh`` one process trains

@@ -178,20 +178,29 @@ def test_flash_3xtf32_meets_the_bound_and_1xtf32_does_not(h):
     assert errs[3] < FLASH_BOUND < errs[1], errs
 
 
-@pytest.mark.parametrize("h", [112, 128])
-def test_flash_bwd_3xtf32_meets_the_bound_and_1xtf32_does_not(h):
+@pytest.mark.parametrize("h,alibi", [pytest.param(112, False, id="112"),
+                                     pytest.param(128, False, id="128"),
+                                     pytest.param(80, False, id="80"),
+                                     pytest.param(128, True, id="128-alibi")])
+def test_flash_bwd_3xtf32_meets_the_bound_and_1xtf32_does_not(h, alibi):
     """The premise of the CUDA flash backward's design: one causal head at
     S = 512 whose five backward products (S, dP, dV, dK, dQ) are emulated on
     TF32 operands meets 1e-4 of max|g| against ``jax.vjp`` of the
     reference's attention math with the three-product split, and misses it
-    with one product.  lse and o are the forward's, computed in fp32."""
-    from repro.models.layers import NEG_INF, _gqa_scores_to_out
+    with one product.  lse and o are the forward's, computed in fp32.  With
+    ALiBi the head is mpt-7b's last (slope 2^-8, the weakest bias, so the
+    scores reach furthest back), the bias added to the scaled scores in
+    fp32 as the kernels add it."""
+    from repro.models.layers import NEG_INF, _gqa_scores_to_out, alibi_slopes
 
     S = 512
     q, k, v = (a[0, :, 0] for a in _qkv(1, S, S, 1, 1, h, seed=3))
     do = np.random.default_rng(4).standard_normal((S, h)).astype(np.float32)
     keep = np.tril(np.ones((S, S), bool))
-    bias = jnp.asarray(np.where(keep, 0.0, NEG_INF), jnp.float32)
+    dist = (np.arange(S)[None, :] - np.arange(S)[:, None]).astype(np.float32)   # kpos − qpos
+    slope = np.asarray(alibi_slopes(32))[-1] if alibi else np.float32(0)
+    ab = (slope * dist).astype(np.float32)
+    bias = jnp.asarray(np.where(keep, ab, NEG_INF), jnp.float32)
     scale = np.float32(1 / math.sqrt(h))
 
     def attn(q, k, v):
@@ -202,14 +211,14 @@ def test_flash_bwd_3xtf32_meets_the_bound_and_1xtf32_does_not(h):
     _, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = [np.asarray(w) for w in vjp(jnp.asarray(do))]
     gmax = max(np.abs(w).max() for w in want)
-    s = np.where(keep, (q @ k.T) * scale, np.float32(-1e30))
+    s = np.where(keep, (q @ k.T) * scale + ab, np.float32(-1e30))
     m = s.max(-1, keepdims=True)
     lse = (m + np.log(np.exp(s - m).sum(-1, keepdims=True))).astype(np.float32)
     o = np.exp(s - lse) @ v
     D = (do * o).sum(-1, keepdims=True)
     errs = {}
     for terms in (1, 3):
-        s = np.where(keep, _tf32_matmul(q, k.T, terms) * scale, np.float32(-1e30))
+        s = np.where(keep, _tf32_matmul(q, k.T, terms) * scale + ab, np.float32(-1e30))
         p = np.exp(s - lse)
         dp = _tf32_matmul(do, v.T, terms)
         ds = p * (dp - D)
@@ -494,18 +503,39 @@ def test_rmsnorm_ref_grads_match_jax(shape):
         assert np.abs(g.numpy() - w).max() <= GRAD_BOUND["rmsnorm"] * np.abs(w).max()
 
 
-@pytest.mark.parametrize("Sq,Sk,Hq,Hkv,h", [(64, 64, 4, 2, 16), (37, 81, 4, 1, 32),
-                                             (50, 50, 8, 2, 64)])
+@pytest.mark.parametrize("Sq,Sk,Hq,Hkv,h,window,alibi", [
+    pytest.param(64, 64, 4, 2, 16, 0, False, id="64-64-4-2-16"),
+    pytest.param(37, 81, 4, 1, 32, 0, False, id="37-81-4-1-32"),
+    pytest.param(50, 50, 8, 2, 64, 0, False, id="50-50-8-2-64"),
+    # head dim 80, windows (one that cuts a 32-key tile, one of a key,
+    # one wider than S), ALiBi alone and with a window
+    pytest.param(64, 64, 4, 2, 80, 0, False, id="64-64-4-2-80"),
+    pytest.param(64, 64, 4, 1, 80, 19, False, id="64-64-4-1-80-w19"),
+    pytest.param(50, 50, 8, 2, 64, 1, False, id="50-50-8-2-64-w1"),
+    pytest.param(50, 50, 8, 2, 64, 200, False, id="50-50-8-2-64-w200"),
+    pytest.param(37, 81, 4, 4, 32, 0, True, id="37-81-4-4-32-alibi"),
+    pytest.param(64, 64, 8, 2, 80, 9, True, id="64-64-8-2-80-w9-alibi")])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_ref_grads_match_jax(Sq, Sk, Hq, Hkv, h, causal):
-    from repro.models.layers import NEG_INF, _gqa_scores_to_out
+def test_flash_ref_grads_match_jax(Sq, Sk, Hq, Hkv, h, window, alibi, causal):
+    """Autograd of the plain version against ``jax.vjp`` of the reference's
+    attention math with the additive bias its ``bias_fn`` builds: the
+    causal mask, the window (``qpos − kpos < window``) and ALiBi's
+    ``slope·(kpos − qpos)`` with the reference's slopes."""
+    from repro.models.layers import NEG_INF, _gqa_scores_to_out, alibi_slopes
+    from repro_torch.models.layers import alibi_slopes as port_slopes
 
     q, k, v = _qkv(2, Sq, Sk, Hq, Hkv, h, seed=3)
     do = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
     G = Hq // Hkv
-    bias = np.where(np.arange(Sq)[:, None] >= np.arange(Sk)[None, :], 0.0, NEG_INF) \
-        if causal else np.zeros((Sq, Sk))
-    bias = jnp.asarray(bias, jnp.float32)
+    dist = np.arange(Sk)[None, :] - np.arange(Sq)[:, None]         # kpos − qpos
+    keep = np.ones((Sq, Sk), bool)
+    if causal:
+        keep &= dist <= 0
+    if window:
+        keep &= -dist < window
+    bias = jnp.asarray(np.where(keep, 0.0, NEG_INF), jnp.float32)
+    if alibi:
+        bias = bias + alibi_slopes(Hq).reshape(Hkv, G, 1, 1) * jnp.asarray(dist, jnp.float32)
 
     def attn(q, k, v):
         o = _gqa_scores_to_out(q.reshape(2, Sq, Hkv, G, h), k, v, bias, 1.0 / math.sqrt(h))
@@ -514,8 +544,10 @@ def test_flash_ref_grads_match_jax(Sq, Sk, Hq, Hkv, h, causal):
     _, vjp = jax.vjp(attn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = vjp(jnp.asarray(do))
     ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    got = torch.autograd.grad(ref.flash_attention_ref(*ts, causal=causal), ts,
-                              torch.from_numpy(do))
+    got = torch.autograd.grad(
+        ref.flash_attention_ref(*ts, causal=causal, window=window,
+                                alibi_slopes=port_slopes(Hq) if alibi else None),
+        ts, torch.from_numpy(do))
     for g, w in zip(got, want):
         w = np.asarray(w)
         assert np.abs(g.numpy() - w).max() <= GRAD_BOUND["flash"] * np.abs(w).max()

@@ -335,26 +335,30 @@ def test_flash_alibi_kernel_refuses_what_it_does_not_take(cuda):
     s = _alibi(4).to(cuda)
     with pytest.raises(ValueError, match="fp32"):
         flash_attention_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16(), alibi_slopes=s)
-    with pytest.raises(ValueError, match="lse"):
-        flash_attention_cuda(q, q, q, alibi_slopes=s, with_lse=True)
+    with pytest.raises(ValueError, match="fp32"):
+        flash_attention_cuda(q.half(), q.half(), q.half(), alibi_slopes=s, with_lse=True)
     with pytest.raises(ValueError, match="alibi_slopes"):
         flash_attention_cuda(q, q, q, alibi_slopes=s[:2])
     with pytest.raises(ValueError, match="window"):
         flash_attention_cuda(q, q, q, window=-1)
 
 
-@pytest.mark.parametrize("what", ["h80", "window", "alibi"])
-def test_flash_attention_fn_refuses_what_the_backward_lacks(what):
-    """The backward kernels take neither head dim 80, a window nor ALiBi:
-    ``FlashAttentionFn`` raises at its forward, naming the slice that
-    brings them, before any kernel runs (so on any device)."""
-    h = 80 if what == "h80" else 64
-    q = _t((1, 8, 4, h)).requires_grad_()
-    kw = {"window": 4} if what == "window" else {}
-    if what == "alibi":
-        kw["alibi_slopes"] = _alibi(4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.FlashAttentionFn.apply(q, q, q, True, kw.get("window", 0), kw.get("alibi_slopes"))
+@pytest.mark.parametrize("what", ["bf16_alibi", "fp16_alibi", "negative_window",
+                                  "short_slopes"])
+def test_flash_attention_fn_refuses_what_the_kernels_do_not_take(what):
+    """What the kernels do not take (ALiBi in bf16 or fp16, a negative
+    window, slopes of the wrong shape) raises ``ValueError`` at
+    ``FlashAttentionFn``'s forward, saying so, before any kernel runs (so
+    on any device)."""
+    dtype = {"bf16_alibi": torch.bfloat16, "fp16_alibi": torch.float16}.get(what, torch.float32)
+    q = _t((1, 8, 4, 80), dtype=dtype).requires_grad_()
+    window = -1 if what == "negative_window" else 0
+    slopes = None if what == "negative_window" else _alibi(2 if what == "short_slopes" else 4)
+    match = {"negative_window": "window", "short_slopes": "alibi_slopes"}.get(what, "fp32")
+    ops.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        ops.FlashAttentionFn.apply(q, q, q, True, window, slopes)
+    assert ops.LAUNCHES == NO_LAUNCHES
 
 
 @pytest.mark.gpu
@@ -693,6 +697,43 @@ def test_flash_bwd_kernel_matches_autograd_of_ref(cuda, B, Sq, Sk, Hq, Hkv, h, c
         assert (g - w32).abs().max().item() < FLASH_GRAD_BOUND * gmax
 
 
+_FLASH_BWD_WINDOW_CASES = [
+    (2, 200, 200, 32, 32, 80), (1, 129, 129, 4, 1, 80), (1, 600, 600, 4, 1, 80),
+    (2, 300, 300, 8, 2, 128), (2, 65, 130, 4, 4, 64),
+    # a training length: windows that mask many tiles of both kernels
+    (1, 2048, 2048, 8, 2, 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,h", _FLASH_BWD_WINDOW_CASES)
+# one key; inside a 32-key tile (16, 37); over several tiles (100, 256);
+# wider than S (5000, which masks nothing)
+@pytest.mark.parametrize("window", [0, 1, 16, 37, 100, 256, 5000])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_window_alibi_match_autograd_of_ref(cuda, B, Sq, Sk, Hq, Hkv, h,
+                                                             window, alibi, causal):
+    """The backward at head dim 80, sliding windows and ALiBi (fp32), each
+    alone and together: ops.flash_attention with grad launches the forward
+    and the backward once each; dq, dk and dv match autograd through the
+    plain version in fp64 within 1e-4 of max|g|."""
+    q, do = _t((B, Sq, Hq, h), 1, device=cuda), _t((B, Sq, Hq, h), 4, device=cuda)
+    k, v = _t((B, Sk, Hkv, h), 2, device=cuda), _t((B, Sk, Hkv, h), 3, device=cuda)
+    slopes = _alibi(Hq).to(cuda) if alibi else None
+    kw = dict(causal=causal, window=window, alibi_slopes=slopes)
+    ops.reset_launches()
+    _, got = _grads(lambda *a: ops.flash_attention(*a, **kw), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1
+    kw64 = dict(kw, alibi_slopes=None if slopes is None else slopes.double())
+    _, want = _grads(lambda *a: ref.flash_attention_ref(*a, **kw64),
+                     (q.double(), k.double(), v.double()), do.double())
+    gmax = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g.double() - w).abs().max().item() < FLASH_GRAD_BOUND * gmax
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -710,15 +751,19 @@ def test_flash_bwd_kernel_half_precision(cuda, dtype, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h", [112, 128])
-def test_flash_bwd_is_deterministic(cuda, h):
+@pytest.mark.parametrize("h,window,alibi", [(112, 0, False), (128, 0, False),
+                                            (80, 100, False), (128, 0, True),
+                                            (80, 37, True)])
+def test_flash_bwd_is_deterministic(cuda, h, window, alibi):
     """Every gradient is a plain sum in a fixed order (no atomics; dk and dv
-    summed over the GQA group in one block): two calls give the same bits."""
+    summed over the GQA group in one block): two calls give the same bits,
+    with a window and ALiBi too."""
     q, do = _t((2, 300, 8, h), 1, device=cuda), _t((2, 300, 8, h), 4, device=cuda)
     k, v = _t((2, 300, 2, h), 2, device=cuda), _t((2, 300, 2, h), 3, device=cuda)
-    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
-    a = flash_attention_bwd_cuda(q, k, v, o, lse, do)
-    b = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    kw = dict(causal=True, window=window, alibi_slopes=_alibi(8).to(cuda) if alibi else None)
+    o, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    a = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    b = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -740,6 +785,34 @@ def test_flash_forward_lse_is_the_rows_logsumexp(cuda, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("window,alibi", [(0, True), (37, False), (100, True)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_lse_with_window_and_alibi(cuda, window, alibi, causal):
+    """With a window and ALiBi the forward's lse is each row's log-sum-exp
+    of its scaled, biased, masked scores, and asking for it leaves o as it
+    was."""
+    B, S, Hq, Hkv, h = 2, 300, 8, 2, 80
+    q = _t((B, S, Hq, h), 1, device=cuda)
+    k, v = _t((B, S, Hkv, h), 2, device=cuda), _t((B, S, Hkv, h), 3, device=cuda)
+    slopes = _alibi(Hq).to(cuda) if alibi else None
+    kw = dict(causal=causal, window=window, alibi_slopes=slopes)
+    o, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    assert torch.equal(o, flash_attention_cuda(q, k, v, **kw))
+    kk = k.double().repeat_interleave(Hq // Hkv, dim=2)
+    sc = torch.einsum("bqhd,bshd->bhqs", q.double(), kk) / h ** 0.5
+    dist = (torch.arange(S, device=cuda)[None, :] - torch.arange(S, device=cuda)[:, None])
+    if alibi:
+        sc = sc + slopes.double().view(Hq, 1, 1) * dist.double()
+    keep = torch.ones(S, S, dtype=torch.bool, device=cuda)
+    if causal:
+        keep &= dist <= 0
+    if window:
+        keep &= -dist < window
+    sc = sc.masked_fill(~keep, -1e30)
+    assert (lse.double() - torch.logsumexp(sc, dim=-1)).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
 def test_flash_bwd_refuses_what_it_does_not_take(cuda):
     q = _t((1, 8, 2, 64), device=cuda)
     o, lse = flash_attention_cuda(q, q, q, with_lse=True)
@@ -755,6 +828,12 @@ def test_flash_bwd_refuses_what_it_does_not_take(cuda):
         flash_attention_bwd_cuda(q, q, q, mis, lse, o)
     with pytest.raises(ValueError, match="aligned"):
         flash_attention_bwd_cuda(q, q, q, o, lse, mis)
+    # ALiBi is built for fp32 only; a window is never negative
+    qb, ob, s = q.bfloat16(), o.bfloat16(), _alibi(2).to(cuda)
+    with pytest.raises(ValueError, match="fp32"):
+        flash_attention_bwd_cuda(qb, qb, qb, ob, lse, ob, alibi_slopes=s)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_bwd_cuda(q, q, q, o, lse, o, window=-1)
 
 
 def _forward_only_calls(cuda):

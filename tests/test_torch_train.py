@@ -205,12 +205,13 @@ def test_train_step_matches_reference(ref, mode):
     assert jax.tree.structure(back) == jax.tree.structure(jax.tree.map(np.asarray, jp2))
 
 
-def test_train_loop_reduces_loss():
-    """tests/test_substrate.py::test_training_reduces_loss on the port, with
-    smoke llama3-8b (the port does not build stablelm-3b's parallel_block
-    yet): 25 steps on the port's SyntheticCorpus, the last five steps' mean
-    loss 0.2 below the first five's."""
-    cfg = get_smoke_config(ARCH)
+@pytest.mark.parametrize("arch", [ARCH, "stablelm-3b"])
+def test_train_loop_reduces_loss(arch):
+    """tests/test_substrate.py::test_training_reduces_loss on the port: its
+    own model, smoke stablelm-3b (LayerNorm, partial rotary), and smoke
+    llama3-8b; 25 steps on the port's SyntheticCorpus, the last five steps'
+    mean loss 0.2 below the first five's."""
+    cfg = get_smoke_config(arch)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
     tcfg = T.TrainConfig(warmup=3, total_steps=25)
     _, hist = T.train_loop(cfg, tcfg, iter(SyntheticCorpus(dc)), steps=25, device="cpu",

@@ -48,7 +48,7 @@ FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-shared"
 # variant: [(text in the source, what replaces it)]
 FLASH = {
     "pairs": [],
-    "single": [("  constexpr int NG = 2;\n", "  constexpr int NG = 1;\n")],
+    "single": [("  constexpr int NG = NH == 14 ? 1 : 2;\n", "  constexpr int NG = 1;\n")],
     "in_mma": [
         ("      for (int j = 0; j < NG; ++j) mma3(t[j], big, small, b.at(c, n0 + j));",
          "      for (int j = 0; j < NG; ++j) mma3(acc[n0 + j], big, small, b.at(c, n0 + j));"),
@@ -156,7 +156,7 @@ def main() -> int:
             print(err[-4000:], file=sys.stderr)
             return 1
         if kind == "flash":
-            pick = lambda k: "IfLi128E" in k or "IfLi112E" in k  # noqa: E731
+            pick = lambda k: "IfLi128ELb0E" in k or "IfLi112ELb0E" in k  # noqa: E731
         else:
             pick = lambda k: "rmsnorm_bwd_kernelIffLi4E" in k  # noqa: E731
         for kernel, what in ptxas(err, pick):
@@ -164,7 +164,7 @@ def main() -> int:
             print(f"ptxas {kind} {name} {short}: {what}", flush=True)
         lib = ctypes.CDLL(so)
         if kind == "flash":
-            lib.rt_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
+            lib.rt_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, i, p]
         else:
             lib.rt_rmsnorm_bwd.argtypes = [p] * 6 + [i, i, i, f, i, i, p]
             lib.rt_rmsnorm_bwd_blocks.argtypes = [i]
@@ -182,8 +182,8 @@ def main() -> int:
         scratch = torch.empty((B, Hq, S), device="cuda")
         rc = lib.rt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, S, Hq, k.shape[2], h, 1, 1.0 / math.sqrt(h), 0, stream)
+            lse.data_ptr(), None, scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, S, S, Hq, k.shape[2], h, 1, 0, 1.0 / math.sqrt(h), 0, stream)
         assert rc == 0, rc
         return dq, dk, dv
 
