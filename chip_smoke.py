@@ -172,17 +172,33 @@ Phases, each of which exits non-zero on a failed check:
      LayerNorm models); then one step of each at 2 layers (B 1, S 512, and
      h2o-danube also with its window cut to 256) against ``backend="ref"``
      within phase 8's parity bounds.
+  13. the pipeline: the kernels at yi-34b's shapes against their plain
+     versions, timed beside them, the library call and their bounds
+     (RMSNorm forward and backward at (8192, 7168), where the backward takes
+     its 8-vector register path, whose ptxas report is printed; flash
+     forward and backward at B 4, S 2048, 56 query heads over 8 KV heads, a
+     GQA group of 7, h 128, causal); then ``yi-34b`` at full width cut to 2
+     layers (seed 0, B 4 x S 2048 from the port's ``SyntheticCorpus``, M 4,
+     remat) through ``models.model.pipeline_loss`` on a stage mesh of the
+     1-rank NCCL group (one stage: no transfer is issued), its loss within
+     1e-5 relative and every gradient within 1e-4 of its max|g| of the
+     unpipelined ``loss_and_metrics`` on the same weights and batch; the
+     kernels' launches equal to the code's (each microbatch's layers as a
+     train pass, the final norm once), forward and backward ms pipelined
+     and not, peak memory and a profile by kernel class.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
-Phases 7 to 11 share one 1-rank NCCL group from a ``FileStore``.  Then it
+Phases 7 to 13 share one 1-rank NCCL group from a ``FileStore``.  Then it
 prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
 ``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"moe": ...}``
 line, one ``{"families": ...}`` line, one ``{"families_train": ...}`` line,
+one ``{"pipeline": ...}`` line,
 one ``{"kernels": [...]}`` line (the flash kernels' instantiations of
 phases 11 and 12, forward and backward at h = 80 and with ALiBi, as
 entries of their own with the launches of the models that run them,
 served and trained, which the base flash entries do not count again; the
-h = 80 entries carry their window checks) and, last, the device line.
+h = 80 entries carry their window checks; phase 13's entries at yi-34b's
+shapes carry the pipelined run's launches) and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -2936,6 +2952,202 @@ def families_train_phase(card: str) -> dict:
             "seconds": seconds, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the pipeline (yi-34b's stages on a stage mesh of one rank)
+# ---------------------------------------------------------------------------
+
+PIPE_ARCH = "yi-34b"
+# full width (d 7168, 56/8 heads, d_ff 20480, vocab 64000) cut to 2 layers
+# (8.1 GB of fp32 weights, 16 GB with their gradients); B x S from the
+# port's SyntheticCorpus in M microbatches, remat on
+PIPE = dict(layers=2, B=4, S=2048, M=4)
+PIPE_LOSS_REL, PIPE_GRAD_BOUND = 1e-5, 1e-4    # against the unpipelined model
+PIPE_SITE = "pp.tick.p2p"
+
+
+def expected_pipeline_launches(cfg, microbatches: int) -> dict:
+    """Each kernel's launches in one forward and backward of
+    ``model.pipeline_loss`` with remat: each microbatch runs the stage's
+    layers as a train pass does (forward, recompute, backward), the final
+    norm runs once over the whole batch."""
+    want = expected_train_launches(cfg, microbatches)
+    return dict(want, rmsnorm=want["rmsnorm"] - (microbatches - 1),
+                rmsnorm_bwd=want["rmsnorm_bwd"] - (microbatches - 1))
+
+
+def rmsnorm_at_phase(gen, rows: int, D: int, tag: str) -> list:
+    """The RMSNorm forward and backward kernels at (rows, D) fp32, each held
+    against its plain version (the forward within 1e-5; the backward against
+    autograd of it in fp64 within 1e-5 of max|g|) and timed beside it,
+    beside the library call (``F.rms_norm``, its backward by autograd) and
+    beside its bound: an entry of the kernels line each."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    x, dy = randn((rows, D), torch.float32, gen), randn((rows, D), torch.float32, gen)
+    scale = torch.linspace(0.5, 1.5, D, device="cuda")
+    err = (ops.rmsnorm(x, scale, backend="cuda") - ref.rmsnorm_ref(x, scale)).abs().max().item()
+    check(err <= RMS_BOUND_F32, f"rmsnorm ({rows}, {D}): max abs err {err} > {RMS_BOUND_F32}")
+    got = rmsnorm_bwd_cuda(x, scale, dy)
+    want = grads_of(ref.rmsnorm_ref, (x.double(), scale.double()), dy.double())
+    errs = [(g.double() - w).abs().max().item() for g, w in zip(got, want)]
+    rel = max(e / w.abs().max().item() for e, w in zip(errs, want))
+    check(rel <= RMS_GRAD_BOUND, f"rmsnorm backward ({rows}, {D}): err {rel} of max|g| "
+                                 f"> {RMS_GRAD_BOUND}")
+    del got, want
+    free()
+    fwd = dict(ms=time_ms(lambda: ops.rmsnorm(x, scale, backend="cuda")),
+               plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, scale)),
+               library_ms=time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), scale, 1e-5)))
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(2 * rows * D * 4 + D * 4, 4 * rows * D,
+                                                torch.float32)
+    bwd = dict(ms=time_ms(lambda: rmsnorm_bwd_cuda(x, scale, dy)),
+               plain_ms=backward_ms(ref.rmsnorm_ref, (x, scale), dy),
+               library_ms=backward_ms(lambda a, b: torch.nn.functional.rms_norm(
+                   a, (D,), b, 1e-5), (x, scale), dy))
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(4 * (3 * rows * D + 2 * D), 8 * rows * D,
+                                                torch.float32)
+    for what, e, t, lib in (("rmsnorm", err, fwd, "F.rms_norm"),
+                            ("rmsnorm backward", max(errs), bwd, "F.rms_norm's backward")):
+        say(f"{what} ({rows}, {D}) fp32 {tag}: max abs err {e:.3e}; {t['ms']:.4f} ms; plain "
+            f"{t['plain_ms']:.4f} ms; {lib} {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+            f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+    del x, dy
+    free()
+    base = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": [rows, D],
+            "dtype": "float32"}
+    return [dict(base, name=f"rmsnorm {tag}", max_abs_err=err, bound=RMS_BOUND_F32,
+                 library="F.rms_norm", **fwd),
+            dict(base, name=f"rmsnorm_bwd {tag}", max_abs_err=max(errs),
+                 err_of_max_g=rel, bound=RMS_GRAD_BOUND, bound_of="max|g|",
+                 library="autograd of F.rms_norm", **bwd)]
+
+
+def pipeline_phase(card: str, mesh, rmsnorm_bwd_ptxas: dict) -> dict:
+    """Phase 13: the kernels at yi-34b's shapes (RMSNorm forward and backward
+    at (B·S, 7168), whose backward takes the 8-vector register path; flash
+    forward and backward at its GQA group of 7), each against its plain
+    version and timed; then yi-34b at full width and 2 layers through
+    ``model.pipeline_loss`` on a stage mesh of the 1-rank NCCL group (no
+    transfer is issued at one stage), held against the unpipelined
+    ``loss_and_metrics`` of the same weights on the same batch: the loss
+    within 1e-5 relative, every gradient within 1e-4 of its max|g|; the
+    kernels' launches, forward and backward ms, peak memory and a profile
+    by kernel class."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    P = PIPE
+    B, S, M_ = P["B"], P["S"], P["M"]
+    full = get_config(PIPE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tag = "(yi-34b, D = 7168)"
+    kernels = rmsnorm_at_phase(gen, B * S, full.d_model, tag)
+    attn = (B, S, full.num_heads, full.num_kv_heads, full.head_dim, 0, False)
+    kernels.append(flash_variant_phase(gen, "flash_attention (yi-34b, GQA 7)", *attn))
+    kernels.append(flash_bwd_variant_phase(gen, "flash_attention_bwd (yi-34b, GQA 7)", *attn))
+    eight = rmsnorm_bwd_ptxas[8]
+    kernels[1]["ptxas_8_vectors"] = eight
+    say(f"ptxas rmsnorm backward <fp32, 8 vectors> (the path at D = {full.d_model}): "
+        f"{eight['registers']} registers, {eight['spill_stores']} B spill stores, "
+        f"{eight['spill_loads']} B spill loads")
+
+    cfg = full.replace(num_layers=P["layers"])
+    stage = Mesh(mesh.group, 1, 0, "stage")
+    init_t = time.perf_counter()
+    model = M.init_stage(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    names, params = zip(*model.named_parameters())
+    n_params = sum(p.numel() for p in params)
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                        seed=SEED))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in corpus.batch(0).items()}
+    what = (f"pipeline {PIPE_ARCH} ({cfg.num_layers} layers at full width, {n_params} params "
+            f"fp32, B {B} x S {S}, M {M_}, one stage)")
+    say(f"{what}: init {time.perf_counter() - init_t:.2f} s ({card})")
+
+    def unpiped():
+        loss, _ = M.loss_and_metrics(cfg, model, batch)
+        return loss, torch.autograd.grad(loss, params)
+
+    def piped():
+        loss, _ = M.pipeline_loss(cfg, model, batch, mesh=stage, microbatches=M_,
+                                  site=PIPE_SITE)
+        return loss, torch.autograd.grad(loss, params)
+
+    loss0, want = unpiped()
+    want = [g.cpu() for g in want]       # on the host: the peak below is the pipeline's
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with collectives.record_issued() as issued, \
+            collectives.record_site_resolutions() as resolved:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss1, got = piped()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect = expected_pipeline_launches(cfg, M_)
+    say(f"{what}: launches {launches} (expected {expect}); issued {len(issued)} transfers; "
+        f"{PIPE_SITE} resolved to {[(r.matched_key, r.tier, r.num_chunks) for r in resolved]}")
+    check(launches == expect, f"{what}: launches {launches}, expected {expect}")
+    check(not issued, f"{what}: a stage mesh of one issued {issued}")
+    loss0, loss1 = loss0.item(), loss1.detach().item()
+    loss_rel = abs(loss1 - loss0) / abs(loss0)
+    worst, at = 0.0, ""
+    for n, g, w in zip(names, got, want):
+        check(bool(torch.isfinite(g).all()), f"{what}: gradient of {n} not finite")
+        w = w.to("cuda")
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        if rel > worst:
+            worst, at = rel, n
+    say(f"{what}: loss {loss1:.6f} against the unpipelined {loss0:.6f} (relative "
+        f"{loss_rel:.2e}, bound {PIPE_LOSS_REL}); gradients within {worst:.2e} of max|g| "
+        f"(at {at}; bound {PIPE_GRAD_BOUND}) ({card})")
+    check(loss_rel <= PIPE_LOSS_REL, f"{what}: loss {loss1} against {loss0}")
+    check(worst <= PIPE_GRAD_BOUND, f"{what}: gradient of {at} off by {worst} of max|g|")
+    del got, want
+    free()
+    times = {"pipelined": [first_s], "unpipelined": []}
+    for run, key in ((unpiped, "unpipelined"), (piped, "pipelined"), (unpiped, "unpipelined"),
+                     (piped, "pipelined")):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t)
+        del out
+        free()
+    t = time.perf_counter()
+    prof = train_ms_by_class(piped)
+    wall = (time.perf_counter() - t) * 1e3
+    ms = {k: statistics.median(v[-2:]) * 1e3 for k, v in times.items()}
+    say(f"{what}: forward and backward {ms['pipelined']:.1f} ms pipelined (all "
+        f"{[round(x * 1e3, 1) for x in times['pipelined']]}), {ms['unpipelined']:.1f} ms "
+        f"unpipelined; peak memory {peak / 2**30:.2f} GiB; profiled {wall:.1f} ms wall: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in prof.items()) + f" ({card})")
+    del model, params, batch
+    free()
+    names_by_kernel = {"rmsnorm": 0, "rmsnorm_bwd": 1, "flash_attention": 2,
+                       "flash_attention_bwd": 3}
+    for kernel, i in names_by_kernel.items():
+        kernels[i]["launches_by_model"] = {f"{PIPE_ARCH} pipeline": launches[kernel]}
+        kernels[i]["launches"] = launches[kernel]
+        check(launches[kernel] > 0, f"{kernels[i]['name']}: no launch on the main path")
+    seconds = time.perf_counter() - t0
+    say(f"phase 13 (the pipeline) took {seconds:.1f} s")
+    return {"kernels": kernels, "arch": PIPE_ARCH, "layers": cfg.num_layers, "params": n_params,
+            "batch": B, "seq": S, "microbatches": M_, "loss": loss1, "unpipelined_loss": loss0,
+            "loss_rel": loss_rel, "grad_err_of_max_g": worst, "grad_err_at": at,
+            "launches": launches, "fwd_bwd_ms": ms, "fwd_bwd_ms_all": {
+                k: [x * 1e3 for x in v] for k, v in times.items()},
+            "peak_bytes": peak, "profile_ms": prof, "profile_wall_ms": wall,
+            "rmsnorm_bwd_ptxas_8": eight, "seconds": seconds, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -2997,6 +3209,7 @@ def main() -> int:
             moe = moe_phase(card, mesh)
             families = families_phase(card, mesh)
             families_train = families_train_phase(card)
+            pipelined = pipeline_phase(card, mesh, rmsnorm_bwd_ptxas)
         finally:
             dist.destroy_process_group()
 
@@ -3008,6 +3221,7 @@ def main() -> int:
     say(json.dumps({"families": {k: v for k, v in families.items() if k != "kernels"}}))
     say(json.dumps({"families_train": {k: v for k, v in families_train.items()
                                        if k != "kernels"}}))
+    say(json.dumps({"pipeline": {k: v for k, v in pipelined.items() if k != "kernels"}}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -3047,6 +3261,8 @@ def main() -> int:
     # flash's new instantiations, forward (phase 11) and backward (phase 12),
     # with their launches by model
     kernels += families["kernels"] + families_train["kernels"]
+    # phase 13's kernels at yi-34b's shapes, with the pipelined run's launches
+    kernels += pipelined["kernels"]
     say(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

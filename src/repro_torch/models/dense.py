@@ -380,6 +380,37 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
     return x, new_caches, aux
 
 
+def split_stages(p: Trunk, stages: int) -> list:
+    """A dense trunk's ``dense_layers`` in ``stages`` contiguous runs of
+    equal length (the reference's stacked stage dim): stage ``s`` holds
+    layers ``s·L/S ... (s+1)·L/S - 1``."""
+    layers = list(getattr(p, "dense_layers", ()))
+    if hasattr(p, "moe_layers") or not layers or len(layers) % stages:
+        raise ValueError(f"a pipeline of {stages} stages needs a dense trunk whose layers "
+                         f"split evenly; this one has {len(layers)} dense and "
+                         f"{len(getattr(p, 'moe_layers', ()))} MoE layers")
+    n = len(layers) // stages
+    return [layers[s * n:(s + 1) * n] for s in range(stages)]
+
+
+def stage_fwd(layers, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+              remat: bool = False, backend: Optional[str] = None) -> torch.Tensor:
+    """A pipeline stage: the given dense ``Layer``s in order through
+    ``layer_fwd``, without a cache (the counterpart of the reference's
+    uncached ``_run_segment``); ``remat`` recomputes each layer in the
+    backward, as the reference's per-layer ``jax.checkpoint``."""
+    for lp in layers:
+        def fl(x, lp=lp):
+            return layer_fwd(lp, cfg, x, positions, None, backend=backend)[0]
+
+        if remat:
+            x = checkpoint(contextvars.copy_context().run, fl, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = fl(x)
+    return x
+
+
 def init_trunk_caches(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
                       device=None) -> Caches:
     """Stacked decode caches per segment: k, v (L,B,W,Hkv,h), slot_pos

@@ -7,6 +7,8 @@ for the dense, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
     caches = init_caches(cfg, batch_size, seq_len, device="cuda")       # serving
     logits, caches = decode_step(cfg, model, tokens, caches)            # decode
     shard_(cfg, model, meshes)      # training on a (data, model) mesh: placed in place
+    model = init_stage(cfg, seed, stage, stages, device="cuda")     # a pipeline rank's
+    loss, metrics = pipeline_loss(cfg, model, batch, mesh=stage_mesh, microbatches=M)
 
 ``batch``: {"tokens": (B,S) int}, and for the loss "targets" (B,S) int and
 optionally "mask" (B,S) float.  Entry points run on the card unless the
@@ -33,8 +35,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import reference_layout
+from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import dense, layers as L, rwkv6, zamba2
 from repro_torch.parallel import constraints as CT, sharding
+from repro_torch.parallel.pipeline import pipeline_apply
 
 Caches = Dict[str, object]
 
@@ -145,6 +149,47 @@ def init_params(cfg, seed: int = 0, *, device="cuda", ep_pad: int = 1) -> Model:
         model = Model(cfg, ep_pad=ep_pad, dtype=_dtype(cfg))
     model = model.to_empty(device=dev)
     _init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def _check_pipeline(cfg) -> None:
+    """The pipeline runs the dense, non-MoE trunk; anything else raises,
+    naming the slice that would lift it."""
+    if cfg.family == "dense" and not cfg.is_moe:
+        return
+    later = {"moe": "the MoE follow-ups (ROADMAP.md, queue 1 item 11)",
+             "ssm": RECURRENT_TRAINING, "hybrid": RECURRENT_TRAINING}
+    raise NotImplementedError(f"a pipeline of the {cfg.family!r} family arrives with "
+                              + later.get(cfg.family, L.OTHER_FAMILIES))
+
+
+def init_stage(cfg, seed: int = 0, stage: int = 0, stages: int = 1, *,
+               device="cuda") -> Model:
+    """Stage ``stage`` of ``stages`` of a dense model with random weights,
+    made on ``device``: the embedding, final norm and head, and of the
+    trunk only layers ``s·L/S ... (s+1)·L/S - 1`` (a pipeline rank
+    allocates its stage alone: yi-34b's 60 layers fit no card).  The
+    embedding and head are drawn from ``seed`` in ``init_params``'s order,
+    so they are equal on every rank; layer ``i`` is drawn from a generator
+    of its own, seeded ``seed + 1 + i``, so the stages of S hold the very
+    layers that ``init_stage(cfg, seed)`` (one stage: the whole model)
+    holds.  The weights differ from ``init_params(cfg, seed)``'s, which
+    draws every layer from one generator."""
+    _check_pipeline(cfg)
+    if cfg.num_layers % stages or not 0 <= stage < stages:
+        raise ValueError(f"stage {stage} of {stages}: {cfg.num_layers} layers do not "
+                         "split into that many equal stages")
+    n = cfg.num_layers // stages
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = Model(cfg.replace(num_layers=n), dtype=_dtype(cfg))
+    model = model.to_empty(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for part in (model.embed, model.ln_f, model.head):
+        if part is not None:
+            _init_weights(part, gen)
+    for j, lp in enumerate(model.trunk.dense_layers):
+        _init_weights(lp, torch.Generator(device=dev).manual_seed(seed + 1 + stage * n + j))
     return model
 
 
@@ -280,6 +325,49 @@ def loss_and_metrics(cfg, p: Model, batch, *, remat: bool = True,
     ce = chunked_ce(cfg, p, x, batch["targets"], mask.float())
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
+
+
+def pipeline_loss(cfg, p: Model, batch, *, mesh, microbatches: int, remat: bool = True,
+                  backend: Optional[str] = None, site: Optional[str] = None):
+    """The training loss through a pipeline over ``mesh``'s stages
+    (``parallel.pipeline.pipeline_apply``), composed as the reference
+    composes its own functions: the embedding on every rank, this rank's
+    stage of the trunk over the microbatches (each with one microbatch's
+    (B/M, S) positions), then the final norm and ``chunked_ce`` on every
+    rank, from the outputs every rank holds.  ``p`` holds all
+    ``cfg.num_layers`` layers (the rank runs its run of ``dense.
+    split_stages``) or, made by ``init_stage``, its stage's alone.  Every
+    rank returns the same loss; its gradients reach this rank's stage, and
+    the embedding, final norm and head alike on every rank.  Dense,
+    non-MoE configs only.  Returns (loss, {"ce", "aux", "loss"}) as
+    ``loss_and_metrics``."""
+    _check_pipeline(cfg)
+    if p.placement is not None:
+        raise ValueError("a pipeline runs an unplaced model: its stage is its own")
+    m = as_mesh(mesh["stage"] if isinstance(mesh, dict) else mesh)
+    held = len(p.trunk.dense_layers)
+    if held == cfg.num_layers:
+        layers = dense.split_stages(p.trunk, m.size)[m.rank]
+    elif held * m.size == cfg.num_layers:
+        layers = list(p.trunk.dense_layers)
+    else:
+        raise ValueError(f"the model holds {held} layers: neither the {cfg.num_layers} of "
+                         f"{cfg.name} nor one stage of {m.size}")
+    tokens = batch["tokens"]
+
+    def stage(layers, x):
+        positions = _positions(cfg, x.shape[0], x.shape[1], 0, x.device)
+        return dense.stage_fwd(layers, cfg, x, positions, remat=remat, backend=backend)
+
+    x = pipeline_apply(stage, layers, F.embedding(tokens, p.embed.weight), mesh=m,
+                       microbatches=microbatches, site=site)
+    x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["targets"].shape, dtype=torch.float32, device=x.device)
+    ce = chunked_ce(cfg, p, x, batch["targets"], mask.float())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return ce, {"ce": ce, "aux": aux, "loss": ce}
 
 
 def init_caches(cfg, batch: int, seq_len: int, *, device="cuda") -> Caches:

@@ -44,7 +44,8 @@ def test_import_loads_no_jax_and_builds_nothing():
                 "repro_torch.optim.schedules", "repro_torch.data.pipeline",
                 "repro_torch.train.metrics", "repro_torch.train.checkpoint",
                 "repro_torch.launch.train", "repro_torch.launch.config",
-                "repro_torch.parallel.sharding", "repro_torch.parallel.constraints"):
+                "repro_torch.parallel.sharding", "repro_torch.parallel.constraints",
+                "repro_torch.parallel.pipeline"):
         assert mod in got["modules"]
 
 

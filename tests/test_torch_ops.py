@@ -697,6 +697,56 @@ def test_flash_bwd_kernel_matches_autograd_of_ref(cuda, B, Sq, Sk, Hq, Hkv, h, c
         assert (g - w32).abs().max().item() < FLASH_GRAD_BOUND * gmax
 
 
+# yi-34b's attention: 56 query heads over 8 KV heads (a GQA group of 7,
+# which no other model has), h 128; S 2048 is the pipeline's training length
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(1, 300), (2, 512), (1, 2048)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa_group_of_seven(cuda, B, S, causal):
+    """At yi-34b's heads the forward matches the plain version within 1e-4
+    (fp32), and ops.flash_attention with grad launches the forward and the
+    backward once each, dq, dk and dv within 1e-4 of max|g| of autograd
+    through the plain version in fp64 (dk and dv summed over each KV
+    head's seven query heads)."""
+    q, do = _t((B, S, 56, 128), 1, device=cuda), _t((B, S, 56, 128), 4, device=cuda)
+    k, v = _t((B, S, 8, 128), 2, device=cuda), _t((B, S, 8, 128), 3, device=cuda)
+    f = lambda *a: ref.flash_attention_ref(*a, causal=causal)  # noqa: E731
+    assert (flash_attention_cuda(q, k, v, causal=causal) - f(q, k, v)).abs().max().item() \
+        < FLASH_BOUND_F32
+    ops.reset_launches()
+    _, got = _grads(lambda *a: ops.flash_attention(*a, causal=causal), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1
+    _, want = _grads(f, (q.double(), k.double(), v.double()), do.double())
+    gmax = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g.double() - w).abs().max().item() < FLASH_GRAD_BOUND * gmax
+
+
+# yi-34b's d_model: 7168 fp32 is 1792 16-byte vectors a row, so the RMSNorm
+# backward takes its register path's 8-vector instantiation (bf16: 4)
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 300, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_at_d_7168(cuda, rows, dtype):
+    """The forward against the plain version (1e-5 in fp32; in bf16 2e-2 of
+    max(1, |y|), since outputs past 4 are a bf16 step of 2^-5 apart, and
+    two roundings of one fp32 value may differ by one) and the backward
+    kernel's dx and dscale against autograd through the plain version in
+    fp64 (1e-5 of max|g| in fp32, 2e-2 in bf16)."""
+    D = 7168
+    x, dy = _t((rows, D), dtype=dtype, device=cuda), _t((rows, D), 1, dtype, cuda)
+    s = torch.linspace(0.5, 1.5, D, device=cuda)
+    want = ref.rmsnorm_ref(x, s).float()
+    err = ((rmsnorm_cuda(x, s).float() - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert err < (RMS_BOUND_F32 if dtype == torch.float32 else RMS_BOUND)
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+    _, (dx64, ds64) = _grads(ref.rmsnorm_ref, (x.double(), s.double()), dy.double())
+    bound = RMS_GRAD_BOUND if dtype == torch.float32 else HALF_GRAD_BOUND
+    assert _rel_err(dx, dx64) < bound and _rel_err(ds, ds64) < bound
+
+
 _FLASH_BWD_WINDOW_CASES = [
     (2, 200, 200, 32, 32, 80), (1, 129, 129, 4, 1, 80), (1, 600, 600, 4, 1, 80),
     (2, 300, 300, 8, 2, 128), (2, 65, 130, 4, 4, 64),

@@ -70,7 +70,25 @@ port) and waits for them.  Each rank:
     flip.  The dispatch and combine ``Issued`` rows, the kernels' launches
     and the leaves held alike (sha256) must be the code's; it prints step
     ms, tokens/s, peak GiB and device ms by class of one more step.
-``--sections`` runs a subset of helpers, train, fsdp, deep, moe and launcher.
+  * runs yi-34b through a pipeline of four stages, one a rank
+    (``make_mesh((4,), ("stage",))``, ``models.model.pipeline_loss`` over
+    ``parallel.pipeline.pipeline_apply``; random weights from seed 0 by
+    ``model.init_stage``, each rank allocating its stage's layers with the
+    embedding, final norm and head; fp32, remat, M = 4 microbatches of
+    ``SyntheticCorpus`` batches at S = 2048): at full width and 4 layers, B
+    = 4, a forward and backward unplanned, under a plan chunking ``p2p``
+    by 4, and under the port's tune of yi-34b as ``pp:4:4`` on h100-sxm
+    (lowered and installed; its resolution at ``pp.tick.p2p``, matched key,
+    tier and chunks, and whether d_model 7168 degrades the count), each
+    held against rank 0's unpipelined model of the same weights (the loss
+    within 1e-5 relative; every gradient within 1e-4 of its max|g|, each
+    stage's gathered to rank 0), the embedding's, final norm's and head's
+    gradients bit-equal (sha256) on every rank, the transfers' ``Issued``
+    rows the code's; at all 60 layers (15 a stage, B = 8) a forward, its
+    ms, peak memory and ``Issued`` rows by tick; and at all 60 layers
+    again (B = 4) forward and backward twice, its ms, peak memory and
+    device ms by class of a third under the profiler.
+``--sections`` runs a subset of helpers, train, fsdp, deep, moe, pp and launcher.
 Then it runs the launcher once, under ``torch.distributed.run``
 (torchrun): ``repro_torch.launch.train --config`` (the same model, batch
 and sequence, 3 steps) ``--mesh 1x4 --tuned-plan`` a plan the port tunes
@@ -111,7 +129,7 @@ PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer1.mlp.ag": ("ring", 4),
 TRAIN_PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
               "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
 TRAIN = dict(layers=4, B=4, S=2048, steps=3)          # --smoke: 2 layers, S = 64
-SECTIONS = ("helpers", "train", "fsdp", "deep", "moe", "launcher")
+SECTIONS = ("helpers", "train", "fsdp", "deep", "moe", "pp", "launcher")
 GATE_OPT = dict(lr=3e-4, eps=1e-3)
 GATE_REL = 1e-5
 # FSDP placements at 4 layers: (mesh, shape, mode, global batch); grad_accum=2 at
@@ -124,6 +142,14 @@ CARD_BYTES = 80e9
 # one-card step, 16 (all) against the one-card forward; --smoke: 2 and 4
 MOE = dict(arch="olmoe-1b-7b", layers=(4, 16), B=4, S=2048, steps=3, lr=3e-5)
 MOE_PLAN = {"ep.layer0.moe.a2a_disp": ("chunked", 2), "ep.layer1.moe.a2a_disp": ("chunked", 4)}
+# the pipeline: yi-34b, one stage a rank, at (parity, forward-only, forward
+# and backward) depths; B x S in M microbatches (the forward-only run at
+# full depth takes PP_FULL_B rows)
+PP = dict(arch="yi-34b", layers=(4, 60, 60), B=4, S=2048, M=4, steps=2)
+PP_FULL_B = 8
+PP_PLAN = {"p2p": ("chunked", 4)}
+PP_SITE = "pp.tick.p2p"
+PP_LOSS_REL, PP_GRAD_BOUND = 1e-5, 1e-4       # against one rank's unpipelined model
 # Issued rows a layer's sites log in one forward and backward pass with remat:
 # gate and up ring twice (forward, recompute) and once backward each; down
 # reduce-scatter twice and once backward
@@ -745,6 +771,212 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
     res["moe"] = {"arch": base.name, "plan": MOE_PLAN, "runs": runs}
 
 
+def pp_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """yi-34b through four pipeline stages, one a rank (module docstring)."""
+    import dataclasses
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import TunedPlan, extract_workload, parse_parallel, tune
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.pipeline import transfer_ticks
+
+    t_section = time.perf_counter()
+    base = get_config(PP["arch"])
+    if smoke:              # the smoke widths, with yi-34b's GQA group of 7 kept
+        base = dataclasses.replace(get_smoke_config(PP["arch"]), num_heads=7, num_kv_heads=1,
+                                   head_dim=32, d_model=224)
+    short, full, deep = PP["layers"]
+    B, S, mb = PP["B"], 64 if smoke else PP["S"], PP["M"]
+    mesh = make_mesh((N,), ("stage",))["stage"]
+    dist.barrier()         # every rank in the group before its first p2p
+    ticks = transfer_ticks(N, mb, rank)
+
+    def batch_of(rows):
+        corpus = SyntheticCorpus(DataConfig(vocab_size=base.vocab_size, seq_len=S,
+                                            global_batch=rows))
+        return {k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(0).items()}
+
+    def rows_as_code(rows, nc, passes=("ppermute", "ppermute.bwd")) -> bool:
+        want = [(PP_SITE, op, nc, 0, nc) for op in passes for _ in ticks]
+        return [(r.site, r.op, r.num_chunks, r.matmuls, r.collectives) for r in rows] == want
+
+    def agree(value) -> list:
+        every = [None] * N
+        dist.all_gather_object(every, value)
+        return every
+
+    out = {"arch": base.name, "stages": N, "microbatches": mb, "transfer_ticks": ticks}
+
+    # 1 and 4: `short` layers, one a stage, against one rank's unpipelined model
+    cfg = base.replace(num_layers=short)
+    batch = batch_of(B)
+    want, want_loss = {}, None
+    if rank == 0:
+        whole = M.init_stage(cfg, 0, device=dev)
+        loss = M.loss_and_metrics(cfg, whole, batch)[0]    # no metrics kept: they hold
+        names, ps = zip(*whole.named_parameters())          # the graph, and the model
+        want = {n: g.cpu() for n, g in zip(names, torch.autograd.grad(loss, ps))}
+        want_loss = float(loss)
+        del whole, loss, ps
+        _release(dev)
+    model = M.init_stage(cfg, 0, rank, N, device=dev)
+    names, params = zip(*model.named_parameters())
+    per = short // N
+
+    def held(tag: str, plan: dict, nc: int) -> dict:
+        """One forward and backward of the pipelined loss under ``plan``: the
+        loss and the gradients against the unpipelined model's (each stage's
+        gathered to rank 0), the replicated leaves' gradients bit-equal on
+        every rank, the transfers' ``Issued`` rows as the code's."""
+        with C.use_runtime_plan(plan), C.record_issued() as rows, \
+                C.record_site_resolutions() as resolved, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _sync(dev)
+            t = time.perf_counter()
+            loss, _ = M.pipeline_loss(cfg, model, batch, mesh=mesh, microbatches=mb,
+                                      site=PP_SITE)
+            grads = torch.autograd.grad(loss, params)
+            _sync(dev)
+            ms = (time.perf_counter() - t) * 1e3
+        losses = agree(float(loss))
+        worst, at = 0.0, ""
+        for n, g in zip(names, grads):
+            if n.startswith("trunk.dense_layers."):      # each stage's, gathered to rank 0
+                _, _, j, rest = n.split(".", 3)
+                parts = [torch.empty_like(g) for _ in range(N)] if rank == 0 else None
+                dist.gather(g.contiguous(), parts, dst=0)
+                pairs = [(f"trunk.dense_layers.{r * per + int(j)}.{rest}", q)
+                         for r, q in enumerate(parts or [])]
+            else:
+                pairs = [(n, g)] if rank == 0 else []
+            for key, q in pairs:
+                w = want[key].to(dev)
+                err = ((q - w).abs().max() / w.abs().max()).item()
+                if err > worst:
+                    worst, at = err, key
+        marks = agree({n: digest(g) for n, g in zip(names, grads)
+                       if not n.startswith("trunk.")})
+        row = {"plan": tag, "plan_entries": len(plan), "ms": ms, "losses": losses, "rows": len(rows),
+               "rows_as_code": rows_as_code(rows, nc),
+               "resolved": sorted({(r.matched_key, r.tier, r.num_chunks) for r in resolved}),
+               "degraded_warnings": [str(c.message) for c in caught
+                                     if issubclass(c.category, C.CollectiveDegradedWarning)],
+               "replicated_bit_equal": all(m == marks[0] for m in marks)}
+        if rank == 0:
+            row.update(loss_rel=max(abs(x - want_loss) / abs(want_loss) for x in losses),
+                       grad_err_of_max_g=worst, grad_err_at=at)
+            if not (row["loss_rel"] <= PP_LOSS_REL and worst <= PP_GRAD_BOUND):
+                res["failed"].append(f"pp {tag}: loss {losses} against {want_loss}, "
+                                     f"gradient of {at} off by {worst} of max|g|")
+        if not row["rows_as_code"]:
+            res["failed"].append(f"pp {tag}: issued {[tuple(r.__dict__.values()) for r in rows]}")
+        if not row["replicated_bit_equal"]:
+            res["failed"].append(f"pp {tag}: embedding, norm or head gradients differ")
+        if len(set(losses)) != 1:
+            res["failed"].append(f"pp {tag}: the ranks' losses differ {losses}")
+        del grads, loss
+        return row
+
+    out["parity"] = {"layers": short, "batch": B, "seq": S,
+                     # the first call sets up each pair's p2p communicator
+                     "unplanned, first call": held("unplanned, first call", {}, 1),
+                     "unplanned": held("unplanned", {}, 1),
+                     "p2p x4": held("p2p x4", {k: C.CollectiveRuntime(*v)
+                                               for k, v in PP_PLAN.items()}, 4)}
+    # 4: the port's tune of yi-34b as pp:4:4, lowered and installed
+    text = None
+    if rank == 0:
+        t = time.perf_counter()
+        tuned = tune(extract_workload(base, parse_parallel(f"pp:{N}:{mb}"), seq=S,
+                                      global_batch=B), "h100-sxm")
+        text = [tuned.to_json(), (time.perf_counter() - t) * 1e3]
+    text, tune_ms = agree(text)[0]
+    tuned = TunedPlan.from_json(text)
+    lowered = tuned.runtime_plan()
+    with C.use_runtime_plan(lowered):
+        knobs, key, tier = C.resolve_runtime(PP_SITE, "p2p")
+    used = knobs.num_chunks if base.d_model % knobs.num_chunks == 0 else 1
+    out["tuned"] = {"parallel": f"pp:{N}:{mb}", "hardware": "h100-sxm", "tune_ms": tune_ms,
+                    "site": PP_SITE, "matched_key": key, "tier": tier,
+                    "num_chunks": knobs.num_chunks, "strategy": knobs.strategy,
+                    "d_model": base.d_model, "degraded": used != knobs.num_chunks,
+                    "step": held("tuned", lowered, used)}
+    del model, params, want
+    _release(dev)
+
+    # 2: all `full` layers, forward only, PP_FULL_B rows
+    cfg = base.replace(num_layers=full)
+    batch = batch_of(PP_FULL_B)
+    model = M.init_stage(cfg, 0, rank, N, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(2):
+        with torch.no_grad(), C.record_issued() as rows:
+            _sync(dev)
+            t = time.perf_counter()
+            losses.append(float(M.pipeline_loss(cfg, model, batch, mesh=mesh,
+                                                microbatches=mb, site=PP_SITE)[0]))
+            _sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    every = agree(losses[-1])
+    out["forward"] = {"layers": full, "layers_a_stage": full // N, "batch": PP_FULL_B,
+                      "seq": S, "ms": times[-1], "ms_all": times, "losses": every,
+                      "peak_bytes": peak, "peak_gib": peak / 2**30,
+                      "rows_by_tick": [[t, r.op, r.num_chunks, r.collectives]
+                                       for t, r in zip(ticks, rows)]}
+    if not rows_as_code(rows, 1, passes=("ppermute",)):
+        res["failed"].append(f"pp forward: issued {len(rows)} rows at ticks {ticks}")
+    if not (all(map(math.isfinite, every)) and len(set(every)) == 1 and peak < CARD_BYTES):
+        res["failed"].append(f"pp forward: losses {every}, peak {peak}")
+    del model
+    _release(dev)
+
+    # 3: `deep` layers, forward and backward
+    cfg = base.replace(num_layers=deep)
+    batch = batch_of(B)
+    model = M.init_stage(cfg, 0, rank, N, device=dev)
+
+    def step():
+        loss, _ = M.pipeline_loss(cfg, model, batch, mesh=mesh, microbatches=mb,
+                                  site=PP_SITE)
+        loss.backward()
+        for q in model.parameters():
+            q.grad = None
+        return float(loss)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(PP["steps"]):
+        _sync(dev)
+        t = time.perf_counter()
+        losses.append(step())
+        _sync(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    prof = device_ms_by_class(step, dev)
+    every = agree(losses[-1])
+    out["forward_backward"] = {"layers": deep, "layers_a_stage": deep // N, "batch": B,
+                               "seq": S, "ms": times[-1], "ms_all": times, "losses": every,
+                               "peak_bytes": peak, "peak_gib": peak / 2**30,
+                               "profiled_ms": prof}
+    if not (all(map(math.isfinite, every)) and len(set(every)) == 1 and peak < CARD_BYTES):
+        res["failed"].append(f"pp forward and backward: losses {every}, peak {peak}")
+    del model
+    _release(dev)
+    out["seconds"] = time.perf_counter() - t_section
+    res["pp"] = out
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -874,6 +1106,8 @@ def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> in
             deep_section(rank, dev, smoke, res)
         if "moe" in sections:
             moe_section(rank, dev, smoke, res)
+        if "pp" in sections:
+            pp_section(rank, dev, smoke, res)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
@@ -966,19 +1200,23 @@ def main() -> int:
                  for r in range(N)]
         deadline = time.monotonic() + WAIT_S
         try:
-            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
-        except subprocess.TimeoutExpired:
-            codes = None
+            # a rank that fails (out of memory, say) leaves the others blocked
+            # in NCCL until its timeout: stop them all as soon as one fails
+            while True:
+                codes = [p.poll() for p in procs]
+                if None not in codes or any(codes) or time.monotonic() > deadline:
+                    break
+                time.sleep(1.0)
         finally:
             for p in procs:
                 p.kill()
                 p.wait()
-        if codes is None or any(codes):
+        if None in codes or any(codes):
             for r, f in enumerate(logs):
                 f.seek(0)
                 print(f"--- rank {r}:\n{f.read()[-3000:]}", file=sys.stderr)
-            print(f"four_rank_check: worker exit codes {codes} (None: stopped after "
-                  f"{WAIT_S} s)", file=sys.stderr)
+            print(f"four_rank_check: worker exit codes {codes} (None: stopped, after "
+                  f"another rank failed or {WAIT_S} s)", file=sys.stderr)
             return 1
         for f in logs:
             f.close()
