@@ -44,7 +44,11 @@ Phases, each of which exits non-zero on a failed check:
      the plain versions' backward, a library call's backward (autograd of
      ``F.rms_norm``; SDPA's efficient backend, forward and backward less
      forward) and their bounds (bytes; five products as 3xTF32 at
-     495 TFLOP/s, the rate of the backward's tensor-core products);
+     495 TFLOP/s, the rate of the backward's tensor-core products); and
+     flash forward and backward at the heads a rank of llama3-8b's
+     tensor-parallel 1x4 placement runs (B 4, S 2048, 8 query over 2 KV
+     heads, h 128), each against its plain version, beside SDPA's efficient
+     backend and its bound, entries of their own in the kernels line;
   4. serving, one model at a time, each freed before the next: ``llama3-8b``
      (eight ragged prompts of 384-512 tokens), ``zamba2-7b`` and
      ``rwkv6-1.6b`` (eight prompts of 512 tokens: the recurrent families need
@@ -108,12 +112,21 @@ Phases, each of which exits non-zero on a failed check:
      ``--tuned-plan`` the tp:8 plan the port tunes for h100-sxm, and ``--ckpt``: step time,
      tokens/s, peak memory, the checkpoint's write and read seconds; gated
      on finite losses, every parameter moving, the kernels' launches and
-     each site's forward and backward ``Issued`` rows equal to the code's;
+     each site's forward and backward ``Issued`` rows equal to the code's,
+     and no placement all-reduce (attention's, the vocabulary's) issued on
+     the model axis of one rank;
      the checkpoint restored by ``train.checkpoint`` must equal the trained
      parameters, also past a torn newer step; then one sited forward and
-     backward through the collectives' backwards beside the unsited one
-     from the same weights (B = 1, S = 2048): the loss and every gradient
-     within 1e-5 (of max|g|).
+     backward of the model placed on the 1-rank (data, model) mesh, through
+     the collectives' backwards, beside the unsited one from the same
+     weights (B = 1, S = 2048): the loss and every gradient within 1e-5 (of
+     max|g|), no placement all-reduce, its flash launches counted for the
+     1x4-rank entries of phase 3 (at the 1-rank group's 32/8 heads: the
+     same instantiations, fp32, h 128, causal, with lse).  On one rank
+     nothing is split over ``model``, so this phase runs none of the
+     placement's split code (a rank's heads, the vocabulary-parallel
+     embedding and loss, the all-reduces): that runs only on four cards,
+     in ``tools/four_rank_check.py``.
   10. the MoE family: the kernels at the path's new shapes against their
      plain versions (RMSNorm over qk_norm's rows of head_dim 128, forward
      and backward; flash attention at a GQA group of 1, Hq = Hkv = 16,
@@ -198,7 +211,9 @@ phases 11 and 12, forward and backward at h = 80 and with ALiBi, as
 entries of their own with the launches of the models that run them,
 served and trained, which the base flash entries do not count again; the
 h = 80 entries carry their window checks; phase 13's entries at yi-34b's
-shapes carry the pipelined run's launches) and, last, the device line.
+shapes carry the pipelined run's launches, phase 3's at a 1x4 rank's heads
+those of phase 9's placed step at its 32/8 heads, the same instantiations,
+since no phase here runs 8/2 heads) and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -538,6 +553,7 @@ def flash_timed(gen, B, S, Hq, Hkv, h) -> dict:
 # the backward kernels (phase 3): each against autograd of its plain version,
 # timed at llama3-8b's training shapes (phase 8: B = 4, S = 2048)
 TRAIN_B, TRAIN_S = 4, 2048
+TP_RANKS = 4               # the model axis of the four-card tensor-parallel placement
 
 
 def grads_of(fn, inputs, dout):
@@ -2029,6 +2045,14 @@ def expected_issued(chunks: dict, passes: int) -> dict:
             for site, nc in chunks.items()}
 
 
+def placement_sites(rows) -> list:
+    """The sites of the placement's all-reduces (attention's rows, the shared
+    experts', the vocabulary's) among ``Issued`` rows: none on a model axis
+    of one rank."""
+    return sorted({r.site for r in rows if r.site.startswith(("tp.embed", "tp.ce"))
+                   or ".attn." in r.site or ".shared." in r.site})
+
+
 def fsdp_gathers(rows) -> dict:
     """``{site: {op: [calls, collectives issued]}}`` of the ``fsdp.*`` rows."""
     out: dict = {}
@@ -2063,8 +2087,11 @@ def launch_phase(card: str) -> dict:
     3 steps), ``--mesh 1x1``, the tp:8 plan the port tunes for h100-sxm
     and ``--ckpt``; (b) the checkpoint restored with ``train.checkpoint``,
     equal to the trained parameters, and again past a corrupted newest
-    step; (c) one sited forward and backward beside the unsited one from
-    the same weights (B = 1, S = 2048) under ``PLAN_TP``."""
+    step; (c) one sited forward and backward of the model placed on the
+    1-rank (data, model) mesh beside the unsited one from the same weights
+    (B = 1, S = 2048) under ``PLAN_TP``, its kernels' launches counted.
+    Neither (a) nor (c) may issue a placement all-reduce (``tp.*.attn.ar``,
+    ``tp.embed.ar``, ``tp.ce.ar``) on a model axis of one rank."""
     from repro_torch.convert import params_to_jax
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     from repro_torch.launch import train as LT
@@ -2122,6 +2149,8 @@ def launch_phase(card: str) -> dict:
         check(not still, f"launch: parameters that did not move: {still[:5]}")
         check(launches == want, f"launch: launches {launches}, expected {want}")
         check(by_site == want_sites, f"launch: issued {by_site}, expected {want_sites}")
+        check(not placement_sites(issued), f"launch: the placement issued "
+                                           f"{placement_sites(issued)} on a model axis of 1")
         check(gathers == want_gathers,
               f"launch: FSDP gathers {gathers}, expected {want_gathers} (none a collective)")
 
@@ -2175,16 +2204,22 @@ def launch_phase(card: str) -> dict:
     names, params = zip(*model.named_parameters())
     loss_u = M.loss_and_metrics(cfg, model, b)[0]
     g_u = torch.autograd.grad(loss_u, params)
-    model_mesh = make_mesh((1, 1), ("data", "model"))["model"]
+    meshes = make_mesh((1, 1), ("data", "model"))
+    model_mesh = meshes["model"]
+    M.shard_(cfg, model, meshes)     # placed on the 1-rank group: every leaf stays whole
     plan_tp = {k: collectives.CollectiveRuntime(*v) for k, v in PLAN_TP.items()}
+    ops.reset_launches()
     with collectives.use_runtime_plan(plan_tp), collectives.record_issued() as rows:
         loss_s = M.loss_and_metrics(cfg, model, b, mesh=model_mesh)[0]
         g_s = torch.autograd.grad(loss_s, params)
     torch.cuda.synchronize()
+    out["placed_launches"] = dict(ops.LAUNCHES)
     loss_rel = abs(loss_s.item() - loss_u.item()) / abs(loss_u.item())
     err, at = max((((gs - gu).abs().max() / gu.abs().max().clamp_min(1e-30)).item(), n)
                    for n, gs, gu in zip(names, g_s, g_u))
-    sited = issued_by_site(rows)
+    check(not placement_sites(rows), f"launch sited step: the placement issued "
+                                     f"{placement_sites(rows)} on a model axis of 1")
+    sited = issued_by_site([r for r in rows if r.site.startswith("tp.")])
     want_sited = expected_issued({s: nc for s, (_, nc) in PLAN_TP.items()}, 1)
     say(f"launch sited step ({cfg.name}, {LAUNCH_LAYERS} layers, B={SITED_STEP['B']}, "
         f"S={SITED_STEP['S']}, PLAN_TP on the 1-rank group) against the unsited: loss "
@@ -2758,6 +2793,20 @@ FAMILY_TRAIN = (("phi2-2b", None, 4, 2048), ("h2o-danube-1.8b", None, 2, 8192),
 FAMILY_TRAIN_PROFILE = SWA_ARCH
 
 
+def tp_rank_flash_phase(gen) -> list:
+    """Phase 3's entries at the shape a rank of llama3-8b's tensor-parallel
+    1x4 placement runs (B 4, S 2048, its 8 of 32 query heads over 2 of 8
+    KV heads, h 128, causal fp32): the forward and the backward against
+    their plain versions, timed beside them, SDPA's efficient backend and
+    their bounds."""
+    cfg = get_config(PLAN_ARCH)
+    shape = (TRAIN_B, TRAIN_S, cfg.num_heads // TP_RANKS, cfg.num_kv_heads // TP_RANKS,
+             cfg.head_dim, 0, False)
+    tag = f"({PLAN_ARCH} 1x{TP_RANKS} rank, {shape[2]}/{shape[3]} heads)"
+    return [flash_variant_phase(gen, f"flash_attention {tag}", *shape),
+            flash_bwd_variant_phase(gen, f"flash_attention_bwd {tag}", *shape)]
+
+
 def flash_bwd_variant_phase(gen, name, B, S, Hq, Hkv, h, window, alibi) -> dict:
     """The flash backward at a family's training shape, causal fp32, with a
     window (0 = none) and ALiBi as given: from the forward's o and lse, held
@@ -3187,6 +3236,8 @@ def main() -> int:
     kernels[3]["ptxas"] = wkv6_ptxas
     kernels[4]["ptxas"] = rmsnorm_bwd_ptxas
     kernels[5]["ptxas"] = flash_bwd_ptxas
+    # the heads a rank of llama3-8b's tensor-parallel 1x4 placement runs
+    tp_kernels = tp_rank_flash_phase(gen)
 
     import torch.distributed as dist
 
@@ -3263,6 +3314,18 @@ def main() -> int:
     kernels += families["kernels"] + families_train["kernels"]
     # phase 13's kernels at yi-34b's shapes, with the pipelined run's launches
     kernels += pipelined["kernels"]
+    # a 1x4 rank's heads, with the launches of phase 9's placed step: the same
+    # instantiations at the 1-rank group's 32/8 heads (8/2 heads run only on a
+    # model axis of 4, in tools/four_rank_check.py)
+    for k in tp_kernels:
+        kernel = "flash_attention_bwd" if k["name"].startswith("flash_attention_bwd") \
+            else "flash_attention"
+        k["launches_by_model"] = {f"{PLAN_ARCH} placed step (phase 9, 1-rank group, "
+                                  f"32/8 heads, the same instantiation)":
+                                  launched["placed_launches"][kernel]}
+        k["launches"] = launched["placed_launches"][kernel]
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main path")
+    kernels += tp_kernels
     say(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

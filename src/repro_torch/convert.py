@@ -22,9 +22,8 @@ inverse, and ``opt_state_from_jax`` converts the reference's AdamW state
 Placements: with ``mesh=`` the two ``*_from_jax`` give one rank's state
 dict of a model placed on that mesh (``models.model.shard_``): ``mesh`` is
 ``{"data": Mesh, "model": Mesh}``, and each leaf is cut to this rank's
-slice of every dim those axes split (``parallel.sharding.place``); one
-``Mesh`` is the model axis alone, which cuts the trunk's MLP weights and
-experts.
+slice of every dim those axes split (``parallel.sharding.place``, by the
+config's heads); one ``Mesh`` is the model axis alone.
 ``params_to_jax`` of a placed model gathers each leaf over the axes that
 split it (every rank of them must call it), one leaf at a time, each to
 the host before the next is gathered.  ``reference_layout`` gives each
@@ -96,7 +95,7 @@ def params_from_jax(cfg, tree, mesh=None) -> Dict[str, torch.Tensor]:
             out[name], layout[name] = _tensor(path, a[idx] if lead else a), leaf
     if mesh is None:
         return out
-    place = sharding.place(layout, mesh)
+    place = sharding.place(layout, mesh, heads=(cfg.num_heads, cfg.num_kv_heads))
     return {k: place.local(k, v) for k, v in out.items()}
 
 

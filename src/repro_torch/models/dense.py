@@ -26,12 +26,17 @@ with one.  A MoE layer's experts: the dispatch and combine all-to-alls of
 ``serve.layer{i}.moe.a2a_*`` with one (i global, as
 ``core.extract.extract_decode_workload`` names them).  Each site resolves
 its knobs against the active plan when it runs, so one plan can drive two
-layers to different chunk structure.  Attention stays replicated on
-every rank; each rank holds a column shard of ``gate``/``up`` and a row
-shard of ``down`` of a dense MLP (``shard_trunk``) and runs its E/n
-experts of a MoE layer, and the sharded outputs are gathered back explicitly
+layers to different chunk structure.  Each rank holds a column shard of
+``gate``/``up`` and a row shard of ``down`` of a dense MLP
+(``shard_trunk``) and runs its E/n experts of a MoE layer, and the
+sharded outputs are gathered back explicitly
 (``collectives.all_gather_rows``) where GSPMD gathers them implicitly in
-the reference.
+the reference.  Attention is whole on every rank of a served trunk; on a
+placed one (below) each rank runs its heads and the rows of ``o`` they
+feed, summed over the model axis at ``tp.layer{i}.attn.ar``
+(``layers.attention``), and a MoE layer's shared experts run
+column-then-row at ``ep.layer{j}.moe.shared.ar`` (``layers.moe_block``):
+one all-reduce each, unchunked, as GSPMD's in the reference.
 
 Training: ``trunk_fwd(remat=True)`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant), so the backward recomputes a
@@ -40,9 +45,10 @@ on the sited path the recompute issues the layer's forward collectives
 again, on every rank in the same order (backward layer order).  Every
 collective helper has a backward (``parallel.collectives``), so the sited
 trunk trains at any mesh size.  For training, ``models.model.shard_``
-places the model in place: each layer's MLP weights and experts become
-this rank's shards over ``model`` (under the same state-dict names), which
-the sited trunk runs (``Trunk.mlp_mesh``); serving keeps the whole
+places the model in place: each layer's attention heads, MLP weights,
+shared and routed experts become this rank's shards over ``model`` (under
+the same state-dict names), which the sited trunk runs
+(``Trunk.mlp_mesh``); serving keeps the whole
 weights and hands ``trunk_fwd`` copies (``shard_trunk``).  On a model
 placed over ``data`` (FSDP) each layer's weights are this rank's slices
 and ``trunk_fwd``'s ``gather`` gathers them inside the layer's checkpoint,
@@ -123,7 +129,8 @@ def tp_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
     chunk structure resolved against the active plan; the sequence-sharded
     output leaves gathered back to (B, S, D) (``all_gather_rows``).  GELU
     (the reference's ``tp_mlp``): this rank's columns of ``up``'s bias are
-    added before the GELU, ``down``'s bias once, after the reduce-scatter.
+    added before the GELU, ``down``'s bias once, to the gathered rows (so
+    its gradient is the whole sequence's on every rank).
     Numerically ``layers.mlp``, and differentiable."""
     if kind not in L.MLP_KINDS:
         raise NotImplementedError(f"mlp_kind {kind!r} arrives with {L.OTHER_FAMILIES}")
@@ -134,10 +141,8 @@ def tp_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
              * ring_ag_matmul(xl, p.up.weight.T, m, site=f"{site}.ag"))
     else:
         h = L.gelu(ring_ag_matmul(xl, p.up.weight.T, m, site=f"{site}.ag") + p.up.bias)
-    y = mm_reduce_scatter(h, p.down.weight.T, m, site=f"{site}.rs")
-    if kind == "gelu":
-        y = y + p.down.bias
-    return all_gather_rows(y, m)
+    y = all_gather_rows(mm_reduce_scatter(h, p.down.weight.T, m, site=f"{site}.rs"), m)
+    return y + p.down.bias if kind == "gelu" else y
 
 
 def serve_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
@@ -200,18 +205,20 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[Dict[str, object]], *, backend: Optional[str] = None,
               mesh=None, site: str = "", serve: bool = False, ff=None,
               experts: Optional[int] = None, data=None, groups: int = 1,
+              attn_site: str = "tp.attn",
               ) -> Tuple[torch.Tensor, Optional[Dict[str, object]], torch.Tensor]:
     """One decoder layer.  Returns (x, updated cache or None, aux).
     ``mesh`` switches the feed-forward onto the explicit plan-aware
     collectives, with ``ff`` this rank's shard of it (default ``p.mlp`` or
     ``p.moe``, the whole), ``site`` the layer's SiteId prefix and ``serve``
-    marking the decode-shape layout of a dense MLP.  A MoE layer takes
-    ``experts`` (its padded expert count), ``data`` and ``groups``
-    (``layers.moe_block``)."""
+    marking the decode-shape layout of a dense MLP; attention split by
+    heads over ``mesh`` (a placed model's) sums its rows at
+    ``{attn_site}.ar``.  A MoE layer takes ``experts`` (its padded expert
+    count), ``data`` and ``groups`` (``layers.moe_block``)."""
     x = CT.btd(x)
     h = L.norm(p.ln1, x, cfg.norm_kind, backend=backend)
     attn_out, new_cache = L.attention(p.attn, cfg, h, positions, cache=cache,
-                                      backend=backend)
+                                      backend=backend, mesh=mesh, site=attn_site)
     x = x + attn_out
     use_moe = hasattr(p, "moe")
     if ff is None:
@@ -362,7 +369,7 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
             x, _, a = layer_fwd(lq, cfg, x, positions, lc, backend=backend, mesh=mesh,
                                 site=site, serve=caches is not None, ff=ff,
                                 experts=lp.moe.experts if use_moe else None,
-                                data=data, groups=groups)
+                                data=data, groups=groups, attn_site=f"tp.layer{i}.attn")
             return x, a
 
         if remat and caches is None:

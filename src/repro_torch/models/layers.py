@@ -202,11 +202,45 @@ def _gqa_scores_to_out(q, k, v, bias, scale):
     return out.to(q.dtype)
 
 
+def _rank_heads(p: Attention, cfg, x: torch.Tensor, m, site: str):
+    """This rank's share of attention split by heads over ``m``: its query
+    heads are the contiguous block ``q0 ... q0 + hq - 1`` (laid out KV-head
+    major, query head ``n·G + g`` reads KV head ``n``).  ``x`` enters
+    through ``copy_to``.  Where k and v are whole on the model axis
+    (``sharding``: m does not divide the KV heads, and the block lies in
+    one group) the rank projects the one KV head its block reads from the
+    whole weights, each of which enters through ``copy_to`` too: every
+    rank's share of their gradient is summed.  Returns (q, k, v, q0)."""
+    B, S, _ = x.shape
+    h, G = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    hq = p.q.weight.shape[0] // h
+    q0 = m.rank * hq
+    x = C.copy_to(x, m, site=f"{site}.ar.bwd")
+    q = linear(p.q, x).view(B, S, hq, h)
+    if p.k.weight.shape[0] // h < cfg.num_kv_heads:          # split by heads too
+        k, v = linear(p.k, x), linear(p.v, x)
+        return q, k.view(B, S, -1, h), v.view(B, S, -1, h), q0
+    rows = slice(q0 // G * h, (q0 // G + 1) * h)
+    k, v = (F.linear(x, C.copy_to(lin.weight, m, site=f"{site}.kv.ar.bwd")[rows],
+                     None if lin.bias is None
+                     else C.copy_to(lin.bias, m, site=f"{site}.kv.ar.bwd")[rows])
+            for lin in (p.k, p.v))
+    return q, k.view(B, S, 1, h), v.view(B, S, 1, h), q0
+
+
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
-              cache: Optional[Cache] = None, backend: Optional[str] = None
-              ) -> Tuple[torch.Tensor, Optional[Cache]]:
+              cache: Optional[Cache] = None, backend: Optional[str] = None,
+              mesh=None, site: str = "tp.attn") -> Tuple[torch.Tensor, Optional[Cache]]:
     """Causal GQA self-attention, with ``cfg.sliding_window`` and ALiBi
     where the config has them.  Returns (out, updated cache).
+
+    The head counts come from the weights: where ``p`` holds this rank's
+    heads of attention split over the model axis ``mesh`` (a placed model,
+    ``models.model.shard_``), the rank computes its heads (``_rank_heads``;
+    ALiBi with its slice of the slopes), its rows of ``o``'s product, and
+    the sum over the ranks (``collectives.reduce_from`` at ``{site}.ar``),
+    to which ``o``'s bias is added once.  Whole weights take the route
+    below, unchanged.
 
     * ``cache`` None -> the whole sequence at once, through the flash route.
       ``forward_hidden`` gives positions 0..S-1 here, so the kernel's causal
@@ -232,19 +266,41 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     """
     check_attention_supported(cfg)
     B, Sq, _ = x.shape
-    N, G, h = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
-    q = linear(p.q, x).view(B, Sq, N * G, h)
-    k = linear(p.k, x).view(B, Sq, N, h)
-    v = linear(p.v, x).view(B, Sq, N, h)
+    h = cfg.head_dim
+    placed = p.q.weight.shape[0] != cfg.q_dim
+    if placed:
+        m = as_mesh(mesh)
+        if cache is not None:
+            raise ValueError("attention split over 'model' serves no cache: the engines "
+                             "serve whole models (ROADMAP.md, queue 1 item 8)")
+        if m.size * p.q.weight.shape[0] != cfg.q_dim:
+            raise ValueError(f"attention holds {p.q.weight.shape[0] // h} of "
+                             f"{cfg.num_heads} query heads: run it on its model axis")
+        q, k, v, q0 = _rank_heads(p, cfg, x, m, site)
+    else:
+        N, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        q = linear(p.q, x).view(B, Sq, N * G, h)
+        k = linear(p.k, x).view(B, Sq, N, h)
+        v = linear(p.v, x).view(B, Sq, N, h)
+        q0 = 0
     if cfg.qk_norm:            # per head, over head_dim, before RoPE
-        q = norm(p.q_norm, q, "rmsnorm", backend=backend)
-        k = norm(p.k_norm, k, "rmsnorm", backend=backend)
+        qs, ks = p.q_norm.scale, p.k_norm.scale
+        if placed:             # whole scales that each rank uses on its heads
+            qs, ks = (C.copy_to(t, m, site=f"{site}.qk_norm.ar.bwd") for t in (qs, ks))
+        q = ops.rmsnorm(q, qs, backend=backend, eps=1e-5)
+        k = ops.rmsnorm(k, ks, backend=backend, eps=1e-5)
     if cfg.pos_kind == "rope":
         q, k = apply_rope(q, k, positions, head_dim=h, fraction=cfg.rope_fraction,
                           theta=cfg.rope_theta)
-    slopes = _slopes_on(cfg.num_heads, x.device) if cfg.pos_kind == "alibi" else None
+    slopes = None
+    if cfg.pos_kind == "alibi":
+        slopes = _slopes_on(cfg.num_heads, x.device)[q0:q0 + q.shape[2]]
     flash = dict(causal=True, backend=backend, window=cfg.sliding_window,
                  alibi_slopes=slopes)
+    if placed:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **flash)
+        y = C.reduce_from(F.linear(out.reshape(B, Sq, -1), p.o.weight), m, site=f"{site}.ar")
+        return (y if p.o.bias is None else y + p.o.bias), None
 
     new_cache = None
     if cache is None:
@@ -522,7 +578,11 @@ def moe_block(p, cfg, x: torch.Tensor, *, capacity_factor: Optional[float] = Non
     at their global slots.  ``groups`` routes each of that many equal
     runs of rows alone, with its own capacity (the continuous engine's
     slots, which the reference vmaps over); their buffers lie side by side
-    along the capacity axis, and ``aux`` is the groups' mean."""
+    along the capacity axis, and ``aux`` is the groups' mean.  Shared
+    experts split over ``mesh`` (a placed model's) run column-then-row,
+    their partial outputs summed at ``{site}.shared.ar``
+    (``collectives.reduce_from``) before the shared gate, which is whole,
+    multiplies them."""
     B, S, D = x.shape
     T = B * S
     E_real, k = cfg.num_experts, cfg.top_k
@@ -590,7 +650,11 @@ def moe_block(p, cfg, x: torch.Tensor, *, capacity_factor: Optional[float] = Non
     out = (gathered * w[:, None]).view(T, k, D).sum(dim=1)
     shared = getattr(p, "shared", None)
     if shared is not None:
-        sh = mlp(shared, xt, "swiglu")
+        split = shared.up.weight.shape[0] < (cfg.shared_d_ff
+                                             or cfg.moe_d_ff * cfg.num_shared_experts)
+        m = as_mesh(mesh if split else None)      # a placed model's shards
+        sh = C.reduce_from(mlp(shared, C.copy_to(xt, m, site=f"{site}.shared.ar.bwd"),
+                               "swiglu"), m, site=f"{site}.shared.ar")
         gate = getattr(p, "shared_gate", None)
         if gate is not None:
             sh = sh * torch.sigmoid(linear(gate, xt))

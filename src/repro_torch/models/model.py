@@ -26,6 +26,7 @@ port that brings them.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Dict, Optional, Tuple
 
@@ -37,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.convert import reference_layout
 from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import dense, layers as L, rwkv6, zamba2
-from repro_torch.parallel import constraints as CT, sharding
+from repro_torch.parallel import collectives, constraints as CT, sharding
 from repro_torch.parallel.pipeline import pipeline_apply
 
 Caches = Dict[str, object]
@@ -59,16 +60,19 @@ def shard_(cfg, model: "Model", mesh) -> "Model":
     """Place ``model`` in place on ``mesh`` for training.  ``mesh`` is this
     rank's ``{"data": Mesh, "model": Mesh}`` (``launch.mesh.make_mesh``):
     every parameter becomes this rank's slice of the reference's placement
-    (``parallel.sharding.place``: the F dims over ``data`` where they divide;
-    the MLP's and the experts' T dims over ``model``, so ``mlp.gate.weight``
-    is (d_ff/m, D/d) and ``moe.gate`` (E/m, D/d, f)); the norm scales, the
-    routers, the shared experts, and attention's, the embedding's and the
-    head's T dims, stay whole.  One ``Mesh`` is the model axis alone: the
-    feed-forward shards only.  ``model.placement`` records which axis
-    splits which dim (``sharding.Placement``); ``forward_hidden`` and the
-    loss gather each data-split weight where it is used, the trunk runs its
-    shards on the model axis (``trunk.mlp_mesh``), and its routers route
-    the global batch over ``data``."""
+    (``parallel.sharding.place``: the F dims over ``data`` where they
+    divide; the T dims over ``model``: attention by whole heads, so
+    ``attn.q.weight`` is (Hq/m·h, D/d), the MLP's and the shared experts'
+    hidden units, the experts (``moe.gate`` is (E/m, D/d, f)) and the
+    vocabulary of the embedding and the head (``embed.weight`` is (V/m,
+    D/d))); the norm scales, the routers, the shared gate and the biases
+    of ``o`` and ``down`` stay whole.  One ``Mesh`` is the model axis
+    alone.  ``model.placement`` records which axis splits which dim
+    (``sharding.Placement``); ``forward_hidden`` and the loss gather each
+    data-split weight where it is used, run the vocabulary's slices
+    (``_embed``, ``chunked_ce``), the trunk runs its shards on the model
+    axis (``trunk.mlp_mesh``), and its routers route the global batch over
+    ``data``.  A placed model trains; it serves no cache."""
     if cfg.family not in DECODER:
         later = (RECURRENT_TRAINING if cfg.family in ("ssm", "hybrid")
                  else _LATER.get(cfg.family, "a later slice of the port (ROADMAP.md, "
@@ -77,7 +81,8 @@ def shard_(cfg, model: "Model", mesh) -> "Model":
                                   f"arrives with {later}")
     if model.placement is not None:
         raise ValueError("the model is already sharded: place it once")
-    place = sharding.place(reference_layout(cfg, model), mesh)
+    place = sharding.place(reference_layout(cfg, model), mesh,
+                           heads=(cfg.num_heads, cfg.num_kv_heads))
     with torch.no_grad():
         for name, p in list(model.named_parameters()):
             t = place.local(name, p)
@@ -216,9 +221,11 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     (the continuous engine: the reference vmaps over its slots)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    if caches is not None:
+        _check_unplaced(p)
     t0 = caches["pos"] if caches is not None else 0
     positions = _positions(cfg, B, S, t0, tokens.device)
-    x = F.embedding(tokens, _weight(p, "embed.weight", "fsdp.embed.ag_params"))
+    x = _embed(p, tokens)
     tc = caches["trunk"] if caches is not None else None
     x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh,
                                 shards=shards, remat=remat, route_rows=route_rows)
@@ -227,10 +234,42 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
 
 
 def _weight(p: Model, name: str, site: str) -> torch.Tensor:
-    """The parameter ``name`` of ``p`` whole: gathered over ``data`` (logged
-    at ``site``) when the placement splits it there."""
+    """The parameter ``name`` of ``p``, gathered over ``data`` (logged at
+    ``site``) when the placement splits it there: whole, or this rank's
+    slice over ``model``."""
     w = p.get_parameter(name)
     return w if p.placement is None else p.placement.gather(name, w, site)
+
+
+def _vocab_mesh(p: Model, name: str):
+    """The model axis that splits the vocabulary of ``name`` (the embedding
+    or the head), or None."""
+    place = p.placement
+    if place is None or "model" not in place.axes(name):
+        return None
+    return place.meshes["model"]
+
+
+def _check_unplaced(p: Model) -> None:
+    if p.placement is not None and any("model" in p.placement.axes(n)
+                                       for n in p.placement.specs):
+        raise ValueError("a model placed over 'model' trains; the engines serve whole "
+                         "models (ROADMAP.md, queue 1 item 8)")
+
+
+def _embed(p: Model, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding of ``tokens``.  With the table's vocabulary split over
+    ``model`` (rank ``r`` holding ids ``r·V/m ...``), each rank looks up the
+    ids in its range, zeros the rest, and the ranks' rows are summed at
+    ``tp.embed.ar`` (``collectives.reduce_from``)."""
+    w = _weight(p, "embed.weight", "fsdp.embed.ag_params")
+    m = _vocab_mesh(p, "embed.weight")
+    if m is None:
+        return F.embedding(tokens, w)
+    v0 = m.rank * w.shape[0]
+    mine = (tokens >= v0) & (tokens < v0 + w.shape[0])
+    rows = F.embedding(torch.where(mine, tokens - v0, 0), w) * mine[..., None].to(w.dtype)
+    return collectives.reduce_from(rows, m, site="tp.embed.ar")
 
 
 def _layer_gather(p: Model):
@@ -281,11 +320,9 @@ def _unembed(cfg, p: Model, x: torch.Tensor) -> torch.Tensor:
 # materialized; each chunk's logits are recomputed in the backward)
 # ---------------------------------------------------------------------------
 
-def _chunk_ce(cfg, w, xb, tb, mb) -> torch.Tensor:
+def _chunk_ce(cfg, w, xb, tb, mb, mesh) -> torch.Tensor:
     logits = CT.logits(_logits(cfg, w, CT.btd(xb)).float())
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, tb[..., None])[..., 0]
-    return ((lse - tgt) * mb).sum()
+    return collectives.vocab_parallel_ce(logits, tb, mb, mesh)
 
 
 def chunked_ce(cfg, p: Model, x, targets, mask, *, chunk: int = 256) -> torch.Tensor:
@@ -296,7 +333,12 @@ def chunked_ce(cfg, p: Model, x, targets, mask, *, chunk: int = 256) -> torch.Te
     exist at a time, in the backward too; the chunks' sums add up in order
     in fp32, as the reference's scan does.  The unembedding weight is
     gathered once for all chunks (a placed model's head is split over
-    ``data``), and its gradient reduce-scattered once."""
+    ``data``), and its gradient reduce-scattered once.  A head whose
+    vocabulary is split over ``model`` gives each rank its (B, chunk, V/m)
+    logits, whose cross-entropy is vocab-parallel
+    (``collectives.vocab_parallel_ce`` at ``tp.ce.ar``; remat's recompute
+    issues each chunk's sums again, in the same order on every rank); x
+    enters through ``copy_to`` at ``tp.ce.ar.bwd``."""
     S = x.shape[1]
     pad = (-S) % chunk
     if pad:
@@ -305,11 +347,14 @@ def chunked_ce(cfg, p: Model, x, targets, mask, *, chunk: int = 256) -> torch.Te
         mask = F.pad(mask, (0, pad))
     targets = targets.long()
     w = _head(cfg, p)
+    m = as_mesh(_vocab_mesh(p, "embed.weight" if cfg.tie_embeddings else "head.weight"))
+    x = collectives.copy_to(x, m, site="tp.ce.ar.bwd")
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, x.shape[1], chunk):
         sl = slice(c0, c0 + chunk)
-        tot = tot + checkpoint(_chunk_ce, cfg, w, x[:, sl], targets[:, sl], mask[:, sl],
-                               use_reentrant=False, preserve_rng_state=False)
+        tot = tot + checkpoint(contextvars.copy_context().run, _chunk_ce, cfg, w, x[:, sl],
+                               targets[:, sl], mask[:, sl], m, use_reentrant=False,
+                               preserve_rng_state=False)
     return tot / torch.clamp(mask.sum(), min=1.0)
 
 
@@ -400,6 +445,7 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
     rank's feed-forward shards); ``route_rows`` as in ``forward_hidden``.
     A sliding-window model's ring of ``window`` slots wraps; any other cache
     raises at a position it does not hold."""
+    _check_unplaced(p)
     B = tokens.shape[0]
     t0 = caches["pos"]
     if torch.is_tensor(t0):
@@ -410,7 +456,7 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
             raise ValueError(f"KV cache of {W} slots cannot take a token at "
                              f"positions {t0.tolist()}")
     positions = _positions(cfg, B, 1, t0, tokens.device)
-    x = F.embedding(tokens, _weight(p, "embed.weight", "fsdp.embed.ag_params"))
+    x = _embed(p, tokens)
     x, new_tc, _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"], backend=backend,
                               mesh=mesh, shards=shards, route_rows=route_rows)
     x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)

@@ -45,7 +45,10 @@ The backwards issue the transposed collectives: the ring all-gather
 matmul's dx is a chunked reduce-scatter of ``dy·wᵀ`` and its dw a second
 ring; the matmul reduce-scatter's backward all-gathers ``dy`` chunk by
 chunk; the all-to-all's is the inverse all-to-all; ``shard_rows`` and
-``all_gather_rows`` are each other's transposes.  A backward uses the
+``all_gather_rows`` are each other's transposes, and so are ``copy_to`` and
+``reduce_from``, the unchunked all-reduces of a column-then-row split
+(attention's heads, the shared experts, the vocabulary, whose
+cross-entropy is ``vocab_parallel_ce``).  A backward uses the
 chunk count its forward resolved (saved on the autograd context: autograd
 may run it on its own device thread, where the plan's context variables
 are not set), keeps the forward's overlap (hop or chunk k+1 in flight
@@ -822,6 +825,109 @@ def sum_over(a: torch.Tensor, mesh) -> torch.Tensor:
     it is ``a``.  Not a plan site; it logs no ``Issued`` row."""
     m = as_mesh(mesh)
     return a if m.size == 1 else _SumOver.apply(a, m)
+
+
+# ---------------------------------------------------------------------------
+# the conjugate pair of a column-then-row split over ``model`` (Megatron's f
+# and g): attention's heads, the shared experts, the vocabulary.  Each is one
+# unchunked all-reduce, as GSPMD's implicit one in the reference, which takes
+# no plan either: neither calls ``runtime_for``, so a plan's
+# ``tp.layer{i}.attn.ar.*`` entries change nothing here (plan-binding them is
+# a departure from the reference, ROADMAP queue 1 item 9).  Each logs an
+# ``Issued`` row where it issues its all-reduce; at mesh size 1 neither
+# issues nor logs anything.
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, site, log):
+        ctx.m, ctx.site, ctx.log = m, site, log
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        work, out = _all_reduce(g, ctx.m)
+        _wait(work)
+        _issued(ctx.site, "all_reduce.bwd", 1, 0, int(work is not None), ctx.log)
+        return out, None, None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, site, log):
+        work, out = _all_reduce(x, m)
+        _wait(work)
+        _issued(site, "all_reduce", 1, 0, int(work is not None), log)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, *, site: str = "tp.ar.bwd") -> torch.Tensor:
+    """``x``, replicated over the mesh, entering work that each rank does on
+    its own columns (heads, hidden units, vocabulary rows): the identity
+    forward; the backward sums the ranks' partial gradients, so every rank
+    gets the whole one (logged at ``site``, op ``all_reduce.bwd``)."""
+    m = as_mesh(mesh)
+    return x if m.size == 1 else _CopyTo.apply(x, m, site, _ISSUED_LOG.get())
+
+
+def reduce_from(x: torch.Tensor, mesh, *, site: str = "tp.ar") -> torch.Tensor:
+    """The sum over the mesh of each rank's partial ``x`` (a row-parallel
+    product's output), logged at ``site`` (op ``all_reduce``); what follows
+    is replicated, so the backward is the identity.  Not ``sum_over``, whose
+    backward sums the cotangent again: here that would give m times the
+    gradient."""
+    m = as_mesh(mesh)
+    return x if m.size == 1 else _ReduceFrom.apply(x, m, site, _ISSUED_LOG.get())
+
+
+class _VocabCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, targets, mask, m, v0, site, log):
+        Vl = logits.shape[-1]
+        mx = logits.amax(-1)
+        if m.group is not None:
+            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=m.group)
+        e = torch.exp(logits - mx[..., None])
+        local = (targets >= v0) & (targets < v0 + Vl)
+        idx = (targets - v0).clamp(0, Vl - 1)
+        tgt = logits.gather(-1, idx[..., None])[..., 0] * local
+        work, both = _all_reduce(torch.stack([e.sum(-1), tgt]), m)
+        _wait(work)
+        _issued(site, "vocab_ce", 1, 0, 2 * int(work is not None), log)
+        se, tgt = both.unbind(0)
+        ctx.save_for_backward(e, se, idx, local, mask)
+        return ((mx + torch.log(se) - tgt) * mask).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, local, mask = ctx.saved_tensors
+        grad = e / se[..., None]
+        grad.scatter_add_(-1, idx[..., None], -local[..., None].to(grad.dtype))
+        return grad * (mask * g)[..., None], None, None, None, None, None, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                      mesh, *, site: str = "tp.ce.ar") -> torch.Tensor:
+    """The masked sum of cross-entropies of ``logits`` (..., V/m) fp32, this
+    rank's contiguous block of the vocabulary (rank ``r`` holding ids
+    ``r·V/m ...``), against ``targets`` (...) of the whole vocabulary: the
+    max over the mesh (it carries no gradient: the lse does not move with
+    it), then the sums of the exponentials and of the target logit (from
+    the rank that holds it) in one all-reduce; the result is equal on every
+    rank.  Its backward is softmax minus one-hot on the local columns,
+    scaled by the mask; the logits' input must enter through ``copy_to``.
+    Logs one row at ``site`` (op ``vocab_ce``, 2 collectives).  At mesh size
+    1 it is the plain masked cross-entropy's sum."""
+    m = as_mesh(mesh)
+    if m.size == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        return ((lse - torch.gather(logits, -1, targets[..., None])[..., 0]) * mask).sum()
+    return _VocabCE.apply(logits, targets, mask, m, m.rank * logits.shape[-1], site,
+                          _ISSUED_LOG.get())
 
 
 def psum_tree(tree, mesh):

@@ -28,18 +28,24 @@ d) keep the reference's layout, E their T dim.
 
 ``Placement`` is what a model placed on a mesh holds (``models.model.
 shard_``): each leaf's spec in the port's layout and the ``launch.mesh.
-Mesh`` of each axis.  Its F dims are split over ``data``; of its T dims
-only the dense MLP's and the experts' (``TP_HELD``) are split over
-``model``: attention, the shared experts, the embedding and the head keep
-their T dims whole (ROADMAP queue 1, item 8).
-A leaf split over ``data`` is gathered where it is used
+Mesh`` of each axis.  Its F dims are split over ``data``, and the T dims
+of the leaves that the trainable families run (``TP_HELD``: attention's
+q, k, v and o, the dense MLP, the shared and the routed experts, the
+embedding and the head) over ``model``.  The unit of an attention split
+is a head (``port_specs``' ``heads``): where the model axis divides the
+query heads but not the KV heads, k and v stay whole on ``model``, and
+where it does not divide the query heads (or a rank's block of them would
+read two KV heads' groups in part), attention does; each case warns
+once.  A leaf split over ``data`` is gathered where it is used
 (``collectives.gather_param``, whose backward reduce-scatters its
-gradient), so each rank keeps only its slice between uses.
+gradient), so each rank keeps only its slice between uses; the model
+axis's slices are used as slices.
 """
 from __future__ import annotations
 
 import math
 import re
+import warnings
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
@@ -106,10 +112,45 @@ _RULES: Sequence[Tuple[str, Tuple[Any, ...]]] = (
     (r"app_in/w$",                 ("F", "T")),
 )
 
-# the leaves whose T dim the port splits over ``model`` (the dense MLP, the
-# GELU MLP's up bias with it, and the routed experts, run by the sited
-# trunk); every other T dim stays whole
-TP_HELD = r"mlp/(gate|up|down)/w$|mlp/up/b$|moe/(gate|up|down)$"
+# the leaves whose T dim the port splits over ``model``: attention's q, k, v
+# (and their biases) and o, the dense MLP and the shared experts (the GELU
+# MLP's up bias with them), the routed experts, the embedding and the head;
+# every other T dim (the recurrent families', MLA's, whisper's) stays whole
+_ATTN = r"(^|/)attn/([qkv]/[wb]|o/w)$"
+_KV = r"(^|/)attn/[kv]/[wb]$"
+TP_HELD = (_ATTN + r"|(mlp|shared)/(gate|up|down)/w$|(mlp|shared)/up/b$"
+           r"|moe/(gate|up|down)$|embed/table$|head/w$")
+_WARNED: set = set()
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _WARNED:
+        _WARNED.add(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def _whole_attention(heads, m: int) -> Optional[str]:
+    """The attention leaves that stay whole on a model axis of ``m`` ranks,
+    by heads (a regex, or None): k and v where ``m`` divides the query
+    heads but not the KV heads and each rank's query heads read one KV head
+    (the query heads are laid out KV-head major), all of attention where
+    ``m`` does not divide the query heads or a rank's block would read part
+    of two groups (the reference's per-dim fallback would split inside a
+    head; the port never does).  Warns once a case."""
+    if m == 1:
+        return None
+    hq, hkv = heads
+    if hq % m or (hkv % m and (hq // hkv) % (hq // m)):
+        _warn_once(f"{hq} query heads over {hkv} KV heads do not split by whole heads over "
+                   f"{m} model ranks: attention's q, k, v and o stay whole on 'model', "
+                   "every rank computing all heads")
+        return _ATTN
+    if hkv % m:
+        _warn_once(f"{hkv} KV heads do not split over {m} model ranks ({hq} query heads "
+                   "do): k and v stay whole on 'model', each rank projecting the KV head "
+                   "its query heads read")
+        return _KV
+    return None
 
 
 def _expand(template, fsdp, tp):
@@ -241,19 +282,23 @@ class RefLeaf:
     transposed: bool            # a ``w`` leaf: nn.Linear holds its transpose
 
 
-def port_specs(layout: Mapping[str, RefLeaf], mesh_shape: Mapping[str, int]) -> Dict[str, Spec]:
+def port_specs(layout: Mapping[str, RefLeaf], mesh_shape: Mapping[str, int], *,
+               heads: Tuple[int, int]) -> Dict[str, Spec]:
     """``param_specs`` of the reference's leaves on the mesh ``{data,
     model}``, in the port's layout: one spec a state-dict name of
     ``layout`` (``convert.reference_layout``), one entry a dim of the
-    port's tensor.  Only the leaves ``TP_HELD`` matches keep ``model``."""
+    port's tensor.  Only the leaves ``TP_HELD`` matches keep ``model``,
+    and attention splits by whole heads of ``heads`` (the config's query
+    and KV head counts) or stays whole (``_whole_attention``)."""
     ref = param_specs({leaf.path: leaf.shape for leaf in layout.values()}, mesh_shape)
+    whole = _whole_attention(heads, mesh_shape.get("model", 1))
     out = {}
     for name, leaf in layout.items():
         spec = ref[leaf.path]
         spec = (spec + (None,) * (len(leaf.shape) - len(spec)))[leaf.lead:]
         if leaf.transposed:
             spec = spec[::-1]
-        if not re.search(TP_HELD, leaf.path):
+        if not re.search(TP_HELD, leaf.path) or (whole and re.search(whole, leaf.path)):
             spec = tuple(None if ax == "model" else ax for ax in spec)
         out[name] = spec
     return out
@@ -306,13 +351,14 @@ class Placement:
         return t if d is None else gather_param(t, self.meshes["data"], d, site=site)
 
 
-def place(layout: Mapping[str, RefLeaf], mesh) -> Placement:
+def place(layout: Mapping[str, RefLeaf], mesh, *, heads: Tuple[int, int]) -> Placement:
     """The placement of a model of ``layout`` (``convert.reference_layout``)
     on ``mesh``: this rank's ``{"data": Mesh, "model": Mesh}``, or one
-    ``Mesh``, the model axis alone (tensor parallelism without FSDP)."""
+    ``Mesh``, the model axis alone (tensor parallelism without FSDP);
+    ``heads`` as ``port_specs`` takes it."""
     meshes = dict(mesh) if isinstance(mesh, Mapping) else {"model": as_mesh(mesh)}
     shape = {"data": 1, "model": 1, **{a: m.size for a, m in meshes.items()}}
-    return Placement(port_specs(layout, shape), meshes)
+    return Placement(port_specs(layout, shape, heads=heads), meshes)
 
 
 class _LinearView:

@@ -25,11 +25,12 @@ the batch exactly as the reference does:
 Tensor parallelism: ``sited_mesh`` runs the dense trunk's MLPs over the
 explicit chunked collectives at ``tp.layer{i}.mlp.ag|rs``, whose backwards
 issue the transposed collectives.  At more than one rank the model is
-sharded in place first (``models.model.shard_``): each rank holds its MLP
-shards as parameters, AdamW's moments are the shards', and the global norm
-sums the shards' squares over the model group.  Attention, the norms, the
-embedding and the head are replicated, and their gradients come out equal
-on every rank.
+sharded in place first (``models.model.shard_``): each rank holds its
+shards of attention's heads, the MLPs, the experts and the vocabulary as
+parameters, AdamW's moments are the shards', and the global norm sums the
+shards' squares over the model group.  The norms and the other whole
+leaves are replicated, and their gradients come out equal on every rank
+(the placement's ``copy_to`` sums each rank's share of them).
 
 Data parallelism: ``data_axis`` (a ``Mesh`` or ``ProcessGroup`` over the
 ranks that hold the other slices of the global batch) averages the

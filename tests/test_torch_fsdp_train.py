@@ -318,7 +318,9 @@ def test_fsdp_train_step_matches_reference(runs, mesh, mode):
 def _held(cfg, mesh):
     """Port name -> the reference spec's axes on that leaf in the port's
     layout (stacked dims dropped, ``w`` leaves reversed), the T dims kept
-    on the MLP weights only."""
+    on attention's q and o, the MLP weights, the embedding and the head; k
+    and v keep theirs whole, as smoke llama3-8b's one KV head does not split
+    over ``model``."""
     from repro.parallel import sharding as JSH
 
     shape = dict(zip(("data", "model"), map(int, mesh.split("x"))))
@@ -333,15 +335,18 @@ def _held(cfg, mesh):
         s = tuple(specs[leaf.path])
         s = (s + (None,) * (len(leaf.shape) - len(s)))[leaf.lead:]
         s = s[::-1] if leaf.transposed else s
-        out[name] = tuple(a if a == "data" or ".mlp." in name else None for a in s)
+        held = ".mlp." in name or name.endswith(
+            ("attn.q.weight", "attn.o.weight", "embed.weight", "head.weight"))
+        out[name] = tuple(a if a == "data" or held else None for a in s)
     return out, shape
 
 
 @pytest.mark.parametrize("mesh", ["4x1", "2x2"])
 def test_each_rank_holds_its_slice(runs, mesh):
     """Each rank's parameters have the shapes the reference's specs give:
-    every dim split over ``data`` (or, on the MLP, ``model``) divided by
-    that axis's size, the rest whole."""
+    every dim split over ``data`` (or, on attention's q and o, the MLP, the
+    embedding and the head, ``model``) divided by that axis's size, the rest
+    whole."""
     cfg, ranks, _ = runs
     held, shape = _held(cfg, mesh)
     whole = M.init_params(cfg, 0, device="cpu").state_dict()
@@ -359,8 +364,8 @@ def test_each_rank_holds_its_slice(runs, mesh):
 @pytest.mark.parametrize("mesh", ["4x1", "2x2"])
 def test_leaves_held_alike_stay_bit_equal(runs, mesh):
     """After three steps every leaf is bit-equal on the ranks that hold the
-    same slice of it: the norms on all four; at 2x2 attention's, the
-    embedding's and the head's slices on both model ranks of a data index."""
+    same slice of it: the norms on all four; at 2x2 the slices of k and v
+    (whole on ``model``) on both model ranks of a data index."""
     cfg, ranks, _ = runs
     held, shape = _held(cfg, mesh)
     digests = [log["digests"][mesh] for _, log in ranks]

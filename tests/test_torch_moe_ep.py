@@ -298,17 +298,27 @@ def test_indivisible_buffer_warns_with_the_site(runs):
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_leaves_held_alike_stay_bit_equal(runs, mesh):
-    """After the step every leaf but the experts is bit-equal on the ranks of
-    one data index (attention, the router and the norms: every model rank
-    holds the same slice), and a 1-D leaf (the norms) on all four."""
-    _, ranks, _ = runs
+    """After the step every leaf that ``model`` does not split is bit-equal
+    on the ranks of one data index (the router, the norms, qk_norm's scales:
+    every model rank holds the same slice), and a 1-D leaf (the norms) on all
+    four; the leaves it splits (the experts, attention's heads, the
+    vocabulary) hold 1/m each and differ between the model ranks."""
+    cfg, ranks, _ = runs
     m = int(mesh.split("x")[1])
+    d = N // m
     digests = [log["digests"][mesh] for _, log in ranks]
     shapes = ranks[0][1]["shapes"][mesh]
+    split = (".moe.gate", ".moe.up", ".moe.down", "attn.q.weight", "attn.k.weight",
+             "attn.v.weight", "attn.o.weight", "embed.weight", "head.weight")
     for name in digests[0]:
-        if name.endswith((".moe.gate", ".moe.up", ".moe.down")):
+        if name.endswith(split):
+            assert len({dg[name] for dg in digests[:m]}) == m, name
             continue
         for r in range(N):
             for q in range(N):
                 if r // m == q // m or len(shapes[name]) == 1:
                     assert digests[r][name] == digests[q][name], (name, r, q)
+    D, q, V = cfg.d_model, cfg.q_dim // m, cfg.vocab_size // m
+    attn = "trunk.moe_layers.0.attn."
+    assert shapes[attn + "q.weight"] == [q, D // d] and shapes[attn + "o.weight"] == [D // d, q]
+    assert shapes["embed.weight"] == shapes["head.weight"] == [V, D // d]

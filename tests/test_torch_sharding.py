@@ -12,6 +12,7 @@ tensor says which reference dim each of its dims is.
 """
 import functools
 import re
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -140,10 +141,15 @@ def test_port_layout_specs_follow_convert(arch, mesh):
     """Each port leaf's spec (``port_specs`` of ``convert.reference_layout``)
     is the reference's spec of its leaf, dim by dim through ``convert``:
     the dims ``params_from_jax`` unstacks are dropped and a transposed
-    ``w`` leaf's are reversed; the model axis is kept on the dense MLP
-    weights and the routed experts only (``TP_HELD``: E over ``model``, d
-    over ``data``), as ``place`` records it; the shared experts and the
-    router keep their T dims whole."""
+    ``w`` leaf's are reversed; the model axis is kept on the leaves
+    ``TP_HELD`` names (attention's q, k, v and o, the MLPs, the shared and
+    routed experts, E over ``model`` and d over ``data``, the embedding and
+    the head), as ``place`` records it, attention by whole heads: k and v
+    stay whole where the model axis does not divide the KV heads, all of
+    attention where it does not divide the query heads; the router and the
+    biases of ``o`` and ``down`` keep their dims whole, as the norms do.
+    Split leaves have each dim divided by the size of the axis that splits
+    it."""
     cfg = get_smoke_config(arch)
     jt = jax.eval_shape(lambda k: JM.init_params(jget_smoke(arch), k), jax.random.PRNGKey(0))
     jt = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), jt)
@@ -151,7 +157,11 @@ def test_port_layout_specs_follow_convert(arch, mesh):
     ref = {k: tuple(v) for k, v in _flat(JSH.param_specs(jt, _stub(mesh))).items()}
     model = M.init_params(cfg, 0, device="cpu")
     layout = reference_layout(cfg, model)
-    got = SH.port_specs(layout, sizes)
+    heads = (cfg.num_heads, cfg.num_kv_heads)
+    got = SH.port_specs(layout, sizes, heads=heads)
+    m = mesh[1]
+    attn_whole = heads[0] % m or (heads[1] % m and (heads[0] // heads[1]) % (heads[0] // m))
+    kv_whole = attn_whole or heads[1] % m
     idx_tree = jax.tree.map(lambda a: np.arange(a.size, dtype=np.int64).reshape(a.shape), jt)
     converted = params_from_jax(cfg, idx_tree)
     assert set(got) == set(converted) == set(model.state_dict())
@@ -168,25 +178,41 @@ def test_port_layout_specs_follow_convert(arch, mesh):
             moved = [k for k in range(len(ref_dims)) if step[k] != origin[k]]
             assert len(moved) == 1, (name, d)
             want = full[moved[0]]
-            held = ".mlp." in name or name.endswith((".moe.gate", ".moe.up", ".moe.down"))
+            held = ((re.search(r"\.attn\.[kv]\.(weight|bias)$", name) and not kv_whole)
+                    or (re.search(r"\.attn\.(q\.(weight|bias)|o\.weight)$", name)
+                        and not attn_whole)
+                    or ".mlp." in name or ".moe.shared." in name
+                    or name.endswith((".moe.gate", ".moe.up", ".moe.down"))
+                    or name in ("embed.weight", "head.weight"))
             if want == "model" and not held:
                 want = None
             assert got[name][d] == want, (name, d, got[name], full)
+        local = SH.Placement(got, {a: Mesh(None, n, n - 1, a) for a, n in sizes.items()}
+                             ).local(name, t)
+        assert list(local.shape) == [n // (sizes[a] if a else 1)
+                                     for n, a in zip(t.shape, got[name])], name
     if cfg.family in ("dense", "moe"):
         held = SH.place(layout, {"data": Mesh(None, mesh[0], 0, "data"),
-                                 "model": Mesh(None, mesh[1], 0, "model")}).specs
+                                 "model": Mesh(None, mesh[1], 0, "model")},
+                        heads=heads).specs
         assert held == got
 
 
 def test_placement_slices_and_gathers_back():
     """``Placement.local`` keeps rank r's slice of each split dim and
     ``full`` on a size-1 mesh is the tensor itself; ``place`` over a bare
-    Mesh is the model axis alone."""
+    Mesh is the model axis alone; by the config's heads, k and v stay
+    whole where the model axis does not divide the KV heads (warned
+    once)."""
     cfg = get_smoke_config("llama3-8b")
+    heads = (cfg.num_heads, cfg.num_kv_heads)
     model = M.init_params(cfg, 0, device="cpu")
     layout = reference_layout(cfg, model)
-    place = SH.place(layout, {"data": Mesh(None, 4, 2, "data"),
-                              "model": Mesh(None, 2, 1, "model")})
+    # smoke llama3-8b's 4 query heads split over 2, its 1 KV head does not
+    SH._WARNED.clear()
+    with pytest.warns(RuntimeWarning, match="1 KV heads do not split over 2"):
+        place = SH.place(layout, {"data": Mesh(None, 4, 2, "data"),
+                                  "model": Mesh(None, 2, 1, "model")}, heads=heads)
     w = model.trunk.dense_layers[0].mlp.gate.weight.detach()
     name = "trunk.dense_layers.0.mlp.gate.weight"
     assert place.specs[name] == ("model", "data") and place.axes(name) == ("data", "model")
@@ -195,12 +221,19 @@ def test_placement_slices_and_gathers_back():
     assert torch.equal(local, w[f:2 * f, 2 * d:3 * d])
     q = model.trunk.dense_layers[0].attn.q.weight.detach()
     qname = "trunk.dense_layers.0.attn.q.weight"
-    assert place.specs[qname] == (None, "data")
-    assert torch.equal(place.local(qname, q), q[:, 2 * d:3 * d])
+    assert place.specs[qname] == ("model", "data")
+    hq = q.shape[0] // 2
+    assert torch.equal(place.local(qname, q), q[hq:, 2 * d:3 * d])
     assert place.axes("ln_f.scale") == () and place.local("ln_f.scale", w) is w
-    bare = SH.place(layout, Mesh(None, 2, 0, "model"))
+    attn = "trunk.dense_layers.0.attn."
+    assert place.dim(attn + "o.weight", "model") == 1
+    assert place.axes(attn + "k.weight") == place.axes(attn + "v.weight") == ("data",)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")          # warned once a process
+        bare = SH.place(layout, Mesh(None, 2, 0, "model"), heads=heads)
     assert set(bare.meshes) == {"model"} and bare.dim("embed.weight", "data") is None
-    one = SH.place(layout, {"data": Mesh(None), "model": Mesh(None)})
+    assert bare.dim(qname, "model") == 0 and bare.axes(attn + "k.weight") == ()
+    one = SH.place(layout, {"data": Mesh(None), "model": Mesh(None)}, heads=heads)
     assert one.full(name, w) is w and one.axes(name) == ()
 
 

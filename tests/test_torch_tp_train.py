@@ -14,8 +14,8 @@ Bounds are those of ``tests/test_torch_train.py``: the loss 1e-5
 absolute, gradients 1e-4 of each parameter's max|g| (the shards gathered),
 and one train step 1e-5 (parameters, AdamW's moments absolute; loss and
 grad_norm relative), with eps = 1e-3 as there.  The replicated parameters
-(attention, norms, embedding, head) must be bit-equal on every rank after
-three steps.
+(the norms, and k and v: smoke llama3-8b's one KV head does not split) must
+be bit-equal on every rank after three steps.
 """
 import json
 import os
@@ -136,6 +136,7 @@ for name, mesh in meshes.items():
             model, state, _ = step(model, state, rows_of(mesh), k + 1)
     log["digests"][name] = {n: hashlib.sha256(p.detach().numpy().tobytes()).hexdigest()
                             for n, p in model.named_parameters()}
+    log.setdefault("shapes", {})[name] = {n: list(p.shape) for n, p in model.named_parameters()}
 np.savez(out + ".npz", **{k: v.numpy() for k, v in res.items()})
 with open(out + ".json", "w") as f:
     json.dump(log, f)
@@ -279,7 +280,13 @@ def _site_rows(rows):
 def test_layers_issue_their_own_forward_and_backward_structure(runs, rank):
     """One forward and backward under PLAN: each site's forward runs once
     and once more in remat's recompute, its backward once (the ring's for
-    gate and up, twice a layer), every one at that layer's chunk count."""
+    gate and up, twice a layer), every one at that layer's chunk count.
+    The placement's all-reduces, unchunked: attention's rows summed at
+    ``tp.layer{i}.attn.ar`` (forward and recompute), its input's gradient
+    at ``.ar.bwd``, and, smoke llama3-8b's one KV head being whole on
+    ``model``, the k and v weights' gradients at ``.kv.ar.bwd``; the
+    embedding once, the cross-entropy's chunk twice (two sums each) and its
+    input's gradient once."""
     _, ranks, _ = runs
     rows = _site_rows(ranks[rank][1]["grads"])
     want = {}
@@ -287,6 +294,12 @@ def test_layers_issue_their_own_forward_and_backward_structure(runs, rank):
         op = "ring_ag_matmul" if site.endswith(".ag") else "mm_reduce_scatter"
         k = 2 if site.endswith(".ag") else 1
         want[site] = sorted([(op, nc)] * 2 * k + [(op + ".bwd", nc)] * k)
+    for i in range(2):
+        want[f"tp.layer{i}.attn.ar"] = [("all_reduce", 1)] * 2
+        want[f"tp.layer{i}.attn.ar.bwd"] = [("all_reduce.bwd", 1)]
+        want[f"tp.layer{i}.attn.kv.ar.bwd"] = [("all_reduce.bwd", 1)] * 2
+    want.update({"tp.embed.ar": [("all_reduce", 1)], "tp.ce.ar": [("vocab_ce", 1)] * 2,
+                 "tp.ce.ar.bwd": [("all_reduce.bwd", 1)]})
     assert rows == want
     assert rows["tp.layer0.mlp.ag"] != rows["tp.layer1.mlp.ag"]
 
@@ -332,8 +345,11 @@ def test_two_by_two_mesh_matches_reference(runs, mode):
 
 @pytest.mark.parametrize("mesh", ["1x4", "2x2"])
 def test_replicated_parameters_stay_bit_equal(runs, mesh):
-    """After three steps every replicated parameter is bit-equal on every
-    rank, and each MLP shard on the ranks that hold the same shard."""
+    """After three steps every replicated parameter (the norms, and k and v,
+    whole on ``model`` since smoke llama3-8b's one KV head does not split)
+    is bit-equal on every rank, and each shard on the ranks that hold the
+    same shard.  Each rank holds 1/m of the query heads, of ``o``'s rows,
+    of the MLP and of the vocabulary (embedding and head)."""
     cfg, ranks, _ = runs
     digests = [log["digests"][mesh] for _, log in ranks]
     model = 4 if mesh == "1x4" else 2
@@ -345,7 +361,16 @@ def test_replicated_parameters_stay_bit_equal(runs, mesh):
                 assert digests[r][name] == digests[r % model][name], (name, r)
         else:
             assert len({d[name] for d in digests}) == 1, name
-    assert any(place.axes(name) for name in digests[0])
+    attn = "trunk.dense_layers.0.attn."
+    replicated = {n for n in digests[0] if not place.axes(n)}
+    assert replicated == {n for n in digests[0] if n.endswith((".scale", "k.weight",
+                                                                "v.weight"))}
+    D, q, V = cfg.d_model, cfg.q_dim // model, cfg.vocab_size // model
+    want = {attn + "q.weight": [q, D], attn + "k.weight": [cfg.kv_dim, D],
+            attn + "o.weight": [D, q], "embed.weight": [V, D], "head.weight": [V, D],
+            "trunk.dense_layers.0.mlp.gate.weight": [cfg.d_ff // model, D]}
+    for _, log in ranks:
+        assert {n: log["shapes"][mesh][n] for n in want} == want
 
 
 def test_mesh_lays_ranks_out_as_the_reference():

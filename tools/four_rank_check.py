@@ -24,18 +24,23 @@ port) and waits for them.  Each rank:
     steps, beside the unsited trunk: the logits' max abs difference;
   * trains llama3-8b at full width cut to 4 layers (seed 0, fp32, remat,
     B = 4 x S = 2048 from the port's ``SyntheticCorpus``) with the model
-    sharded in place: 3 steps each of plain and ``grad_accum=2`` at
-    ``--mesh 1x4`` under ``TRAIN_PLAN`` (layers 0 and 1 chunk both sites
-    differently), and 3 plain steps at 2x2 (data x model).  The first
-    step of each is held to the one-card unsited step of that mode from
-    the same weights (each rank runs it on its own card first): the loss
-    and every parameter this rank holds within 1e-5 relative (AdamW with
-    eps = 1e-3, as phase 8's parity step).  Each site's forward and
-    backward ``Issued`` rows must equal the code's, and after the steps
-    each parameter must be bit-equal (sha256 of its bytes) on the ranks
-    that hold the same slice of it, a replicated one on every rank.  It
-    prints step ms, tokens/s, peak memory and, of one more step under the
-    profiler, device ms by class (NCCL, GEMM, other) beside its wall ms;
+    sharded in place over ``model`` (attention by heads, the MLP, the
+    vocabulary of the embedding and the head): 3 steps each of plain and
+    ``grad_accum=2`` at ``--mesh 1x4`` under ``TRAIN_PLAN`` (layers 0 and 1
+    chunk both sites differently), and 3 plain steps at 2x2 (data x
+    model).  The first step of each is held to the one-card unsited step
+    of that mode from the same weights (each rank runs it on its own card
+    first): the loss and every parameter this rank holds within 1e-5
+    relative (AdamW with eps = 1e-3, as phase 8's parity step).  Each
+    site's forward and backward ``Issued`` rows (the MLP's chunked ones and
+    the placement's all-reduces) and the kernels' launches must equal the
+    code's; each rank must hold 1/m of ``attn.q.weight``, ``embed.weight``
+    and ``head.weight``, their sha256 differing between the model ranks;
+    after the steps each parameter must be bit-equal (sha256 of its bytes)
+    on the ranks that hold the same slice of it, a whole one (the norms) on
+    every rank.  It prints step ms, tokens/s, peak memory and, of one more
+    step under the profiler, device ms by class (NCCL, GEMM, other) beside
+    its wall ms;
   * trains the same 4-layer model with FSDP placements
     (``models.model.shard_`` on a (data, model) mesh, every F dim split
     over ``data``): 3 plain steps at 4x1 (B = 4), 3 ``grad_accum=2`` steps
@@ -55,8 +60,17 @@ port) and waits for them.  Each rank:
     parameter moved, peak memory under 80 GB; it prints step ms (median
     of steps 2-3), tokens/s, MFU on the fp32 peak, peak GiB and device ms
     by class of one more step under the profiler;
+  * trains llama3-8b at all 32 layers placed tensor-parallel (``TP32``:
+    1x4, and 2x2 with the F dims over ``data`` too; B = 4 x S = 2048, fp32,
+    remat, lr 3e-5, 3 steps): step 1's loss within 1e-5 relative of a
+    one-card ``no_grad`` forward of the same weights, every parameter
+    moved, the split, the leaves held alike, the launches and the
+    ``Issued`` rows the code's, peak memory under 80 GB; it prints the
+    losses, step ms, tokens/s, MFU on the fp32 peak, peak GiB, the
+    ``Issued`` rows a step by site and device ms by class of one more step;
   * trains olmoe-1b-7b at full width (fp32, remat, B = 4 x S = 2048, 3
-    steps) with its experts split over ``model`` (expert parallelism: the
+    steps) with its experts, attention heads and vocabulary split over
+    ``model`` (expert parallelism: the
     dispatch and combine all-to-alls at ``ep.layer{j}.moe.a2a_disp|comb``)
     under ``MOE_PLAN``, which chunks layer 0's dispatch by 2 and layer 1's
     by 4: at 4 layers under 1x4 and 2x2 (eps = 1e-3), step 1's parameters
@@ -67,9 +81,12 @@ port) and waits for them.  Each rank:
     replays the one-card run's routing (``layers.record_routing``; a data
     rank its rows of it): a routing choice whose two experts' router
     probabilities differ by less than the runs' rounding would otherwise
-    flip.  The dispatch and combine ``Issued`` rows, the kernels' launches
-    and the leaves held alike (sha256) must be the code's; it prints step
-    ms, tokens/s, peak GiB and device ms by class of one more step.
+    flip.  Then qwen2-moe-a2.7b (``QWEN``: attention biases, a gated shared
+    expert over ``model``) at 4 layers under 1x4, B = 3, its step 1 held to
+    the one-card step as olmoe's.  The dispatch and combine ``Issued`` rows
+    and the placement's, the kernels' launches, the split and the leaves
+    held alike (sha256) must be the code's; it prints step ms, tokens/s,
+    peak GiB and device ms by class of one more step.
   * runs yi-34b through a pipeline of four stages, one a rank
     (``make_mesh((4,), ("stage",))``, ``models.model.pipeline_loss`` over
     ``parallel.pipeline.pipeline_apply``; random weights from seed 0 by
@@ -88,8 +105,9 @@ port) and waits for them.  Each rank:
     ms, peak memory and ``Issued`` rows by tick; and at all 60 layers
     again (B = 4) forward and backward twice, its ms, peak memory and
     device ms by class of a third under the profiler.
-``--sections`` runs a subset of helpers, train, fsdp, deep, moe, pp and launcher.
-Then it runs the launcher once, under ``torch.distributed.run``
+``--sections`` runs a subset of helpers, train, fsdp, deep, tp32, moe, pp and launcher.
+``--json PATH`` writes the result line to a file as well.  Then it runs
+the launcher once, under ``torch.distributed.run``
 (torchrun): ``repro_torch.launch.train --config`` (the same model, batch
 and sequence, 3 steps) ``--mesh 1x4 --tuned-plan`` a plan the port tunes
 for tp:4 on h100-sxm.  Rank 0 prints one JSON line with every rank's
@@ -129,7 +147,7 @@ PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer1.mlp.ag": ("ring", 4),
 TRAIN_PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
               "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
 TRAIN = dict(layers=4, B=4, S=2048, steps=3)          # --smoke: 2 layers, S = 64
-SECTIONS = ("helpers", "train", "fsdp", "deep", "moe", "pp", "launcher")
+SECTIONS = ("helpers", "train", "fsdp", "deep", "tp32", "moe", "pp", "launcher")
 GATE_OPT = dict(lr=3e-4, eps=1e-3)
 GATE_REL = 1e-5
 # FSDP placements at 4 layers: (mesh, shape, mode, global batch); grad_accum=2 at
@@ -137,10 +155,19 @@ GATE_REL = 1e-5
 FSDP_RUNS = (("4x1", (4, 1), "plain", 4), ("4x1", (4, 1), "grad_accum=2", 8),
              ("2x2", (2, 2), "plain", 4))
 DEEP = dict(layers=32, B=4, S=2048, steps=3, lr=3e-5)   # --smoke: smoke widths, 4 layers
+# llama3-8b at all 32 layers placed tensor-parallel (attention, MLP and the
+# vocabulary over ``model``, the F dims over ``data``) at 1x4 and 2x2
+TP32 = dict(layers=32, B=4, S=2048, steps=3, lr=3e-5, meshes=(("1x4", (1, 4)),
+                                                                ("2x2", (2, 2))))
 CARD_BYTES = 80e9
 # olmoe-1b-7b with its experts split over ``model``: 4 layers against the
 # one-card step, 16 (all) against the one-card forward; --smoke: 2 and 4
 MOE = dict(arch="olmoe-1b-7b", layers=(4, 16), B=4, S=2048, steps=3, lr=3e-5)
+# qwen2-moe-a2.7b (attention biases, a gated shared expert over ``model``) at
+# 4 layers under 1x4 against the one-card step; B 3 x S 2048 makes its
+# capacity int(6144 * 4 * 1.25 / 60) = 512 split over 4 ranks, and lets the
+# one-card step (2.9 B parameters, 46 GB with AdamW's state) fit
+QWEN = dict(arch="qwen2-moe-a2.7b", layers=4, B=3, S=2048)
 MOE_PLAN = {"ep.layer0.moe.a2a_disp": ("chunked", 2), "ep.layer1.moe.a2a_disp": ("chunked", 4)}
 # the pipeline: yi-34b, one stage a rank, at (parity, forward-only, forward
 # and backward) depths; B x S in M microbatches (the forward-only run at
@@ -214,11 +241,84 @@ def expected_rows(cfg, passes: int, steps: int, plan=TRAIN_PLAN) -> dict:
     return out
 
 
+def placement_rows(cfg, place, passes: int, steps: int, S: int) -> dict:
+    """``{site: {op: [chunks, ...]}}`` of the placement's all-reduces in
+    ``steps`` steps of ``passes`` passes with remat, read from what the
+    placed model's ``place`` (``model.placement``) splits over ``model``:
+    where q is split, a layer's attention rows twice (forward, recompute)
+    and its input's gradient once, and where k is not, the k and v weights'
+    (and biases') gradients once each; qk_norm's two scales' gradients once
+    each; where the embedding is split, the embedding once, the loss's two
+    sums (``vocab_ce``) twice a chunk of 256 and its input's gradient once;
+    a MoE layer's shared experts as attention.  None on one model rank."""
+    n, out = passes * steps, {}
+
+    def split(suffix):
+        name = next(k for k in place.specs if k.endswith(suffix))
+        return "model" in place.axes(name)
+
+    def add(site, op, k):
+        out[site] = {op: [1] * k * n}
+
+    if "model" not in place.meshes or place.meshes["model"].size == 1:
+        return out
+    for i in range(cfg.num_layers if split("attn.q.weight") else 0):
+        add(f"tp.layer{i}.attn.ar", "all_reduce", 2)
+        add(f"tp.layer{i}.attn.ar.bwd", "all_reduce.bwd", 1)
+        if not split("attn.k.weight"):
+            add(f"tp.layer{i}.attn.kv.ar.bwd", "all_reduce.bwd", 4 if cfg.attn_bias else 2)
+        if cfg.qk_norm:
+            add(f"tp.layer{i}.attn.qk_norm.ar.bwd", "all_reduce.bwd", 2)
+    if split("embed.weight"):
+        add("tp.embed.ar", "all_reduce", 1)
+        add("tp.ce.ar", "vocab_ce", 2 * -(-S // 256))
+        add("tp.ce.ar.bwd", "all_reduce.bwd", 1)
+    first = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
+    for j in range(cfg.num_layers - first if cfg.num_shared_experts else 0):
+        add(f"ep.layer{j}.moe.shared.ar", "all_reduce", 2)
+        add(f"ep.layer{j}.moe.shared.ar.bwd", "all_reduce.bwd", 1)
+    return out
+
+
+def rows_by_site(issued, prefixes=("tp.", "ep.")) -> dict:
+    """``{site: {op: [chunks, ...]}}`` of the ``Issued`` rows at ``prefixes``."""
+    out = {}
+    for r in issued:
+        if r.site.startswith(prefixes):
+            out.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
+    return out
+
+
+def tp_split(cfg, model, mm) -> dict:
+    """Each rank's shapes of ``attn.q.weight``, ``embed.weight`` and
+    ``head.weight`` (layer 0's attention) and whether they are 1/m of the
+    whole, their sha256 differing between the model ranks of a data index
+    (every rank calls it)."""
+    import torch.distributed as dist
+
+    layer = "trunk.moe_layers.0." if cfg.is_moe and not cfg.first_dense_layers \
+        else "trunk.dense_layers.0."
+    names = [layer + "attn.q.weight", "embed.weight"] + ([] if cfg.tie_embeddings
+                                                          else ["head.weight"])
+    params = dict(model.named_parameters())
+    shapes = {n: list(params[n].shape) for n in names}
+    rows = {n: (cfg.q_dim if "attn" in n else cfg.vocab_size) // mm.size for n in names}
+    ok = all(shapes[n][0] == rows[n] for n in names)
+    marks = {n: digest(params[n]) for n in names}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (dist.get_rank() // mm.size, marks))     # data index
+    for n in names:
+        for d in {e[0] for e in every}:
+            ok &= len({e[1][n] for e in every if e[0] == d}) == mm.size
+    return {"shapes": shapes, "ok": ok}
+
+
 def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
     """Tensor-parallel training at 1x4 and 2x2 against the one-card
     unsited steps (module docstring)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
@@ -270,6 +370,7 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
             data_axis=dm if dm.size > 1 else None, **modes[mode]))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
         times, losses, gate = [], [], None
         with C.use_runtime_plan(plan), C.record_issued() as issued:
             for i in range(steps):
@@ -291,10 +392,13 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
                     gate = {"param_rel": worst, "at": at,
                             "loss_rel": abs(losses[0] - want_loss) / abs(want_loss)}
         peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-        by_site = {}
-        for r in issued:
-            by_site.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
-        rows_ok = by_site == expected_rows(cfg, modes[mode].get("grad_accum", 1), steps)
+        launches, launches_ok = launches_as_code(cfg, modes[mode].get("grad_accum", 1),
+                                                 steps, dev)
+        by_site = rows_by_site(issued)
+        passes = modes[mode].get("grad_accum", 1)
+        rows_ok = by_site == {**expected_rows(cfg, passes, steps),
+                              **placement_rows(cfg, model.placement, passes, steps, S)}
+        split = tp_split(cfg, model, mm)
         b = {n: a[rows] for n, a in batches[steps].items()}
         with C.use_runtime_plan(plan):
             prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
@@ -302,14 +406,19 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
         step_s = statistics.median(times[1:] or times)
         row = {"mesh": name, "mode": mode, "steps": steps, "step_ms": step_s * 1e3,
                "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": B * S / step_s,
-               "peak_bytes": peak, "profiled_step_ms": prof_ms, "losses": losses,
-               "gate": gate, "issued_as_code": rows_ok, "replicated_equal": replicated_equal}
+               "peak_bytes": peak, "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
+               "losses": losses, "gate": gate, "issued_as_code": rows_ok,
+               "replicated_equal": replicated_equal, "split": split, "launches": launches}
         runs.append(row)
         tag = f"train {name} {mode}"
         if not (gate["param_rel"] <= GATE_REL and gate["loss_rel"] <= GATE_REL):
             res["failed"].append(f"{tag}: step 1 against one card {gate}")
         if not rows_ok:
             res["failed"].append(f"{tag}: issued {by_site}")
+        if not split["ok"]:
+            res["failed"].append(f"{tag}: attention and the vocabulary not split {split}")
+        if not launches_ok:
+            res["failed"].append(f"{tag}: kernel launches {launches}")
         if not replicated_equal:
             res["failed"].append(f"{tag}: replicated parameters differ between ranks")
         if not all(map(math.isfinite, losses)):
@@ -454,14 +563,12 @@ def fsdp_section(rank: int, dev, smoke: bool, res: dict, shared: str) -> None:
         peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
         launches, launches_ok = launches_as_code(cfg, modes[mode].get("grad_accum", 1),
                                                  steps, dev)
-        by_site = {}
-        for r in issued:
-            if r.site.startswith("tp."):
-                by_site.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
+        by_site = rows_by_site(issued, ("tp.",))
         passes = modes[mode].get("grad_accum", 1)
         per_layer = sum(1 for n in place.specs
                         if n.startswith("trunk.dense_layers.0.") and "data" in place.axes(n))
-        rows_ok = (by_site == expected_rows(cfg, passes, steps, knobs)
+        rows_ok = (by_site == {**expected_rows(cfg, passes, steps, knobs),
+                               **placement_rows(cfg, place, passes, steps, S)}
                    and fsdp_rows(issued, cfg, passes, steps, per_layer))
         b = {n: a[rows] for n, a in batches[B][steps].items()}
         with C.use_runtime_plan(plan), CT.use_axes(("data",), "model", sizes=sizes, batch=B):
@@ -605,6 +712,104 @@ def deep_section(rank: int, dev, smoke: bool, res: dict) -> None:
     _release(dev)
 
 
+def tp32_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """llama3-8b at all 32 layers placed tensor-parallel at 1x4 and 2x2
+    (module docstring)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C, constraints as CT
+    from repro_torch.train import metrics as MET, trainer as T
+
+    cfg = (get_smoke_config if smoke else get_config)("llama3-8b").replace(
+        num_layers=4 if smoke else TP32["layers"])
+    B, S, steps = TP32["B"], 64 if smoke else TP32["S"], TP32["steps"]
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()}
+               for k in range(steps + 1)]
+    runs = []
+    for name, shape in TP32["meshes"]:
+        model = M.init_params(cfg, 0, device=dev)
+        t = time.perf_counter()
+        with torch.no_grad():             # the one-card forward of the same weights
+            want = float(M.loss_and_metrics(cfg, model, batches[0], remat=False)[0])
+        forward_s = time.perf_counter() - t
+        mesh = make_mesh(shape, ("data", "model"))
+        dm, mm = mesh["data"], mesh["model"]
+        M.shard_(cfg, model, mesh)
+        _release(dev)
+        before = {n: p.detach().double().sum().item() for n, p in model.named_parameters()}
+        state = adamw.init_state(dict(model.named_parameters()))
+        step_fn = T.make_train_step(cfg, T.TrainConfig(
+            opt=adamw.AdamWConfig(lr=TP32["lr"]), warmup=2, total_steps=100, sited_mesh=mm,
+            data_axis=dm if dm.size > 1 else None))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        k = B // dm.size
+        rows = slice(dm.rank * k, (dm.rank + 1) * k)
+        times, losses = [], []
+        with CT.use_axes(("data",), "model", sizes={"data": dm.size, "model": mm.size},
+                         batch=B), C.record_issued() as issued:
+            for i in range(steps):
+                b = {n: a[rows] for n, a in batches[i].items()}
+                _sync(dev)
+                t = time.perf_counter()
+                model, state, m = step_fn(model, state, b, i + 1)
+                losses.append(float(m["loss"]))
+                _sync(dev)
+                times.append(time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+            launches, launches_ok = launches_as_code(cfg, 1, steps, dev)
+            by_site = rows_by_site(issued, ("tp.",))
+            b = {n: a[rows] for n, a in batches[steps].items()}
+            prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
+        want_rows = {**expected_rows(cfg, 1, steps, {}),
+                     **placement_rows(cfg, model.placement, 1, steps, S)}
+        counts = {site: {op: len(c) for op, c in ops_.items()} for site, ops_ in by_site.items()}
+        summary = {}                      # Issued rows a step by site kind, all layers
+        for site, ops_ in counts.items():
+            kind = site.split(".", 2)[-1] if site.startswith("tp.layer") else site
+            for op, c in ops_.items():
+                summary[f"{kind} {op}"] = summary.get(f"{kind} {op}", 0) + c // steps
+        split = tp_split(cfg, model, mm)
+        alike = held_alike(model)
+        still = [n for n, p in model.named_parameters()
+                 if p.detach().double().sum().item() == before[n]]
+        step_s = statistics.median(times[1:] or times)
+        tokens = B * S
+        loss_rel = abs(losses[0] - want) / abs(want)
+        row = {"mesh": name, "layers": cfg.num_layers, "batch": B, "seq": S, "lr": TP32["lr"],
+               "losses": losses, "one_card_loss": want, "one_card_forward_s": forward_s,
+               "loss_rel": loss_rel, "step_ms": step_s * 1e3,
+               "step_ms_all": [x * 1e3 for x in times], "tokens_per_s": tokens / step_s,
+               "mfu_fp32": MET.mfu(cfg, tokens, step_s, chips=N, peak=MET.H100_FP32_PEAK),
+               "peak_bytes": peak, "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
+               "issued_a_step": summary, "issued_as_code": by_site == want_rows,
+               "split": split, "held_alike_equal": alike, "not_moved": still,
+               "launches": launches}
+        runs.append(row)
+        tag = f"tp32 {name}"
+        if not loss_rel <= GATE_REL:
+            res["failed"].append(f"{tag}: step 1 loss {losses[0]} against the one-card {want}")
+        if by_site != want_rows:
+            res["failed"].append(f"{tag}: issued {counts}")
+        for what, ok in (("attention and the vocabulary not split", split["ok"]),
+                         ("leaves held alike differ between ranks", alike),
+                         (f"kernel launches {launches}", launches_ok),
+                         (f"parameters that did not move: {still[:5]}", not still),
+                         (f"peak memory {peak} bytes", peak < CARD_BYTES),
+                         (f"losses {losses}", all(map(math.isfinite, losses)))):
+            if not ok:
+                res["failed"].append(f"{tag}: {what}")
+        del model, state, step_fn
+        _release(dev)
+    res["tp32"] = {"arch": cfg.name, "params": cfg.param_count(), "runs": runs}
+
+
 def launches_as_code(cfg, passes: int, steps: int, dev) -> tuple:
     """(the kernels' launches since the last reset, whether they are the
     code's for ``steps`` steps of ``passes`` passes with remat: a layer's
@@ -644,19 +849,26 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
     from repro_torch.parallel import collectives as C, constraints as CT
     from repro_torch.train import metrics as MET, trainer as T
 
-    base = (get_smoke_config if smoke else get_config)(MOE["arch"])
+    get = get_smoke_config if smoke else get_config
+    base = get(MOE["arch"])
     short, deep = (2, 4) if smoke else MOE["layers"]
-    B, S, steps = MOE["B"], 64 if smoke else MOE["S"], MOE["steps"]
-    corpus = SyntheticCorpus(DataConfig(vocab_size=base.vocab_size, seq_len=S, global_batch=B))
-    batches = [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()}
-               for k in range(steps + 1)]
+    S, steps = 64 if smoke else MOE["S"], MOE["steps"]
     plan = {k: C.CollectiveRuntime(*v) for k, v in MOE_PLAN.items()}
     meshes = {"1x4": make_mesh((1, N), ("data", "model")),
               "2x2": make_mesh((2, 2), ("data", "model"))}
     runs = []
-    for layers in (short, deep):
-        cfg = base.replace(num_layers=layers)
-        gated_step = layers == short
+    # (config, batch, meshes, whether step 1 is held to the one-card step; else
+    # its loss to the one-card forward)
+    cases = [(base.replace(num_layers=short), MOE["B"], ("1x4", "2x2"), True),
+             (base.replace(num_layers=deep), MOE["B"], ("1x4", "2x2"), False),
+             (get(QWEN["arch"]).replace(num_layers=2 if smoke else QWEN["layers"]), QWEN["B"],
+              ("1x4",), True)]
+    for cfg, B, mesh_names, gated_step in cases:
+        layers = cfg.num_layers
+        corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                            global_batch=B))
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()}
+                   for k in range(steps + 1)]
         opt = adamw.AdamWConfig(**GATE_OPT) if gated_step else adamw.AdamWConfig(lr=MOE["lr"])
         model = M.init_params(cfg, 0, device=dev)
         t = time.perf_counter()
@@ -675,7 +887,8 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
         one_card_s = time.perf_counter() - t
         del model
         _release(dev)
-        for name, mesh in meshes.items():
+        for name in mesh_names:
+            mesh = meshes[name]
             dm, mm = mesh["data"], mesh["model"]
             k = B // dm.size
             rows = slice(dm.rank * k, (dm.rank + 1) * k)
@@ -722,11 +935,8 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
                 launches, launches_ok = launches_as_code(cfg, 1, steps, dev)
                 b = {n: a[rows] for n, a in batches[steps].items()}
                 prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, steps + 1), dev)
-            by_site = {}
-            for r in issued:
-                if r.site.startswith("ep."):
-                    by_site.setdefault(r.site, {}).setdefault(r.op, []).append(r.num_chunks)
-            want_rows = {}
+            by_site = rows_by_site(issued)
+            want_rows = placement_rows(cfg, place, 1, steps + 1, S)
             for j in range(layers):
                 for kind in ("a2a_disp", "a2a_comb"):
                     site = f"ep.layer{j}.moe.{kind}"
@@ -734,12 +944,14 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
                     want_rows[site] = {"all_to_all": [nc] * 2 * (steps + 1),
                                        "all_to_all.bwd": [nc] * (steps + 1)}
             rows_ok = by_site == want_rows
+            split = tp_split(cfg, model, mm)
             still = [n for n, p in model.named_parameters()
                      if p.detach().double().sum().item() == before[n]]
             alike = held_alike(model)
             step_s = statistics.median(times[1:] or times)
             tokens = B * S
-            row = {"mesh": name, "layers": layers, "batch": B, "seq": S, "lr": opt.lr,
+            row = {"arch": cfg.name, "mesh": name, "layers": layers, "batch": B, "seq": S,
+                   "lr": opt.lr, "split": split,
                    "eps": opt.eps, "one_card_s": one_card_s, "step_ms": step_s * 1e3,
                    "step_ms_all": [x * 1e3 for x in times], "tokens_per_s": tokens / step_s,
                    "mfu_fp32": MET.mfu(cfg, tokens, step_s, chips=N, peak=MET.H100_FP32_PEAK),
@@ -748,9 +960,11 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
                    "issued_as_code": rows_ok, "held_alike_equal": alike, "not_moved": still,
                    "launches": launches}
             runs.append(row)
-            tag = f"moe {name} {layers} layers"
+            tag = f"moe {cfg.name} {name} {layers} layers"
             if not (gate["loss_rel"] <= GATE_REL and gate.get("param_rel", 0.0) <= GATE_REL):
                 res["failed"].append(f"{tag}: step 1 against one card {gate}")
+            if not split["ok"]:
+                res["failed"].append(f"{tag}: attention and the vocabulary not split {split}")
             if not rows_ok:
                 res["failed"].append(f"{tag}: issued {by_site}")
             if not launches_ok:
@@ -768,7 +982,7 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
             dist.barrier()
         del want, routing
         _release(dev)
-    res["moe"] = {"arch": base.name, "plan": MOE_PLAN, "runs": runs}
+    res["moe"] = {"archs": [base.name, QWEN["arch"]], "plan": MOE_PLAN, "runs": runs}
 
 
 def pp_section(rank: int, dev, smoke: bool, res: dict) -> None:
@@ -1104,6 +1318,8 @@ def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> in
             fsdp_section(rank, dev, smoke, res, os.path.dirname(out))
         if "deep" in sections:
             deep_section(rank, dev, smoke, res)
+        if "tp32" in sections:
+            tp32_section(rank, dev, smoke, res)
         if "moe" in sections:
             moe_section(rank, dev, smoke, res)
         if "pp" in sections:
@@ -1169,6 +1385,9 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help=f"comma-separated, of {SECTIONS} (default: all)")
+    ap.add_argument("--json", default="",
+                    help="also write the result line to this file (it outgrows a "
+                         "terminal's tail)")
     args = ap.parse_args()
     sections = tuple(args.sections.split(","))
     if not set(sections) <= set(SECTIONS):
@@ -1225,7 +1444,12 @@ def main() -> int:
             with open(o) as f:
                 ranks.append(json.load(f))
         launcher = run_launcher(args.smoke, tmp) if "launcher" in sections else None
-    print(json.dumps({"cards": card, "ranks": ranks, "launcher": launcher}))
+    line = json.dumps({"cards": card, "ranks": ranks, "launcher": launcher})
+    print(line)
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            f.write(line + "\n")
     failed = [f for r in ranks for f in r["failed"]]
     if launcher is not None and (launcher["rc"] != 0 or not any(
             line.startswith(f"step {TRAIN['steps'] - 1:4d} loss")
