@@ -198,14 +198,32 @@ Phases, each of which exits non-zero on a failed check:
      unpipelined ``loss_and_metrics`` on the same weights and batch; the
      kernels' launches equal to the code's (each microbatch's layers as a
      train pass, the final norm once), forward and backward ms pipelined
-     and not, peak memory and a profile by kernel class.
+     and not, peak memory and a profile by kernel class;
+  14. analysis: phase 6's fsdp:8 and tp:8 plans for h100-sxm saved as JSON
+     and judged by ``python -m repro_torch.analysis verify-overlap`` in a
+     subprocess (exit 0, every site MATERIALIZED over the fake world of 8
+     ranks) and the ``install=False`` control (every site ABSENT);
+     ``trace_and_verify(..., profile=True)`` of phase 7's
+     ``mm_reduce_scatter``, ``chunked_all_to_all`` and ``psum_tree_chunked``
+     at 2 and 4 chunks on a 1-rank NCCL group, in a process of its own
+     (in this one, after the phases' profiles, torch 2.11's profiler
+     returned launches without device activity), each site MATERIALIZED in
+     the record and the first two in the profile (on one rank the psum's
+     in-place all-reduce runs nothing on the card, and the ring issues no
+     hop, so neither is judged there), and, from a profile without the
+     record, each call's NCCL device ms beside the ms of it under another
+     kernel; and the dry run of llama3-8b's train_4k at 8 layers on the
+     16 x 16 fake mesh (``python -m repro_torch.launch.dryrun``), its
+     record ``ok`` with ``grad_accum`` > 1 and its depth's parameter
+     count, and the full depth's count from ``launch.specs`` held to the
+     reference's.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
 Phases 7 to 13 share one 1-rank NCCL group from a ``FileStore``.  Then it
 prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
 ``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"moe": ...}``
 line, one ``{"families": ...}`` line, one ``{"families_train": ...}`` line,
-one ``{"pipeline": ...}`` line,
+one ``{"pipeline": ...}`` line, one ``{"analysis": ...}`` line,
 one ``{"kernels": [...]}`` line (the flash kernels' instantiations of
 phases 11 and 12, forward and backward at h = 80 and with ALiBi, as
 entries of their own with the launches of the models that run them,
@@ -222,6 +240,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import math
 import os
 import re
 import statistics
@@ -244,6 +263,7 @@ from repro_torch.core import (ParallelPlan, TunedPlan, by_name,  # noqa: E402
                               parse_parallel, tune)
 from repro_torch.core.apply import activate, plan_digest  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import work as _work  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.parallel import collectives  # noqa: E402
@@ -465,9 +485,7 @@ def rmsnorm_phase(gen) -> dict:
             "library_ms": lib, "cases": cases}
 
 
-def causal_pairs(Sq: int, Sk: int) -> int:
-    """(query, key) pairs a causal mask keeps, positions counted from 0."""
-    return sum(min(i + 1, Sk) for i in range(Sq))
+causal_pairs = _work.causal_pairs
 
 
 def sdpa_efficient(q, k, v, causal):
@@ -1049,42 +1067,23 @@ SSD_SHAPE = (BATCH, 112, 64, 64)
 WKV6_SHAPE = (BATCH, 32, 64, 64)
 
 
-def _chunk_rows(S: int, Q: int):
-    return [min(Q, S - c0) for c0 in range(0, S, Q)]
-
-
 def ssd_work(B, S, H, P, N, with_state: bool, G: int) -> tuple:
     """(bytes, flops) of one SSD call: each input read once and each output
-    written once, B and C at their G groups; the four chunk products
-    counted over the causal pairs s <= t this call's rows have (the kernel
-    computes nothing above the diagonal or past S), plus the decays and the
-    D x skip."""
+    written once, B and C at their G groups; the operations as
+    ``kernels.work.ssd_flops`` counts them (the four chunk products over
+    the causal pairs s <= t this call's rows have, the decays, the D x
+    skip)."""
     nbytes = 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + 2 * H
                   + B * H * P * N * (2 if with_state else 1))
-    flops = 0
-    for q in _chunk_rows(S, 64):
-        pairs = q * (q + 1) // 2
-        flops += 2 * pairs * N + 3 * pairs      # G = C Bᵀ, decay and dt on it
-        flops += 2 * pairs * P                  # G x
-        flops += 2 * q * P * N + 3 * q * P      # (C h0ᵀ) e^{cum}, D x
-        flops += 2 * q * P * N + 2 * P * N      # state update
-    return nbytes, B * H * flops
+    return nbytes, _work.ssd_flops(B, S, H, P, N)
 
 
 def wkv6_work(B, S, H, K, V, with_state: bool) -> tuple:
-    """(bytes, flops) of one WKV6 call, counted as ``ssd_work`` counts: the
-    off-diagonal A[t][s] over s < t (a subtraction, an exp, two multiplies
-    and an add per channel), its diagonal, the decays folded into r and k,
-    and the three products."""
+    """(bytes, flops) of one WKV6 call, counted as ``ssd_work`` counts (the
+    operations: ``kernels.work.wkv6_flops``)."""
     nbytes = 4 * (3 * B * S * H * K + 2 * B * S * H * V + H * K
                   + B * H * K * V * (2 if with_state else 1))
-    flops = 0
-    for q in _chunk_rows(S, 32):
-        flops += 5 * K * q * (q - 1) // 2 + 3 * K * q     # A, off-diagonal and diagonal
-        flops += 5 * q * K                                 # r e^{cw}, k e^{cw_end - ci}
-        flops += 2 * q * K * V + q * (q + 1) * V           # y: inter and intra
-        flops += 2 * q * K * V + 2 * K * V                 # state update
-    return nbytes, B * H * flops
+    return nbytes, _work.wkv6_flops(B, S, H, K, V)
 
 
 def _scan_err(y, st, y_ref, st_ref, what) -> tuple:
@@ -2556,9 +2555,7 @@ def flash_instance(cfg) -> str:
     return "alibi" if cfg.pos_kind == "alibi" else "h80" if cfg.head_dim == 80 else "base"
 
 
-def masked_pairs(Sq: int, Sk: int, window: int) -> int:
-    """(query, key) pairs a causal mask with a window (0 = none) keeps."""
-    return sum(min(i + 1, Sk, window or Sk) for i in range(Sq))
+masked_pairs = _work.masked_pairs
 
 
 def sdpa_masked(q, k, v, bias):
@@ -3197,6 +3194,211 @@ def pipeline_phase(card: str, mesh, rmsnorm_bwd_ptxas: dict) -> dict:
             "rmsnorm_bwd_ptxas_8": eight, "seconds": seconds, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the overlap verifier and the dry run
+# ---------------------------------------------------------------------------
+
+ANALYSIS_CHUNKS = (2, 4)
+# llama3-8b's parameters, the reference's ``eval_shape`` count (the port's
+# ``launch.specs`` count is held to it by tests/test_torch_dryrun.py)
+LLAMA3_8B_PARAMS = 8_030_261_248
+# the dry run's depth: 8 layers keep grad_accum > 1 (4 at train_4k) at a
+# sixteenth of the full depth's trace time
+DRYRUN_LAYERS = 8
+DRYRUN_ARGS = ("--arch", PLAN_ARCH, "--shape", "train_4k", "--layers", str(DRYRUN_LAYERS))
+_EXERCISE_OFF = """
+import json, sys
+from repro_torch.analysis.exercise import exercise_plan
+from repro_torch.core.session import TunedPlan
+print(json.dumps({p: [v.verdict for v in exercise_plan(TunedPlan.load(p), install=False).verdicts]
+                  for p in sys.argv[1:]}))
+"""
+
+
+def _src_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+
+
+def _param_count(cfg) -> int:
+    from repro_torch.launch.specs import param_specs_shapes
+    return sum(math.prod(s) for s in param_specs_shapes(cfg).values())
+
+
+def dryrun(card: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` of llama3-8b's train_4k at
+    ``DRYRUN_LAYERS`` layers on the 16 x 16 fake mesh (256 fake ranks, fake
+    tensors, no card), its record checked: ``ok``, the parameters of its
+    depth, ``grad_accum`` > 1, and every collective kind the placed step
+    issues.  The full depth's count (``launch.specs`` alone, no trace) is
+    held to the reference's."""
+    full = _param_count(get_config(PLAN_ARCH))
+    check(full == LLAMA3_8B_PARAMS, f"param_specs_shapes of {PLAN_ARCH}: {full}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+                              "--out-dir", d], cwd=ROOT, env=_src_env(), capture_output=True,
+                             text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        check(run.returncode == 0, f"dry run: exit code {run.returncode}: "
+              f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        with open(os.path.join(d, f"{PLAN_ARCH}_train_4k_pod1.json")) as f:
+            rec = json.load(f)
+    want = _param_count(get_config(PLAN_ARCH).replace(num_layers=DRYRUN_LAYERS))
+    check(rec["status"] == "ok" and rec["params"] == want and rec["grad_accum"] > 1,
+          f"dry run: {rec.get('status')}, params {rec.get('params')} (want {want}), "
+          f"grad_accum {rec.get('grad_accum')}")
+    coll = rec["collectives"]
+    check(all(coll[k] > 0 for k in ("all-gather", "all-reduce", "reduce-scatter",
+                                    "collective-permute")), f"dry run: collectives {coll}")
+    say(f"analysis: dry run of {PLAN_ARCH} train_4k at {DRYRUN_LAYERS} layers on the 16x16 "
+        f"fake mesh: {rec['trace_s']} s of run ({seconds:.1f} s of command), {rec['params']} "
+        f"params ({full} at full depth), peak {rec['memory']['peak_bytes'] / 2**30:.2f} GiB "
+        f"a rank, {rec['flops']:.4g} flops a rank, grad_accum {rec['grad_accum']}, "
+        f"{coll['count']} collectives ({card})")
+    return dict(rec, command_s=seconds, params_full_depth=full)
+
+
+def verify_overlap_cli(card: str) -> dict:
+    """Phase 6's two h100-sxm plans saved as JSON and judged by
+    ``python -m repro_torch.analysis verify-overlap`` (exit 0, every site
+    MATERIALIZED over the fake world of 8), and the ``install=False``
+    control (every site ABSENT)."""
+    cfg = get_config(PLAN_ARCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for name, spec in PLAN_WORKLOADS.items():
+            wl = extract_workload(cfg, ParallelPlan(**spec), seq=PLAN_SEQ,
+                                  global_batch=PLAN_BATCH)
+            paths.append(os.path.join(d, f"{name.replace(':', '')}_h100-sxm.json"))
+            tune(wl, "h100-sxm", method="lagom").save(paths[-1])
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "verify-overlap",
+                              *paths], cwd=ROOT, env=_src_env(), capture_output=True,
+                             text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        verdicts = re.findall(r"^\s+(MATERIALIZED|DEGRADED|ABSENT)\s", cli.stdout, re.M)
+        check(cli.returncode == 0 and verdicts and set(verdicts) == {"MATERIALIZED"},
+              f"verify-overlap: exit {cli.returncode}\n{cli.stdout[-3000:]}{cli.stderr[-2000:]}")
+        off = subprocess.run([sys.executable, "-c", _EXERCISE_OFF, *paths], cwd=ROOT,
+                             env=_src_env(), capture_output=True, text=True, timeout=300)
+        check(off.returncode == 0, f"install=False control: {off.stderr[-2000:]}")
+        absent = json.loads(off.stdout.strip().splitlines()[-1])
+        check(all(v and set(v) == {"ABSENT"} for v in absent.values()),
+              f"install=False control: {absent}")
+    out = {"exit": cli.returncode, "sites": len(verdicts), "seconds": cli_s,
+           "control_absent": sum(len(v) for v in absent.values())}
+    say(f"analysis: verify-overlap of phase 6's fsdp:8 and tp:8 plans for h100-sxm: exit "
+        f"{cli.returncode}, {len(verdicts)} sites MATERIALIZED in {cli_s:.1f} s; "
+        f"install=False: all {out['control_absent']} ABSENT ({card})")
+    return out
+
+
+def profiled_helpers(card: str, mesh) -> list:
+    """``trace_and_verify(..., profile=True)`` over phase 7's
+    ``mm_reduce_scatter``, ``chunked_all_to_all`` and ``psum_tree_chunked``
+    calls at 2 and 4 chunks on the 1-rank NCCL group: every site
+    MATERIALIZED in the record, and the first two in the profile; then, from
+    a profile of the same calls without the record (whose dispatch mode
+    slows the host), each call's NCCL device ms with the ms of it under
+    another kernel (``ir.nccl_overlap``).  At one rank NCCL runs a copy for
+    the reduce-scatter and the all-to-all, and nothing for the psum's
+    in-place all-reduce, so the profile holds no collective of the psum and
+    its site is judged by the record alone; the ring issues no hop on one
+    rank (nothing to judge its site by), so it is not among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.ir import graph_from_profile, nccl_overlap
+    from repro_torch.analysis.overlap import trace_and_verify
+
+    C = collectives
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cfg = get_config(PLAN_ARCH)
+    D, F, T = cfg.d_model, cfg.d_ff, BATCH * PROMPT_LENS[1]
+    h = randn((1, T, F), torch.float32, gen)
+    wd = randn((F, D), torch.float32, gen) / F ** 0.5
+    tree = {"gate": randn((D, F), torch.float32, gen), "down": wd}
+    sites = {"tp.layer0.mlp.rs": "rs", "ep.layer0.moe.a2a_disp": "a2a",
+             "acc.step0.rs_grads": "acc"}
+    on_card = ("tp.layer0.mlp.rs", "ep.layer0.moe.a2a_disp")    # the profile's
+
+    def program():
+        C.mm_reduce_scatter(h, wd, mesh, site="tp.layer0.mlp.rs")
+        C.chunked_all_to_all(h, mesh, split_axis=1, concat_axis=1,
+                             site="ep.layer0.moe.a2a_disp")
+        C.psum_tree_chunked(tree, mesh, site="acc.step0.rs_grads")
+
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        for nc in ANALYSIS_CHUNKS:
+            plan = {s: C.CollectiveRuntime("chunked", nc) for s in sites}
+            with C.use_runtime_plan(plan):
+                program()               # warm: cuBLAS and NCCL set up outside the profile
+            torch.cuda.synchronize()
+            path = os.path.join(d, f"trace{nc}.json")
+            rec, prof = trace_and_verify(plan, program, profile=path)
+            got = {v.site: v.verdict for v in prof.verdicts}
+            check(len(rec.materialized) == len(sites)
+                  and all(got.get(s) == "MATERIALIZED" for s in on_card),
+                  f"trace_and_verify x{nc}:\n{rec.format()}\n{prof.format()}\nthe "
+                  f"profile's loops: {graph_from_profile(path).loops}")
+            with C.use_runtime_plan(plan), profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                program()
+                torch.cuda.synchronize()
+            p.export_chrome_trace(path)
+            for r in nccl_overlap(path):
+                say(f"analysis: {r['op']} x{nc} at {r['site']} on the 1-rank NCCL group: "
+                    f"{r['collectives']} collectives, {r['device_events']} NCCL device "
+                    f"events, {r['nccl_ms']:.4f} ms, {r['under_compute_ms']:.4f} ms of it "
+                    f"under another kernel ({card})")
+                rows.append(dict(r, num_chunks=nc))
+            say(f"analysis: x{nc}: record MATERIALIZED at {sorted(sites)}, profile "
+                f"MATERIALIZED at {sorted(on_card)}; the psum's in-place all-reduce runs "
+                "nothing on one rank (its profile verdict, "
+                f"{got.get('acc.step0.rs_grads')}, is not judged), and the ring's site is "
+                "not judged: it issues no hop on one rank")
+    del h, wd, tree
+    free()
+    return rows
+
+
+_PROFILED = """
+import json, sys, tempfile
+import torch.distributed as dist
+import chip_smoke as C
+with tempfile.TemporaryDirectory() as tmp:
+    mesh = C.nccl_mesh(tmp)
+    try:
+        rows = C.profiled_helpers(sys.argv[1], mesh)
+    finally:
+        dist.destroy_process_group()
+print(json.dumps(rows))
+"""
+
+
+def profiled_helpers_fresh(card: str) -> list:
+    """``profiled_helpers`` in a process of its own, on a 1-rank NCCL group of
+    its own: in this process, after phases 3 to 13's profiles, torch 2.11's
+    profiler returned a trace with the kernels' launches and none of their
+    device activity (``analysis.ir`` refuses such a trace)."""
+    env = dict(_src_env(), PYTHONPATH=os.pathsep.join((os.path.join(ROOT, "src"), ROOT)))
+    run = subprocess.run([sys.executable, "-c", _PROFILED, card], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    for line in run.stdout.strip().splitlines()[:-1]:
+        print(line, flush=True)
+    check(run.returncode == 0, f"profiled helpers: exit {run.returncode}\n"
+          f"{run.stdout[-2000:]}{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def analysis_phase(card: str) -> dict:
+    """Phase 14: the overlap verifier (CLI, control, profiled helpers) and the
+    dry run."""
+    return {"verify_overlap": verify_overlap_cli(card), "profiled": profiled_helpers_fresh(card),
+            "dryrun": dryrun(card)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -3263,6 +3465,7 @@ def main() -> int:
             pipelined = pipeline_phase(card, mesh, rmsnorm_bwd_ptxas)
         finally:
             dist.destroy_process_group()
+    analysis = analysis_phase(card)
 
     say(json.dumps({"plan": plan_phase(card)}))
     say(json.dumps({"plan_serving": plan_served}))
@@ -3273,6 +3476,7 @@ def main() -> int:
     say(json.dumps({"families_train": {k: v for k, v in families_train.items()
                                        if k != "kernels"}}))
     say(json.dumps({"pipeline": {k: v for k, v in pipelined.items() if k != "kernels"}}))
+    say(json.dumps({"analysis": analysis}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}

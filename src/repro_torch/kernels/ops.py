@@ -22,6 +22,16 @@ and flash attention on CUDA tensors go through ``RMSNormFn`` and
 differentiated by autograd.  The scans are forward-only: their kernels
 refuse inputs that need a gradient.
 
+Fake tensors (``torch._subclasses.fake_tensor.FakeTensor``, the dry run's,
+``launch.dryrun``) take a route of their own, keyed on that type alone and
+whatever their device: each kernel's call returns empty outputs of the
+kernel's shapes and dtypes (lse and the scans' states included), with no
+launch and no build, and adds the call's operations (``kernels.work``) to
+``FAKE_FLOPS``.  Under grad the route runs through ``RMSNormFn`` and
+``FlashAttentionFn`` as the card's does, so the dry run saves for the
+backward what the card saves.  It is not a fallback: a real CUDA tensor
+launches the kernel, and a CPU tensor takes the plain version.
+
 There is no fallback: ``"cuda"`` on a CPU tensor raises, and a build or
 launch error on the card propagates.  ``LAUNCHES`` counts the launches of
 each kernel, one per call that takes the ``"cuda"`` route (a remat
@@ -30,12 +40,13 @@ went through the kernels (``chip_smoke.py`` reads it).
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ref as _ref, work as _work
 from repro_torch.kernels.flash import (check_window_alibi, flash_attention_bwd_cuda,
                                       flash_attention_cuda)
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
@@ -48,12 +59,24 @@ LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bw
             "flash_attention_bwd": 0}
 
 
+FAKE_FLOPS = dict.fromkeys(LAUNCHES, 0)
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a ``FakeTensor`` (never true before the fake tensor
+    module is imported, which ``import repro_torch`` does not do)."""
+    mod = sys.modules.get("torch._subclasses.fake_tensor")
+    return mod is not None and isinstance(x, mod.FakeTensor)
+
+
 def _backend(x: torch.Tensor, backend: Optional[str], known=BACKENDS) -> str:
+    if is_fake(x):
+        return "fake"
     if backend is None:
         return "cuda" if x.is_cuda else "ref"
     if backend not in known:
@@ -73,8 +96,7 @@ class RMSNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, eps):
-        y = rmsnorm_cuda(x, scale, eps=eps)
-        LAUNCHES["rmsnorm"] += 1
+        y = _rmsnorm_kernel(x, scale, eps)
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
         return y
@@ -82,7 +104,12 @@ class RMSNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = rmsnorm_bwd_cuda(x, scale, dy.contiguous(), eps=ctx.eps)
+        dy = dy.contiguous()
+        if is_fake(x):
+            FAKE_FLOPS["rmsnorm_bwd"] += _work.rmsnorm_bwd_flops(x.numel() // x.shape[-1],
+                                                                 x.shape[-1])
+            return torch.empty_like(x), torch.empty_like(scale), None
+        dx, dscale = rmsnorm_bwd_cuda(x, scale, dy, eps=ctx.eps)
         LAUNCHES["rmsnorm_bwd"] += 1
         return dx, dscale, None
 
@@ -98,9 +125,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window=0, alibi_slopes=None):
         check_window_alibi(q, window, alibi_slopes)
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True, window=window,
-                                      alibi_slopes=alibi_slopes)
-        LAUNCHES["flash_attention"] += 1
+        o, lse = _flash_kernel(q, k, v, causal, window, alibi_slopes, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window, ctx.alibi_slopes = causal, window, alibi_slopes
         return o
@@ -108,11 +133,44 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do.contiguous(),
-                                              causal=ctx.causal, window=ctx.window,
+        do = do.contiguous()
+        if is_fake(q):
+            B, Sq, Hq, h = q.shape
+            FAKE_FLOPS["flash_attention_bwd"] += _work.flash_bwd_flops(
+                B, Sq, k.shape[1], Hq, h, causal=ctx.causal, window=ctx.window)
+            return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None, None, None
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=ctx.causal,
+                                              window=ctx.window,
                                               alibi_slopes=ctx.alibi_slopes)
         LAUNCHES["flash_attention_bwd"] += 1
         return dq, dk, dv, None, None, None
+
+
+def _rmsnorm_kernel(x, scale, eps):
+    """The forward kernel's call, or on a fake tensor its empty output."""
+    if is_fake(x):
+        FAKE_FLOPS["rmsnorm"] += _work.rmsnorm_flops(x.numel() // x.shape[-1], x.shape[-1])
+        return torch.empty_like(x)
+    y = rmsnorm_cuda(x, scale, eps=eps)
+    LAUNCHES["rmsnorm"] += 1
+    return y
+
+
+def _flash_kernel(q, k, v, causal, window, alibi_slopes, *, with_lse=False):
+    """The forward kernel's call (o, and lse (B, Hq, Sq) fp32 with
+    ``with_lse``), or on a fake tensor empty outputs of those shapes."""
+    if is_fake(q):
+        check_window_alibi(q, window, alibi_slopes)     # what the card refuses
+        B, Sq, Hq, h = q.shape
+        FAKE_FLOPS["flash_attention"] += _work.flash_flops(B, Sq, k.shape[1], Hq, h,
+                                                           causal=causal, window=window)
+        o = torch.empty_like(q)
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        return (o, lse) if with_lse else o
+    out = flash_attention_cuda(q, k, v, causal=causal, with_lse=with_lse, window=window,
+                               alibi_slopes=alibi_slopes)
+    LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, backend: Optional[str] = None,
@@ -121,9 +179,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, backend: Optional[str] = No
         return _ref.rmsnorm_ref(x, scale, eps)
     if _needs_grad(x, scale):
         return RMSNormFn.apply(x, scale, eps)
-    y = rmsnorm_cuda(x, scale, eps=eps)
-    LAUNCHES["rmsnorm"] += 1
-    return y
+    return _rmsnorm_kernel(x, scale, eps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -136,15 +192,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         alibi_slopes=alibi_slopes)
     if _needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, alibi_slopes)
-    o = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                             alibi_slopes=alibi_slopes)
-    LAUNCHES["flash_attention"] += 1
-    return o
+    return _flash_kernel(q, k, v, causal, window, alibi_slopes)
 
 
 def _scan_backend(x: torch.Tensor, backend: Optional[str]) -> str:
     b = _backend(x, backend, SCAN_BACKENDS)
-    if b == "cuda":
+    if b in ("cuda", "fake"):
         return b
     if x.shape[1] == 1:            # the plain route decodes with the step oracle
         return "ref"
@@ -164,6 +217,12 @@ def wkv6(r, k, v, w_log, u, state=None, *, backend: Optional[str] = None, chunk:
     w_log ≤ 0.  With ``out_state`` the final state is written there, which
     may be ``state`` itself, and returned."""
     b = _scan_backend(r, backend)
+    if b == "fake":
+        B, S, H, K = r.shape
+        FAKE_FLOPS["wkv6"] += _work.wkv6_flops(B, S, H, K, v.shape[-1])
+        st = out_state if out_state is not None else torch.empty(
+            (B, H, K, v.shape[-1]), dtype=torch.float32, device=r.device)
+        return torch.empty_like(v), st
     if b == "cuda":
         y, st = wkv6_cuda(r, k, v, w_log, u, state, out_state=out_state, chunk=chunk)
         LAUNCHES["wkv6"] += 1
@@ -189,6 +248,13 @@ def ssd(x, dt, A, Bm, Cm, D, state=None, *, backend: Optional[str] = None, chunk
     kernel reads them in place).  With ``out_state`` the final state is
     written there, which may be ``state`` itself, and returned."""
     b = _scan_backend(x, backend)
+    if b == "fake":
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        FAKE_FLOPS["ssd"] += _work.ssd_flops(B, S, H, P, N)
+        st = out_state if out_state is not None else torch.empty(
+            (B, H, P, N), dtype=torch.float32, device=x.device)
+        return torch.empty((B, S, H, P), dtype=x.dtype, device=x.device), st
     if b == "cuda":
         y, st = ssd_cuda(x, dt, A, Bm, Cm, D, state, out_state=out_state, chunk=chunk)
         LAUNCHES["ssd"] += 1

@@ -19,13 +19,23 @@ out row-major, as the reference's ``jax.make_mesh`` lays out its devices
 (rank ``i·m + j`` at data index ``i``, model index ``j``), and returns
 this rank's ``Mesh`` for each axis: its model group is the ``m`` ranks
 of its row, its data group the ``d`` ranks of its column.
+
+The dry run (``launch.dryrun``) places models on the reference's
+production meshes (``make_production_mesh``: 16 × 16 ``data`` × ``model``,
+or 2 × 16 × 16 with ``pod``) over a fake world (``fake_world``: torch's
+fake process group, whose collectives move nothing), in one process that
+is rank 0: the program is SPMD, so one rank's issue is every rank's.
+Where FSDP spans several axes (``pod`` × ``data``), ``axis_mesh`` makes
+one group over them, their ranks in mesh order, as the reference's
+sharding over the axes' product.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
@@ -63,20 +73,73 @@ def make_mesh(shape=None, axes: Optional[Sequence[str]] = None):
     if math.prod(shape) != world:
         raise ValueError(f"mesh {'x'.join(map(str, shape))} needs {math.prod(shape)} "
                          f"ranks, the process group has {world}")
-    me = dist.get_rank()
-    coord = [(me // math.prod(shape[k + 1:])) % shape[k] for k in range(len(shape))]
-    out: Dict[str, Mesh] = {}
-    for k, axis in enumerate(axes):
-        stride = math.prod(shape[k + 1:])
-        others = [range(n) if j != k else range(1) for j, n in enumerate(shape)]
-        for c in itertools.product(*others):
-            base = sum(ci * math.prod(shape[j + 1:]) for j, ci in enumerate(c))
-            ranks = [base + i * stride for i in range(shape[k])]
-            group = (dist.group.WORLD if len(ranks) == world else
-                     dist.new_group(ranks))
-            if me in ranks:
-                out[axis] = Mesh(group, shape[k], coord[k], axis)
-    return out
+    return {axis: axis_mesh(shape, axes, (axis,)) for axis in axes}
+
+
+def axis_mesh(shape, axes: Sequence[str], over: Sequence[str], name: Optional[str] = None,
+              ) -> Mesh:
+    """This rank's ``Mesh`` over the axes ``over`` of the mesh ``shape`` /
+    ``axes`` laid over the default group (row-major, as ``make_mesh``): the
+    ranks that share this rank's index on every other axis, ordered by
+    their index on ``over`` in mesh order.  Every such group of the mesh is
+    made, each once and in the same order on every rank.  Named ``name``
+    (default: ``over`` joined by ``"+"``)."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    ks = [axes.index(a) for a in over]
+    world, me = dist.get_world_size(), dist.get_rank()
+    strides = [math.prod(shape[k + 1:]) for k in range(len(shape))]
+    mine = None
+    others = [range(1) if k in ks else range(n) for k, n in enumerate(shape)]
+    for c in itertools.product(*others):
+        base = sum(ci * st for ci, st in zip(c, strides))
+        ranks = [base + sum(i * strides[k] for i, k in zip(idx, ks))
+                 for idx in itertools.product(*(range(shape[k]) for k in ks))]
+        group = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+        if me in ranks:
+            mine = Mesh(group, len(ranks), ranks.index(me), name or "+".join(over))
+    return mine
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, Mesh]:
+    """This rank's ``{axis: Mesh}`` of the reference's production mesh: 16 ×
+    16 (``data``, ``model``), or 2 × 16 × 16 (``pod``, ``data``,
+    ``model``) with ``multi_pod``, over the default group (of 256 or 512
+    ranks: the dry run's ``fake_world``)."""
+    shape, axes = production_shape(multi_pod=multi_pod)
+    return make_mesh(shape, axes)
+
+
+def production_shape(*, multi_pod: bool = False):
+    """(shape, axes) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def mesh_axes(mesh) -> Tuple[Tuple[str, ...], str]:
+    """(data-parallel axes, tensor-parallel axis) of a production mesh
+    (``{axis: Mesh}``, or its axis names)."""
+    if "pod" in mesh:
+        return ("pod", "data"), "model"
+    return ("data",), "model"
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A default process group of ``n`` ranks of torch's fake backend, this
+    process rank 0, for the ``with`` block (destroyed on exit): every
+    collective returns at once and moves nothing.  Refuses where a default
+    group exists."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists: a fake world of "
+                           f"{n} ranks would replace it")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def as_mesh(mesh) -> Mesh:

@@ -1,6 +1,7 @@
 """Launcher-side ``TunedPlan`` application (``--tuned-plan`` /
 ``--plan-repo``): the port's copy of ``repro.launch.plan``'s two entry
-points.
+points, and its per-site audit table (``runtime_table``, what the dry
+run's ``--tuned-plan`` prints).
 
 "Co-tune once, deploy the plan": a plan saved by ``session.tune(...)``
 (``plan.save("plan.json")``) — or auto-stored in a ``PlanRepository``
@@ -27,7 +28,7 @@ the stored plan with zero tuning work, a miss warns and launches untuned.
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.apply import activate
 from repro_torch.core.extract import (extract_decode_workload, extract_workload,
@@ -35,7 +36,8 @@ from repro_torch.core.extract import (extract_decode_workload, extract_workload,
 from repro_torch.core.plan_repo import PlanRepoError, PlanRepository
 from repro_torch.core.session import TunedPlan, workload_fingerprint
 
-__all__ = ["apply_tuned_plan", "parse_parallel", "resolve_plan_repo"]
+__all__ = ["apply_tuned_plan", "parse_parallel", "print_runtime_table",
+           "resolve_plan_repo", "runtime_table"]
 
 
 def apply_tuned_plan(path: str, *, expect_arch: Optional[str] = None,
@@ -134,3 +136,56 @@ def resolve_plan_repo(repo_dir: str, cfg, *, parallel: str, hardware: str,
               f"profiles, zero tuning at launch); {len(rt)} addressable "
               f"site entries installed{shape}")
     return rt
+
+
+# ---------------------------------------------------------------------------
+# per-site audit table (launch/dryrun.py --tuned-plan)
+# ---------------------------------------------------------------------------
+
+# site classes with no legacy comm-name bucket: their comm *names*
+# ("rs.grads.s0", "ar.grads.s0", "outer.sync.r0.f0") would otherwise fall
+# into an unrelated class bucket ("rs"/"ar") owned by per-layer sites —
+# these resolve by exact/prefix only, then XLA defaults
+_CLASSLESS_SITES = frozenset({"acc", "outer"})
+
+
+def runtime_table(plan: TunedPlan,
+                  demoted=()) -> List[Tuple[str, str, int, str, str, str]]:
+    """``(site_id, strategy, num_chunks, matched_plan_key, matched_tier,
+    health)`` for every comm site the plan was tuned over, resolved against
+    the *active* plan — what a launch with these knobs installed will
+    actually hand each site.  ``matched_tier`` names the fallback level
+    that supplied the knobs (``exact``/``prefix``/``class``/``default``,
+    from ``collectives.resolve_runtime``).  ``demoted`` marks sites the
+    fault-aware lifecycle (or an operator, via ``--demote``) has degraded
+    to fallback knobs; everything else reads ``ok``."""
+    from repro_torch.parallel import collectives
+
+    demoted = set(demoted)
+    rows = []
+    for s in plan.sites:
+        sid = s.get("site") or s["name"]
+        cls = (None if collectives.site_class(sid) in _CLASSLESS_SITES
+               else s["name"].split(".")[0])
+        rt, src, how = collectives.resolve_runtime(sid, cls)
+        health = "demoted" if sid in demoted else "ok"
+        rows.append((sid, rt.strategy, rt.num_chunks, src or "<default>",
+                     how, health))
+    return rows
+
+
+def print_runtime_table(plan: TunedPlan, demoted=()) -> None:
+    """Operator audit: site id -> knobs -> which plan key supplied them and
+    at which fallback tier (plus a health column when any site is
+    demoted)."""
+    rows = runtime_table(plan, demoted=demoted)
+    wid = max([len(r[0]) for r in rows] + [len("site")])
+    print(f"{'site':<{wid}}  {'strategy':<8} {'chunks':>6}  "
+          f"{'health':<8} {'tier':<8} source")
+    for sid, strat, nc, src, how, health in rows:
+        print(f"{sid:<{wid}}  {strat:<8} {nc:>6}  {health:<8} {how:<8} {src}")
+    n_dem = sum(1 for r in rows if r[5] == "demoted")
+    print(f"({len(rows)} comm sites, {n_dem} demoted; 'tier' is the "
+          "fallback level resolution matched at — exact site, dotted "
+          "prefix, class bucket, or XLA default — and 'source' the plan "
+          "key that supplied the knobs)")

@@ -37,7 +37,11 @@ reduce-scatter or all-to-all is issued asynchronously before the next
 chunk's work and waited for only where its result is needed.
 ``record_issued`` records what each call actually issued (chunks,
 matmuls, collective calls), where the reference would count ``scan`` loops
-in a jaxpr.
+in a jaxpr.  Each call's body, and each backward's, runs inside a
+``span``: a ``torch.profiler.record_function`` range named
+``repro_torch/{op}@{site}`` (what groups a profile's NCCL kernels by call,
+``analysis.ir.graph_from_profile``), which also marks the call's start and
+end for a listener in ``SPAN_LISTENERS`` (``analysis.ir.capture``).
 
 Every helper is a ``torch.autograd.Function`` at every mesh size, so
 tensor-parallel training runs one backward code path on one rank or many.
@@ -294,6 +298,28 @@ def _warn_unchunked(site: str, num_chunks: int, detail: str) -> None:
 # execution half: what each call issued
 # ---------------------------------------------------------------------------
 
+SPAN_PREFIX = "repro_torch/"
+
+# Called as ``listener(op, site, opening)`` where a span opens (True) and
+# closes (False).  A module list, not a context variable: a backward's span
+# opens on autograd's thread, where the caller's context is not set.
+SPAN_LISTENERS: List = []
+
+
+@contextlib.contextmanager
+def span(op: str, site: str):
+    """One helper call's range: a profiler range ``repro_torch/{op}@{site}``
+    and, for each listener, a mark where it opens and where it closes."""
+    with torch.profiler.record_function(f"{SPAN_PREFIX}{op}@{site}"):
+        for fn in SPAN_LISTENERS:
+            fn(op, site, True)
+        try:
+            yield
+        finally:
+            for fn in SPAN_LISTENERS:
+                fn(op, site, False)
+
+
 @dataclass(frozen=True)
 class Issued:
     """One call of a chunked helper, as it ran: ``num_chunks`` is the chunk
@@ -490,14 +516,17 @@ class _GatherParam(torch.autograd.Function):
     def forward(ctx, w, m, dim, site, log):
         ctx.m, ctx.dim, ctx.site, ctx.log = m, dim, site, log
         one = m.size == 1
-        _issued(site, "all_gather", 1, 0, 0 if one else 1, log)
-        return w.view_as(w) if one else _dim_gather(w, m, dim)
+        with span("all_gather", site):
+            _issued(site, "all_gather", 1, 0, 0 if one else 1, log)
+            return w.view_as(w) if one else _dim_gather(w, m, dim)
 
     @staticmethod
     def backward(ctx, g):
         one = ctx.m.size == 1
-        _issued(ctx.site, "all_gather.bwd", 1, 0, 0 if one else 1, ctx.log)
-        return (g if one else _dim_reduce_scatter(g, ctx.m, ctx.dim)), None, None, None, None
+        with span("all_gather.bwd", ctx.site):
+            _issued(ctx.site, "all_gather.bwd", 1, 0, 0 if one else 1, ctx.log)
+            dw = g if one else _dim_reduce_scatter(g, ctx.m, ctx.dim)
+        return dw, None, None, None, None
 
 
 def gather_param(w: torch.Tensor, mesh, dim: int, *, site: str = "fsdp.ag_params",
@@ -546,8 +575,9 @@ class _RingAgMatmul(torch.autograd.Function):
                 r0 = src * Tl + j * b.shape[-2]
                 out[..., r0:r0 + b.shape[-2], :] = b @ w
 
-        hops = _ring(x, m, step)
-        _issued(site, "ring_ag_matmul", nc, m.size * nc, hops, log)
+        with span("ring_ag_matmul", site):
+            hops = _ring(x, m, step)
+            _issued(site, "ring_ag_matmul", nc, m.size * nc, hops, log)
         return out
 
     @staticmethod
@@ -558,27 +588,28 @@ class _RingAgMatmul(torch.autograd.Function):
         again, each hop in flight under the previous shard's products."""
         x, w = ctx.saved_tensors
         m, nc = ctx.m, ctx.nc
-        Tl = x.shape[-2]
-        dx = dw = None
-        matmuls = colls = 0
-        if ctx.needs_input_grad[0]:
-            pending = _mm_rs_issue(dy, w.T, m, nc)
-            matmuls, colls = nc, sum(wk is not None for wk, _ in pending)
-        if ctx.needs_input_grad[1]:
-            acc = torch.zeros(w.shape, dtype=torch.promote_types(w.dtype, torch.float32),
-                              device=w.device)
+        with span("ring_ag_matmul.bwd", ctx.site):
+            Tl = x.shape[-2]
+            dx = dw = None
+            matmuls = colls = 0
+            if ctx.needs_input_grad[0]:
+                pending = _mm_rs_issue(dy, w.T, m, nc)
+                matmuls, colls = nc, sum(wk is not None for wk, _ in pending)
+            if ctx.needs_input_grad[1]:
+                acc = torch.zeros(w.shape, dtype=torch.promote_types(w.dtype, torch.float32),
+                                  device=w.device)
 
-            def step(src, xs):
-                g = dy[..., src * Tl:(src + 1) * Tl, :]
-                for xb, gb in zip(_row_blocks(xs, nc), _row_blocks(g, nc)):
-                    acc.add_(_rows_mm(xb, gb))
+                def step(src, xs):
+                    g = dy[..., src * Tl:(src + 1) * Tl, :]
+                    for xb, gb in zip(_row_blocks(xs, nc), _row_blocks(g, nc)):
+                        acc.add_(_rows_mm(xb, gb))
 
-            colls += _ring(x, m, step)
-            matmuls += m.size * nc
-            dw = acc.to(w.dtype)
-        if ctx.needs_input_grad[0]:
-            dx = _mm_rs_join(pending)
-        _issued(ctx.site, "ring_ag_matmul.bwd", nc, matmuls, colls, ctx.log)
+                colls += _ring(x, m, step)
+                matmuls += m.size * nc
+                dw = acc.to(w.dtype)
+            if ctx.needs_input_grad[0]:
+                dx = _mm_rs_join(pending)
+            _issued(ctx.site, "ring_ag_matmul.bwd", nc, matmuls, colls, ctx.log)
         return dx, dw, None, None, None, None
 
 
@@ -655,10 +686,11 @@ class _MmReduceScatter(torch.autograd.Function):
     def forward(ctx, x, w, m, nc, site, log):
         ctx.save_for_backward(x, w)
         ctx.m, ctx.nc, ctx.site, ctx.log = m, nc, site, log
-        pending = _mm_rs_issue(x, w, m, nc)
-        _issued(site, "mm_reduce_scatter", nc, nc,
-                sum(work is not None for work, _ in pending), log)
-        return _mm_rs_join(pending)
+        with span("mm_reduce_scatter", site):
+            pending = _mm_rs_issue(x, w, m, nc)
+            _issued(site, "mm_reduce_scatter", nc, nc,
+                    sum(work is not None for work, _ in pending), log)
+            return _mm_rs_join(pending)
 
     @staticmethod
     def backward(ctx, dy):
@@ -667,29 +699,30 @@ class _MmReduceScatter(torch.autograd.Function):
         the forward's chunk ``i`` rows; then dx of those rows is ``g·wᵀ``
         and dw gains ``x_iᵀ·g``."""
         x, w = ctx.saved_tensors
-        m, nc = ctx.m, ctx.nc
-        n = m.size
-        s = dy.shape[-2] // nc
-        gathers = [_gather_tiles(dy[..., i * s:(i + 1) * s, :], m) for i in range(nc)]
-        xr = _rs_chunks(x, n, nc)
-        lead = x.shape[:-2]
-        dxs, dw, matmuls = [], None, 0
-        for i, (work, tiles) in enumerate(gathers):
-            _wait(work)
-            g = tiles.movedim(0, -3)                        # (..., n, s, D)
-            if ctx.needs_input_grad[0]:
-                dxs.append(g @ w.T)
-                matmuls += 1
-            if ctx.needs_input_grad[1]:
-                part = _rows_mm(xr.select(-3, i), g)
-                dw = part if dw is None else dw + part
-                matmuls += 1
-        dx = None
-        if dxs:
-            dx = torch.stack(dxs, dim=-3).reshape(lead + (-1, x.shape[-1]))
-        _issued(ctx.site, "mm_reduce_scatter.bwd", nc, matmuls,
-                sum(work is not None for work, _ in gathers), ctx.log)
-        return dx, dw, None, None, None, None
+        with span("mm_reduce_scatter.bwd", ctx.site):
+            m, nc = ctx.m, ctx.nc
+            n = m.size
+            s = dy.shape[-2] // nc
+            gathers = [_gather_tiles(dy[..., i * s:(i + 1) * s, :], m) for i in range(nc)]
+            xr = _rs_chunks(x, n, nc)
+            lead = x.shape[:-2]
+            dxs, dw, matmuls = [], None, 0
+            for i, (work, tiles) in enumerate(gathers):
+                _wait(work)
+                g = tiles.movedim(0, -3)                        # (..., n, s, D)
+                if ctx.needs_input_grad[0]:
+                    dxs.append(g @ w.T)
+                    matmuls += 1
+                if ctx.needs_input_grad[1]:
+                    part = _rows_mm(xr.select(-3, i), g)
+                    dw = part if dw is None else dw + part
+                    matmuls += 1
+            dx = None
+            if dxs:
+                dx = torch.stack(dxs, dim=-3).reshape(lead + (-1, x.shape[-1]))
+            _issued(ctx.site, "mm_reduce_scatter.bwd", nc, matmuls,
+                    sum(work is not None for work, _ in gathers), ctx.log)
+            return dx, dw, None, None, None, None
 
 
 def mm_reduce_scatter(x, w, mesh, *, num_chunks: int | None = None,
@@ -748,16 +781,18 @@ class _ChunkedAllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, m, sa, ca, nc, site, log):
         ctx.m, ctx.sa, ctx.ca, ctx.nc, ctx.site, ctx.log = m, sa, ca, nc, site, log
-        y, calls = _a2a(x, m, sa, ca, nc)
-        _issued(site, "all_to_all", nc, 0, calls, log)
+        with span("all_to_all", site):
+            y, calls = _a2a(x, m, sa, ca, nc)
+            _issued(site, "all_to_all", nc, 0, calls, log)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         """The inverse all-to-all: ``concat_axis`` split, ``split_axis``
         joined, in the forward's chunks."""
-        dx, calls = _a2a(dy, ctx.m, ctx.ca, ctx.sa, ctx.nc)
-        _issued(ctx.site, "all_to_all.bwd", ctx.nc, 0, calls, ctx.log)
+        with span("all_to_all.bwd", ctx.site):
+            dx, calls = _a2a(dy, ctx.m, ctx.ca, ctx.sa, ctx.nc)
+            _issued(ctx.site, "all_to_all.bwd", ctx.nc, 0, calls, ctx.log)
         return dx, None, None, None, None, None, None
 
 
@@ -846,18 +881,20 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        work, out = _all_reduce(g, ctx.m)
-        _wait(work)
-        _issued(ctx.site, "all_reduce.bwd", 1, 0, int(work is not None), ctx.log)
+        with span("all_reduce.bwd", ctx.site):
+            work, out = _all_reduce(g, ctx.m)
+            _wait(work)
+            _issued(ctx.site, "all_reduce.bwd", 1, 0, int(work is not None), ctx.log)
         return out, None, None, None
 
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, m, site, log):
-        work, out = _all_reduce(x, m)
-        _wait(work)
-        _issued(site, "all_reduce", 1, 0, int(work is not None), log)
+        with span("all_reduce", site):
+            work, out = _all_reduce(x, m)
+            _wait(work)
+            _issued(site, "all_reduce", 1, 0, int(work is not None), log)
         return out
 
     @staticmethod
@@ -887,20 +924,21 @@ def reduce_from(x: torch.Tensor, mesh, *, site: str = "tp.ar") -> torch.Tensor:
 class _VocabCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, targets, mask, m, v0, site, log):
-        Vl = logits.shape[-1]
-        mx = logits.amax(-1)
-        if m.group is not None:
-            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=m.group)
-        e = torch.exp(logits - mx[..., None])
-        local = (targets >= v0) & (targets < v0 + Vl)
-        idx = (targets - v0).clamp(0, Vl - 1)
-        tgt = logits.gather(-1, idx[..., None])[..., 0] * local
-        work, both = _all_reduce(torch.stack([e.sum(-1), tgt]), m)
-        _wait(work)
-        _issued(site, "vocab_ce", 1, 0, 2 * int(work is not None), log)
-        se, tgt = both.unbind(0)
-        ctx.save_for_backward(e, se, idx, local, mask)
-        return ((mx + torch.log(se) - tgt) * mask).sum()
+        with span("vocab_ce", site):
+            Vl = logits.shape[-1]
+            mx = logits.amax(-1)
+            if m.group is not None:
+                dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=m.group)
+            e = torch.exp(logits - mx[..., None])
+            local = (targets >= v0) & (targets < v0 + Vl)
+            idx = (targets - v0).clamp(0, Vl - 1)
+            tgt = logits.gather(-1, idx[..., None])[..., 0] * local
+            work, both = _all_reduce(torch.stack([e.sum(-1), tgt]), m)
+            _wait(work)
+            _issued(site, "vocab_ce", 1, 0, 2 * int(work is not None), log)
+            se, tgt = both.unbind(0)
+            ctx.save_for_backward(e, se, idx, local, mask)
+            return ((mx + torch.log(se) - tgt) * mask).sum()
 
     @staticmethod
     def backward(ctx, g):
@@ -966,11 +1004,13 @@ def psum_tree_chunked_issue(tree, mesh, *, num_chunks: int | None = None,
             if num_chunks > 1 and a.ndim and a.shape[0] % num_chunks:
                 _warn_unchunked(site, num_chunks,
                                 f"the leading dim ({a.shape[0]}) of a grad leaf")
-            pending = [_all_reduce(a, m)]
+            parts = [a]
         else:
-            pending = [_all_reduce(b, m) for b in a.chunk(num_chunks, dim=0)]
-        _issued(site, "psum", len(pending), 0,
-                sum(work is not None for work, _ in pending))
+            parts = a.chunk(num_chunks, dim=0)
+        with span("psum", site):
+            pending = [_all_reduce(b, m) for b in parts]
+            _issued(site, "psum", len(pending), 0,
+                    sum(work is not None for work, _ in pending))
         return _Pending(pending)
 
     return _tree_map(one, tree)

@@ -58,7 +58,7 @@ from torch import nn
 
 from repro_torch.launch.mesh import Mesh, as_mesh
 from repro_torch.parallel.collectives import (_ISSUED_LOG, _issued, _peer, _tree_map,
-                                              _wait, _warn_unchunked, runtime_for)
+                                              _wait, _warn_unchunked, runtime_for, span)
 
 
 def _chunks(d: int, num_chunks: int, site: str) -> int:
@@ -95,16 +95,17 @@ def _chunked_ppermute(x: Optional[torch.Tensor], mesh, *, direction: int = 1,
         recv_like.new_empty(recv_like.shape[:-1] + (recv_like.shape[-1] // nc,))
         for _ in range(nc)]
     works = []
-    for k in range(nc):
-        ops = []
-        if sends:
-            ops.append(dist.P2POp(dist.isend, sends[k], send_to, m.group))
-        if recvs:
-            ops.append(dist.P2POp(dist.irecv, recvs[k], recv_from, m.group))
-        works += dist.batch_isend_irecv(ops)
-    for w in works:
-        _wait(w)
-    _issued(site, op, nc, 0, nc, log)
+    with span(op, site):
+        for k in range(nc):
+            ops = []
+            if sends:
+                ops.append(dist.P2POp(dist.isend, sends[k], send_to, m.group))
+            if recvs:
+                ops.append(dist.P2POp(dist.irecv, recvs[k], recv_from, m.group))
+            works += dist.batch_isend_irecv(ops)
+        for w in works:
+            _wait(w)
+        _issued(site, op, nc, 0, nc, log)
     if not recvs:
         return None
     return recvs[0] if nc == 1 else torch.cat(recvs, dim=-1)

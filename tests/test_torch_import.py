@@ -45,7 +45,10 @@ def test_import_loads_no_jax_and_builds_nothing():
                 "repro_torch.train.metrics", "repro_torch.train.checkpoint",
                 "repro_torch.launch.train", "repro_torch.launch.config",
                 "repro_torch.parallel.sharding", "repro_torch.parallel.constraints",
-                "repro_torch.parallel.pipeline"):
+                "repro_torch.parallel.pipeline", "repro_torch.analysis.ir",
+                "repro_torch.analysis.overlap", "repro_torch.analysis.exercise",
+                "repro_torch.analysis.__main__", "repro_torch.launch.dryrun",
+                "repro_torch.launch.specs", "repro_torch.kernels.work"):
         assert mod in got["modules"]
 
 

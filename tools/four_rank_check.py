@@ -105,7 +105,20 @@ port) and waits for them.  Each rank:
     ms, peak memory and ``Issued`` rows by tick; and at all 60 layers
     again (B = 4) forward and backward twice, its ms, peak memory and
     device ms by class of a third under the profiler.
-``--sections`` runs a subset of helpers, train, fsdp, deep, tp32, moe, pp and launcher.
+  * runs the overlap verifier (``repro_torch.analysis``) over the four
+    ranks: ``exercise_plan`` of a plan the port tunes for tp:4 on h100-sxm,
+    its record and its profile judged; then ``trace_and_verify(TRAIN_PLAN,
+    ..., profile=True)`` of one tensor-parallel 1x4 step of llama3-8b at
+    full width and 4 layers (B 4 x S 2048, as ``train``), every tuned
+    ``tp.layer{0,1}.mlp.ag|rs`` site MATERIALIZED in the record and in
+    the profile; and, from a profile of one more step taken without the
+    record (whose dispatch mode slows the host), for each helper call the
+    NCCL kernels' device ms and the ms of them during which another kernel
+    ran (``ir.nccl_overlap``, summed by op and site): measurements, which
+    no verdict reads; the step's ms unprofiled, profiled, and recorded
+    and profiled.
+``--sections`` runs a subset of helpers, train, fsdp, deep, tp32, moe, pp, overlap and
+launcher.
 ``--json PATH`` writes the result line to a file as well.  Then it runs
 the launcher once, under ``torch.distributed.run``
 (torchrun): ``repro_torch.launch.train --config`` (the same model, batch
@@ -147,7 +160,7 @@ PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer1.mlp.ag": ("ring", 4),
 TRAIN_PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
               "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
 TRAIN = dict(layers=4, B=4, S=2048, steps=3)          # --smoke: 2 layers, S = 64
-SECTIONS = ("helpers", "train", "fsdp", "deep", "tp32", "moe", "pp", "launcher")
+SECTIONS = ("helpers", "train", "fsdp", "deep", "tp32", "moe", "pp", "overlap", "launcher")
 GATE_OPT = dict(lr=3e-4, eps=1e-3)
 GATE_REL = 1e-5
 # FSDP placements at 4 layers: (mesh, shape, mode, global batch); grad_accum=2 at
@@ -1292,6 +1305,104 @@ def helpers_section(rank: int, dev, smoke: bool, res: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def _verdicts(rep) -> dict:
+    return {v.site: v.verdict for v in rep.verdicts}
+
+
+def _overlap_by_call(rows) -> dict:
+    """``ir.nccl_overlap``'s rows summed by helper op and site, and in all."""
+    out = {}
+    for r in rows:
+        for key in (f"{r['op']}@{r['site']}", "all"):
+            e = out.setdefault(key, {"calls": 0, "collectives": 0, "nccl_ms": 0.0,
+                                     "under_compute_ms": 0.0})
+            e["calls"] += 1
+            e["collectives"] += r["collectives"]
+            e["nccl_ms"] += r["nccl_ms"]
+            e["under_compute_ms"] += r["under_compute_ms"]
+    return out
+
+
+def overlap_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """The overlap verifier over the four ranks (module docstring)."""
+    from repro_torch.analysis.exercise import exercise_plan
+    from repro_torch.analysis.ir import nccl_overlap
+    from repro_torch.analysis.overlap import trace_and_verify
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import ParallelPlan, extract_workload, tune
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import constraints as CT
+    from repro_torch.train import trainer as T
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = (get_smoke_config if smoke else get_config)("llama3-8b").replace(
+        num_layers=2 if smoke else TRAIN["layers"])
+    B, S = TRAIN["B"], 64 if smoke else TRAIN["S"]
+    out = res["overlap"] = {"layers": cfg.num_layers, "batch": B, "seq": S}
+    card = dev.type == "cuda"
+
+    # the exerciser over the real group, on a tp:4 plan the port tunes
+    plan = tune(extract_workload(cfg, ParallelPlan(kind="tp", tp=N), seq=S, global_batch=B),
+                "h100-sxm")
+    rec, prof = exercise_plan(plan, mesh=make_mesh(), profile=True)
+    out["exercise"] = {"record": _verdicts(rec), "profile": _verdicts(prof)}
+    if not (rec.verdicts and rec.ok()):
+        res["failed"].append(f"overlap: exercise_plan record\n{rec.format()}")
+    if card and not (prof.verdicts and prof.ok()):
+        res["failed"].append(f"overlap: exercise_plan profile\n{prof.format()}")
+
+    # one tp 1x4 step under TRAIN_PLAN, judged and profiled
+    meshes = make_mesh((1, N), ("data", "model"))
+    mm = meshes["model"]
+    model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mm)
+    state = adamw.init_state(dict(model.named_parameters()))
+    step_fn = T.make_train_step(cfg, T.TrainConfig(
+        opt=adamw.AdamWConfig(**GATE_OPT), warmup=2, total_steps=100, sited_mesh=mm))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(0).items()}
+    runtime = {k: C.CollectiveRuntime(*v) for k, v in TRAIN_PLAN.items()}
+
+    def run():
+        step_fn(model, state, batch, 1)
+        _sync(dev)
+
+    with CT.use_axes(("data",), "model", sizes={"data": 1, "model": N}, batch=B):
+        with C.use_runtime_plan(runtime):
+            run()                      # warm: cuBLAS and NCCL set up outside the profile
+            t = time.perf_counter()
+            run()
+            out["step_ms"] = (time.perf_counter() - t) * 1e3
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            t = time.perf_counter()
+            rec, prof = trace_and_verify(runtime, run, profile=path)
+            out["step_ms_recorded_profiled"] = (time.perf_counter() - t) * 1e3
+            # the shares come from a profile of its own: the record's
+            # dispatch mode slows every op on the host, and with it how far
+            # the host keeps the card fed while NCCL runs
+            with C.use_runtime_plan(runtime):
+                acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+                t = time.perf_counter()
+                with profile(activities=acts) as p:
+                    run()
+                out["step_ms_profiled"] = (time.perf_counter() - t) * 1e3
+                p.export_chrome_trace(path)
+            rows = nccl_overlap(path)
+    out["step"] = {"record": _verdicts(rec), "profile": _verdicts(prof),
+                   "untuned": rec.untuned, "nccl": _overlap_by_call(rows)}
+    for site in TRAIN_PLAN:
+        got = (rec.verdict_for(site), prof.verdict_for(site))
+        if got[0] != "MATERIALIZED" or (card and got[1] != "MATERIALIZED"):
+            res["failed"].append(f"overlap: {site} record/profile {got}\n{rec.format()}\n"
+                                 f"{prof.format()}")
+    del model, state, step_fn
+    _release(dev)
+
+
 def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> int:
     import torch.distributed as dist
 
@@ -1324,6 +1435,8 @@ def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> in
             moe_section(rank, dev, smoke, res)
         if "pp" in sections:
             pp_section(rank, dev, smoke, res)
+        if "overlap" in sections:
+            overlap_section(rank, dev, smoke, res)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
