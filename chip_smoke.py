@@ -216,14 +216,31 @@ Phases, each of which exits non-zero on a failed check:
      16 x 16 fake mesh (``python -m repro_torch.launch.dryrun``), its
      record ``ok`` with ``grad_accum`` > 1 and its depth's parameter
      count, and the full depth's count from ``launch.specs`` held to the
-     reference's.
+     reference's;
+  15. the other families, run right after phase 3 (early, where the
+     profiler is fresh): flash against its plain version at whisper-small's
+     shapes (h = 64: the encoder, full, over 1500 frames; the decoder's
+     cached prefill, causal; cross-attention, full, from the prompt and
+     from a decode step's one query to the 1500 frames) and qwen2-vl-72b's
+     prefill (a GQA group of 8), RMSNorm at deepseek-v2-lite-16b's latent
+     (D = 512) and qwen2-vl-72b's D = 8192, each timed beside the plain
+     version, SDPA or ``F.rms_norm`` and its bound, entries of their own;
+     then ``whisper-small`` (whole; frames from the seed),
+     ``deepseek-v2-lite-16b`` (MLA, all 27 layers) and ``qwen2-vl-72b`` at
+     full width and 8 of its 80 layers, served as phase 4 serves (the
+     profile splits out MLA's plain attention by its ranges); one forward
+     of qwen2-vl-72b with 256 image patches against ``backend="ref"``; and
+     slice parity of each at 2 layers against ``backend="ref"``, tokens
+     equal (the MoE routing of the kernels' run replayed) and logits within
+     1e-3.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
 Phases 7 to 13 share one 1-rank NCCL group from a ``FileStore``.  Then it
 prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
 ``{"train": ...}`` line, one ``{"launch": ...}`` line, one ``{"moe": ...}``
 line, one ``{"families": ...}`` line, one ``{"families_train": ...}`` line,
-one ``{"pipeline": ...}`` line, one ``{"analysis": ...}`` line,
+one ``{"pipeline": ...}`` line, one ``{"analysis": ...}`` line, one
+``{"other_families": ...}`` line,
 one ``{"kernels": [...]}`` line (the flash kernels' instantiations of
 phases 11 and 12, forward and backward at h = 80 and with ALiBi, as
 entries of their own with the launches of the models that run them,
@@ -231,7 +248,9 @@ served and trained, which the base flash entries do not count again; the
 h = 80 entries carry their window checks; phase 13's entries at yi-34b's
 shapes carry the pipelined run's launches, phase 3's at a 1x4 rank's heads
 those of phase 9's placed step at its 32/8 heads, the same instantiations,
-since no phase here runs 8/2 heads) and, last, the device line.
+since no phase here runs 8/2 heads; phase 15's entries carry the launches
+of their shape class, as the wrappers count them (``ops.LAUNCHES_BY_SHAPE``),
+in the runs of the models that run them) and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -1277,13 +1296,19 @@ def expected_launches(cfg) -> dict:
     """Each kernel's launches for one served batch (a prefill and MAX_NEW
     decode steps), counted from the model code."""
     fwd, L = 1 + MAX_NEW, cfg.num_layers
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         # per layer ln1 and ln2 (ln1 alone in a parallel block) where they are
-        # RMSNorms (LayerNorms are plain PyTorch), qk_norm's two, and ln_f;
-        # flash at prefill
+        # RMSNorms (LayerNorms are plain PyTorch), qk_norm's two, MLA's latent
+        # norm (and its q LoRA's), and ln_f; flash at prefill (not MLA's)
         rms = cfg.norm_kind == "rmsnorm"
         norms = (1 if cfg.parallel_block else 2) * rms + 2 * cfg.qk_norm
-        return dict(NO_LAUNCHES, rmsnorm=(norms * L + rms) * fwd, flash_attention=L)
+        mla = cfg.attn_kind == "mla"
+        norms += mla * (1 + bool(cfg.q_lora_rank))
+        return dict(NO_LAUNCHES, rmsnorm=(norms * L + rms) * fwd,
+                    flash_attention=0 if mla else L)
+    if cfg.family == "audio":      # LayerNorms; flash: the encoder and the decoder's
+        # cached prefill once, cross-attention at every forward
+        return dict(NO_LAUNCHES, flash_attention=cfg.encoder_layers + L + L * fwd)
     if cfg.family == "hybrid":     # ln and the gated inner norm per Mamba2 layer,
         groups = L // cfg.shared_attn_every    # ln1 and ln2 per shared-block application
         return dict(NO_LAUNCHES, rmsnorm=(2 * L + 2 * groups + 1) * fwd,
@@ -1297,11 +1322,14 @@ def check_outputs(outs, vocab: int, what: str) -> None:
     check(all(0 <= t < vocab for o in outs for t in o), f"{what}: token out of range")
 
 
-def device_ms_by_kernel(run, extra=None) -> dict:
+def device_ms_by_kernel(run, extra=None, ranges=()) -> dict:
     """Device time of the kernels one call of ``run`` launches, by class, in
     ms, from a torch.profiler trace (kernels on one stream do not overlap,
     so the sum is the time the card was busy).  ``extra`` maps more
-    classes to name fragments, looked up after the kernels' own."""
+    classes to name fragments, looked up after the kernels' own.
+    ``ranges`` are names of ``record_function`` ranges in the program
+    whose kernels' device time is returned under ``"of which <range>"``:
+    a split of time already counted in the classes, not a class."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1321,16 +1349,21 @@ def device_ms_by_kernel(run, extra=None) -> dict:
                 next((k for k, frags in (extra or {}).items()
                       if any(f in name for f in frags)), "other"))
         out[kind] += ev.self_device_time_total / 1e3
+    for name in ranges:
+        out[f"of which {name}"] = sum(ev.device_time_total for ev in prof.key_averages()
+                                      if ev.key == name) / 1e3
     return out
 
 
-def breakdown_phase(engine, prompts, tag: str, extra=None) -> dict:
+def breakdown_phase(engine, prompts, tag: str, extra=None, frames=None, ranges=()) -> dict:
     """Where the time of a served batch goes: the prefill with one decode
     step, and four more decode steps (the difference of two profiled runs),
-    device time by kernel class beside the host's wall time."""
+    device time by kernel class beside the host's wall time (with
+    ``ranges``, the device time inside those program ranges beside it)."""
     runs = {}
     for n in (1, 5):
-        dev = device_ms_by_kernel(lambda: engine.generate(prompts, max_new=n), extra)
+        dev = device_ms_by_kernel(lambda: engine.generate(prompts, max_new=n, frames=frames),
+                                  extra, ranges)
         runs[n] = (dev, engine.last_timing)
     dev1, t1 = runs[1]
     dev5, t5 = runs[5]
@@ -1338,7 +1371,7 @@ def breakdown_phase(engine, prompts, tag: str, extra=None) -> dict:
              "4 decode steps": ({k: dev5[k] - dev1[k] for k in dev1},
                                 sum(t5["decode_s"][1:]) * 1e3)}
     for span, (dev, wall) in spans.items():
-        busy = sum(dev.values())
+        busy = sum(v for k, v in dev.items() if not k.startswith("of which"))
         if busy <= 0:      # the profiler saw no kernel: say so, time nothing
             say(f"profile {tag} {span}: wall {wall:.1f} ms, device time not measured")
             continue
@@ -1363,15 +1396,16 @@ def free() -> None:
 
 
 def serving_phase(cfg, model, init_s: float, prompts, extra=None,
-                  max_seq: int = MAX_SEQ) -> dict:
+                  max_seq: int = MAX_SEQ, frames=None, ranges=()) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     engine = make_engine(cfg, model, mode="fixed", batch_size=BATCH, max_seq=max_seq)
-    engine.generate(prompts, max_new=2)          # warm-up: cuBLAS handles, allocator
+    engine.generate(prompts, max_new=2, frames=frames)   # warm-up: cuBLAS handles, allocator
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    outs = engine.generate(prompts, max_new=MAX_NEW)
+    outs = engine.generate(prompts, max_new=MAX_NEW, frames=frames)
     launches = dict(ops.LAUNCHES)
+    by_shape = dict(ops.LAUNCHES_BY_SHAPE)
     peak = torch.cuda.max_memory_allocated()
 
     L = cfg.num_layers
@@ -1391,15 +1425,15 @@ def serving_phase(cfg, model, init_s: float, prompts, extra=None,
     say(f"{tag}: launches {launches} (expected {want}); request 0: {outs[0][:8]}...")
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
     check_outputs(outs, cfg.vocab_size, tag)
-    forced = engine.teacher_forced_logits(prompts, outs)
+    forced = engine.teacher_forced_logits(prompts, outs, frames=frames)
     check(bool(torch.isfinite(forced).all()), f"{tag}: non-finite logits")
     check(forced.argmax(-1).tolist() == outs,
           f"{tag}: greedy tokens are not the argmax of their teacher-forced logits")
-    profile = breakdown_phase(engine, prompts, tag, extra)
+    profile = breakdown_phase(engine, prompts, tag, extra, frames, ranges)
     del engine, forced
     free()
-    return {"arch": cfg.name, "launches": launches, "prefill_ms": prefill_ms,
-            "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak,
+    return {"arch": cfg.name, "launches": launches, "launches_by_shape": by_shape,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak,
             "prompt_tokens": prompt_tokens, "max_seq": max_seq, "profile": profile}
 
 
@@ -3399,6 +3433,259 @@ def analysis_phase(card: str) -> dict:
             "dryrun": dryrun(card)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the other families (whisper-small, deepseek-v2-lite-16b's MLA,
+# qwen2-vl-72b's M-RoPE) served on one card at full width
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH, MLA_ARCH, VLM_ARCH = "whisper-small", "deepseek-v2-lite-16b", "qwen2-vl-72b"
+OTHER_ARCHS = (AUDIO_ARCH, MLA_ARCH, VLM_ARCH)
+# qwen2-vl-72b takes 3.5 GB a layer and 10.0 GB of embeddings in fp32: 8 of its
+# 80 layers (38.1 GB); deepseek-v2-lite-16b's 27 layers are 62.8 GB, whole
+OTHER_LAYERS = {VLM_ARCH: 8}
+OTHER_PARITY_LAYERS = 2
+PATCH_TEXT = 256                    # the patch forward: 256 patches, then 256 tokens
+# flash at the shapes the three give it: (name, B, Sq, Sk, Hq, Hkv, h, causal);
+# whisper's frames are 1500 and its prompts at most PROMPT_LENS[1]
+OTHER_FLASH = (
+    ("flash_attention (whisper encoder, h = 64, full)", BATCH, 1500, 1500, 12, 12, 64, False),
+    ("flash_attention (whisper decoder prefill, h = 64)", BATCH, PROMPT_LENS[1],
+     PROMPT_LENS[1], 12, 12, 64, True),
+    ("flash_attention (whisper cross-attention, h = 64, full)", BATCH, PROMPT_LENS[1], 1500,
+     12, 12, 64, False),
+    ("flash_attention (whisper decode cross-attention, h = 64, full)", BATCH, 1, 1500, 12,
+     12, 64, False),
+    ("flash_attention (qwen2-vl-72b prefill, GQA 8)", BATCH, PROMPT_LENS[1], PROMPT_LENS[1],
+     64, 8, 128, True),
+)
+# RMSNorm at (rows, D): a prefill's rows, checked at a decode step's too
+OTHER_RMSNORM = ((BATCH * PROMPT_LENS[1], 512, "deepseek-v2-lite-16b kv_a_norm, D = 512"),
+                 (BATCH * PROMPT_LENS[1], 8192, "qwen2-vl-72b, D = 8192"))
+MLA_RANGES = ("mla.kv_b", "mla.scores")     # models.layers' ranges around MLA's attention
+
+
+def other_flash_phase(gen, name, B, Sq, Sk, Hq, Hkv, h, causal) -> dict:
+    """The flash kernel at one of the other families' shapes, fp32, held
+    against its plain version on the same inputs, timed beside it (a
+    decode step's single query by its device time from the profiler, the
+    call's host time beside it), beside SDPA's efficient backend and its
+    bound (the pairs inside the mask at the 3xTF32 rate, or the bytes)."""
+    q = randn((B, Sq, Hq, h), torch.float32, gen)
+    k = randn((B, Sk, Hkv, h), torch.float32, gen)
+    v = randn((B, Sk, Hkv, h), torch.float32, gen)
+    o = ops.flash_attention(q, k, v, causal=causal, backend="cuda")
+    torch.cuda.synchronize()
+    o_ref = ref.flash_attention_ref(q, k, v, causal=causal)
+    err = (o - o_ref).abs().max().item()
+    check(o.shape == q.shape and bool(torch.isfinite(o).all()), f"{name}: bad output")
+    check(err <= FLASH_BOUND, f"{name}: max abs err {err} > {FLASH_BOUND}")
+    call = lambda: ops.flash_attention(q, k, v, causal=causal, backend="cuda")  # noqa: E731
+    a_call = time_ms(call)
+    ms = kernel_ms(call, "flash_fwd_kernel") if Sq == 1 else a_call
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), samples=5,
+                    per_sample=2)
+    G = Hq // Hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    err_lib = (sdpa_efficient(qt, kt, vt, causal).transpose(1, 2) - o_ref).abs().max().item()
+    lib = time_ms(lambda: sdpa_efficient(qt, kt, vt, causal))
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = _work.flash_flops(B, Sq, Sk, Hq, h, causal=causal)
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_AS_3XTF32)
+    say(f"{name}: B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} h={h} causal={causal} fp32: max abs "
+        f"err {err:.3e} (bound {FLASH_BOUND}); {ms:.4f} ms"
+        + (f" on the card ({a_call:.4f} ms a call)" if Sq == 1 else "")
+        + f"; plain {plain:.4f} ms; sdpa[{SDPA_BACKEND}] {lib:.4f} ms (its err vs plain "
+        f"{err_lib:.1e}); bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it reached)")
+    del q, k, v, o, o_ref, qt, kt, vt
+    free()
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash.cu",
+            "replaces": "src/repro/kernels/flash.py:65", "shape": [B, Sq, Sk, Hq, Hkv, h],
+            "causal": causal, "dtype": "float32", "max_abs_err": err, "bound": FLASH_BOUND,
+            "ms": ms, "ms_a_call": a_call, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib, "library_backend": SDPA_BACKEND,
+            "library_max_abs_err": err_lib}
+
+
+def rmsnorm_fwd_at(gen, rows: int, D: int, tag: str) -> dict:
+    """The RMSNorm kernel at (rows, D) fp32 and at a decode step's (BATCH,
+    D), each within 1e-5 of its plain version, timed at (rows, D) beside
+    the plain version, ``F.rms_norm`` and its bound."""
+    scale = torch.linspace(0.5, 1.5, D, device="cuda")
+    cases = []
+    for r in (rows, BATCH):
+        x = randn((r, D), torch.float32, gen)
+        err = (ops.rmsnorm(x, scale, backend="cuda") - ref.rmsnorm_ref(x, scale)
+               ).abs().max().item()
+        check(err <= RMS_BOUND_F32, f"rmsnorm ({r}, {D}): max abs err {err} > {RMS_BOUND_F32}")
+        cases.append({"shape": [r, D], "max_abs_err": err, "bound": RMS_BOUND_F32})
+    x = randn((rows, D), torch.float32, gen)
+    ms = time_ms(lambda: ops.rmsnorm(x, scale, backend="cuda"))
+    plain = time_ms(lambda: ref.rmsnorm_ref(x, scale))
+    lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), scale, 1e-5))
+    b_ms, b_by = bound_ms(2 * rows * D * 4 + D * 4, _work.rmsnorm_flops(rows, D),
+                          torch.float32)
+    err = max(c["max_abs_err"] for c in cases)
+    say(f"rmsnorm ({rows}, {D}) fp32 ({tag}): max abs err {err:.3e} (with ({BATCH}, {D})); "
+        f"{ms:.4f} ms; plain {plain:.4f} ms; F.rms_norm {lib:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}; {b_ms / ms:.1%} of it reached)")
+    del x
+    free()
+    return {"name": f"rmsnorm ({tag})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": [rows, D],
+            "dtype": "float32", "max_abs_err": err, "bound": RMS_BOUND_F32, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "library": "F.rms_norm", "cases": cases}
+
+
+def other_config(arch: str):
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=OTHER_LAYERS[arch]) if arch in OTHER_LAYERS else cfg
+
+
+def other_frames(cfg):
+    """whisper's stub frames from the seed, as the reference's launcher draws
+    them (N(0, 0.02²)); None for the other families."""
+    if cfg.family != "audio":
+        return None
+    rs = np.random.default_rng(SEED)
+    return (rs.standard_normal((BATCH, cfg.encoder_seq, cfg.d_model)) * 0.02
+            ).astype(np.float32)
+
+
+def patches_forward(cfg, model) -> dict:
+    """One forward of the vlm model with 256 image patches at the head of
+    512 positions (the reference's M-RoPE grid) through the kernels and
+    through ``backend="ref"`` on the same weights: finite hidden states
+    within 1e-3, the kernels' launches equal to the code's."""
+    rs = np.random.default_rng(SEED + 15)
+    S = M.N_PATCHES + PATCH_TEXT
+    batch = {"tokens": torch.as_tensor(rs.integers(0, cfg.vocab_size, (1, S)), device="cuda"),
+             "patches": torch.as_tensor((rs.standard_normal((1, M.N_PATCHES, cfg.d_model))
+                                         * 0.02).astype(np.float32), device="cuda")}
+    with torch.inference_mode():
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        x = M.forward_hidden(cfg, model, batch)[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.LAUNCHES)
+        by_shape = dict(ops.LAUNCHES_BY_SHAPE)
+        xr = M.forward_hidden(cfg, model, batch, backend="ref")[0]
+    err = (x - xr).abs().max().item()
+    L = cfg.num_layers
+    want = dict(NO_LAUNCHES, rmsnorm=2 * L + 1, flash_attention=L)
+    say(f"{cfg.name} with {M.N_PATCHES} patches + {PATCH_TEXT} tokens ({L} layers, full "
+        f"width): forward {ms:.1f} ms; hidden states max abs err vs backend='ref' {err:.3e} "
+        f"(bound {SLICE_LOGITS_BOUND}); launches {launches}")
+    check(x.shape == (1, S, cfg.d_model) and bool(torch.isfinite(x).all()),
+          "patch forward: bad output")
+    check(err <= SLICE_LOGITS_BOUND, f"patch forward: err {err} > {SLICE_LOGITS_BOUND}")
+    check(launches == want, f"patch forward: launches {launches}, expected {want}")
+    del x, xr
+    free()
+    return {"seq": S, "patches": M.N_PATCHES, "layers": L, "ms": ms, "max_abs_err": err,
+            "launches": launches, "launches_by_shape": by_shape}
+
+
+def other_slice_parity(cfg, prompts, frames) -> dict:
+    """A 2-layer model (whisper: 2 encoder layers too) at full width through
+    the kernels and through ``backend="ref"``: the plain run replays the
+    kernels' MoE routing (``layers.record_routing``), its greedy tokens
+    must equal the kernels', and the teacher-forced logits agree within
+    1e-3."""
+    from repro_torch.models import layers as L
+
+    cut = dict(num_layers=OTHER_PARITY_LAYERS)
+    if cfg.family == "audio":
+        cut["encoder_layers"] = OTHER_PARITY_LAYERS
+    cfg2 = cfg.replace(**cut)
+    model = M.init_params(cfg2, SEED + 1, device="cuda")
+    kern = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ)
+    plain = make_engine(cfg2, model, batch_size=BATCH, max_seq=MAX_SEQ, backend="ref")
+    with L.record_routing() as routed:
+        outs_k = kern.generate(prompts, max_new=MAX_NEW, frames=frames)
+    ops.reset_launches()
+    with L.record_routing(replay=routed):
+        outs_r = plain.generate(prompts, max_new=MAX_NEW, frames=frames)
+    check(ops.LAUNCHES == NO_LAUNCHES, "other slice parity: backend='ref' launched a kernel")
+    check_outputs(outs_k, cfg.vocab_size, "other slice parity")
+    with L.record_routing() as routed:
+        lk = kern.teacher_forced_logits(prompts, outs_k, frames=frames)
+    with L.record_routing(replay=routed):
+        lr = plain.teacher_forced_logits(prompts, outs_k, frames=frames)
+    err = (lk - lr).abs().max().item()
+    same = outs_k == outs_r
+    say(f"slice parity {cfg.name} ({OTHER_PARITY_LAYERS} layers, full width): teacher-forced "
+        f"logits max abs err {err:.3e} (bound {SLICE_LOGITS_BOUND}); greedy tokens equal: "
+        f"{same}")
+    check(bool(torch.isfinite(lk).all()), "other slice parity: non-finite logits")
+    check(err <= SLICE_LOGITS_BOUND, f"other slice parity {cfg.name}: logits err {err}")
+    check(same, f"other slice parity {cfg.name}: greedy tokens differ from backend='ref'")
+    del kern, plain, model, lk, lr, routed
+    free()
+    return {"arch": cfg.name, "layers": OTHER_PARITY_LAYERS, "max_abs_err": err,
+            "tokens_equal": same}
+
+
+def launch_class(name, B, Sq, Sk, Hq, Hkv, h, causal) -> str:
+    """The shape class (``ops.shape_class``) of a phase 15 flash entry."""
+    q, k = (torch.empty((B, n, H, h), device="meta") for n, H in ((Sq, Hq), (Sk, Hkv)))
+    return ops.shape_class("flash_attention", q, k, causal)
+
+
+def other_families_phase(card: str) -> dict:
+    """Phase 15 (module docstring).  Returns the kernels' entries, the
+    served records, the patch forward and slice parity.  Each entry's
+    launches are those of its shape class (``ops.LAUNCHES_BY_SHAPE``) in
+    each served run; the served models' RMSNorm launches at a D that no
+    entry here names (deepseek-v2-lite-16b's ln1, ln2 and ln_f at 2048)
+    count in the base RMSNorm entry (``base_rmsnorm``).  A launch of a
+    flash class that no entry names fails the phase."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    flash = [other_flash_phase(gen, *v) for v in OTHER_FLASH]
+    norms = [rmsnorm_fwd_at(gen, *r) for r in OTHER_RMSNORM]
+    entry_of = {launch_class(*v): e for v, e in zip(OTHER_FLASH, flash)}
+    entry_of.update({f"rmsnorm D={D}": e for (_, D, _), e in zip(OTHER_RMSNORM, norms)})
+    runs, served, patched = [], [], None
+    for arch in OTHER_ARCHS:
+        cfg = other_config(arch)
+        prompts, frames = make_prompts(cfg), other_frames(cfg)
+        model, init_s = init_model(cfg)
+        served.append(serving_phase(cfg, model, init_s, prompts, frames=frames,
+                                    ranges=MLA_RANGES if cfg.attn_kind == "mla" else ()))
+        served[-1]["layers"] = cfg.num_layers
+        runs.append((arch, served[-1]))
+        if cfg.family == "vlm":
+            patched = patches_forward(cfg, model)
+            runs.append((f"{arch} with patches", patched))
+        del model
+        free()
+    parity = [other_slice_parity(get_config(arch), make_prompts(get_config(arch)),
+                                 other_frames(get_config(arch))) for arch in OTHER_ARCHS]
+    base_rmsnorm = {}
+    for label, run in runs:
+        for kernel, n in run["launches"].items():
+            check(sum(c for key, c in run["launches_by_shape"].items()
+                      if key.split(" ")[0] == kernel) == n,
+                  f"{label}: {kernel}'s launches by shape do not sum to its count {n}")
+        for key, n in run["launches_by_shape"].items():
+            if key in entry_of:
+                entry_of[key].setdefault("launches_by_model", {})[label] = n
+            else:
+                check(key.startswith("rmsnorm "), f"{label}: {n} launches of {key}, which no "
+                      "phase 15 entry names")
+                base_rmsnorm[f"{label} ({key})"] = n
+    kernels = flash + norms
+    for k in kernels:
+        k.setdefault("launches_by_model", {})
+        k["launches"] = sum(k["launches_by_model"].values())
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
+    return {"kernels": kernels, "base_rmsnorm": base_rmsnorm, "served": served,
+            "patches": patched, "slice_parity": parity, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -3440,6 +3727,11 @@ def main() -> int:
     kernels[5]["ptxas"] = flash_bwd_ptxas
     # the heads a rank of llama3-8b's tensor-parallel 1x4 placement runs
     tp_kernels = tp_rank_flash_phase(gen)
+    say(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 15 before the others: its profiles in a process the profiler has
+    # not run long in (late in one, torch 2.11's returned no device events)
+    other = other_families_phase(card)
+    say(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
 
     import torch.distributed as dist
 
@@ -3457,15 +3749,22 @@ def main() -> int:
                 del model
                 free()
                 slice_parity_phase(cfg, prompts)
+            say(f"phases 4, 5 and 7 done at {time.perf_counter() - t_start:.1f} s")
             trained = train_phase(card, mesh)
             launched = launch_phase(card)
+            say(f"phases 8 and 9 done at {time.perf_counter() - t_start:.1f} s")
             moe = moe_phase(card, mesh)
+            say(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
             families = families_phase(card, mesh)
+            say(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
             families_train = families_train_phase(card)
+            say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
             pipelined = pipeline_phase(card, mesh, rmsnorm_bwd_ptxas)
+            say(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
         finally:
             dist.destroy_process_group()
     analysis = analysis_phase(card)
+    say(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
 
     say(json.dumps({"plan": plan_phase(card)}))
     say(json.dumps({"plan_serving": plan_served}))
@@ -3477,6 +3776,7 @@ def main() -> int:
                                        if k != "kernels"}}))
     say(json.dumps({"pipeline": {k: v for k, v in pipelined.items() if k != "kernels"}}))
     say(json.dumps({"analysis": analysis}))
+    say(json.dumps({"other_families": {k: v for k, v in other.items() if k != "kernels"}}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -3505,6 +3805,10 @@ def main() -> int:
                                        for t in families_train["trained"]
                                        if not k["name"].startswith("flash_attention")
                                        or t["flash_instance"] == "base"})
+        # phase 15's RMSNorm launches at a D that none of its entries names
+        # (deepseek-v2-lite-16b's ln1, ln2 and ln_f at 2048)
+        if k["name"] == "rmsnorm":
+            k["launches_by_model"].update(other["base_rmsnorm"])
         k["launches"] = sum(k["launches_by_model"].values())
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
     for k in families["kernels"]:      # phase 11's forward instantiations, trained in phase 12
@@ -3530,6 +3834,7 @@ def main() -> int:
         k["launches"] = launched["placed_launches"][kernel]
         check(k["launches"] > 0, f"{k['name']}: no launch on the main path")
     kernels += tp_kernels
+    kernels += other["kernels"]          # phase 15's shapes, with their models' launches
     say(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,14 +2,18 @@
 
 The reference keeps parameters as a nested dict: linear weights ``w`` of
 shape (d_in, d_out), embeddings ``table``, and the trunk's layers stacked
-on leading axes: ``trunk.dense_layers`` (L, ...) for the dense family (a
-MoE model's leading dense layers) and ``trunk.moe_layers`` (L - those,
-...) for the moe family, ``trunk.layers`` (L, ...) for rwkv6, and for
-zamba2 ``trunk.groups``
-(G, every, ...), ``trunk.app_in`` (G, ...) and ``trunk.tail`` (T, ...).
-The port keeps one module per layer (nested ``nn.ModuleList``s, indexed
-``groups.{g}.{j}``) and ``nn.Linear``'s (d_out, d_in) weights, so ``w``
-leaves are transposed.  Every other leaf keeps the reference's layout,
+on leading axes: ``trunk.dense_layers`` (L, ...) for the dense and vlm
+families (a MoE model's leading dense layers) and ``trunk.moe_layers``
+(L - those, ...) for the moe family, ``trunk.layers`` (L, ...) for rwkv6,
+for zamba2 ``trunk.groups`` (G, every, ...), ``trunk.app_in`` (G, ...)
+and ``trunk.tail`` (T, ...), and for whisper ``trunk.enc_layers``
+(encoder_layers, ...) and ``trunk.dec_layers`` (L, ...).  MLA's leaves
+(``attn.q``, ``kv_a``, ``kv_a_norm``, ``kv_b``, ``o``) sit where GQA's
+do; whisper's ``trunk.enc_pos``, ``trunk.enc_ln`` and the top-level
+``dec_pos`` are unstacked, and keep their layout.  The port keeps one
+module per layer (nested ``nn.ModuleList``s, indexed ``groups.{g}.{j}``)
+and ``nn.Linear``'s (d_out, d_in) weights, so ``w`` leaves are
+transposed.  Every other leaf keeps the reference's layout,
 rwkv6's raw matrices (``Wr``, ``maa_w1``, ``maa_w2``, ``decay_w1``, ...),
 mamba2's ``conv_w`` (K, C) and the experts' ``gate``, ``up`` (E, d, f)
 and ``down`` (E, f, d), padded experts included: the port multiplies them as the
@@ -54,6 +58,9 @@ def stacked_axes(cfg) -> Dict[Tuple[str, str], Tuple[int, ...]]:
                 ("trunk", "tail"): (tail,)}
     if cfg.family == "ssm":
         return {("trunk", "layers"): (cfg.num_layers,)}
+    if cfg.family == "audio":
+        return {("trunk", "enc_layers"): (cfg.encoder_layers,),
+                ("trunk", "dec_layers"): (cfg.num_layers,)}
     n_dense = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
     return {("trunk", "dense_layers"): (n_dense,),
             ("trunk", "moe_layers"): (cfg.num_layers - n_dense,)}

@@ -37,9 +37,13 @@ launch error on the card propagates.  ``LAUNCHES`` counts the launches of
 each kernel, one per call that takes the ``"cuda"`` route (a remat
 recompute is a call), and one per backward pass, so a run can show that it
 went through the kernels (``chip_smoke.py`` reads it).
+``LAUNCHES_BY_SHAPE`` counts the forward launches of RMSNorm and flash
+attention again by shape class (``shape_class``), so a run can say which
+of a kernel's shapes its launches were.
 """
 from __future__ import annotations
 
+import collections
 import sys
 from typing import Optional
 
@@ -59,12 +63,35 @@ LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bw
             "flash_attention_bwd": 0}
 
 
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+
+
 FAKE_FLOPS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def shape_class(name: str, x: torch.Tensor, k: Optional[torch.Tensor] = None,
+                causal: bool = True) -> str:
+    """The key under which ``LAUNCHES_BY_SHAPE`` counts a launch of kernel
+    ``name`` on ``x`` (RMSNorm: its last dim D) or on q = ``x`` and ``k``
+    (flash: the head width, causal or full, a single query or not, and
+    whether the keys are as many as the queries)."""
+    if k is None:
+        return f"{name} D={x.shape[-1]}"
+    Sq, Sk = x.shape[1], k.shape[1]
+    return (f"{name} h={x.shape[-1]} {'causal' if causal else 'full'} "
+            f"{'Sq=1' if Sq == 1 else 'Sq>1'} {'Sk=Sq' if Sk == Sq else 'Sk!=Sq'}")
+
+
+def _launched(name: str, x: torch.Tensor, k: Optional[torch.Tensor] = None,
+              causal: bool = True) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_SHAPE[shape_class(name, x, k, causal)] += 1
 
 
 def is_fake(x: torch.Tensor) -> bool:
@@ -152,7 +179,7 @@ def _rmsnorm_kernel(x, scale, eps):
         FAKE_FLOPS["rmsnorm"] += _work.rmsnorm_flops(x.numel() // x.shape[-1], x.shape[-1])
         return torch.empty_like(x)
     y = rmsnorm_cuda(x, scale, eps=eps)
-    LAUNCHES["rmsnorm"] += 1
+    _launched("rmsnorm", x)
     return y
 
 
@@ -169,7 +196,7 @@ def _flash_kernel(q, k, v, causal, window, alibi_slopes, *, with_lse=False):
         return (o, lse) if with_lse else o
     out = flash_attention_cuda(q, k, v, causal=causal, with_lse=with_lse, window=window,
                                alibi_slopes=alibi_slopes)
-    LAUNCHES["flash_attention"] += 1
+    _launched("flash_attention", q, k, causal)
     return out
 
 

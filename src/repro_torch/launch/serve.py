@@ -5,13 +5,16 @@ KV cache, on one card by default.
         --prompt-len 512 --max-new 32 --max-seq 1024
     python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
 
-``--arch`` is one of llama3-8b, zamba2-7b, rwkv6-1.6b, the MoE models
-olmoe-1b-7b, deepseek-moe-16b and qwen2-moe-a2.7b, and the dense models
-phi2-2b, mpt-7b, phi4-mini-3.8b, stablelm-3b and h2o-danube-1.8b (a
-sliding window: its cache is a ring of ``min(--max-seq, window)`` slots,
-which a prompt must fit).  The weights are random, drawn from ``--seed``;
-so are the prompts, all ``--prompt-len`` long (the recurrent families need
-equal lengths).
+``--arch`` is any registered config: llama3-8b, zamba2-7b, rwkv6-1.6b,
+the MoE models olmoe-1b-7b, deepseek-moe-16b, qwen2-moe-a2.7b and
+deepseek-v2-lite-16b (MLA), the dense models phi2-2b, mpt-7b,
+phi4-mini-3.8b, stablelm-3b, yi-34b and h2o-danube-1.8b (a sliding
+window: its cache is a ring of ``min(--max-seq, window)`` slots, which a
+prompt must fit), qwen2-vl-72b (M-RoPE, served on text) and whisper-small
+(``--engine fixed`` only: its frames (B, encoder_seq, D) are drawn from
+the seed as the reference's launcher draws them, N(0, 0.02²)).  The
+weights are random, drawn from ``--seed``; so are the prompts, all
+``--prompt-len`` long (the recurrent families need equal lengths).
 
 Plan-aware, as the reference's launcher: ``--tuned-plan`` / ``--plan-repo``
 hand the plan to the engine, which decodes a dense or MoE model under it
@@ -50,7 +53,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for ('cpu')")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seeds the random weights and the prompts")
+                    help="seeds the random weights, the prompts and whisper's frames")
     ap.add_argument("--tuned-plan", default=None,
                     help="saved TunedPlan JSON: lowered to per-site collective "
                          "knobs and installed process-wide; the engine decodes "
@@ -132,7 +135,11 @@ def main(argv=None):
     else:
         engine = make_engine(cfg, params, mode="fixed", batch_size=args.batch,
                              max_seq=args.max_seq, **plan_kw)
-        outs = engine.generate(prompts, max_new=args.max_new)
+        frames = None
+        if cfg.family == "audio":
+            frames = rs.standard_normal(
+                (args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.02
+        outs = engine.generate(prompts, max_new=args.max_new, frames=frames)
         for i, o in enumerate(outs):
             print(f"request {i}: {o}")
         probe = engine.throughput_probe()

@@ -15,7 +15,6 @@ from torch import nn
 
 from repro_torch.models import model as M
 
-N_PATCHES = 256          # the reference's vlm stub: one 16x16 image at the head
 
 
 def _dtype(name) -> torch.dtype:
@@ -36,7 +35,7 @@ def input_specs(cfg, shape, *, device="meta", batch: Optional[int] = None,
     if cfg.family == "audio":
         out["frames"] = empty((B, cfg.encoder_seq, cfg.d_model), _dtype(cfg.dtype))
     if cfg.family == "vlm":
-        out["patches"] = empty((B, N_PATCHES, cfg.d_model), _dtype(cfg.dtype))
+        out["patches"] = empty((B, M.N_PATCHES, cfg.d_model), _dtype(cfg.dtype))
     return out
 
 
@@ -47,8 +46,12 @@ def decode_input_specs(cfg, shape, cache_dtype=None, *, device="meta",
     B, S = batch or shape.global_batch, shape.seq_len
     trunk = M._trunk(cfg).init_trunk_caches(
         cfg, B, S, dtype=_dtype(cache_dtype or cfg.dtype), device=torch.device(device))
+    caches = {"trunk": trunk, "pos": 0}
+    if cfg.family == "audio":
+        caches["memory"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
+                                       dtype=_dtype(cfg.dtype), device=device)
     return {"tokens": torch.empty((B, 1), dtype=torch.int32, device=device),
-            "caches": {"trunk": trunk, "pos": 0}}
+            "caches": caches}
 
 
 def param_specs(cfg, *, ep_pad: int = 1, device="meta") -> M.Model:

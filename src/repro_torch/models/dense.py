@@ -1,8 +1,8 @@
 """Decoder trunk of the port (PyTorch counterpart of
-``repro.models.dense``): dense GQA attention (full or sliding-window, RoPE
-or ALiBi) and a SwiGLU, GELU or MoE feed-forward, in sequence or, with
-``parallel_block`` (phi-2), both reading the one norm; for the dense and
-moe families.
+``repro.models.dense``): dense GQA attention (full or sliding-window, RoPE,
+M-RoPE or ALiBi) or MLA, and a SwiGLU, GELU or MoE feed-forward, in
+sequence or, with ``parallel_block`` (phi-2), both reading the one norm;
+for the dense, moe and vlm families.
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; eager PyTorch has nothing to trace, so the port keeps one
@@ -31,7 +31,7 @@ layers to different chunk structure.  Each rank holds a column shard of
 (``shard_trunk``) and runs its E/n experts of a MoE layer, and the
 sharded outputs are gathered back explicitly
 (``collectives.all_gather_rows``) where GSPMD gathers them implicitly in
-the reference.  Attention is whole on every rank of a served trunk; on a
+the reference.  Attention (GQA or MLA) is whole on every rank of a served trunk; on a
 placed one (below) each rank runs its heads and the rows of ``o`` they
 feed, summed over the model axis at ``tp.layer{i}.attn.ar``
 (``layers.attention``), and a MoE layer's shared experts run
@@ -53,10 +53,8 @@ weights and hands ``trunk_fwd`` copies (``shard_trunk``).  On a model
 placed over ``data`` (FSDP) each layer's weights are this rank's slices
 and ``trunk_fwd``'s ``gather`` gathers them inside the layer's checkpoint,
 and the routers route the global batch over ``data``
-(``layers.moe_block``).
-
-Not ported here, and raising ``NotImplementedError`` naming the slice that
-brings it: MLA.
+(``layers.moe_block``).  Placing an MLA or vlm model is refused by
+``models.model.shard_`` (ROADMAP.md, queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -80,12 +78,13 @@ Caches = Dict[str, Dict[str, object]]
 SEGMENTS = ("dense_layers", "moe_layers")
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def check_supported(cfg) -> None:
-    """Raise for the parts of the dense/moe/vlm trunk that are not ported yet."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} arrives with a later slice of the port "
-            "(ROADMAP.md, queue 1)")
+    """Raise for a config this trunk does not run."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} has no decoder trunk of models.dense")
     L.check_attention_supported(cfg)
 
 
@@ -97,16 +96,17 @@ def segment_sizes(cfg) -> Dict[str, int]:
 
 
 class Layer(nn.Module):
-    """One pre-norm decoder layer: ln1 -> attention, ln2 -> MLP (``mlp``)
-    or, with ``use_moe``, routed experts (``moe``); with ``parallel_block``
-    there is no ln2: the MLP reads ln1's output too."""
+    """One pre-norm decoder layer: ln1 -> attention (``layers.MLA`` where
+    ``attn_kind`` is ``"mla"``), ln2 -> MLP (``mlp``) or, with ``use_moe``,
+    routed experts (``moe``); with ``parallel_block`` there is no ln2: the
+    MLP reads ln1's output too."""
 
     def __init__(self, cfg, *, use_moe: bool = False, ep_pad: int = 1, device=None,
                  dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln1 = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
-        self.attn = L.Attention(cfg, **kw)
+        self.attn = L.MLA(cfg, **kw) if cfg.attn_kind == "mla" else L.Attention(cfg, **kw)
         if not cfg.parallel_block:
             self.ln2 = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         if use_moe:
@@ -133,7 +133,7 @@ def tp_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
     its gradient is the whole sequence's on every rank).
     Numerically ``layers.mlp``, and differentiable."""
     if kind not in L.MLP_KINDS:
-        raise NotImplementedError(f"mlp_kind {kind!r} arrives with {L.OTHER_FAMILIES}")
+        raise ValueError(f"unknown mlp_kind {kind!r}; known: {L.MLP_KINDS}")
     m = as_mesh(mesh)
     xl = shard_rows(x, m)
     if kind == "swiglu":
@@ -217,8 +217,12 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
     count), ``data`` and ``groups`` (``layers.moe_block``)."""
     x = CT.btd(x)
     h = L.norm(p.ln1, x, cfg.norm_kind, backend=backend)
-    attn_out, new_cache = L.attention(p.attn, cfg, h, positions, cache=cache,
-                                      backend=backend, mesh=mesh, site=attn_site)
+    if cfg.attn_kind == "mla":
+        attn_out, new_cache = L.mla_attention(p.attn, cfg, h, positions, cache=cache,
+                                              backend=backend)
+    else:
+        attn_out, new_cache = L.attention(p.attn, cfg, h, positions, cache=cache,
+                                          backend=backend, mesh=mesh, site=attn_site)
     x = x + attn_out
     use_moe = hasattr(p, "moe")
     if ff is None:
@@ -352,9 +356,8 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
     for seg, j, i, lp in layers_of(p):
         sc = caches[seg] if caches is not None else None
         lc = None
-        if sc is not None:
-            lc = {"k": sc["k"][j], "v": sc["v"][j], "slot_pos": sc["slot_pos"][j],
-                  "pos": sc["pos"]}
+        if sc is not None:      # layer j's views of the stacked cache, and the shared pos
+            lc = {name: a if name == "pos" else a[j] for name, a in sc.items()}
         use_moe = seg == "moe_layers"
         if caches is not None:
             site = f"serve.layer{i}.{'moe' if use_moe else 'mlp'}"
@@ -420,12 +423,14 @@ def stage_fwd(layers, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 
 def init_trunk_caches(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
                       device=None) -> Caches:
-    """Stacked decode caches per segment: k, v (L,B,W,Hkv,h), slot_pos
-    (L,B,W), and one ``pos`` for all of the segment's layers (the
-    reference stacks a per-layer copy): a Python int, or a (B,) tensor of
-    per-row positions (the continuous engine's slots)."""
+    """Stacked decode caches per segment: k, v (L,B,W,Hkv,h) (MLA: c_kv
+    (L,B,W,kv_lora_rank) and k_rope (L,B,W,1,dr)), slot_pos (L,B,W), and
+    one ``pos`` for all of the segment's layers (the reference stacks a
+    per-layer copy): a Python int, or a (B,) tensor of per-row positions
+    (the continuous engine's slots)."""
     check_supported(cfg)
-    one = L.init_kv_cache(cfg, batch, seq_len, dtype=dtype, device=device)
+    init = L.init_mla_cache if cfg.attn_kind == "mla" else L.init_kv_cache
+    one = init(cfg, batch, seq_len, dtype=dtype, device=device)
     return {seg: {name: a.expand(n, *a.shape).clone() if torch.is_tensor(a) else a
                   for name, a in one.items()}
             for seg, n in segment_sizes(cfg).items() if n}

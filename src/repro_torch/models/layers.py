@@ -1,22 +1,25 @@
 """Building blocks of the port (PyTorch counterpart of
-``repro.models.layers``): norms, RoPE (full or partial), ALiBi, GQA
+``repro.models.layers``): norms, RoPE (full, partial or M-RoPE), ALiBi, GQA
 attention with a KV cache (a ring of ``sliding_window`` slots for
-sliding-window models), a sliding window and optional ``qk_norm``, the
-SwiGLU and GELU MLPs, and the capacity-based mixture of experts (``MoE``,
-``moe_block``) with its explicit expert-parallel FFN.
+sliding-window models), a sliding window and optional ``qk_norm``,
+bidirectional and cross-attention, MLA (DeepSeek-V2's latent attention,
+``MLA``, ``mla_attention``) with its compressed cache, the SwiGLU and GELU
+MLPs, and the capacity-based mixture of experts (``MoE``, ``moe_block``)
+with its explicit expert-parallel FFN.
 
 Parameters live in ``nn.Module``s; the functions take the module as their
 ``p`` argument, as the reference's functions take a parameter dict.  Linear
 weights follow ``nn.Linear``: ``(d_out, d_in)``, the transpose of the
 reference's ``(d_in, d_out)`` (``convert.params_from_jax`` transposes).
-RMSNorm (``qk_norm``'s per-head norms included) and prefill attention go
-through ``kernels.ops``, so on the card they run the CUDA kernels; decode
-attention is plain PyTorch, as the reference's is plain jnp, and so are
-the MoE's router, scatter, expert products (batched GEMMs, as the
-reference's ``einsum``) and combine: the reference computes them outside
-any Pallas kernel.  Architectural variants that no ported family uses
-raise ``NotImplementedError`` naming the slice of the port that brings
-them (ROADMAP.md, queue 1).
+RMSNorm (``qk_norm``'s per-head norms and MLA's ``kv_a_norm`` included)
+and GQA attention over a whole sequence (causal, bidirectional or cross)
+go through ``kernels.ops``, so on the card they run the CUDA kernels;
+decode attention is plain PyTorch, as the reference's is plain jnp, and
+so are MLA's scores (the flash kernel has no instantiation of its 192-wide
+q·k head beside its 128-wide v head; ROADMAP.md, queue 2) and the MoE's
+router, scatter, expert products (batched GEMMs, as the reference's
+``einsum``) and combine: the reference computes them outside any Pallas
+kernel.
 
 ALiBi departs from the reference on purpose: the reference adds its bias
 only on the uncached path (``bias_fn``), so its cached prefill and decode
@@ -45,7 +48,6 @@ from repro_torch.parallel import constraints as CT
 
 Cache = Dict[str, object]
 
-OTHER_FAMILIES = "the port's other-families slice (ROADMAP.md, queue 1)"
 QUERY_OFFSET = "a query offset in the flash kernel (ROADMAP.md, queue 2)"
 
 
@@ -104,13 +106,21 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, *,
-               head_dim: int, fraction: float = 1.0, theta: float = 10_000.0
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B,S,H,hd), k (B,S,KVH,hd); positions (B,S) int.  (M-RoPE arrives
-    with the other families.)"""
+               head_dim: int, fraction: float = 1.0, theta: float = 10_000.0,
+               mrope_sections: Tuple[int, ...] = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B,S,H,hd), k (B,S,KVH,hd); positions (B,S) int, or (3,B,S) for
+    M-RoPE: ``mrope_sections`` (t, h, w) split the rot/2 frequencies, the
+    i-th section rotating by the positions of axis i."""
     rot = int(head_dim * fraction)
     rot -= rot % 2
-    cos, sin = rope_angles(positions, rot, theta)          # (B,S,rot/2)
+    if mrope_sections:
+        rot = 2 * sum(mrope_sections)
+        cos_t, sin_t = rope_angles(positions, rot, theta)   # (3,B,S,rot/2)
+        sections = list(mrope_sections)
+        cos = torch.cat([c[i] for i, c in enumerate(cos_t.split(sections, dim=-1))], dim=-1)
+        sin = torch.cat([c[i] for i, c in enumerate(sin_t.split(sections, dim=-1))], dim=-1)
+    else:
+        cos, sin = rope_angles(positions, rot, theta)      # (B,S,rot/2)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]       # broadcast over heads
 
     def rope_one(x):
@@ -161,11 +171,15 @@ class Attention(nn.Module):
             self.k_norm = Norm(cfg.head_dim, "rmsnorm", **kw)
 
 
+ATTN_KINDS = ("gqa", "mla")
+POS_KINDS = ("rope", "mrope", "alibi", "learned", "none")
+
+
 def check_attention_supported(cfg) -> None:
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"attn_kind {cfg.attn_kind!r} arrives with {OTHER_FAMILIES}")
-    if cfg.pos_kind not in ("rope", "alibi", "none"):
-        raise NotImplementedError(f"pos_kind {cfg.pos_kind!r} arrives with {OTHER_FAMILIES}")
+    if cfg.attn_kind not in ATTN_KINDS:
+        raise ValueError(f"unknown attn_kind {cfg.attn_kind!r}; known: {ATTN_KINDS}")
+    if cfg.pos_kind not in POS_KINDS:
+        raise ValueError(f"unknown pos_kind {cfg.pos_kind!r}; known: {POS_KINDS}")
 
 
 def _ring(cfg, W: int) -> bool:
@@ -229,10 +243,20 @@ def _rank_heads(p: Attention, cfg, x: torch.Tensor, m, site: str):
 
 
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
-              cache: Optional[Cache] = None, backend: Optional[str] = None,
+              cache: Optional[Cache] = None, x_kv: Optional[torch.Tensor] = None,
+              causal: bool = True, backend: Optional[str] = None,
               mesh=None, site: str = "tp.attn") -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Causal GQA self-attention, with ``cfg.sliding_window`` and ALiBi
-    where the config has them.  Returns (out, updated cache).
+    """GQA attention: causal self-attention, with ``cfg.sliding_window``
+    and ALiBi where the config has them; ``causal=False`` bidirectional
+    self-attention (whisper's encoder); or, with ``x_kv`` (B, Sk, d),
+    cross-attention of x's queries to K and V projected from ``x_kv``
+    (whisper's decoder over the encoder's memory: no cache, no RoPE).  The
+    last two attend to every key (the reference's zero bias: no window, no
+    ALiBi) through the flash route with ``causal=False``, K and V made
+    contiguous for the kernel.  RoPE is M-RoPE where ``cfg.pos_kind`` is
+    ``"mrope"`` (``positions`` (3, B, S)); learned positions are added to
+    the input by the model, so attention applies none.  Returns (out,
+    updated cache).
 
     The head counts come from the weights: where ``p`` holds this rank's
     heads of attention split over the model axis ``mesh`` (a placed model,
@@ -268,6 +292,9 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     B, Sq, _ = x.shape
     h = cfg.head_dim
     placed = p.q.weight.shape[0] != cfg.q_dim
+    full = x_kv is not None or not causal
+    if full and (placed or cache is not None):
+        raise ValueError("bidirectional and cross-attention run whole, without a cache")
     if placed:
         m = as_mesh(mesh)
         if cache is not None:
@@ -279,9 +306,10 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         q, k, v, q0 = _rank_heads(p, cfg, x, m, site)
     else:
         N, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        src = x if x_kv is None else x_kv
         q = linear(p.q, x).view(B, Sq, N * G, h)
-        k = linear(p.k, x).view(B, Sq, N, h)
-        v = linear(p.v, x).view(B, Sq, N, h)
+        k = linear(p.k, src).view(B, src.shape[1], N, h)
+        v = linear(p.v, src).view(B, src.shape[1], N, h)
         q0 = 0
     if cfg.qk_norm:            # per head, over head_dim, before RoPE
         qs, ks = p.q_norm.scale, p.k_norm.scale
@@ -289,13 +317,12 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             qs, ks = (C.copy_to(t, m, site=f"{site}.qk_norm.ar.bwd") for t in (qs, ks))
         q = ops.rmsnorm(q, qs, backend=backend, eps=1e-5)
         k = ops.rmsnorm(k, ks, backend=backend, eps=1e-5)
-    if cfg.pos_kind == "rope":
-        q, k = apply_rope(q, k, positions, head_dim=h, fraction=cfg.rope_fraction,
-                          theta=cfg.rope_theta)
+    if x_kv is None:
+        q, k = _rope(cfg, q, k, positions)
     slopes = None
-    if cfg.pos_kind == "alibi":
+    if cfg.pos_kind == "alibi" and not full:
         slopes = _slopes_on(cfg.num_heads, x.device)[q0:q0 + q.shape[2]]
-    flash = dict(causal=True, backend=backend, window=cfg.sliding_window,
+    flash = dict(causal=not full, backend=backend, window=0 if full else cfg.sliding_window,
                  alibi_slopes=slopes)
     if placed:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **flash)
@@ -334,6 +361,15 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     return linear(p.o, out.reshape(B, Sq, N * G * h)), new_cache
 
 
+def _rope(cfg, q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor):
+    """RoPE or M-RoPE on q and k where the config has them, else both as they are."""
+    if cfg.pos_kind not in ("rope", "mrope"):
+        return q, k
+    return apply_rope(q, k, positions, head_dim=cfg.head_dim, fraction=cfg.rope_fraction,
+                      theta=cfg.rope_theta,
+                      mrope_sections=cfg.mrope_sections if cfg.pos_kind == "mrope" else ())
+
+
 def _decode_rows(p: Attention, cfg, q, k, v, cache: Cache, t: torch.Tensor,
                  N: int, G: int, h: int):
     """Decode at per-row positions t (B,): row b writes its K/V and
@@ -369,6 +405,196 @@ def init_kv_cache(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------------------
+# MLA: DeepSeek-V2's multi-head latent attention
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """MLA's projections (no biases): ``q`` (d -> H·(dn+dr)), or with
+    ``q_lora_rank`` ``q_a`` (d -> r_q), its RMSNorm ``q_a_norm`` and ``q_b``
+    (r_q -> H·(dn+dr)); ``kv_a`` (d -> kv_lora_rank + dr), the RMSNorm
+    ``kv_a_norm`` over the latent, ``kv_b`` (kv_lora_rank -> H·(dn+dv)) and
+    ``o`` (H·dv -> d): the reference's ``init_mla`` keys."""
+
+    def __init__(self, cfg, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        d, H = cfg.d_model, cfg.num_heads
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        if cfg.q_lora_rank:
+            self.q_a = nn.Linear(d, cfg.q_lora_rank, **kw)
+            self.q_a_norm = Norm(cfg.q_lora_rank, "rmsnorm", device=device, dtype=dtype)
+            self.q_b = nn.Linear(cfg.q_lora_rank, H * qk, **kw)
+        else:
+            self.q = nn.Linear(d, H * qk, **kw)
+        self.kv_a = nn.Linear(d, cfg.kv_lora_rank + cfg.qk_rope_head_dim, **kw)
+        self.kv_a_norm = Norm(cfg.kv_lora_rank, "rmsnorm", device=device, dtype=dtype)
+        self.kv_b = nn.Linear(cfg.kv_lora_rank,
+                              H * (cfg.qk_nope_head_dim + cfg.v_head_dim), **kw)
+        self.o = nn.Linear(H * cfg.v_head_dim, d, **kw)
+
+
+# profiler ranges around MLA's plain attention: ``kv_b``'s expansion of the
+# latents to K and V, and the scores with their softmax and product with V
+MLA_EXPAND, MLA_SCORES = "mla.kv_b", "mla.scores"
+
+
+@torch.profiler.record_function(MLA_SCORES)
+def _mla_scores_to_out(q_nope, q_rope, k_nope, k_rope, v, bias, scale) -> torch.Tensor:
+    """Dense MLA attention: q_nope (B,Sq,H,dn), q_rope (B,Sq,H,dr), k_nope
+    (B,Sk,H,dn), k_rope (B,Sk,1,dr) (one rotary key for every head), v
+    (B,Sk,H,dv); bias broadcastable to (B,H,Sq,Sk), additive, fp32.
+    Returns (B,Sq,H,dv) in the query's dtype."""
+    logits = (torch.einsum("bqhd,bshd->bhqs", q_nope.float(), k_nope.float())
+              + torch.einsum("bqhd,bsxd->bhqs", q_rope.float(), k_rope.float())) * scale
+    w = torch.softmax(logits + bias, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", w, v.float()).to(q_nope.dtype)
+
+
+def _causal_bias(Sq: int, Sk: int, device) -> torch.Tensor:
+    """(Sq, Sk) fp32: 0 where key index <= query index, NEG_INF elsewhere."""
+    keep = torch.arange(Sq, device=device)[:, None] >= torch.arange(Sk, device=device)[None]
+    return torch.zeros((Sq, Sk), dtype=torch.float32, device=device).masked_fill(~keep, NEG_INF)
+
+
+@torch.profiler.record_function(MLA_SCORES)
+def _mla_blockwise(q_nope, q_rope, k_nope, k_rope, v, scale, kv_block: int,
+                   q_block: int = 512) -> torch.Tensor:
+    """Causal MLA over blocks of ``q_block`` queries and ``kv_block`` keys
+    with an online softmax (the reference's ``_mla_blockwise``): never more
+    than one block pair's scores.  A key block wholly after a query block
+    is skipped: its every score is masked, and adds exactly nothing."""
+    B, Sq, H, _ = q_nope.shape
+    Sk, dv = k_nope.shape[1], v.shape[-1]
+    out = q_nope.new_empty((B, Sq, H, dv))
+    for q0 in range(0, Sq, q_block):
+        qn, qr = q_nope[:, q0:q0 + q_block].float(), q_rope[:, q0:q0 + q_block].float()
+        qb = qn.shape[1]
+        q_pos = torch.arange(q0, q0 + qb, device=qn.device)
+        m = torch.full((B, H, qb), NEG_INF, dtype=torch.float32, device=qn.device)
+        l = torch.zeros((B, H, qb), dtype=torch.float32, device=qn.device)
+        acc = torch.zeros((B, H, qb, dv), dtype=torch.float32, device=qn.device)
+        for s0 in range(0, min(Sk, q0 + qb), kv_block):
+            kn, kr = k_nope[:, s0:s0 + kv_block].float(), k_rope[:, s0:s0 + kv_block].float()
+            k_pos = torch.arange(s0, s0 + kn.shape[1], device=qn.device)
+            logits = (torch.einsum("bqhd,bshd->bhqs", qn, kn)
+                      + torch.einsum("bqhd,bsxd->bhqs", qr, kr)) * scale
+            logits = logits.masked_fill(~(q_pos[:, None] >= k_pos[None, :]), NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            pw = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pw.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqs,bshd->bhqd", pw, v[:, s0:s0 + kv_block].float())
+            m = m_new
+        out[:, q0:q0 + qb] = (acc / torch.clamp(l, min=1e-20)[..., None]).transpose(1, 2)
+    return out
+
+
+def mla_attention(p: MLA, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                  cache: Optional[Cache] = None, backend: Optional[str] = None,
+                  kv_block: int = 1024, blockwise_threshold: int = 2048
+                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """MLA with the compressed cache (the reference's ``mla_attention``):
+    per token the cache holds the normed latent ``c_kv`` (kv_lora_rank
+    wide) and one rotary key ``k_rope`` (dr), not per-head K and V.  The
+    latent's RMSNorm (``kv_a_norm``, and ``q_a_norm`` where there is a q
+    LoRA) goes through ``kernels.ops``; the scores are plain PyTorch, as
+    the reference's are jnp.  Returns (out, updated cache).
+
+    * ``cache`` None -> causal over the sequence, dense or, above
+      ``blockwise_threshold`` keys, blockwise (``_mla_blockwise``).
+    * ``cache`` given, Sq > 1 -> prefill into an empty cache (``pos`` 0):
+      the latents, rotary keys and ``slot_pos`` written at slots 0..Sq-1,
+      attention causal over them, as stored (over an empty cache the
+      reference's ``slot_pos`` mask is that causal mask).
+    * ``cache`` given, Sq == 1 -> decode at ``pos``, one int or a (B,)
+      tensor of per-row positions: each row writes its slot, ``kv_b``
+      expands every slot of the cache to K and V (the reference's method:
+      the whole cache, each step), and the per-row ``slot_pos`` mask keeps
+      the slots at or before the row's position.
+
+    The cache is updated in place; the returned dict holds the same
+    tensors and the advanced ``pos``."""
+    check_attention_supported(cfg)
+    B, Sq, _ = x.shape
+    H, rank = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if cfg.q_lora_rank:
+        q = linear(p.q_b, norm(p.q_a_norm, linear(p.q_a, x), "rmsnorm", backend=backend))
+    else:
+        q = linear(p.q, x)
+    q = q.view(B, Sq, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = linear(p.kv_a, x)                                    # (B,S,rank+dr)
+    c_kv = norm(p.kv_a_norm, kv_a[..., :rank].contiguous(), "rmsnorm", backend=backend)
+    k_rope = kv_a[..., rank:][:, :, None, :]                    # (B,S,1,dr)
+    q_rope, k_rope = apply_rope(q_rope, k_rope, positions, head_dim=dr, fraction=1.0,
+                                theta=cfg.rope_theta)
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    def expand(c):
+        with torch.profiler.record_function(MLA_EXPAND):
+            kv = linear(p.kv_b, c).view(B, c.shape[1], H, dn + dv)
+        return kv[..., :dn], kv[..., dn:]
+
+    new_cache = None
+    if cache is None:
+        k_nope, v = expand(c_kv)
+        if Sq > blockwise_threshold:
+            out = _mla_blockwise(q_nope, q_rope, k_nope, k_rope, v, scale, kv_block)
+        else:
+            out = _mla_scores_to_out(q_nope, q_rope, k_nope, k_rope, v,
+                                     _causal_bias(Sq, Sq, x.device), scale)
+    else:
+        cc, cr, spos = cache["c_kv"], cache["k_rope"], cache["slot_pos"]
+        W, t = cc.shape[1], cache["pos"]
+        if Sq == 1:
+            if not torch.is_tensor(t) and t >= W:
+                raise ValueError(f"MLA cache of {W} slots cannot take 1 more at position {t}")
+            rows_t = t if torch.is_tensor(t) else torch.full((B,), t, device=cc.device)
+            rows = torch.arange(B, device=cc.device)
+            cc[rows, rows_t] = c_kv[:, 0].to(cc.dtype)
+            cr[rows, rows_t] = k_rope[:, 0].to(cr.dtype)
+            spos[rows, rows_t] = rows_t.to(spos.dtype)
+            k_nope, v = expand(cc.to(x.dtype))
+            valid = (spos >= 0) & (spos <= rows_t.to(spos.dtype)[:, None])       # (B, W)
+            bias = torch.zeros(valid.shape, dtype=torch.float32, device=x.device
+                               ).masked_fill(~valid, NEG_INF)[:, None, None, :]
+            out = _mla_scores_to_out(q_nope, q_rope, k_nope, cr.to(x.dtype), v, bias, scale)
+            new_cache = dict(cache, pos=t + 1)
+        else:
+            if torch.is_tensor(t):
+                raise NotImplementedError(
+                    f"prefill into a cache at per-row positions arrives with {QUERY_OFFSET}")
+            if t != 0:
+                raise NotImplementedError(
+                    f"prefill into a non-empty cache (pos {t}) arrives with {QUERY_OFFSET}")
+            if Sq > W:
+                raise ValueError(f"MLA cache of {W} slots cannot take {Sq} more at position {t}")
+            cc[:, :Sq] = c_kv.to(cc.dtype)
+            cr[:, :Sq] = k_rope.to(cr.dtype)
+            spos[:, :Sq] = torch.arange(Sq, dtype=spos.dtype, device=spos.device)
+            new_cache = {"c_kv": cc, "k_rope": cr, "pos": Sq, "slot_pos": spos}
+            k_nope, v = expand(cc[:, :Sq].to(x.dtype))
+            out = _mla_scores_to_out(q_nope, q_rope, k_nope, cr[:, :Sq].to(x.dtype), v,
+                                     _causal_bias(Sq, Sq, x.device), scale)
+    return linear(p.o, out.reshape(B, Sq, H * dv)), new_cache
+
+
+def init_mla_cache(cfg, batch: int, seq_len: int, *, dtype=torch.float32,
+                   device=None) -> Cache:
+    """MLA's decode cache: c_kv (B,W,kv_lora_rank), k_rope (B,W,1,dr),
+    slot_pos (B,W) int32 (-1 = empty) and ``pos`` a Python int."""
+    return {
+        "c_kv": torch.zeros((batch, seq_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, seq_len, 1, cfg.qk_rope_head_dim), dtype=dtype,
+                              device=device),
+        "pos": 0,
+        "slot_pos": torch.full((batch, seq_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
 # feed-forward and embeddings
 # ---------------------------------------------------------------------------
 
@@ -383,7 +609,7 @@ class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, kind: str, *, device=None, dtype=None):
         super().__init__()
         if kind not in MLP_KINDS:
-            raise NotImplementedError(f"mlp_kind {kind!r} arrives with {OTHER_FAMILIES}")
+            raise ValueError(f"unknown mlp_kind {kind!r}; known: {MLP_KINDS}")
         kw = dict(bias=kind == "gelu", device=device, dtype=dtype)
         if kind == "swiglu":
             self.gate = nn.Linear(d_model, d_ff, **kw)
@@ -399,7 +625,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind not in MLP_KINDS:
-        raise NotImplementedError(f"mlp_kind {kind!r} arrives with {OTHER_FAMILIES}")
+        raise ValueError(f"unknown mlp_kind {kind!r}; known: {MLP_KINDS}")
     if kind == "gelu":
         return linear(p.down, gelu(linear(p.up, x)))
     return linear(p.down, F.silu(linear(p.gate, x)) * linear(p.up, x))

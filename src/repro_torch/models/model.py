@@ -1,5 +1,6 @@
 """Model API of the port (PyTorch counterpart of ``repro.models.model``)
-for the dense, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
+for every family of the zoo: dense, ``moe`` (MLA included), ``vlm``
+(M-RoPE), ``ssm`` (rwkv6), ``hybrid`` (zamba2) and ``audio`` (whisper).
 
     model = init_params(cfg, seed, device="cuda"[, ep_pad=n])          # nn.Module
     loss, metrics = loss_and_metrics(cfg, model, batch)                 # train
@@ -11,18 +12,25 @@ for the dense, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
     loss, metrics = pipeline_loss(cfg, model, batch, mesh=stage_mesh, microbatches=M)
 
 ``batch``: {"tokens": (B,S) int}, and for the loss "targets" (B,S) int and
-optionally "mask" (B,S) float.  Entry points run on the card unless the
-caller passes ``device="cpu"``; asking for ``"cuda"`` with no card raises.
-The weights are random, drawn on the target device from a
+optionally "mask" (B,S) float; plus "frames" (B, encoder_seq, D) for audio
+and optionally "patches" (B, n, D) for vlm (the frontends are stubs:
+precomputed embeddings, which replace the first n token embeddings).  A
+vlm batch with patches takes the reference's M-RoPE grid: patch i at
+(0, i // 16, i % 16), text j at 16 + j on all three axes; its attention
+masks by index on every route (the flash kernel's mask), which the
+reference's cached prefill does and its uncached path does not (it masks
+by the temporal position: ROADMAP.md, queue 3).  Entry points run on the
+card unless the caller passes ``device="cpu"``; asking for ``"cuda"`` with
+no card raises.  The weights are random, drawn on the target device from a
 ``torch.Generator`` seeded with ``seed`` (the reference draws from
 ``jax.random``; the tests convert its weights with
 ``convert.params_from_jax`` instead of reseeding).  The loss
 (``loss_and_metrics``, chunked cross-entropy plus ``router_aux_coef``
 times the routers' load-balancing loss) trains the dense and moe families,
 which share the trunk of ``models.dense``; the recurrent families are
-forward-only (their scan kernels have no backward).  The ``audio`` and
-``vlm`` families raise ``NotImplementedError`` naming the slice of the
-port that brings them.
+forward-only (their scan kernels have no backward).  Placing an audio,
+vlm or MLA model on a mesh (``shard_``) raises ``NotImplementedError``
+naming ROADMAP.md's queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -37,22 +45,24 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import reference_layout
 from repro_torch.launch.mesh import as_mesh
-from repro_torch.models import dense, layers as L, rwkv6, zamba2
+from repro_torch.models import dense, layers as L, rwkv6, whisper, zamba2
 from repro_torch.parallel import collectives, constraints as CT, sharding
 from repro_torch.parallel.pipeline import pipeline_apply
 
 Caches = Dict[str, object]
 
-_TRUNKS = {"dense": dense, "moe": dense, "ssm": rwkv6, "hybrid": zamba2}
-_LATER = {"audio": L.OTHER_FAMILIES, "vlm": L.OTHER_FAMILIES}
+_TRUNKS = {"dense": dense, "moe": dense, "vlm": dense, "ssm": rwkv6, "hybrid": zamba2,
+           "audio": whisper}
 RECURRENT_TRAINING = "the recurrent-training slice (ROADMAP.md, queue 1)"
-DECODER = ("dense", "moe")       # the families of ``models.dense``'s trunk
+PLACEMENT = "the placement of the other families (ROADMAP.md, queue 1 item 8)"
+DECODER = dense.FAMILIES         # the families of ``models.dense``'s trunk
+N_PATCHES = 256                  # the vlm stub: one 16x16 image at the sequence head
+_PATCH_GRID = 16
 
 
 def _trunk(cfg):
     if cfg.family not in _TRUNKS:
-        later = _LATER.get(cfg.family, "a later slice of the port (ROADMAP.md, queue 1)")
-        raise NotImplementedError(f"family {cfg.family!r} arrives with {later}")
+        raise ValueError(f"unknown family {cfg.family!r}; known: {sorted(_TRUNKS)}")
     return _TRUNKS[cfg.family]
 
 
@@ -73,12 +83,14 @@ def shard_(cfg, model: "Model", mesh) -> "Model":
     (``_embed``, ``chunked_ce``), the trunk runs its shards on the model
     axis (``trunk.mlp_mesh``), and its routers route the global batch over
     ``data``.  A placed model trains; it serves no cache."""
-    if cfg.family not in DECODER:
-        later = (RECURRENT_TRAINING if cfg.family in ("ssm", "hybrid")
-                 else _LATER.get(cfg.family, "a later slice of the port (ROADMAP.md, "
-                                 "queue 1)"))
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"training the {cfg.family!r} family on a mesh "
-                                  f"arrives with {later}")
+                                  f"arrives with {RECURRENT_TRAINING}")
+    if (cfg.family not in ("dense", "moe") or cfg.attn_kind == "mla"
+            or cfg.pos_kind in ("mrope", "learned")):
+        what = (f"the {cfg.family!r} family" if cfg.family not in ("dense", "moe") else
+                "MLA" if cfg.attn_kind == "mla" else f"pos_kind {cfg.pos_kind!r}")
+        raise NotImplementedError(f"placing {what} on a mesh arrives with {PLACEMENT}")
     if model.placement is not None:
         raise ValueError("the model is already sharded: place it once")
     place = sharding.place(reference_layout(cfg, model), mesh,
@@ -110,7 +122,9 @@ def _dtype(cfg) -> torch.dtype:
 
 class Model(nn.Module):
     """embed -> trunk -> ln_f -> head (untied) or embedᵀ (tied).  ``ep_pad``
-    pads a MoE model's experts to a multiple of it (``layers.moe_pad_experts``)."""
+    pads a MoE model's experts to a multiple of it (``layers.moe_pad_experts``).
+    An audio model also holds the decoder's learned positions ``dec_pos``
+    (max_seq_len, d), at the top level as the reference keeps them."""
 
     def __init__(self, cfg, *, ep_pad: int = 1, device=None, dtype=None):
         super().__init__()
@@ -118,10 +132,18 @@ class Model(nn.Module):
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, **kw)
         self.trunk = (dense.init_trunk(cfg, ep_pad=ep_pad, **kw) if cfg.family in DECODER
                       else _trunk(cfg).init_trunk(cfg, **kw))
+        if cfg.family == "audio":
+            self.dec_pos = nn.Parameter(torch.empty((cfg.max_seq_len, cfg.d_model), **kw))
         self.ln_f = L.Norm(cfg.d_model, cfg.norm_kind, **kw)
         self.head = None if cfg.tie_embeddings else nn.Linear(
             cfg.d_model, cfg.vocab_size, bias=False, **kw)
         self.placement: Optional[sharding.Placement] = None     # shard_
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """``dec_pos`` N(0, 0.02²), as the reference draws it."""
+        if hasattr(self, "dec_pos"):
+            self.dec_pos.normal_(0.0, 0.02, generator=gen)
 
 
 @torch.no_grad()
@@ -165,7 +187,7 @@ def _check_pipeline(cfg) -> None:
     later = {"moe": "the MoE follow-ups (ROADMAP.md, queue 1 item 11)",
              "ssm": RECURRENT_TRAINING, "hybrid": RECURRENT_TRAINING}
     raise NotImplementedError(f"a pipeline of the {cfg.family!r} family arrives with "
-                              + later.get(cfg.family, L.OTHER_FAMILIES))
+                              + later.get(cfg.family, PLACEMENT))
 
 
 def init_stage(cfg, seed: int = 0, stage: int = 0, stages: int = 1, *,
@@ -198,14 +220,37 @@ def init_stage(cfg, seed: int = 0, stage: int = 0, stages: int = 1, *,
     return model
 
 
-def _positions(cfg, B: int, S: int, t0, device) -> torch.Tensor:
+def _positions(cfg, B: int, S: int, t0, device, *, patches: bool = False) -> torch.Tensor:
     """(B,S) int64 positions t0..t0+S-1; ``t0`` an int, or a (B,) tensor of
-    per-row starts."""
-    if cfg.pos_kind == "mrope":
-        raise NotImplementedError(f"M-RoPE positions arrive with {L.OTHER_FAMILIES}")
+    per-row starts.  M-RoPE: (3,B,S), the same positions on the three axes
+    or, with ``patches``, the reference's grid: the first N_PATCHES at
+    (t0, t0 + i // 16, t0 + i % 16), text j at t0 + 16 + j on all three."""
     if torch.is_tensor(t0):
-        return t0.to(device, torch.int64)[:, None] + torch.arange(S, device=device)
-    return (t0 + torch.arange(S, device=device)).expand(B, S)
+        pos = t0.to(device, torch.int64)[:, None] + torch.arange(S, device=device)
+    else:
+        pos = (t0 + torch.arange(S, device=device)).expand(B, S)
+    if cfg.pos_kind != "mrope":
+        return pos
+    if not patches:
+        return pos.expand(3, B, S)
+    n = N_PATCHES
+    i = torch.arange(n, device=device)
+    text = _PATCH_GRID + torch.arange(S - n, device=device)
+    grid = torch.stack([torch.cat([torch.zeros_like(i), text]),
+                        torch.cat([i // _PATCH_GRID, text]),
+                        torch.cat([i % _PATCH_GRID, text])])              # (3,S)
+    start = t0.to(device, torch.int64)[:, None] if torch.is_tensor(t0) else t0
+    return grid[:, None, :] + start
+
+
+def _embed_inputs(cfg, p: "Model", batch) -> torch.Tensor:
+    """The token embeddings, a vlm batch's first n replaced by its patches."""
+    x = _embed(p, batch["tokens"])
+    patches = batch.get("patches") if cfg.family == "vlm" else None
+    if patches is not None:
+        n = patches.shape[1]
+        x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
+    return x
 
 
 def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
@@ -214,22 +259,38 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
                    ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """Runs the trunk over batch["tokens"].  If ``caches`` is given, this is a
     cached prefill into fresh caches (filled in place).  ``remat`` recomputes
-    each decoder layer in the backward.  ``mesh`` opts the dense and moe
-    families into the plan-aware sited trunk (``dense.trunk_fwd``, with
-    ``shards`` this rank's feed-forward shards); the other families ignore
-    it.  ``route_rows`` routes each row's tokens alone through the experts
-    (the continuous engine: the reference vmaps over its slots)."""
+    each decoder layer in the backward.  ``mesh`` opts the dense, moe
+    and vlm families into the plan-aware sited trunk (``dense.trunk_fwd``,
+    with ``shards`` this rank's feed-forward shards); the other families
+    ignore it.  ``route_rows`` routes each row's tokens alone through the
+    experts (the continuous engine: the reference vmaps over its slots).
+
+    Audio: the encoder runs over ``batch["frames"]``, the decoder's learned
+    positions are added at each row's position, and a cached prefill keeps
+    the encoder's output in the caches' ``"memory"`` for decode."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if caches is not None:
         _check_unplaced(p)
     t0 = caches["pos"] if caches is not None else 0
-    positions = _positions(cfg, B, S, t0, tokens.device)
-    x = _embed(p, tokens)
+    positions = _positions(cfg, B, S, t0, tokens.device,
+                           patches=batch.get("patches") is not None)
+    x = _embed_inputs(cfg, p, batch)
     tc = caches["trunk"] if caches is not None else None
-    x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh,
-                                shards=shards, remat=remat, route_rows=route_rows)
-    new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S}
+    if cfg.family == "audio":
+        if batch.get("frames") is None:
+            raise ValueError("an audio model's batch needs its 'frames' (B, encoder_seq, D)")
+        memory = whisper.encode(p.trunk, cfg, batch["frames"].to(x.dtype), backend=backend,
+                                remat=remat)
+        x, new_tc = whisper.decode_trunk(p.trunk, cfg, x + p.dec_pos[positions], memory,
+                                         positions, tc, backend=backend, remat=remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S,
+                                                  "memory": memory}
+    else:
+        x, new_tc, aux = _trunk_fwd(cfg, p, x, positions, tc, backend=backend, mesh=mesh,
+                                    shards=shards, remat=remat, route_rows=route_rows)
+        new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S}
     return L.norm(p.ln_f, x, cfg.norm_kind, backend=backend), new_caches, aux
 
 
@@ -362,12 +423,17 @@ def loss_and_metrics(cfg, p: Model, batch, *, remat: bool = True,
                      backend: Optional[str] = None, mesh=None):
     """The training loss: chunked cross-entropy plus ``router_aux_coef``
     times the trunk's aux loss.  ``batch``: tokens, targets and optionally
-    mask (ones by default).  Returns (loss, {"ce", "aux", "loss"})."""
+    mask (ones by default); a vlm batch's patch rows carry no target (their
+    mask is zeroed).  Returns (loss, {"ce", "aux", "loss"})."""
     x, _, aux = forward_hidden(cfg, p, batch, remat=remat, backend=backend, mesh=mesh)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(batch["targets"].shape, dtype=torch.float32, device=x.device)
-    ce = chunked_ce(cfg, p, x, batch["targets"], mask.float())
+    mask = mask.float()
+    if cfg.family == "vlm" and batch.get("patches") is not None:
+        mask = mask.clone()
+        mask[:, :batch["patches"].shape[1]] = 0.0
+    ce = chunked_ce(cfg, p, x, batch["targets"], mask)
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
 
@@ -416,9 +482,17 @@ def pipeline_loss(cfg, p: Model, batch, *, mesh, microbatches: int, remat: bool 
 
 
 def init_caches(cfg, batch: int, seq_len: int, *, device="cuda") -> Caches:
-    return {"trunk": _trunk(cfg).init_trunk_caches(cfg, batch, seq_len, dtype=_dtype(cfg),
-                                                   device=resolve_device(device)),
-            "pos": 0}
+    """Fresh caches for ``batch`` sequences of up to ``seq_len`` tokens; an
+    audio model's also hold the encoder's ``memory`` (zeros until a cached
+    prefill writes it)."""
+    dev = resolve_device(device)
+    caches = {"trunk": _trunk(cfg).init_trunk_caches(cfg, batch, seq_len, dtype=_dtype(cfg),
+                                                     device=dev),
+              "pos": 0}
+    if cfg.family == "audio":
+        caches["memory"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                       dtype=_dtype(cfg), device=dev)
+    return caches
 
 
 def _kv_slots(tc) -> Optional[int]:
@@ -444,7 +518,11 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
     the sited decode path (``serve.layer{i}.*`` sites, ``shards`` this
     rank's feed-forward shards); ``route_rows`` as in ``forward_hidden``.
     A sliding-window model's ring of ``window`` slots wraps; any other cache
-    raises at a position it does not hold."""
+    raises at a position it does not hold.  M-RoPE decodes at the row's
+    position on all three axes, after a prefill with patches too, as the
+    reference's ``decode_step`` does; an audio model's decoder attends to
+    the caches' ``memory``, with its learned positions at the row's
+    position."""
     _check_unplaced(p)
     B = tokens.shape[0]
     t0 = caches["pos"]
@@ -457,7 +535,15 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
                              f"positions {t0.tolist()}")
     positions = _positions(cfg, B, 1, t0, tokens.device)
     x = _embed(p, tokens)
-    x, new_tc, _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"], backend=backend,
-                              mesh=mesh, shards=shards, route_rows=route_rows)
+    new_caches = {"pos": t0 + 1}
+    if cfg.family == "audio":
+        x, new_caches["trunk"] = whisper.decode_trunk(
+            p.trunk, cfg, x + p.dec_pos[positions], caches["memory"], positions,
+            caches["trunk"], backend=backend)
+        new_caches["memory"] = caches["memory"]
+    else:
+        x, new_caches["trunk"], _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"],
+                                               backend=backend, mesh=mesh, shards=shards,
+                                               route_rows=route_rows)
     x = L.norm(p.ln_f, x, cfg.norm_kind, backend=backend)
-    return _unembed(cfg, p, x), {"trunk": new_tc, "pos": t0 + 1}
+    return _unembed(cfg, p, x), new_caches

@@ -18,7 +18,11 @@ slots dead, and copy the rows into their slots: the copy overwrites every
 row of a slot's caches, so a reused slot is reset before it serves again
 (the port's caches change in place, where the reference's are
 functional).  The recurrent families need equal-length prompts in one
-admit (a state absorbs padding): ragged admits raise ``ValueError``.
+admit (a state absorbs padding): ragged admits raise ``ValueError``.  The
+engine is decoder-only, as the reference's: an audio model raises
+``ValueError`` (serve it with the fixed engine).  A vlm model is served
+on text, an MLA model with its compressed cache, each slot at its own
+position.
 
 Plan-aware serving: with ``repo=`` the engine re-resolves the tuned plan
 at admit time as the in-flight batch shape drifts (the repository's
@@ -75,6 +79,9 @@ class ContinuousEngine(PlannedEngine):
                  fault_schedule=None, health_window: int = 3,
                  health_tolerance: float = 0.25, retune=None,
                  plan_lint: str = "error"):
+        if cfg.family == "audio":
+            raise ValueError("the continuous engine is decoder-only: serve an audio "
+                             "model with the fixed engine")
         self.slots = slots
         self.eos_id = eos_id
         self._bind_plan(cfg, params, max_seq=max_seq, backend=backend, plan=plan,

@@ -5,9 +5,16 @@ one pass, then decode greedily in lockstep, each row at its true position
 padded counter would cut a windowed row's window short by its pad gap).
 
 On the card the prefill and every decode step run the port's CUDA kernels
-(``kernels.ops`` counts the launches): RMSNorm (``qk_norm``'s included)
-and, at prefill, flash attention for the dense, moe and hybrid families,
-the SSD scan for zamba2's Mamba2 layers and the WKV6 scan for rwkv6.  The recurrent families
+(``kernels.ops`` counts the launches): RMSNorm (``qk_norm``'s and MLA's
+latent norm included) and, at prefill, flash attention for the dense,
+moe, vlm and hybrid families, the SSD scan for zamba2's Mamba2 layers and
+the WKV6 scan for rwkv6; whisper (``audio``) runs flash in its encoder
+and cross-attention, prefill and decode alike.  An audio model's
+``generate`` takes each row's ``frames`` (B, encoder_seq, D), which go
+into the prefill batch with the prompts; the encoder's memory then stays
+in the caches for decode.  (The reference's engine puts the frames into
+the caches' memory and prefills without them, which fails: ROADMAP.md,
+queue 3.)  The recurrent families
 (``ssm``, ``hybrid``) need equal-length prompts, as in the reference: a
 recurrent state would absorb the right padding, so ragged prompts raise
 ``ValueError`` (the reference asserts).
@@ -224,14 +231,18 @@ class Engine(PlannedEngine):
         # wall times of the last generate(): prefill, and each decode step
         self.last_timing: Dict[str, object] = {}
 
-    def _start(self, prompts: List[np.ndarray], prefill):
-        """Right-pad and prefill the prompts; returns (caches, first decode
-        input (B,1)).  Each row decodes from its true last token at its
-        true position: ``pos`` becomes the (B,) prompt lengths, so RoPE,
-        the window, ALiBi's distances and a ring's slots are each row's own
+    def _start(self, prompts: List[np.ndarray], prefill, frames=None):
+        """Right-pad and prefill the prompts (with an audio model's
+        ``frames``); returns (caches, first decode input (B,1)).  Each row
+        decodes from its true last token at its true position: ``pos``
+        becomes the (B,) prompt lengths, so RoPE, the window, ALiBi's
+        distances, learned positions and a ring's slots are each row's own
         (the right-pad slots are marked dead and overwritten as it goes)."""
         if len(prompts) != self.batch:
             raise ValueError(f"{len(prompts)} prompts for a batch of {self.batch}")
+        if (frames is None) != (self.cfg.family != "audio"):
+            raise ValueError("an audio model is served with its frames (B, encoder_seq, D), "
+                             "and only an audio model")
         plen = max(len(p) for p in prompts)
         toks = np.zeros((self.batch, plen), np.int64)
         lens = np.asarray([len(p) for p in prompts], np.int64)
@@ -239,7 +250,10 @@ class Engine(PlannedEngine):
         for i, p in enumerate(prompts):    # right-pad; causal mask + per-row
             toks[i, :len(p)] = p           # slot_pos invalidation keep pads out
         caches = M.init_caches(self.cfg, self.batch, self.max_seq, device=self.device)
-        caches = prefill({"tokens": torch.as_tensor(toks, device=self.device)}, caches)
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        if frames is not None:
+            batch["frames"] = torch.as_tensor(np.asarray(frames), device=self.device)
+        caches = prefill(batch, caches)
         if self.cfg.family not in RECURRENT:    # equal lengths: no pad slot to mark
             rows = torch.as_tensor(lens, device=self.device)
             caches = _with_pos(_invalidate_pad_slots(caches, rows), rows)
@@ -248,12 +262,15 @@ class Engine(PlannedEngine):
         return caches, cur
 
     # ------------------------------------------------------------------
-    def generate(self, prompts: List[np.ndarray], *, max_new: int = 32) -> List[List[int]]:
+    def generate(self, prompts: List[np.ndarray], *, max_new: int = 32,
+                 frames=None) -> List[List[int]]:
+        """Greedy tokens, ``max_new`` a row; ``frames`` (B, encoder_seq, D)
+        for an audio model, else None."""
         rt = self._binding.resolve(self.batch)
         step, prefill = self._compiled(rt)
         with torch.inference_mode():
             t0 = time.perf_counter()
-            caches, cur = self._start(prompts, prefill)
+            caches, cur = self._start(prompts, prefill, frames)
             self._sync()
             prefill_s = time.perf_counter() - t0
             outs: List[List[int]] = [[] for _ in range(self.batch)]
@@ -271,8 +288,8 @@ class Engine(PlannedEngine):
         self.last_timing = {"prefill_s": prefill_s, "decode_s": steps}
         return outs
 
-    def teacher_forced_logits(self, prompts: List[np.ndarray],
-                              tokens: List[List[int]]) -> torch.Tensor:
+    def teacher_forced_logits(self, prompts: List[np.ndarray], tokens: List[List[int]],
+                              *, frames=None) -> torch.Tensor:
         """The logits of ``generate``'s decode steps with the emitted tokens
         forced to ``tokens``: (B, T, vocab), fp32, under the engine's
         current plan.  Step j's logits are the ones whose argmax
@@ -282,7 +299,7 @@ class Engine(PlannedEngine):
         _, prefill = self._compiled(rt)
         out = []
         with torch.inference_mode():
-            caches, cur = self._start(prompts, prefill)
+            caches, cur = self._start(prompts, prefill, frames)
             with self._binding.scope(rt):
                 for j in range(forced.shape[1]):
                     logits, caches = M.decode_step(self.cfg, self.params, cur, caches,

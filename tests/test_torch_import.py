@@ -48,7 +48,8 @@ def test_import_loads_no_jax_and_builds_nothing():
                 "repro_torch.parallel.pipeline", "repro_torch.analysis.ir",
                 "repro_torch.analysis.overlap", "repro_torch.analysis.exercise",
                 "repro_torch.analysis.__main__", "repro_torch.launch.dryrun",
-                "repro_torch.launch.specs", "repro_torch.kernels.work"):
+                "repro_torch.launch.specs", "repro_torch.kernels.work",
+                "repro_torch.models.whisper"):
         assert mod in got["modules"]
 
 

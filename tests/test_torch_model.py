@@ -210,42 +210,62 @@ def test_prefill_then_decode_matches_full_forward(pair):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_registered_archs_build_or_name_their_slice(arch):
-    """Registering a config (for the tuner) is not serving it: a model the
-    port cannot run yet raises at build, naming the slice that brings it."""
-    try:
-        M.init_params(get_smoke_config(arch), 0, device="cpu")
-    except NotImplementedError as e:
-        assert "slice" in str(e)
+    """Every registered config builds at smoke size (a model the port could
+    not run would raise at build, naming the slice that brings it; since
+    the other-families slice none does)."""
+    model = M.init_params(get_smoke_config(arch), 0, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) > 0
 
 
-@pytest.mark.parametrize("change", [dict(attn_kind="mla"), dict(family="audio"),
-                                    dict(pos_kind="mrope"), dict(pos_kind="learned")],
-                         ids=["mla", "audio", "mrope", "learned"])
+# the variants of the other-families slice, on smoke llama3-8b's widths
+# (head_dim 64: M-RoPE's sections sum to 32, as smoke qwen2-vl-72b's)
+OTHER_VARIANTS = {
+    "mla": dict(attn_kind="mla", kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                v_head_dim=16),
+    "audio": dict(family="audio", pos_kind="learned", encoder_layers=1, encoder_seq=16),
+    "mrope": dict(family="vlm", pos_kind="mrope", mrope_sections=(12, 10, 10)),
+    "learned": dict(pos_kind="learned"),
+}
+
+
+@pytest.mark.parametrize("change", list(OTHER_VARIANTS.values()), ids=list(OTHER_VARIANTS))
 def test_unported_variants_raise(change):
+    """The variants that raised at build before the other-families slice
+    build now (``test_ported_variants_build_and_run`` runs them); what
+    still raises of them is placing them on a mesh, which names its
+    ROADMAP item."""
     cfg = get_smoke_config(ARCH).replace(**change)
-    with pytest.raises(NotImplementedError, match="slice"):
-        M.init_params(cfg, 0, device="cpu")
+    model = M.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        M.shard_(cfg, model, None)
 
 
 @pytest.mark.parametrize("change", [dict(sliding_window=16), dict(mlp_kind="gelu"),
                                     dict(pos_kind="alibi"), dict(parallel_block=True),
-                                    dict(pos_kind="alibi", sliding_window=16)],
+                                    dict(pos_kind="alibi", sliding_window=16),
+                                    *OTHER_VARIANTS.values()],
                          ids=["sliding_window", "gelu", "alibi", "parallel_block",
-                              "alibi+window"])
+                              "alibi+window", *OTHER_VARIANTS])
 def test_ported_variants_build_and_run(change):
-    """The variants the dense families' slice ported (they raised before):
-    the model builds, runs a forward, a cached prefill and a decode step,
-    with finite outputs of the expected shapes.  Their numbers are held to
-    the reference in tests/test_torch_families.py."""
+    """The variants the dense families' slice and the other-families slice
+    ported (they raised before): the model builds, runs a forward, a cached
+    prefill and a decode step, with finite outputs of the expected shapes
+    (an audio model with its frames).  Their numbers are held to the
+    reference in tests/test_torch_families.py and
+    tests/test_torch_other_families.py."""
     cfg = get_smoke_config(ARCH).replace(**change)
     model = M.init_params(cfg, 0, device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
-    x, _, _ = M.forward_hidden(cfg, model, {"tokens": toks})
+    rs = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rs.integers(0, cfg.vocab_size, (2, 12)))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rs.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    x, _, _ = M.forward_hidden(cfg, model, batch)
     assert x.shape == (2, 12, cfg.d_model) and bool(torch.isfinite(x).all())
     caches = M.init_caches(cfg, 2, 32, device="cpu")
-    xc, caches, _ = M.forward_hidden(cfg, model, {"tokens": toks}, caches)
+    xc, caches, _ = M.forward_hidden(cfg, model, batch, caches)
     _close(xc, x, BOUND)
-    logits, _ = M.decode_step(cfg, model, toks[:, -1:], caches)
+    logits, _ = M.decode_step(cfg, model, batch["tokens"][:, -1:], caches)
     assert logits.shape == (2, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
 
 

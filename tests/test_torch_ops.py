@@ -220,8 +220,22 @@ def test_cpu_gradients_take_the_plain_versions():
 def test_reset_launches():
     ops.LAUNCHES["rmsnorm"] = 7
     ops.LAUNCHES["ssd"] = 3
+    ops.LAUNCHES_BY_SHAPE["rmsnorm D=64"] = 7
     ops.reset_launches()
-    assert ops.LAUNCHES == NO_LAUNCHES
+    assert ops.LAUNCHES == NO_LAUNCHES and not ops.LAUNCHES_BY_SHAPE
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,want", [
+    (300, 300, True, "flash_attention h=64 causal Sq>1 Sk=Sq"),
+    (300, 64, False, "flash_attention h=64 full Sq>1 Sk!=Sq"),
+    (1, 64, False, "flash_attention h=64 full Sq=1 Sk!=Sq"),
+    (64, 64, False, "flash_attention h=64 full Sq>1 Sk=Sq")])
+def test_shape_class(Sq, Sk, causal, want):
+    """The classes phase 15 of chip_smoke.py splits flash's launches by;
+    RMSNorm's by its last dim."""
+    q, k = torch.empty(2, Sq, 4, 64), torch.empty(2, Sk, 4, 64)
+    assert ops.shape_class("flash_attention", q, k, causal) == want
+    assert ops.shape_class("rmsnorm", torch.empty(3, 5, 512)) == "rmsnorm D=512"
 
 
 @pytest.fixture
@@ -594,6 +608,56 @@ def test_smoke_model_kernels_match_ref(cuda, arch, layers):
     assert none == NO_LAUNCHES
     scan = "wkv6" if cfg.family == "ssm" else "ssd"
     assert launches[scan] == 3 * layers
+    assert (lk - lr).abs().max().item() < MODEL_LOGITS_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-small", "deepseek-v2-lite-16b", "qwen2-vl-72b"])
+def test_other_family_smoke_models_kernels_match_ref(cuda, arch):
+    """The other families' smoke models through the kernels and through
+    backend="ref": whisper with its frames (flash in the encoder, the
+    cached prefill and every cross-attention), deepseek-v2-lite's MLA (the
+    latent's RMSNorm), qwen2-vl with 256 patches (M-RoPE's grid); a cached
+    prefill of 300 positions and two decode steps, logits within 1e-3 and
+    the launches equal to the code's."""
+    cfg = get_smoke_config(arch)
+    model = M.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 302), generator=gen).to(cuda)
+    batch = {"tokens": toks[:, :300]}
+    if cfg.family == "audio":
+        batch["frames"] = (torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)
+                           * 0.02).to(cuda)
+    if cfg.family == "vlm":
+        batch["patches"] = (torch.randn((2, M.N_PATCHES, cfg.d_model), generator=gen)
+                            * 0.02).to(cuda)
+    out = {}
+    with torch.inference_mode():
+        for backend in (None, "ref"):
+            ops.reset_launches()
+            c = M.init_caches(cfg, 2, 320, device=cuda)
+            _, c, _ = M.forward_hidden(cfg, model, batch, c, backend=backend)
+            logits = []
+            for j in range(2):
+                lg, c = M.decode_step(cfg, model, toks[:, 300 + j:301 + j], c, backend=backend)
+                logits.append(lg)
+            out[backend] = (torch.cat(logits, 1), dict(ops.LAUNCHES),
+                             dict(ops.LAUNCHES_BY_SHAPE))
+    (lk, launches, shapes), (lr, none, _) = out[None], out["ref"]
+    assert none == NO_LAUNCHES
+    L = cfg.num_layers
+    want = {"whisper-small": dict(rmsnorm=0, flash_attention=cfg.encoder_layers + L + 3 * L),
+            "deepseek-v2-lite-16b": dict(rmsnorm=3 * (3 * L + 1), flash_attention=0),
+            "qwen2-vl-72b": dict(rmsnorm=3 * (2 * L + 1), flash_attention=L)}[arch]
+    assert launches == dict(NO_LAUNCHES, **want)
+    f, d = "flash_attention h=64", cfg.d_model
+    want_shapes = {
+        "whisper-small": {f"{f} full Sq>1 Sk=Sq": cfg.encoder_layers, f"{f} causal Sq>1 Sk=Sq": L,
+                          f"{f} full Sq>1 Sk!=Sq": L, f"{f} full Sq=1 Sk!=Sq": 2 * L},
+        "deepseek-v2-lite-16b": {f"rmsnorm D={d}": 3 * (2 * L + 1),
+                                 f"rmsnorm D={cfg.kv_lora_rank}": 3 * L},
+        "qwen2-vl-72b": {f"rmsnorm D={d}": 3 * (2 * L + 1), f"{f} causal Sq>1 Sk=Sq": L}}[arch]
+    assert shapes == want_shapes
     assert (lk - lr).abs().max().item() < MODEL_LOGITS_BOUND
 
 
