@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on a failed check:
      once) for flash attention's fp32 forward instantiations at h = 80, 112
      and 128 (with and without lse and ALiBi) and for every instantiation
      of both backward kernels (each dtype and head dim, ALiBi's fp32 ones;
-     each beside its dynamic shared memory), for the RMSNorm backward's
-     fp32 register-path instantiations, for the SSD kernels' at P = N = 64
+     each beside its dynamic shared memory), for every instantiation of
+     the RMSNorm forward, for the RMSNorm backward's fp32 register-path
+     instantiations, for the SSD kernels' at P = N = 64
      and for the WKV6 kernels' at K = V = 64 (registers, spills, which fail
      the run but for the half types' flash dK/dV kernel at h = 128, held
      within ``FLASH_BWD_SPILL_CAP``) beside the shared memory of their layouts and the blocks per
@@ -25,12 +26,15 @@ Phases, each of which exits non-zero on a failed check:
      strong decays) against its plain PyTorch version on the card (the scans
      also against their step oracles in fp64, within 2e-5 of max|y|, which
      one TF32 product per chunk product in SSD would not meet), and
-     its time (CUDA events; for the scans, the kernel's device
-     time from the profiler, since a decode step's kernel is shorter than
-     its host call) beside the plain version, one PyTorch library call that
+     its time (CUDA events; for the scans and the RMSNorm forward, the
+     kernel's device time from the profiler, since a decode step's kernel
+     is shorter than its host call, with the call's time beside it; the
+     RMSNorm forward's inputs rotated past the L2, and also at D = 128,
+     2048, 3072, 3584 and 7168) beside the plain version, one PyTorch library call that
      computes the same function where there is one (a yardstick only, never
      used by the port; SDPA pinned to its memory-efficient backend, so it
-     raises rather than fall back to the math path) and the least time the
+     raises rather than fall back to the math path; ``F.rms_norm`` by its
+     device time) and the least time the
      card could take (bytes over
      3.35 TB/s or operations over the peak rate of their type, whichever is
      larger; the fp32 products of flash and of SSD's chunked kernel are
@@ -367,7 +371,9 @@ def say(msg: str) -> None:
 def time_ms(fn, *, samples: int = 25, per_sample: int = 5, warmup: int = 3) -> float:
     """Median over ``samples`` of the mean time of ``per_sample`` back-to-back
     calls, by CUDA events.  Back to back, the host enqueues while the card
-    works, so the launch overhead of the Python wrapper stays hidden."""
+    works, so the launch overhead of the Python wrapper stays hidden only
+    where the kernel takes longer than the wrapper; where it does not, this
+    times the host (``kernel_ms`` then gives the kernel's own time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -430,6 +436,40 @@ def kernel_ms(fn, kernel: str, *, calls: int = 50, warmup: int = 3,
     return total / count / 1e3
 
 
+def device_ms_a_call(fn, *, calls: int = 50, attempts: int = 3) -> float:
+    """Mean device time of one call of ``fn`` over ``calls`` calls, from a
+    torch.profiler trace: every kernel the calls launch, whatever their
+    names (a library call's, whose kernels the port does not name).  The
+    profiler can lose records (late in a long process most of them): a
+    trace that holds fewer kernels than calls is taken again, up to
+    ``attempts`` times, and the fullest one gives the mean time of a
+    kernel times the kernels a call (its count over ``calls``, rounded, at
+    least 1)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    best = (0.0, 0)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        total, count = (sum(ev.self_device_time_total for ev in events),
+                        sum(ev.count for ev in events))
+        if count > best[1]:
+            best = (total, count)
+        if count >= calls:
+            break
+        say(f"profiler saw {count} kernels in {calls} calls")
+    total, count = best
+    check(count > 0, "profiler saw no device time")
+    return total / count * max(1, round(count / calls)) / 1e3
+
+
 def device_ms_split(fn, names, *, calls: int = 5) -> dict:
     """Mean device time of one launch of the kernels whose names hold each
     of ``names`` (``fn`` launches each once), from one torch.profiler trace
@@ -465,6 +505,53 @@ def randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+# the inputs and outputs of one rotation, which a timed RMSNorm call walks:
+# four times the H100's 50 MB L2, so no call finds its x there
+ROTATE_BYTES = 4 * 50 * 10**6
+
+
+def rmsnorm_fwd_times(gen, rows: int, D: int) -> dict:
+    """The RMSNorm forward kernel's times at (rows, D) fp32: ``ms`` its
+    device time (``kernel_ms``), ``ms_a_call`` back-to-back calls through
+    ``ops.rmsnorm`` by CUDA events (``time_ms``), ``plain_ms`` the plain
+    version's, ``library_ms`` ``F.rms_norm``'s device time (every kernel it
+    launches, ``device_ms_a_call``) and the bytes bound (x read and y
+    written once, the scale read once).  Each call takes the next x of a
+    rotation of ``ROTATE_BYTES`` with its y, so every call reads x from
+    device memory, as the bound assumes."""
+    nbytes = 2 * rows * D * 4
+    nbuf = max(1, math.ceil(ROTATE_BYTES / nbytes))
+    xs = [randn((rows, D), torch.float32, gen) for _ in range(nbuf)]
+    ys = [None] * nbuf
+    scale = torch.linspace(0.5, 1.5, D, device="cuda")
+    turn = [0]
+
+    def rotated(f):
+        def call():
+            i = turn[0] = (turn[0] + 1) % nbuf
+            ys[i] = None             # this turn's y is freed, then allocated again
+            ys[i] = f(xs[i])
+        return call
+    kernel = rotated(lambda x: ops.rmsnorm(x, scale, backend="cuda"))
+    out = {"ms": kernel_ms(kernel, "rmsnorm_kernel"), "ms_a_call": time_ms(kernel),
+           "plain_ms": time_ms(rotated(lambda x: ref.rmsnorm_ref(x, scale))),
+           "library_ms": device_ms_a_call(rotated(
+               lambda x: torch.nn.functional.rms_norm(x, (D,), scale, 1e-5))),
+           "library": "F.rms_norm (device time)", "rotation": nbuf}
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes + D * 4, _work.rmsnorm_flops(rows, D),
+                                                torch.float32)
+    del xs, ys
+    free()
+    return out
+
+
+def say_rmsnorm_fwd(what: str, err: float, t: dict) -> None:
+    say(f"{what}: max abs err {err:.3e}; {t['ms']:.4f} ms on the card ({t['ms_a_call']:.4f} a "
+        f"call); plain {t['plain_ms']:.4f} ms; F.rms_norm {t['library_ms']:.4f} ms on the card; "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of it "
+        f"reached)")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -487,21 +574,29 @@ def rmsnorm_phase(gen) -> dict:
 
     # timed at the prefill shape of phase 4: B*S rows of d_model
     rows, D = 4096, 4096
-    x = randn((rows, D), torch.float32, gen)
-    scale = torch.linspace(0.5, 1.5, D, device="cuda")
-    ms = time_ms(lambda: ops.rmsnorm(x, scale, backend="cuda"))
-    plain = time_ms(lambda: ref.rmsnorm_ref(x, scale))
-    lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), scale, 1e-5))
-    b_ms, b_by = bound_ms(2 * rows * D * 4 + D * 4, 4 * rows * D, torch.float32)
-    say(f"rmsnorm ({rows}, {D}) fp32: {ms:.4f} ms; plain {plain:.4f} ms; "
-        f"F.rms_norm {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    t = rmsnorm_fwd_times(gen, rows, D)
+    err = max(c["max_abs_err"] for c in cases)
+    say_rmsnorm_fwd(f"rmsnorm ({rows}, {D}) fp32", err, t)
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:25",
             "shape": [rows, D], "dtype": "float32",
-            "max_abs_err": max(c["max_abs_err"] for c in cases), "bound": RMS_BOUND,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "cases": cases}
+            "max_abs_err": err, "bound": RMS_BOUND, **t, "cases": cases}
+
+
+# the RMSNorm forward at the main paths' widths that no other entry times,
+# each at the rows of a served prefill: (rows, D, tag)
+RMSNORM_WIDTHS = ((BATCH * PROMPT_LENS[1] * 16, 128, "olmoe-1b-7b qk_norm, D = 128"),
+                  (4096, 2048, "D = 2048"), (4096, 3072, "phi4-mini-3.8b, D = 3072"),
+                  (4096, 3584, "zamba2-7b, D = 3584"),
+                  (4096, 7168, "zamba2-7b's gated norm, D = 7168"))
+
+
+def rmsnorm_widths_phase(gen) -> list:
+    """An entry of the kernels line for each of ``RMSNORM_WIDTHS``
+    (``rmsnorm_fwd_at``); ``main`` adds each one's launches of its shape
+    class in the served runs of phases 4, 10 and 11."""
+    return [rmsnorm_fwd_at(gen, *w) for w in RMSNORM_WIDTHS]
 
 
 causal_pairs = _work.causal_pairs
@@ -859,6 +954,36 @@ def flash_bwd_build_report(entries=None) -> dict:
     want |= {f"{kind} <fp32, {h}, ALiBi>" for kind in ("dkdv", "dq") for h in HEAD_DIMS}
     check(set(report) == want, f"ptxas reported the backward kernels {sorted(report)}, "
                                f"expected {sorted(want)}")
+    return report
+
+
+# the RMSNorm forward's instantiations by the mangled types: x's, then the
+# scale's where it is not x's
+RMS_FWD_TYPES = {"ff": "fp32", "13__nv_bfloat16S1_": "bf16", "13__nv_bfloat16f": "bf16/fp32",
+                 "6__halfS1_": "fp16", "6__halff": "fp16/fp32"}
+
+
+def rmsnorm_fwd_build_report(entries=None) -> dict:
+    """What ptxas reports for every instantiation of the RMSNorm forward:
+    for each dtype pair the generic path (0 vectors), the warp-a-row path
+    holding 1, 2, 4 or 8 vectors a lane and the block-a-row path holding
+    2, 4 or 8 a thread, each with its feed.  Fails on a spill of any, or
+    where one is missing."""
+    report = {}
+    for entry in entries if entries is not None else ptxas_report("rmsnorm.cu"):
+        m = re.search(r"rmsnorm_kernelI(\w+?)Li(\d+)ELb([01])ELi([01])E", entry["kernel"])
+        if not m:
+            continue
+        key = (f"{RMS_FWD_TYPES[m.group(1)]} {m.group(2)}/{'warp' if m.group(3) == '1' else 'block'}"
+               f"/{'ring' if m.group(4) == '1' else 'regs'}")
+        report[key] = {k: v for k, v in entry.items() if k != "kernel"}
+        if key.startswith("fp32 "):
+            say(f"ptxas rmsnorm forward <{key}>: {entry['registers']} registers, "
+                f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads")
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"rmsnorm forward <{key}> spills")
+    check(len(report) == 8 * len(RMS_FWD_TYPES),
+          f"ptxas reported {len(report)} rmsnorm forward instantiations: {sorted(report)}")
     return report
 
 
@@ -3060,7 +3185,8 @@ def rmsnorm_at_phase(gen, rows: int, D: int, tag: str) -> list:
     against its plain version (the forward within 1e-5; the backward against
     autograd of it in fp64 within 1e-5 of max|g|) and timed beside it,
     beside the library call (``F.rms_norm``, its backward by autograd) and
-    beside its bound: an entry of the kernels line each."""
+    beside its bound (the forward as ``rmsnorm_fwd_times`` times it): an
+    entry of the kernels line each."""
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
 
     x, dy = randn((rows, D), torch.float32, gen), randn((rows, D), torch.float32, gen)
@@ -3075,29 +3201,24 @@ def rmsnorm_at_phase(gen, rows: int, D: int, tag: str) -> list:
                                  f"> {RMS_GRAD_BOUND}")
     del got, want
     free()
-    fwd = dict(ms=time_ms(lambda: ops.rmsnorm(x, scale, backend="cuda")),
-               plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, scale)),
-               library_ms=time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), scale, 1e-5)))
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(2 * rows * D * 4 + D * 4, 4 * rows * D,
-                                                torch.float32)
+    fwd = rmsnorm_fwd_times(gen, rows, D)
     bwd = dict(ms=time_ms(lambda: rmsnorm_bwd_cuda(x, scale, dy)),
                plain_ms=backward_ms(ref.rmsnorm_ref, (x, scale), dy),
                library_ms=backward_ms(lambda a, b: torch.nn.functional.rms_norm(
                    a, (D,), b, 1e-5), (x, scale), dy))
     bwd["bound_ms"], bwd["bound_by"] = bound_ms(4 * (3 * rows * D + 2 * D), 8 * rows * D,
                                                 torch.float32)
-    for what, e, t, lib in (("rmsnorm", err, fwd, "F.rms_norm"),
-                            ("rmsnorm backward", max(errs), bwd, "F.rms_norm's backward")):
-        say(f"{what} ({rows}, {D}) fp32 {tag}: max abs err {e:.3e}; {t['ms']:.4f} ms; plain "
-            f"{t['plain_ms']:.4f} ms; {lib} {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
-            f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+    say_rmsnorm_fwd(f"rmsnorm ({rows}, {D}) fp32 {tag}", err, fwd)
+    say(f"rmsnorm backward ({rows}, {D}) fp32 {tag}: max abs err {max(errs):.3e}; "
+        f"{bwd['ms']:.4f} ms; plain {bwd['plain_ms']:.4f} ms; F.rms_norm's backward "
+        f"{bwd['library_ms']:.4f} ms; bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}; "
+        f"{bwd['bound_ms'] / bwd['ms']:.1%} of it reached)")
     del x, dy
     free()
     base = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": [rows, D],
             "dtype": "float32"}
-    return [dict(base, name=f"rmsnorm {tag}", max_abs_err=err, bound=RMS_BOUND_F32,
-                 library="F.rms_norm", **fwd),
+    return [dict(base, name=f"rmsnorm {tag}", max_abs_err=err, bound=RMS_BOUND_F32, **fwd),
             dict(base, name=f"rmsnorm_bwd {tag}", max_abs_err=max(errs),
                  err_of_max_g=rel, bound=RMS_GRAD_BOUND, bound_of="max|g|",
                  library="autograd of F.rms_norm", **bwd)]
@@ -3510,7 +3631,7 @@ def other_flash_phase(gen, name, B, Sq, Sk, Hq, Hkv, h, causal) -> dict:
 def rmsnorm_fwd_at(gen, rows: int, D: int, tag: str) -> dict:
     """The RMSNorm kernel at (rows, D) fp32 and at a decode step's (BATCH,
     D), each within 1e-5 of its plain version, timed at (rows, D) beside
-    the plain version, ``F.rms_norm`` and its bound."""
+    the plain version, ``F.rms_norm`` and its bound (``rmsnorm_fwd_times``)."""
     scale = torch.linspace(0.5, 1.5, D, device="cuda")
     cases = []
     for r in (rows, BATCH):
@@ -3519,24 +3640,15 @@ def rmsnorm_fwd_at(gen, rows: int, D: int, tag: str) -> dict:
                ).abs().max().item()
         check(err <= RMS_BOUND_F32, f"rmsnorm ({r}, {D}): max abs err {err} > {RMS_BOUND_F32}")
         cases.append({"shape": [r, D], "max_abs_err": err, "bound": RMS_BOUND_F32})
-    x = randn((rows, D), torch.float32, gen)
-    ms = time_ms(lambda: ops.rmsnorm(x, scale, backend="cuda"))
-    plain = time_ms(lambda: ref.rmsnorm_ref(x, scale))
-    lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), scale, 1e-5))
-    b_ms, b_by = bound_ms(2 * rows * D * 4 + D * 4, _work.rmsnorm_flops(rows, D),
-                          torch.float32)
-    err = max(c["max_abs_err"] for c in cases)
-    say(f"rmsnorm ({rows}, {D}) fp32 ({tag}): max abs err {err:.3e} (with ({BATCH}, {D})); "
-        f"{ms:.4f} ms; plain {plain:.4f} ms; F.rms_norm {lib:.4f} ms; bound {b_ms:.4f} ms "
-        f"({b_by}; {b_ms / ms:.1%} of it reached)")
     del x
-    free()
+    t = rmsnorm_fwd_times(gen, rows, D)
+    err = max(c["max_abs_err"] for c in cases)
+    say_rmsnorm_fwd(f"rmsnorm ({rows}, {D}) fp32 ({tag}; with ({BATCH}, {D}))", err, t)
     return {"name": f"rmsnorm ({tag})", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:25", "shape": [rows, D],
-            "dtype": "float32", "max_abs_err": err, "bound": RMS_BOUND_F32, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "library": "F.rms_norm", "cases": cases}
+            "dtype": "float32", "max_abs_err": err, "bound": RMS_BOUND_F32, **t,
+            "cases": cases}
 
 
 def other_config(arch: str):
@@ -3713,6 +3825,7 @@ def main() -> int:
     say(f"ptxas reports of six sources in {time.perf_counter() - t0:.1f} s")
     flash_ptxas = flash_build_report(found["flash.cu"])
     flash_bwd_ptxas = flash_bwd_build_report(found["flash_bwd.cu"])
+    rmsnorm_fwd_ptxas = rmsnorm_fwd_build_report(found["rmsnorm.cu"])
     rmsnorm_bwd_ptxas = rmsnorm_bwd_build_report(found["rmsnorm.cu"])
     ssd_ptxas = ssd_build_report(found["ssd.cu"])
     wkv6_ptxas = wkv6_build_report(found["wkv6.cu"] + found["wkv6_step.cu"])
@@ -3720,6 +3833,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [rmsnorm_phase(gen), flash_phase(gen), ssd_phase(gen), wkv6_phase(gen),
                rmsnorm_bwd_phase(gen), flash_bwd_phase(gen)]
+    kernels[0]["ptxas"] = rmsnorm_fwd_ptxas
     kernels[1]["ptxas"] = flash_ptxas
     kernels[2]["ptxas"] = ssd_ptxas
     kernels[3]["ptxas"] = wkv6_ptxas
@@ -3727,6 +3841,7 @@ def main() -> int:
     kernels[5]["ptxas"] = flash_bwd_ptxas
     # the heads a rank of llama3-8b's tensor-parallel 1x4 placement runs
     tp_kernels = tp_rank_flash_phase(gen)
+    widths = rmsnorm_widths_phase(gen)
     say(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     # phase 15 before the others: its profiles in a process the profiler has
     # not run long in (late in one, torch 2.11's returned no device events)
@@ -3834,6 +3949,17 @@ def main() -> int:
         k["launches"] = launched["placed_launches"][kernel]
         check(k["launches"] > 0, f"{k['name']}: no launch on the main path")
     kernels += tp_kernels
+    # the RMSNorm forward's other widths, with the launches of their shape
+    # class in the served runs of phases 4, 10 and 11 (the base entry counts
+    # these launches too)
+    for k, (_, D, _) in zip(widths, RMSNORM_WIDTHS):
+        k["launches_by_model"] = {
+            s["arch"]: s["launches_by_shape"][f"rmsnorm D={D}"]
+            for s in served + [moe["served"]] + families["served"]
+            if s["launches_by_shape"].get(f"rmsnorm D={D}")}
+        k["launches"] = sum(k["launches_by_model"].values())
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
+    kernels += widths
     kernels += other["kernels"]          # phase 15's shapes, with their models' launches
     say(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))

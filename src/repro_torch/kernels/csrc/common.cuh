@@ -1,8 +1,8 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, conversions, warp
 // reductions, the fp32-exact TF32 tensor-core product (3xTF32 on
-// mma.sync.m16n8k8) and cp.async.  Built with PyTorch's cpp_extension flags,
-// which forbid implicit __half / __nv_bfloat16 conversions, so every
-// conversion goes through an intrinsic.
+// mma.sync.m16n8k8), cp.async, and mbarriers with 1-D bulk copies (TMA).
+// Built with PyTorch's cpp_extension flags, which forbid implicit __half /
+// __nv_bfloat16 conversions, so every conversion goes through an intrinsic.
 #pragma once
 #include <cstdint>
 #include <type_traits>
@@ -90,4 +90,41 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
     p[0] = from_f<T>(a);
     p[1] = from_f<T>(b);
   }
+}
+
+// mbarriers in shared memory, and the 1-D bulk copy (TMA) that completes
+// on one: a barrier inited with count 1 completes its phase when one
+// thread has armed it with mbar_expect_tx and that many bytes have landed.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// makes the inits visible to the bulk copies; a barrier follows before use
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// waits until the barrier's phase of the given parity (0 for its first,
+// then 1, 0, ...) has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the TMA; completes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }

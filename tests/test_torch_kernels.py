@@ -31,7 +31,9 @@ def _f32(a):
     return np.asarray(a, np.float32) if not torch.is_tensor(a) else a.float().numpy()
 
 
-@pytest.mark.parametrize("shape", [(4, 64), (2, 7, 128), (3, 5, 256)])
+# (3, 512) and (2, 3584): widths on either side of the CUDA forward's split
+# between a warp a row and a block a row
+@pytest.mark.parametrize("shape", [(4, 64), (2, 7, 128), (3, 5, 256), (3, 512), (2, 3584)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_rmsnorm_matches_pallas(shape, dtype):
     jdt, tdt = DTYPES[dtype]

@@ -18,6 +18,9 @@ the same inputs: fp32 within 1e-5 (RMSNorm, of each gradient's max|g|) and
 1e-4 (flash, its forward's bound, of max|g| over dq, dk and dv), against
 the plain versions in fp64; bf16 and fp16 within 2e-2 of max|g| (the
 forward's half-precision bound)."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -246,13 +249,28 @@ def cuda():
     return torch.device("cuda")
 
 
+# the forward's path edges: a warp a row up to 32 x 8 vectors (D 128, 512,
+# 1024 in fp32), a block a row past that (1032) up to 8 vectors a thread
+# (7168, 8192), the generic path past it (16384); rows: one, a decode batch,
+# a count that is no multiple of a sweep or a ring stage, fewer rows than the
+# grid has blocks, and several stages a block
+_RMS_FWD_SHAPES = ([(4, 64), (2, 7, 128), (3, 5, 256), (8, 4096), (5, 100), (1, 3), (4, 16384)]
+                   + [(rows, D) for D in (128, 512, 1024, 1032, 2048, 3584, 7168, 8192)
+                      for rows in (1, 8, 33, 100, 4099)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4, 64), (2, 7, 128), (3, 5, 256), (8, 4096),
-                                   (5, 100), (1, 3)])
+@pytest.mark.parametrize("shape", _RMS_FWD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("scale_fp32", [True, False])
-def test_rmsnorm_kernel_matches_ref(cuda, shape, dtype, scale_fp32):
-    x = _t(shape, dtype=dtype, device=cuda)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_kernel_matches_ref(cuda, shape, dtype, scale_fp32, offset):
+    """The forward kernel against the plain version; at ``offset`` 1, x is a
+    view one element past a 16-byte boundary (the generic path).  A second
+    run gives the same bits."""
+    n = int(np.prod(shape))
+    x = _t((n + offset,), dtype=dtype, device=cuda)[offset:].view(shape)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
     s = torch.linspace(0.5, 1.5, shape[-1], device=cuda)
     s = s if scale_fp32 else s.to(dtype)
     ops.reset_launches()
@@ -262,6 +280,21 @@ def test_rmsnorm_kernel_matches_ref(cuda, shape, dtype, scale_fp32):
     assert y.dtype == dtype and y.shape == x.shape
     err = (y.float() - ref.rmsnorm_ref(x, s).float()).abs().max().item()
     assert err < (RMS_BOUND_F32 if dtype == torch.float32 else RMS_BOUND)
+    assert torch.equal(ops.rmsnorm(x, s), y)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_fwd_instantiations_do_not_spill(cuda):
+    """What ptxas says of every instantiation of the RMSNorm forward, built
+    with the port's flags (``chip_smoke.rmsnorm_fwd_build_report``, which
+    fails on a spill or a missing one): 8 for each of the 5 dtype pairs."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    report = chip_smoke.rmsnorm_fwd_build_report()
+    assert len(report) == 40
+    assert all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in report.values())
 
 
 @pytest.mark.gpu
