@@ -74,17 +74,24 @@ class SyntheticCorpus:
             step += 1
 
 
+def stub_inputs(cfg, rows: int, *, seed: int = 0) -> Dict[str, np.ndarray]:
+    """The frontend stubs of a batch of ``rows``, as the reference's
+    ``make_batch`` draws them from ``default_rng(seed + 17)``: an audio
+    model's "frames" (rows, encoder_seq, d_model), a vlm model's "patches"
+    (rows, N_PATCHES, d_model), fp32 N(0, 0.02²); nothing for the others.
+    The same for every step."""
+    rng = np.random.default_rng(seed + 17)
+    n = {"audio": ("frames", cfg.encoder_seq), "vlm": ("patches", N_PATCHES)}.get(cfg.family)
+    if n is None:
+        return {}
+    return {n[0]: rng.standard_normal((rows, n[1], cfg.d_model)).astype(np.float32) * 0.02}
+
+
 def make_batch(cfg, shape, *, step: int = 0, seed: int = 0,
                d_model: Optional[int] = None) -> Dict[str, np.ndarray]:
     """One global batch for (ModelConfig, InputShape) incl. frontend stubs."""
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
                     global_batch=shape.global_batch, seed=seed)
     b = SyntheticCorpus(dc).batch(step)
-    rng = np.random.default_rng(seed + 17)
-    if cfg.family == "audio":
-        b["frames"] = rng.standard_normal(
-            (shape.global_batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.02
-    if cfg.family == "vlm":
-        b["patches"] = rng.standard_normal(
-            (shape.global_batch, N_PATCHES, cfg.d_model)).astype(np.float32) * 0.02
+    b.update(stub_inputs(cfg, shape.global_batch, seed=seed))
     return b

@@ -37,9 +37,9 @@ launch error on the card propagates.  ``LAUNCHES`` counts the launches of
 each kernel, one per call that takes the ``"cuda"`` route (a remat
 recompute is a call), and one per backward pass, so a run can show that it
 went through the kernels (``chip_smoke.py`` reads it).
-``LAUNCHES_BY_SHAPE`` counts the forward launches of RMSNorm and flash
-attention again by shape class (``shape_class``), so a run can say which
-of a kernel's shapes its launches were.
+``LAUNCHES_BY_SHAPE`` counts the launches of RMSNorm and flash attention,
+forward and backward, again by shape class (``shape_class``), so a run can
+say which of a kernel's shapes its launches were.
 """
 from __future__ import annotations
 
@@ -78,9 +78,9 @@ def reset_launches() -> None:
 def shape_class(name: str, x: torch.Tensor, k: Optional[torch.Tensor] = None,
                 causal: bool = True) -> str:
     """The key under which ``LAUNCHES_BY_SHAPE`` counts a launch of kernel
-    ``name`` on ``x`` (RMSNorm: its last dim D) or on q = ``x`` and ``k``
-    (flash: the head width, causal or full, a single query or not, and
-    whether the keys are as many as the queries)."""
+    ``name`` (forward or backward) on ``x`` (RMSNorm: its last dim D) or on
+    q = ``x`` and ``k`` (flash: the head width, causal or full, a single
+    query or not, and whether the keys are as many as the queries)."""
     if k is None:
         return f"{name} D={x.shape[-1]}"
     Sq, Sk = x.shape[1], k.shape[1]
@@ -137,7 +137,7 @@ class RMSNormFn(torch.autograd.Function):
                                                                  x.shape[-1])
             return torch.empty_like(x), torch.empty_like(scale), None
         dx, dscale = rmsnorm_bwd_cuda(x, scale, dy, eps=ctx.eps)
-        LAUNCHES["rmsnorm_bwd"] += 1
+        _launched("rmsnorm_bwd", x)
         return dx, dscale, None
 
 
@@ -169,7 +169,7 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=ctx.causal,
                                               window=ctx.window,
                                               alibi_slopes=ctx.alibi_slopes)
-        LAUNCHES["flash_attention_bwd"] += 1
+        _launched("flash_attention_bwd", q, k, ctx.causal)
         return dq, dk, dv, None, None, None
 
 

@@ -10,9 +10,15 @@ on the card unless ``--device cpu`` is asked for.
 ``--arch`` takes the dense family (llama3-8b), the dense families of
 Lagom's Table 2 and their kin (phi2-2b, mpt-7b, phi4-mini-3.8b,
 stablelm-3b, h2o-danube-1.8b: parallel block, GELU, ALiBi, LayerNorm,
-a sliding window) and the MoE models (olmoe-1b-7b, deepseek-moe-16b,
-qwen2-moe-a2.7b); the loss adds ``router_aux_coef`` times the routers'
-load-balancing loss, printed as ``aux``.
+a sliding window), the MoE models (olmoe-1b-7b, deepseek-moe-16b,
+qwen2-moe-a2.7b) and, on one process, the other families (whisper-small,
+deepseek-v2-lite-16b's MLA, qwen2-vl-72b's M-RoPE); the loss adds
+``router_aux_coef`` times the routers' load-balancing loss, printed as
+``aux``.  An audio model's every batch carries the stub frames that the
+reference's ``data.pipeline.make_batch`` draws (``data.pipeline.
+stub_inputs``: the same for every step); a vlm model trains on its tokens
+alone, as the reference's launcher feeds it.  (The reference's launcher
+gives whisper no frames, and fails with ``KeyError: 'frames'``.)
 
 The flags are the reference's, with ``--plan-hardware`` defaulting to
 ``h100-sxm``, plus ``--device``.  Without ``--mesh`` one process trains
@@ -68,7 +74,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_to_jax
-from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+from repro_torch.data.pipeline import DataConfig, SyntheticCorpus, stub_inputs
 from repro_torch.launch.config import load_run_config, merge_cli, resolve_model
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.plan import apply_tuned_plan, resolve_plan_repo
@@ -229,8 +235,12 @@ def main(argv=None):
                           hardware=plan_hw, seq=args.seq, global_batch=args.batch,
                           pods=args.pods, accum_steps=max(1, args.accumulate),
                           outer_frags=args.outer_sync)
-    data = iter(SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                                           global_batch=args.batch)))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                        global_batch=args.batch))
+    # an audio model's batches carry its stub frames; a vlm model trains on
+    # tokens alone, as the reference's launcher does
+    frames = stub_inputs(cfg, args.batch) if cfg.family == "audio" else {}
+    data = (dict(b, **frames) for b in corpus)
     tcfg = TrainConfig(opt=adamw.AdamWConfig(lr=args.lr), warmup=max(5, args.steps // 10),
                        total_steps=args.steps, grad_accum=args.grad_accum)
 

@@ -26,9 +26,12 @@ no card raises.  The weights are random, drawn on the target device from a
 ``jax.random``; the tests convert its weights with
 ``convert.params_from_jax`` instead of reseeding).  The loss
 (``loss_and_metrics``, chunked cross-entropy plus ``router_aux_coef``
-times the routers' load-balancing loss) trains the dense and moe families,
-which share the trunk of ``models.dense``; the recurrent families are
-forward-only (their scan kernels have no backward).  Placing an audio,
+times the routers' load-balancing loss) trains the dense, moe (MLA
+included) and vlm families, which share the trunk of ``models.dense``,
+and the audio family (``models.whisper``: the tied embedding's gradient
+sums the lookup's and the head's, ``dec_pos`` gets the rows below S);
+the recurrent families are forward-only (their scan kernels have no
+backward).  Placing an audio,
 vlm or MLA model on a mesh (``shard_``) raises ``NotImplementedError``
 naming ROADMAP.md's queue 1 item 8.
 """

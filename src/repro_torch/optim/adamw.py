@@ -86,11 +86,21 @@ def apply_updates(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.
     lr = cfg.lr * (lr_scale.to(gnorm.device) if torch.is_tensor(lr_scale) else lr_scale)
     mu, nu = state["mu"], state["nu"]
     for name, p in params.items():
+        # (m / c1) / (sqrt(v / c2) + eps), then p - lr·(step + wd·p): the
+        # reference's operations in its order, each into a buffer of the
+        # step, so no more than two leaf-sized temporaries live at once (an
+        # fp32 leaf of 1.25 B weights, qwen2-vl-72b's embedding, is 5 GB)
         g = grads[name].float() * scale
         m, v = mu[name], nu[name]
         m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-        step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-        pf = p.float()
-        p.copy_(pf - lr * (step + cfg.weight_decay * pf))
+        del g
+        den = torch.div(v, c2).sqrt_().add_(cfg.eps)
+        step = torch.div(m, c1).div_(den)
+        del den
+        pf = p.float()                   # p itself where p is fp32
+        step.add_(torch.mul(pf, cfg.weight_decay)).mul_(lr)
+        pf.sub_(step)
+        if pf is not p:
+            p.copy_(pf)
     return {"grad_norm": gnorm, "lr": torch.as_tensor(lr, dtype=torch.float32)}

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash import HEAD_DIMS, flash_attention_bwd_cuda, flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
@@ -223,7 +223,10 @@ def test_cpu_gradients_take_the_plain_versions():
 def test_reset_launches():
     ops.LAUNCHES["rmsnorm"] = 7
     ops.LAUNCHES["ssd"] = 3
+    ops.LAUNCHES["flash_attention_bwd"] = 2
     ops.LAUNCHES_BY_SHAPE["rmsnorm D=64"] = 7
+    ops.LAUNCHES_BY_SHAPE["rmsnorm_bwd D=512"] = 4
+    ops.LAUNCHES_BY_SHAPE["flash_attention_bwd h=64 full Sq>1 Sk!=Sq"] = 2
     ops.reset_launches()
     assert ops.LAUNCHES == NO_LAUNCHES and not ops.LAUNCHES_BY_SHAPE
 
@@ -232,13 +235,19 @@ def test_reset_launches():
     (300, 300, True, "flash_attention h=64 causal Sq>1 Sk=Sq"),
     (300, 64, False, "flash_attention h=64 full Sq>1 Sk!=Sq"),
     (1, 64, False, "flash_attention h=64 full Sq=1 Sk!=Sq"),
-    (64, 64, False, "flash_attention h=64 full Sq>1 Sk=Sq")])
+    (64, 64, False, "flash_attention h=64 full Sq>1 Sk=Sq"),
+    # the backward's, as whisper trains: its encoder, decoder and cross-attention
+    (1500, 1500, False, "flash_attention_bwd h=64 full Sq>1 Sk=Sq"),
+    (448, 448, True, "flash_attention_bwd h=64 causal Sq>1 Sk=Sq"),
+    (448, 1500, False, "flash_attention_bwd h=64 full Sq>1 Sk!=Sq")])
 def test_shape_class(Sq, Sk, causal, want):
-    """The classes phase 15 of chip_smoke.py splits flash's launches by;
-    RMSNorm's by its last dim."""
+    """The classes phases 15 and 16 of chip_smoke.py split flash's launches
+    by, forward and backward; RMSNorm's by its last dim."""
     q, k = torch.empty(2, Sq, 4, 64), torch.empty(2, Sk, 4, 64)
-    assert ops.shape_class("flash_attention", q, k, causal) == want
-    assert ops.shape_class("rmsnorm", torch.empty(3, 5, 512)) == "rmsnorm D=512"
+    name = want.split(" ")[0]
+    assert ops.shape_class(name, q, k, causal) == want
+    norm = "rmsnorm_bwd" if name.endswith("_bwd") else "rmsnorm"
+    assert ops.shape_class(norm, torch.empty(3, 5, 512)) == f"{norm} D=512"
 
 
 @pytest.fixture
@@ -692,6 +701,94 @@ def test_other_family_smoke_models_kernels_match_ref(cuda, arch):
         "qwen2-vl-72b": {f"rmsnorm D={d}": 3 * (2 * L + 1), f"{f} causal Sq>1 Sk=Sq": L}}[arch]
     assert shapes == want_shapes
     assert (lk - lr).abs().max().item() < MODEL_LOGITS_BOUND
+
+
+def _expected_train_launches(cfg):
+    """One remat train step's launches of the other families' smoke models,
+    by kernel and by shape class: each layer's kernels run in the forward
+    and again in its recompute, and once backward."""
+    L, f, fb = cfg.num_layers, "flash_attention h=64", "flash_attention_bwd h=64"
+    if cfg.family == "audio":      # the encoder's full flash; self- and cross-attention
+        E = cfg.encoder_layers
+        shapes = {f"{f} full Sq>1 Sk=Sq": 2 * E, f"{f} causal Sq>1 Sk=Sq": 2 * L,
+                  f"{f} full Sq>1 Sk!=Sq": 2 * L, f"{fb} full Sq>1 Sk=Sq": E,
+                  f"{fb} causal Sq>1 Sk=Sq": L, f"{fb} full Sq>1 Sk!=Sq": L}
+    elif cfg.attn_kind == "mla":   # ln1, ln2, the latent's kv_a_norm; no flash
+        d, r = cfg.d_model, cfg.kv_lora_rank
+        shapes = {f"rmsnorm D={d}": 4 * L + 1, f"rmsnorm D={r}": 2 * L,
+                  f"rmsnorm_bwd D={d}": 2 * L + 1, f"rmsnorm_bwd D={r}": L}
+    else:
+        d = cfg.d_model
+        shapes = {f"rmsnorm D={d}": 4 * L + 1, f"{f} causal Sq>1 Sk=Sq": 2 * L,
+                  f"rmsnorm_bwd D={d}": 2 * L + 1, f"{fb} causal Sq>1 Sk=Sq": L}
+    launches = dict(NO_LAUNCHES)
+    for key, n in shapes.items():
+        launches[key.split(" ")[0]] += n
+    return launches, shapes
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "deepseek-v2-lite-16b", "qwen2-vl-72b"])
+def test_chip_smoke_expected_train_launches(arch):
+    """``chip_smoke.expected_train_launches``, phase 16's gate on the
+    trained runs' launches, counts what the shape classes below count for
+    the smoke config (whose step the card test holds) and, over passes,
+    for the full config."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    smoke, full = get_smoke_config(arch), get_config(arch)
+    assert chip_smoke.expected_train_launches(smoke, 1) == _expected_train_launches(smoke)[0]
+    assert chip_smoke.expected_train_launches(full, 3) == {
+        k: 3 * v for k, v in _expected_train_launches(full)[0].items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-small", "deepseek-v2-lite-16b", "qwen2-vl-72b"])
+def test_other_family_smoke_models_train_through_the_kernels(cuda, arch):
+    """One AdamW step of each other family's smoke model (whisper with its
+    frames, deepseek-v2-lite's MLA and MoE, qwen2-vl with 256 patches)
+    through the kernels and through backend="ref" from the same weights,
+    the plain step replaying the kernels' routing: updated parameters
+    within 1e-4, loss and grad_norm within 1e-5 relative (eps 1e-3, as
+    chip_smoke.py's parity steps), and the launches, forward and backward,
+    by kernel and by shape class, equal to the code's."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus, stub_inputs
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as T
+
+    cfg = get_smoke_config(arch)
+    # whisper's 48 text positions against the smoke encoder's 64 frames: its
+    # cross-attention has Sk != Sq
+    B, S = (1, M.N_PATCHES + 64) if cfg.family == "vlm" else (2, 48)
+    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                       seed=1)).batch(0)
+    batch.update(stub_inputs(cfg, B))
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()}
+    out, routing = {}, None
+    for backend in (None, "ref"):
+        model = M.init_params(cfg, 0, device=cuda)
+        state = adamw.init_state(dict(model.named_parameters()))
+        step = T.make_train_step(cfg, T.TrainConfig(
+            opt=adamw.AdamWConfig(lr=3e-4, eps=1e-3), warmup=2, total_steps=10,
+            backend=backend))
+        ops.reset_launches()
+        with L.record_routing(routing) as rec:
+            model, state, m = step(model, state, batch, 1)
+        torch.cuda.synchronize()
+        routing = rec
+        out[backend] = ({n: p.detach() for n, p in model.named_parameters()},
+                        float(m["loss"]), float(m["grad_norm"]), dict(ops.LAUNCHES),
+                        dict(ops.LAUNCHES_BY_SHAPE))
+    (pk, lk, gk, launches, shapes), (pr, lr, gr, none, _) = out[None], out["ref"]
+    assert none == NO_LAUNCHES
+    want, want_shapes = _expected_train_launches(cfg)
+    assert launches == want and shapes == want_shapes
+    assert np.isfinite(lk) and abs(lk - lr) <= 1e-5 * abs(lr)
+    assert abs(gk - gr) <= 1e-5 * gr
+    for n, p in pk.items():
+        assert (p - pr[n]).abs().max().item() <= 1e-4, n
 
 
 def _grads(fn, inputs, dout):
