@@ -258,9 +258,21 @@ Phases, each of which exits non-zero on a failed check:
      head of each row) trained three plain steps each as phase 12 trains
      (profiles of whisper's and qwen2-vl's fourth step by kernel class),
      gated on finite losses, every parameter moving and launches equal to
-     the code's; and one step of each at 2 layers (whisper's encoder too;
+     the code's; one step of each at 2 layers (whisper's encoder too;
      B 1, S 512, with frames or patches) against ``backend="ref"``, the MoE
-     routing replayed, within phase 8's parity bounds.
+     routing replayed, within phase 8's parity bounds; flash forward and
+     backward at a 1x4 rank's heads (whisper's 3/3: the encoder, the
+     decoder, cross-attention; qwen2-vl-72b's 16/2), each held to its plain
+     version, timed beside it, SDPA and its bound, their launches those of
+     their shape class in the trained runs (the same instantiations at
+     whole heads: a 1x4 rank's launches are ``tools/four_rank_check.py``'s
+     to count); and, on phase 7's 1-rank NCCL group after phase 13,
+     whisper (2 + 2 layers) and deepseek (2) placed by ``init_placed``, one
+     step each against its unplaced step within phase 8's parity bounds,
+     the placement issuing no collective of its own.  On a model axis of one
+     rank every leaf stays whole, so these steps check the placed model's
+     own glue (its mesh, its sites, the data axis's averages, ``dec_pos``
+     read through ``_weight``), not the split by heads.
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
 Phases 7 to 13 share one 1-rank NCCL group from a ``FileStore``.  Then it
@@ -2153,19 +2165,26 @@ def parity_batch(cfg) -> dict:
     return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
-def parity_step(cfg, batch, *, backend=None, sited_mesh=None, plan=None) -> tuple:
+def parity_step(cfg, batch, *, backend=None, sited_mesh=None, plan=None,
+                placed=None) -> tuple:
     """One train step of ``cfg`` from SEED + 2's weights on ``batch`` with
     PARITY_OPT, through ``backend`` (and on the sited trunk over
-    ``sited_mesh`` under ``plan``): the updated parameters, AdamW's mu,
-    loss, grad_norm, the kernels' launches and the issued collectives."""
+    ``sited_mesh`` under ``plan``; or placed on the (data, model) mesh
+    ``placed``, ``models.model.init_placed``): the updated parameters,
+    AdamW's mu, loss, grad_norm, the kernels' launches and the issued
+    collectives."""
     from repro_torch.optim import adamw
     from repro_torch.train import trainer as T
 
-    model = M.init_params(cfg, SEED + 2, device="cuda")
+    if placed is None:
+        model = M.init_params(cfg, SEED + 2, device="cuda")
+    else:
+        model = M.init_placed(cfg, SEED + 2, placed, device="cuda")
+        sited_mesh = placed["model"]
     state = adamw.init_state(dict(model.named_parameters()))
     step_fn = T.make_train_step(cfg, T.TrainConfig(
         opt=adamw.AdamWConfig(**PARITY_OPT), warmup=2, total_steps=100, backend=backend,
-        sited_mesh=sited_mesh))
+        sited_mesh=sited_mesh, data_axis=None if placed is None else placed["data"]))
     ops.reset_launches()
     with plan.applied() if plan is not None else contextlib.nullcontext(), \
             collectives.record_issued() as issued:
@@ -2281,11 +2300,11 @@ def expected_issued(chunks: dict, passes: int) -> dict:
 
 
 def placement_sites(rows) -> list:
-    """The sites of the placement's all-reduces (attention's rows, the shared
-    experts', the vocabulary's) among ``Issued`` rows: none on a model axis
-    of one rank."""
+    """The sites of the placement's all-reduces (attention's rows, whisper's
+    cross-attention's, the shared experts', the vocabulary's) among
+    ``Issued`` rows: none on a model axis of one rank."""
     return sorted({r.site for r in rows if r.site.startswith(("tp.embed", "tp.ce"))
-                   or ".attn." in r.site or ".shared." in r.site})
+                   or re.search(r"[._]attn\.", r.site) or ".shared." in r.site})
 
 
 def fsdp_gathers(rows) -> dict:
@@ -3975,6 +3994,86 @@ OTHER_RMSNORM_BWD = ((8192, 512, "(deepseek-v2-lite-16b kv_a_norm, D = 512)"),
                      (2048, 8192, "(qwen2-vl-72b, D = 8192)"))
 
 
+# flash forward and backward at the heads a rank of a 1x4 placement runs
+# (tools/four_rank_check.py's families section): whisper-small's 12/12 heads
+# are 3/3 a rank, qwen2-vl-72b's 64/8 are 16/2 (a dK/dV grid of B·Hkv·S/128 =
+# 32 blocks on 132 SMs); (tag, B, Sq, Sk, Hq, Hkv, h, causal)
+OTHER_RANK_FLASH = (
+    ("whisper-small encoder, 1x4 rank, 3/3 heads, h = 64, full", 8, 1500, 1500, 3, 3, 64,
+     False),
+    ("whisper-small decoder, 1x4 rank, 3/3 heads, h = 64, causal", 8, 448, 448, 3, 3, 64, True),
+    ("whisper-small cross, 1x4 rank, 3/3 heads, h = 64, 448 x 1500", 8, 448, 1500, 3, 3, 64,
+     False),
+    ("qwen2-vl-72b, 1x4 rank, 16/2 heads, h = 128, causal", 2, 1024, 1024, 16, 2, 128, True),
+)
+# whisper and deepseek placed on the 1-rank group (every leaf whole) against
+# their unplaced steps: (arch, layers; whisper's encoder too).  qwen2-vl-72b's
+# 1-layer step (its 152064 x 8192 embedding and head, near 60 GiB twice)
+# would check no code that these two do not
+OTHER_PLACED = ((AUDIO_ARCH, 2), (MLA_ARCH, 2))
+
+
+def other_rank_flash_phase(gen) -> list:
+    """Phase 16's entries at a 1x4 rank's heads (OTHER_RANK_FLASH), the
+    forward (``other_flash_phase``) and the backward
+    (``flash_bwd_variant_phase``), each held to its plain version and timed
+    beside it, SDPA and its bound; each carries its shape class."""
+    out = []
+    for tag, B, Sq, Sk, Hq, Hkv, h, causal in OTHER_RANK_FLASH:
+        fwd = other_flash_phase(gen, f"flash_attention ({tag})", B, Sq, Sk, Hq, Hkv, h, causal)
+        fwd["shape_class"] = launch_class(tag, B, Sq, Sk, Hq, Hkv, h, causal)
+        bwd = flash_bwd_variant_phase(gen, f"flash_attention_bwd ({tag})", B, Sq, Hq, Hkv, h,
+                                      0, False, causal=causal, Sk=Sk)
+        bwd["shape_class"] = launch_class(tag, B, Sq, Sk, Hq, Hkv, h, causal,
+                                          kernel="flash_attention_bwd")
+        out += [fwd, bwd]
+    return out
+
+
+def other_placed_phase(card: str) -> dict:
+    """Each of OTHER_PLACED (B 1 x S 512, whisper with its frames) placed by
+    ``models.model.init_placed`` on the 1-rank NCCL group's (data, model)
+    mesh, one train step against its unplaced step from the same weights
+    on the same batch (the MoE routing replayed), within phase 8's parity
+    bounds, with the same launches; the placement issues no collective of
+    its own (no attention, vocabulary or shared-expert row)."""
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    meshes = make_mesh((1, 1), ("data", "model"))
+    P = PARITY_TRAIN
+    runs = []
+    for arch, layers in OTHER_PLACED:
+        t1 = time.perf_counter()
+        cut = dict(num_layers=layers)
+        if arch == AUDIO_ARCH:
+            cut["encoder_layers"] = layers
+        cfg = get_config(arch).replace(**cut)
+        batch = parity_batch(cfg)
+        with L.record_routing() as routed:
+            first = parity_step(cfg, batch)
+        first = tuple({n: a.cpu() for n, a in t.items()} for t in first[:2]) + first[2:]
+        free()
+        with L.record_routing(routed):
+            placed = parity_step(cfg, batch, placed=meshes)
+        sites = placement_sites(placed[5])
+        tag = f"placed {cfg.name} ({layers} layers, 1-rank group, B={P['B']}, S={P['S']})"
+        check(not sites, f"{tag}: the placement issued {sites} on a model axis of 1")
+        check(placed[4] == first[4], f"{tag}: launches {placed[4]}, unplaced {first[4]}")
+        held = parity_held(tag, "placed", first, placed, card,
+                           f"; issued {issued_summary(placed[5])}")
+        runs.append({"arch": cfg.name, "layers": layers, "loss": placed[2],
+                     "grad_norm": placed[3], "launches": placed[4], "unplaced": held,
+                     "issued": issued_summary(placed[5]),
+                     "seconds": time.perf_counter() - t1})
+        del first, placed
+        free()
+        say(f"{tag}: {runs[-1]['seconds']:.1f} s")
+    seconds = time.perf_counter() - t0
+    say(f"phase 16's placed steps took {seconds:.1f} s")
+    return {"runs": runs, "seconds": seconds, "card": card}
+
+
 def other_families_train_phase(card: str, other: dict) -> dict:
     """Phase 16 (module docstring).  Returns the backward kernels' entries,
     the trained records and the parity steps.  Each new entry's launches
@@ -4010,10 +4109,18 @@ def other_families_train_phase(card: str, other: dict) -> dict:
     kernels = flash + norms
     for k in kernels:
         check(k.get("launches", 0) > 0, f"{k['name']}: no launch on the main paths")
+    rank_kernels = other_rank_flash_phase(gen)
+    for k in rank_kernels:
+        k["launches_by_model"] = {
+            f"{t['arch']} train (whole heads, the same instantiation)":
+            t["launches_by_shape"][k["shape_class"]] for t in trained
+            if t["launches_by_shape"].get(k["shape_class"], 0)}
+        k["launches"] = sum(k["launches_by_model"].values())
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
     seconds = time.perf_counter() - t0
     say(f"phase 16 (the other families' training) took {seconds:.1f} s")
-    return {"kernels": kernels, "trained": trained, "parity": parity, "seconds": seconds,
-            "card": card}
+    return {"kernels": kernels, "rank_kernels": rank_kernels, "trained": trained,
+            "parity": parity, "seconds": seconds, "card": card}
 
 
 def main() -> int:
@@ -4113,6 +4220,8 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
             say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
             pipelined = pipeline_phase(card, mesh, rmsnorm_bwd_ptxas)
             say(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+            other_train["placed"] = other_placed_phase(card)
+            say(f"phase 16's placed steps done at {time.perf_counter() - t_start:.1f} s")
         finally:
             dist.destroy_process_group()
     analysis = analysis_phase(card, dry, dry_dir)
@@ -4130,7 +4239,7 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
     say(json.dumps({"analysis": analysis}))
     say(json.dumps({"other_families": {k: v for k, v in other.items() if k != "kernels"}}))
     say(json.dumps({"other_families_train": {k: v for k, v in other_train.items()
-                                             if k != "kernels"}}))
+                                             if k not in ("kernels", "rank_kernels")}}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -4201,6 +4310,7 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
     kernels += widths
     kernels += other["kernels"]          # phase 15's shapes, with their models' launches
     kernels += other_train["kernels"]    # phase 16's backward shapes, likewise
+    kernels += other_train["rank_kernels"]   # a 1x4 rank's heads
     say(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -102,7 +102,7 @@ def params_from_jax(cfg, tree, mesh=None) -> Dict[str, torch.Tensor]:
             out[name], layout[name] = _tensor(path, a[idx] if lead else a), leaf
     if mesh is None:
         return out
-    place = sharding.place(layout, mesh, heads=(cfg.num_heads, cfg.num_kv_heads))
+    place = sharding.place(layout, mesh, heads=sharding.heads_of(cfg))
     return {k: place.local(k, v) for k, v in out.items()}
 
 

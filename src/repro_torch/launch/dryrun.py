@@ -17,7 +17,8 @@ production mesh: the program is SPMD, so one rank's issue is every
 rank's.  What it records:
 
 * ``params``: the model's parameters (``specs.param_specs_shapes``), the
-  reference's ``eval_shape`` count;
+  reference's ``eval_shape`` count; ``params_rank``: the rank's share of
+  them once placed;
 * ``flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count of the
   rank's aten ops, plus each kernel's own work (``kernels.work``, the
   formulas behind ``PERF.md``'s bounds), which no aten op shows: under fake
@@ -176,6 +177,7 @@ def build_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
 
         with FakeTensorMode():
             model = M.shard_(cfg, param_specs(cfg, ep_pad=ep_pad, device=FAKE_DEVICE), meshes)
+            record["params_rank"] = sum(p.numel() for p in model.parameters())
             args, run = _program(cfg, shape, model, meshes, sited, rows=rows, dp=dp, tp=tp,
                                  remat=remat, microbatches=microbatches,
                                  cache_dtype=cache_dtype, record=record)
@@ -250,7 +252,7 @@ def _program(cfg, shape, model, meshes, sited, *, rows, dp, tp, remat, microbatc
         return (opt, batch), run
     if shape.kind == "prefill":
         batch = input_specs(cfg, shape, device=FAKE_DEVICE, batch=rows)
-        batch = {"tokens": batch["tokens"]}
+        batch = {k: v for k, v in batch.items() if k not in ("targets", "mask")}
 
         def run():
             with torch.no_grad():

@@ -11,8 +11,9 @@ on the card unless ``--device cpu`` is asked for.
 Lagom's Table 2 and their kin (phi2-2b, mpt-7b, phi4-mini-3.8b,
 stablelm-3b, h2o-danube-1.8b: parallel block, GELU, ALiBi, LayerNorm,
 a sliding window), the MoE models (olmoe-1b-7b, deepseek-moe-16b,
-qwen2-moe-a2.7b) and, on one process, the other families (whisper-small,
-deepseek-v2-lite-16b's MLA, qwen2-vl-72b's M-RoPE); the loss adds
+qwen2-moe-a2.7b) and the other families (whisper-small,
+deepseek-v2-lite-16b's MLA, qwen2-vl-72b's M-RoPE), on one process or
+under ``--mesh``; the loss adds
 ``router_aux_coef`` times the routers' load-balancing loss, printed as
 ``aux``.  An audio model's every batch carries the stub frames that the
 reference's ``data.pipeline.make_batch`` draws (``data.pipeline.
@@ -30,9 +31,11 @@ is used as it is).  Pure FSDP over D ranks is ``--mesh Dx1``; ``--mesh D``
 raises ``ValueError`` naming it (the reference's launcher fails there with
 ``KeyError: 'model'``).
 
-Every rank draws the weights from seed 0 and then keeps its slice of each
-(``models.model.shard_``, the reference's ``parallel/sharding.py`` rules,
-as its launcher places the parameters with ``device_put``):
+Every rank draws the weights from seed 0 a module at a time and keeps its
+slice of each before the next is drawn (``models.model.init_placed``:
+``shard_`` of ``init_params``' weights, the reference's
+``parallel/sharding.py`` rules, as its launcher places the parameters with
+``device_put``), so no card holds the whole model:
 
   * the ``data`` axis splits every F dim that it divides (FSDP): each
     layer gathers its weights over ``data`` inside its checkpoint, the
@@ -42,15 +45,17 @@ as its launcher places the parameters with ``device_put``):
     of the leaves that stay whole, the loss and its metrics are averaged
     over the axis, so the printed loss is the global batch's, as the
     reference's.
-  * the ``model`` axis splits the MLP's and the experts' T dims and always
-    runs the sited trunk: every dense layer's MLP over the explicit chunked
-    collectives at ``tp.layer{i}.mlp.ag|rs``, every MoE layer's experts
-    over the chunked all-to-alls at ``ep.layer{j}.moe.a2a_disp|comb``
-    (expert parallelism), resolved against the plan ``--tuned-plan``
-    or ``--plan-repo`` installs; with no plan each site takes its default
-    structure, numerically the reference's GSPMD scan.  Attention's, the
-    embedding's and the head's T dims stay whole (the reference splits
-    them too; ROADMAP queue 1).
+  * the ``model`` axis splits the T dims and always runs the sited
+    trunk: attention by whole heads (GQA, whisper's bidirectional and
+    cross-attention, MLA), summed at ``tp.layer{i}.attn.ar``; every dense
+    layer's MLP over the explicit chunked collectives at
+    ``tp.layer{i}.mlp.ag|rs``, every MoE layer's experts over the chunked
+    all-to-alls at ``ep.layer{j}.moe.a2a_disp|comb`` (expert parallelism),
+    resolved against the plan ``--tuned-plan`` or ``--plan-repo``
+    installs; with no plan each site takes its default structure,
+    numerically the reference's GSPMD scan.  The embedding and the head
+    split their vocabulary where the axis divides it.  Whisper's encoder
+    layers take the sites ``tp.enc{i}.*``.
   * ``constraints.use_axes(("data",), "model")`` is installed, as the
     reference's launcher does; its helpers check that each activation
     holds this rank's share of the batch.
@@ -135,7 +140,7 @@ def _train_on_mesh(cfg, tcfg, data, args):
     sizes = {"data": data_m.size, "model": model_m.size}
     tcfg = dataclasses.replace(tcfg, sited_mesh=model_m,
                                data_axis=data_m if data_m.size > 1 else None)
-    model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), meshes)
+    model = M.init_placed(cfg, 0, meshes, device=dev)
     opt_state = adamw.init_state(dict(model.named_parameters()))
     step_fn = make_train_step(cfg, tcfg)
     losses, times = [], []

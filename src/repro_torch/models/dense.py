@@ -34,7 +34,7 @@ sharded outputs are gathered back explicitly
 the reference.  Attention (GQA or MLA) is whole on every rank of a served trunk; on a
 placed one (below) each rank runs its heads and the rows of ``o`` they
 feed, summed over the model axis at ``tp.layer{i}.attn.ar``
-(``layers.attention``), and a MoE layer's shared experts run
+(``layers.attention``, ``layers.mla_attention``), and a MoE layer's shared experts run
 column-then-row at ``ep.layer{j}.moe.shared.ar`` (``layers.moe_block``):
 one all-reduce each, unchunked, as GSPMD's in the reference.
 
@@ -53,8 +53,7 @@ weights and hands ``trunk_fwd`` copies (``shard_trunk``).  On a model
 placed over ``data`` (FSDP) each layer's weights are this rank's slices
 and ``trunk_fwd``'s ``gather`` gathers them inside the layer's checkpoint,
 and the routers route the global batch over ``data``
-(``layers.moe_block``).  Placing an MLA or vlm model is refused by
-``models.model.shard_`` (ROADMAP.md, queue 1 item 8).
+(``layers.moe_block``).
 """
 from __future__ import annotations
 
@@ -70,8 +69,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import layers as L
 from repro_torch.parallel import constraints as CT
-from repro_torch.parallel.collectives import (all_gather_rows, mm_reduce_scatter,
-                                              ring_ag_matmul, shard_rows)
+from repro_torch.parallel.collectives import (all_gather_rows, copy_to, mm_reduce_scatter,
+                                              reduce_from, ring_ag_matmul, shard_rows)
 
 Caches = Dict[str, Dict[str, object]]
 
@@ -130,11 +129,23 @@ def tp_mlp(p: L.MLP, x: torch.Tensor, kind: str, mesh, *,
     output leaves gathered back to (B, S, D) (``all_gather_rows``).  GELU
     (the reference's ``tp_mlp``): this rank's columns of ``up``'s bias are
     added before the GELU, ``down``'s bias once, to the gathered rows (so
-    its gradient is the whole sequence's on every rank).
+    its gradient is the whole sequence's on every rank).  Where the
+    sequence does not split over the mesh (whisper's 1500 frames over 16
+    ranks) it runs column-then-row on the whole sequence instead: ``x``
+    enters through ``copy_to`` (``{site}.ar.bwd``) and the ranks' partial
+    rows are summed at ``{site}.ar``.
     Numerically ``layers.mlp``, and differentiable."""
     if kind not in L.MLP_KINDS:
         raise ValueError(f"unknown mlp_kind {kind!r}; known: {L.MLP_KINDS}")
     m = as_mesh(mesh)
+    if x.shape[-2] % m.size:
+        xc = copy_to(x, m, site=f"{site}.ar.bwd")
+        if kind == "swiglu":
+            h = F.silu(F.linear(xc, p.gate.weight)) * F.linear(xc, p.up.weight)
+        else:
+            h = L.gelu(F.linear(xc, p.up.weight, p.up.bias))
+        y = reduce_from(F.linear(h, p.down.weight), m, site=f"{site}.ar")
+        return y + p.down.bias if kind == "gelu" else y
     xl = shard_rows(x, m)
     if kind == "swiglu":
         h = (F.silu(ring_ag_matmul(xl, p.gate.weight.T, m, site=f"{site}.ag"))
@@ -219,7 +230,7 @@ def layer_fwd(p: Layer, cfg, x: torch.Tensor, positions: torch.Tensor,
     h = L.norm(p.ln1, x, cfg.norm_kind, backend=backend)
     if cfg.attn_kind == "mla":
         attn_out, new_cache = L.mla_attention(p.attn, cfg, h, positions, cache=cache,
-                                              backend=backend)
+                                              backend=backend, mesh=mesh, site=attn_site)
     else:
         attn_out, new_cache = L.attention(p.attn, cfg, h, positions, cache=cache,
                                           backend=backend, mesh=mesh, site=attn_site)
@@ -321,9 +332,10 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
     trunk raises).  ``remat`` (without caches) recomputes each layer in
     the backward.
 
-    ``gather(name, i, lp)`` (a placed model's, ``models.model``) gives
+    ``gather(name, site, lp)`` (a placed model's, ``models.model``) gives
     layer ``i`` (``name``: ``"{segment}.{j}"``) as it runs, its data-split
-    weights gathered whole; it is called inside the layer's checkpoint, so
+    weights gathered whole at ``site`` (``fsdp.layer{i}.ag_params``); it
+    is called inside the layer's checkpoint, so
     remat's recompute gathers them again and no gathered layer outlives its
     use.  ``data`` is the data axis the routers route the global batch
     over; ``route_rows`` routes each row of the batch alone (the
@@ -365,7 +377,7 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
             site = f"ep.layer{j}.moe" if use_moe else f"tp.layer{i}.mlp"
 
         def fl(x, lp=lp, lc=lc, i=i, name=f"{seg}.{j}", site=site, use_moe=use_moe):
-            lq = lp if gather is None else gather(name, i, lp)
+            lq = lp if gather is None else gather(name, f"fsdp.layer{i}.ag_params", lp)
             ff = None
             if mesh is not None:
                 ff = _ff(lq) if p.mlp_mesh is not None else shards[i]

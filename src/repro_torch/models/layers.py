@@ -216,30 +216,35 @@ def _gqa_scores_to_out(q, k, v, bias, scale):
     return out.to(q.dtype)
 
 
-def _rank_heads(p: Attention, cfg, x: torch.Tensor, m, site: str):
+def _rank_heads(p: Attention, cfg, x: torch.Tensor, m, site: str,
+                x_kv: Optional[torch.Tensor] = None):
     """This rank's share of attention split by heads over ``m``: its query
     heads are the contiguous block ``q0 ... q0 + hq - 1`` (laid out KV-head
     major, query head ``n·G + g`` reads KV head ``n``).  ``x`` enters
-    through ``copy_to``.  Where k and v are whole on the model axis
+    through ``copy_to``; so does cross-attention's memory ``x_kv``, which K
+    and V are projected from (``{site}.mem.ar.bwd``): every rank's share of
+    its gradient is summed.  Where k and v are whole on the model axis
     (``sharding``: m does not divide the KV heads, and the block lies in
     one group) the rank projects the one KV head its block reads from the
-    whole weights, each of which enters through ``copy_to`` too: every
-    rank's share of their gradient is summed.  Returns (q, k, v, q0)."""
+    whole weights, each of which enters through ``copy_to`` too.  Returns
+    (q, k, v, q0)."""
     B, S, _ = x.shape
     h, G = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
     hq = p.q.weight.shape[0] // h
     q0 = m.rank * hq
     x = C.copy_to(x, m, site=f"{site}.ar.bwd")
+    src = x if x_kv is None else C.copy_to(x_kv, m, site=f"{site}.mem.ar.bwd")
+    Sk = src.shape[1]
     q = linear(p.q, x).view(B, S, hq, h)
     if p.k.weight.shape[0] // h < cfg.num_kv_heads:          # split by heads too
-        k, v = linear(p.k, x), linear(p.v, x)
-        return q, k.view(B, S, -1, h), v.view(B, S, -1, h), q0
+        k, v = linear(p.k, src), linear(p.v, src)
+        return q, k.view(B, Sk, -1, h), v.view(B, Sk, -1, h), q0
     rows = slice(q0 // G * h, (q0 // G + 1) * h)
-    k, v = (F.linear(x, C.copy_to(lin.weight, m, site=f"{site}.kv.ar.bwd")[rows],
+    k, v = (F.linear(src, C.copy_to(lin.weight, m, site=f"{site}.kv.ar.bwd")[rows],
                      None if lin.bias is None
                      else C.copy_to(lin.bias, m, site=f"{site}.kv.ar.bwd")[rows])
             for lin in (p.k, p.v))
-    return q, k.view(B, S, 1, h), v.view(B, S, 1, h), q0
+    return q, k.view(B, Sk, 1, h), v.view(B, Sk, 1, h), q0
 
 
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
@@ -261,10 +266,11 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     The head counts come from the weights: where ``p`` holds this rank's
     heads of attention split over the model axis ``mesh`` (a placed model,
     ``models.model.shard_``), the rank computes its heads (``_rank_heads``;
-    ALiBi with its slice of the slopes), its rows of ``o``'s product, and
-    the sum over the ranks (``collectives.reduce_from`` at ``{site}.ar``),
-    to which ``o``'s bias is added once.  Whole weights take the route
-    below, unchanged.
+    ALiBi with its slice of the slopes; bidirectional, or cross-attention
+    with its K and V heads projected from the memory), its rows of ``o``'s
+    product, and the sum over the ranks (``collectives.reduce_from`` at
+    ``{site}.ar``), to which ``o``'s bias is added once.  Whole weights
+    take the route below, unchanged.
 
     * ``cache`` None -> the whole sequence at once, through the flash route.
       ``forward_hidden`` gives positions 0..S-1 here, so the kernel's causal
@@ -293,8 +299,8 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     h = cfg.head_dim
     placed = p.q.weight.shape[0] != cfg.q_dim
     full = x_kv is not None or not causal
-    if full and (placed or cache is not None):
-        raise ValueError("bidirectional and cross-attention run whole, without a cache")
+    if full and cache is not None:
+        raise ValueError("bidirectional and cross-attention run without a cache")
     if placed:
         m = as_mesh(mesh)
         if cache is not None:
@@ -303,7 +309,7 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         if m.size * p.q.weight.shape[0] != cfg.q_dim:
             raise ValueError(f"attention holds {p.q.weight.shape[0] // h} of "
                              f"{cfg.num_heads} query heads: run it on its model axis")
-        q, k, v, q0 = _rank_heads(p, cfg, x, m, site)
+        q, k, v, q0 = _rank_heads(p, cfg, x, m, site, x_kv)
     else:
         N, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
         src = x if x_kv is None else x_kv
@@ -492,7 +498,8 @@ def _mla_blockwise(q_nope, q_rope, k_nope, k_rope, v, scale, kv_block: int,
 
 def mla_attention(p: MLA, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                   cache: Optional[Cache] = None, backend: Optional[str] = None,
-                  kv_block: int = 1024, blockwise_threshold: int = 2048
+                  kv_block: int = 1024, blockwise_threshold: int = 2048,
+                  mesh=None, site: str = "tp.attn",
                   ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """MLA with the compressed cache (the reference's ``mla_attention``):
     per token the cache holds the normed latent ``c_kv`` (kv_lora_rank
@@ -514,19 +521,50 @@ def mla_attention(p: MLA, cfg, x: torch.Tensor, positions: torch.Tensor, *,
       the slots at or before the row's position.
 
     The cache is updated in place; the returned dict holds the same
-    tensors and the advanced ``pos``."""
+    tensors and the advanced ``pos``.
+
+    Placed over the model axis ``mesh`` (``models.model.shard_``: ``p``
+    holds this rank's rows of ``q`` (or ``q_b``) and ``kv_b`` and its
+    columns of ``o``, all head-major, so a contiguous share is whole heads)
+    the rank computes its heads: x enters through ``copy_to``
+    (``{site}.ar.bwd``), and so do the whole ``kv_a``, ``kv_a_norm`` (and
+    ``q_a``, ``q_a_norm``) weights (``{site}.kv.ar.bwd``), whose gradients
+    each rank holds a share of; its heads' scores, its rows of ``o``'s
+    product and their sum over the ranks (``collectives.reduce_from`` at
+    ``{site}.ar``).  A placed MLA serves no cache."""
     check_attention_supported(cfg)
     B, Sq, _ = x.shape
-    H, rank = cfg.num_heads, cfg.kv_lora_rank
+    rank = cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    H = p.o.weight.shape[1] // dv                               # this rank's heads
+    placed = H != cfg.num_heads
+    whole = _identity
+    if placed:
+        m = as_mesh(mesh)
+        if cache is not None:
+            raise ValueError("MLA split over 'model' serves no cache: the engines serve "
+                             "whole models (ROADMAP.md, queue 1 item 8)")
+        if m.size * H != cfg.num_heads:
+            raise ValueError(f"MLA holds {H} of {cfg.num_heads} heads: run it on its "
+                             "model axis")
+        q_rows = (p.q_b if cfg.q_lora_rank else p.q).weight.shape[0]
+        assert q_rows == H * (dn + dr) and p.kv_b.weight.shape[0] == H * (dn + dv), \
+            "MLA's q and kv_b split by whole heads"
+        x = C.copy_to(x, m, site=f"{site}.ar.bwd")
+
+        def whole(t):
+            return C.copy_to(t, m, site=f"{site}.kv.ar.bwd")
     if cfg.q_lora_rank:
-        q = linear(p.q_b, norm(p.q_a_norm, linear(p.q_a, x), "rmsnorm", backend=backend))
+        qa = F.linear(x, whole(p.q_a.weight))
+        q = linear(p.q_b, ops.rmsnorm(qa, whole(p.q_a_norm.scale), backend=backend,
+                                      eps=1e-5))
     else:
         q = linear(p.q, x)
     q = q.view(B, Sq, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    kv_a = linear(p.kv_a, x)                                    # (B,S,rank+dr)
-    c_kv = norm(p.kv_a_norm, kv_a[..., :rank].contiguous(), "rmsnorm", backend=backend)
+    kv_a = F.linear(x, whole(p.kv_a.weight))                    # (B,S,rank+dr)
+    c_kv = ops.rmsnorm(kv_a[..., :rank].contiguous(), whole(p.kv_a_norm.scale),
+                       backend=backend, eps=1e-5)
     k_rope = kv_a[..., rank:][:, :, None, :]                    # (B,S,1,dr)
     q_rope, k_rope = apply_rope(q_rope, k_rope, positions, head_dim=dr, fraction=1.0,
                                 theta=cfg.rope_theta)
@@ -578,7 +616,14 @@ def mla_attention(p: MLA, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             k_nope, v = expand(cc[:, :Sq].to(x.dtype))
             out = _mla_scores_to_out(q_nope, q_rope, k_nope, cr[:, :Sq].to(x.dtype), v,
                                      _causal_bias(Sq, Sq, x.device), scale)
+    if placed:
+        return C.reduce_from(linear(p.o, out.reshape(B, Sq, H * dv)), m,
+                             site=f"{site}.ar"), None
     return linear(p.o, out.reshape(B, Sq, H * dv)), new_cache
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 def init_mla_cache(cfg, batch: int, seq_len: int, *, dtype=torch.float32,

@@ -8,6 +8,7 @@ for every family of the zoo: dense, ``moe`` (MLA included), ``vlm``
     caches = init_caches(cfg, batch_size, seq_len, device="cuda")       # serving
     logits, caches = decode_step(cfg, model, tokens, caches)            # decode
     shard_(cfg, model, meshes)      # training on a (data, model) mesh: placed in place
+    model = init_placed(cfg, seed, meshes, device="cuda")   # the same, drawn a module at a time
     model = init_stage(cfg, seed, stage, stages, device="cuda")     # a pipeline rank's
     loss, metrics = pipeline_loss(cfg, model, batch, mesh=stage_mesh, microbatches=M)
 
@@ -31,9 +32,8 @@ included) and vlm families, which share the trunk of ``models.dense``,
 and the audio family (``models.whisper``: the tied embedding's gradient
 sums the lookup's and the head's, ``dec_pos`` gets the rows below S);
 the recurrent families are forward-only (their scan kernels have no
-backward).  Placing an audio,
-vlm or MLA model on a mesh (``shard_``) raises ``NotImplementedError``
-naming ROADMAP.md's queue 1 item 8.
+backward).  ``shard_`` places every family that trains: dense, moe (MLA
+included), vlm (M-RoPE) and audio (learned positions).
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ Caches = Dict[str, object]
 _TRUNKS = {"dense": dense, "moe": dense, "vlm": dense, "ssm": rwkv6, "hybrid": zamba2,
            "audio": whisper}
 RECURRENT_TRAINING = "the recurrent-training slice (ROADMAP.md, queue 1)"
-PLACEMENT = "the placement of the other families (ROADMAP.md, queue 1 item 8)"
+PLACEMENT = "the rest of the placements (ROADMAP.md, queue 1 item 8)"
 DECODER = dense.FAMILIES         # the families of ``models.dense``'s trunk
 N_PATCHES = 256                  # the vlm stub: one 16x16 image at the sequence head
 _PATCH_GRID = 16
@@ -79,36 +79,70 @@ def shard_(cfg, model: "Model", mesh) -> "Model":
     hidden units, the experts (``moe.gate`` is (E/m, D/d, f)) and the
     vocabulary of the embedding and the head (``embed.weight`` is (V/m,
     D/d))); the norm scales, the routers, the shared gate and the biases
-    of ``o`` and ``down`` stay whole.  One ``Mesh`` is the model axis
+    of ``o`` and ``down`` stay whole.  The other families alike: whisper's
+    encoder, self- and cross-attention by heads, its GELU MLPs over
+    ``model``, its tied vocabulary where m divides it (51865 stays whole),
+    ``dec_pos`` over ``data`` by positions and ``enc_pos`` whole; MLA by
+    heads (``q``, ``kv_b``, ``o``; ``kv_a`` and the latent's norm whole on
+    ``model``); M-RoPE's GQA as any GQA.  One ``Mesh`` is the model axis
     alone.  ``model.placement`` records which axis splits which dim
     (``sharding.Placement``); ``forward_hidden`` and the loss gather each
     data-split weight where it is used, run the vocabulary's slices
     (``_embed``, ``chunked_ce``), the trunk runs its shards on the model
     axis (``trunk.mlp_mesh``), and its routers route the global batch over
     ``data``.  A placed model trains; it serves no cache."""
+    if model.placement is not None:
+        raise ValueError("the model is already sharded: place it once")
+    place = _placement(cfg, model, mesh)
+    for name, p in list(model.named_parameters()):
+        _keep_local(model, place, name, p)
+    return _placed(model, place)
+
+
+def _placement(cfg, model: Model, mesh) -> sharding.Placement:
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"training the {cfg.family!r} family on a mesh "
                                   f"arrives with {RECURRENT_TRAINING}")
-    if (cfg.family not in ("dense", "moe") or cfg.attn_kind == "mla"
-            or cfg.pos_kind in ("mrope", "learned")):
-        what = (f"the {cfg.family!r} family" if cfg.family not in ("dense", "moe") else
-                "MLA" if cfg.attn_kind == "mla" else f"pos_kind {cfg.pos_kind!r}")
-        raise NotImplementedError(f"placing {what} on a mesh arrives with {PLACEMENT}")
-    if model.placement is not None:
-        raise ValueError("the model is already sharded: place it once")
-    place = sharding.place(reference_layout(cfg, model), mesh,
-                           heads=(cfg.num_heads, cfg.num_kv_heads))
-    with torch.no_grad():
-        for name, p in list(model.named_parameters()):
-            t = place.local(name, p)
-            if t is not p:
-                owner, _, leaf = name.rpartition(".")
-                setattr(model.get_submodule(owner), leaf,
-                        nn.Parameter(t, requires_grad=p.requires_grad))
+    return sharding.place(reference_layout(cfg, model), mesh, heads=sharding.heads_of(cfg))
+
+
+@torch.no_grad()
+def _keep_local(model: Model, place: sharding.Placement, name: str, p) -> None:
+    """Replace the parameter ``name`` (``p``) by this rank's slice of it."""
+    t = place.local(name, p)
+    if t is not p:
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(t, requires_grad=p.requires_grad))
+
+
+def _placed(model: Model, place: sharding.Placement) -> Model:
     if "model" in place.meshes:
         model.trunk.mlp_mesh = place.meshes["model"]
     model.placement = place
     return model
+
+
+def init_placed(cfg, seed: int, mesh, *, device="cuda", ep_pad: int = 1) -> Model:
+    """``shard_(cfg, init_params(cfg, seed, device=device, ep_pad=ep_pad),
+    mesh)``, the same slices of the same weights, without the whole model
+    on the device: each module's leaves are drawn whole, in
+    ``init_params``' order from its one generator, and cut to this rank's
+    slices before the next module's are drawn (qwen2-vl-72b's 80 fp32
+    layers are 290 GB)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = Model(cfg, ep_pad=ep_pad, dtype=_dtype(cfg))
+    place = _placement(cfg, model, mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for prefix, mod in model.named_modules():
+        own = list(mod.named_parameters(recurse=False))
+        for n, p in own:
+            setattr(mod, n, nn.Parameter(torch.empty(p.shape, dtype=p.dtype, device=dev),
+                                         requires_grad=p.requires_grad))
+        _init_module(mod, gen)
+        for n, _ in own:
+            _keep_local(model, place, f"{prefix}.{n}" if prefix else n, getattr(mod, n))
+    return _placed(model, place)
 
 
 def resolve_device(device) -> torch.device:
@@ -154,20 +188,26 @@ def _init_weights(model: Model, gen: torch.Generator) -> None:
     """The reference's scheme: linear weights N(0, 1/d_in), biases 0,
     embeddings N(0, 0.02²), norm scales 1 and biases 0; modules with other
     leaves (the Mamba2 block, RWKV6's time- and channel-mix, the experts)
-    draw those themselves (``init_weights``)."""
+    draw those themselves (``init_weights``).  Each module draws only its
+    own leaves (``_init_module``)."""
     for mod in model.modules():
-        if hasattr(mod, "init_weights"):
-            mod.init_weights(gen)
-        if isinstance(mod, nn.Linear):
-            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=gen)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, 0.02, generator=gen)
-        elif isinstance(mod, L.Norm):
-            mod.scale.fill_(1.0)
-            if mod.kind == "layernorm":
-                mod.bias.zero_()
+        _init_module(mod, gen)
+
+
+@torch.no_grad()
+def _init_module(mod: nn.Module, gen: torch.Generator) -> None:
+    if hasattr(mod, "init_weights"):
+        mod.init_weights(gen)
+    if isinstance(mod, nn.Linear):
+        mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=gen)
+        if mod.bias is not None:
+            mod.bias.zero_()
+    elif isinstance(mod, nn.Embedding):
+        mod.weight.normal_(0.0, 0.02, generator=gen)
+    elif isinstance(mod, L.Norm):
+        mod.scale.fill_(1.0)
+        if mod.kind == "layernorm":
+            mod.bias.zero_()
 
 
 def init_params(cfg, seed: int = 0, *, device="cuda", ep_pad: int = 1) -> Model:
@@ -264,13 +304,16 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     cached prefill into fresh caches (filled in place).  ``remat`` recomputes
     each decoder layer in the backward.  ``mesh`` opts the dense, moe
     and vlm families into the plan-aware sited trunk (``dense.trunk_fwd``,
-    with ``shards`` this rank's feed-forward shards); the other families
-    ignore it.  ``route_rows`` routes each row's tokens alone through the
+    with ``shards`` this rank's feed-forward shards); a placed audio model
+    runs its trunk on it (``whisper.encode``); the recurrent families and a
+    whole audio model ignore it.  ``route_rows`` routes each row's tokens alone through the
     experts (the continuous engine: the reference vmaps over its slots).
 
     Audio: the encoder runs over ``batch["frames"]``, the decoder's learned
-    positions are added at each row's position, and a cached prefill keeps
-    the encoder's output in the caches' ``"memory"`` for decode."""
+    positions (gathered over ``data`` at ``fsdp.dec_pos.ag_params`` where
+    the placement splits them) are added at each row's position, and a
+    cached prefill keeps the encoder's output in the caches' ``"memory"``
+    for decode."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if caches is not None:
@@ -283,10 +326,12 @@ def forward_hidden(cfg, p: Model, batch, caches: Optional[Caches] = None, *,
     if cfg.family == "audio":
         if batch.get("frames") is None:
             raise ValueError("an audio model's batch needs its 'frames' (B, encoder_seq, D)")
+        gather = _layer_gather(p)
         memory = whisper.encode(p.trunk, cfg, batch["frames"].to(x.dtype), backend=backend,
-                                remat=remat)
-        x, new_tc = whisper.decode_trunk(p.trunk, cfg, x + p.dec_pos[positions], memory,
-                                         positions, tc, backend=backend, remat=remat)
+                                remat=remat, mesh=mesh, gather=gather)
+        x, new_tc = whisper.decode_trunk(p.trunk, cfg, x + _dec_pos(p, positions, t0, S),
+                                         memory, positions, tc, backend=backend, remat=remat,
+                                         mesh=mesh, gather=gather)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = None if caches is None else {"trunk": new_tc, "pos": t0 + S,
                                                   "memory": memory}
@@ -303,6 +348,17 @@ def _weight(p: Model, name: str, site: str) -> torch.Tensor:
     slice over ``model``."""
     w = p.get_parameter(name)
     return w if p.placement is None else p.placement.gather(name, w, site)
+
+
+def _dec_pos(p: Model, positions: torch.Tensor, t0, S: int) -> torch.Tensor:
+    """An audio model's learned positions at ``positions`` (gathered over
+    ``data`` where the placement splits them): rows t0 .. t0 + S - 1 for
+    every row of the batch where ``t0`` is one int, a slice whose gradient
+    sums over the batch in a fixed order (an index's scatter-add on the
+    host's threads does not: the ranks' whole copies would drift apart),
+    else each row's own."""
+    w = _weight(p, "dec_pos", "fsdp.dec_pos.ag_params")
+    return w[positions] if torch.is_tensor(t0) else w[t0:t0 + S]
 
 
 def _vocab_mesh(p: Model, name: str):
@@ -337,14 +393,14 @@ def _embed(p: Model, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_gather(p: Model):
-    """``dense.trunk_fwd``'s ``gather`` for a model placed over ``data``: layer
-    ``i``'s modules over its weights gathered at ``fsdp.layer{i}.ag_params``."""
+    """The trunks' ``gather`` for a model placed over ``data``: the layer
+    ``trunk.{name}`` as modules over its weights gathered at ``site``
+    (``dense.trunk_fwd``, ``whisper.encode``)."""
     if p.placement is None or "data" not in p.placement.meshes:
         return None
 
-    def gather(name, i, lp):
-        return sharding.gathered(lp, f"trunk.{name}.", p.placement,
-                                 f"fsdp.layer{i}.ag_params")
+    def gather(name, site, lp):
+        return sharding.gathered(lp, f"trunk.{name}.", p.placement, site)
 
     return gather
 
@@ -541,8 +597,9 @@ def decode_step(cfg, p: Model, tokens: torch.Tensor, caches: Caches, *,
     new_caches = {"pos": t0 + 1}
     if cfg.family == "audio":
         x, new_caches["trunk"] = whisper.decode_trunk(
-            p.trunk, cfg, x + p.dec_pos[positions], caches["memory"], positions,
-            caches["trunk"], backend=backend)
+            p.trunk, cfg, x + _dec_pos(p, positions, t0, 1), caches["memory"], positions,
+            caches["trunk"], backend=backend,
+            gather=_layer_gather(p))
         new_caches["memory"] = caches["memory"]
     else:
         x, new_caches["trunk"], _ = _trunk_fwd(cfg, p, x, positions, caches["trunk"],

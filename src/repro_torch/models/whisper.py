@@ -19,16 +19,30 @@ the decoder's self-attention; its decode is plain PyTorch over the cache.
 The LayerNorms are plain PyTorch, as the reference's are jnp.  The caches
 keep the reference's layout, ``{"dec": stacked KV cache}`` with one
 ``pos`` for all layers.
+
+Placed for training (``models.model.shard_``), the trunk runs on its model
+axis (``Trunk.mlp_mesh``) as ``dense.trunk_fwd`` runs a placed decoder:
+every attention by heads (``layers.attention``; cross-attention projects
+this rank's K and V heads from the memory), every GELU MLP through
+``dense.tp_mlp`` (``up``'s bias split, ``down``'s added once), and each
+layer's data-split weights gathered inside its checkpoint by the model's
+``gather``.  Decoder layer i takes the sites ``core.extract`` names a
+layer: ``tp.layer{i}.attn``, ``tp.layer{i}.mlp``, ``fsdp.layer{i}.ag_params``,
+and ``tp.layer{i}.cross_attn`` for its cross-attention; encoder layer i
+``tp.enc{i}.attn``, ``tp.enc{i}.mlp`` and ``fsdp.enc{i}.ag_params`` (the
+port's names: the extractor has no encoder).
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import layers as L
+from repro_torch.launch.mesh import as_mesh
+from repro_torch.models import dense, layers as L
 from repro_torch.parallel import constraints as CT
 
 Caches = Dict[str, Dict[str, object]]
@@ -71,6 +85,8 @@ class Trunk(nn.Module):
         self.enc_layers = nn.ModuleList(EncLayer(cfg, **kw) for _ in range(cfg.encoder_layers))
         self.enc_ln = L.Norm(cfg.d_model, "layernorm", **kw)
         self.dec_layers = nn.ModuleList(DecLayer(cfg, **kw) for _ in range(cfg.num_layers))
+        self.mlp_mesh = None     # the model axis of the trunk's shards, once placed
+                                 # (model.shard_)
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -83,56 +99,102 @@ def init_trunk(cfg, *, device=None, dtype=None) -> Trunk:
 
 
 def _run(fn, x, remat: bool):
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False) if remat else fn(x)
+    """fn(x), recomputed in the backward with ``remat``; both runs in this
+    context (the plan scopes and issued-collective logs are context
+    variables, and the backward may run on autograd's device thread)."""
+    if not remat:
+        return fn(x)
+    return checkpoint(contextvars.copy_context().run, fn, x, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _mesh(p: Trunk, cfg, mesh):
+    """The model axis a placed trunk runs on (``mesh``, which must be its
+    own), or None for a whole trunk, which ignores ``mesh`` as the
+    reference's does."""
+    if p.mlp_mesh is None:
+        return None
+    if mesh is None or as_mesh(mesh) != p.mlp_mesh:
+        raise ValueError(f"the trunk is placed over {p.mlp_mesh}: run it on that mesh")
+    if cfg.d_ff % p.mlp_mesh.size:
+        raise ValueError(f"placed trunk: d_ff {cfg.d_ff} must split over "
+                         f"{p.mlp_mesh.size} model ranks")
+    return p.mlp_mesh
+
+
+def _mlp(mp, cfg, h: torch.Tensor, mesh, site: str) -> torch.Tensor:
+    """The GELU MLP: whole, or this rank's hidden units over ``mesh``
+    (``dense.tp_mlp`` at ``site``)."""
+    if mesh is None:
+        return L.mlp(mp, h, cfg.mlp_kind)
+    return dense.tp_mlp(mp, h, cfg.mlp_kind, mesh, site=site)
 
 
 def encode(p: Trunk, cfg, frames: torch.Tensor, *, backend: Optional[str] = None,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, mesh=None, gather=None) -> torch.Tensor:
     """frames (B, encoder_seq, d) stub embeddings -> the memory (B, S, d):
     ``enc_pos`` added, the bidirectional layers, ``enc_ln``.  ``remat``
-    recomputes each layer in the backward (the reference always does)."""
+    recomputes each layer in the backward (the reference always does).
+    ``mesh`` and ``gather(name, site, layer)`` as the module docstring
+    says (a placed model's)."""
     x = CT.btd(frames + p.enc_pos[None, :frames.shape[1]])
     B, S, _ = x.shape
+    mesh = _mesh(p, cfg, mesh)
     pos = torch.arange(S, device=x.device).expand(B, S)
-    for lp in p.enc_layers:
-        def body(x, lp=lp):
+    for i, lp in enumerate(p.enc_layers):
+        def body(x, lp=lp, i=i):
+            lq = lp if gather is None else gather(f"enc_layers.{i}", f"fsdp.enc{i}.ag_params",
+                                                  lp)
             x = CT.btd(x)
-            h = L.norm(lp.ln1, x, "layernorm")
-            x = x + L.attention(lp.attn, cfg, h, pos, causal=False, backend=backend)[0]
-            return x + L.mlp(lp.mlp, L.norm(lp.ln2, x, "layernorm"), cfg.mlp_kind)
+            h = L.norm(lq.ln1, x, "layernorm")
+            x = x + L.attention(lq.attn, cfg, h, pos, causal=False, backend=backend,
+                                mesh=mesh, site=f"tp.enc{i}.attn")[0]
+            return x + _mlp(lq.mlp, cfg, L.norm(lq.ln2, x, "layernorm"), mesh,
+                            f"tp.enc{i}.mlp")
 
         x = _run(body, x, remat)
     return L.norm(p.enc_ln, x, "layernorm")
 
 
 def dec_layer_fwd(lp: DecLayer, cfg, x: torch.Tensor, memory: torch.Tensor,
-                  positions: torch.Tensor, cache, *, backend: Optional[str] = None):
-    """One decoder layer.  Returns (x, updated cache or None)."""
+                  positions: torch.Tensor, cache, *, backend: Optional[str] = None,
+                  mesh=None, site: str = "tp"):
+    """One decoder layer, its sites under ``site`` (``tp.layer{i}``) on a
+    placed trunk's ``mesh``.  Returns (x, updated cache or None)."""
     x = CT.btd(x)
     h = L.norm(lp.ln1, x, "layernorm")
-    a, new_cache = L.attention(lp.self_attn, cfg, h, positions, cache=cache, backend=backend)
+    a, new_cache = L.attention(lp.self_attn, cfg, h, positions, cache=cache, backend=backend,
+                               mesh=mesh, site=f"{site}.attn")
     x = x + a
     h = L.norm(lp.ln_x, x, "layernorm")
-    x = x + L.attention(lp.cross_attn, cfg, h, positions, x_kv=memory, backend=backend)[0]
-    x = x + L.mlp(lp.mlp, L.norm(lp.ln2, x, "layernorm"), cfg.mlp_kind)
+    x = x + L.attention(lp.cross_attn, cfg, h, positions, x_kv=memory, backend=backend,
+                        mesh=mesh, site=f"{site}.cross_attn")[0]
+    x = x + _mlp(lp.mlp, cfg, L.norm(lp.ln2, x, "layernorm"), mesh, f"{site}.mlp")
     return x, new_cache
 
 
 def decode_trunk(p: Trunk, cfg, x: torch.Tensor, memory: torch.Tensor,
                  positions: torch.Tensor, caches: Optional[Caches] = None, *,
-                 backend: Optional[str] = None, remat: bool = False
-                 ) -> Tuple[torch.Tensor, Optional[Caches]]:
+                 backend: Optional[str] = None, remat: bool = False, mesh=None,
+                 gather=None) -> Tuple[torch.Tensor, Optional[Caches]]:
     """The decoder stack over x (B, S, d) (its learned positions already
     added) against ``memory``.  caches: None | {"dec": stacked KV cache},
-    whose layer views each layer updates in place.  Returns (x, caches)."""
+    whose layer views each layer updates in place.  ``mesh`` and
+    ``gather`` as ``encode`` takes them.  Returns (x, caches)."""
+    mesh = _mesh(p, cfg, mesh)
     sc = caches["dec"] if caches is not None else None
     for j, lp in enumerate(p.dec_layers):
+        def layer(x, lc, lp=lp, j=j):
+            lq = lp if gather is None else gather(f"dec_layers.{j}", f"fsdp.layer{j}.ag_params",
+                                                  lp)
+            return dec_layer_fwd(lq, cfg, x, memory, positions, lc, backend=backend,
+                                 mesh=mesh, site=f"tp.layer{j}")
+
         if sc is None:
-            x = _run(lambda x, lp=lp: dec_layer_fwd(lp, cfg, x, memory, positions, None,
-                                                    backend=backend)[0], x, remat)
+            x = _run(lambda x, layer=layer: layer(x, None)[0], x, remat)
             continue
         lc = {name: a if name == "pos" else a[j] for name, a in sc.items()}
-        x, _ = dec_layer_fwd(lp, cfg, x, memory, positions, lc, backend=backend)
+        x, _ = layer(x, lc)
     if caches is None:
         return x, None
     return x, {"dec": dict(sc, pos=sc["pos"] + x.shape[1])}

@@ -30,8 +30,9 @@ d) keep the reference's layout, E their T dim.
 shard_``): each leaf's spec in the port's layout and the ``launch.mesh.
 Mesh`` of each axis.  Its F dims are split over ``data``, and the T dims
 of the leaves that the trainable families run (``TP_HELD``: attention's
-q, k, v and o, the dense MLP, the shared and the routed experts, the
-embedding and the head) over ``model``.  The unit of an attention split
+q, k, v and o, whisper's self- and cross-attention's, MLA's q and
+``kv_b``, the dense MLP, the shared and the routed experts, the embedding
+and the head) over ``model``.  The unit of an attention split
 is a head (``port_specs``' ``heads``): where the model axis divides the
 query heads but not the KV heads, k and v stay whole on ``model``, and
 where it does not divide the query heads (or a rank's block of them would
@@ -113,11 +114,13 @@ _RULES: Sequence[Tuple[str, Tuple[Any, ...]]] = (
 )
 
 # the leaves whose T dim the port splits over ``model``: attention's q, k, v
-# (and their biases) and o, the dense MLP and the shared experts (the GELU
-# MLP's up bias with them), the routed experts, the embedding and the head;
-# every other T dim (the recurrent families', MLA's, whisper's) stays whole
-_ATTN = r"(^|/)attn/([qkv]/[wb]|o/w)$"
-_KV = r"(^|/)attn/[kv]/[wb]$"
+# (and their biases) and o wherever they sit (``attn``, whisper's
+# ``self_attn`` and ``cross_attn``), MLA's q, ``q_b`` and ``kv_b`` (its
+# ``q_a`` and ``kv_a`` have no T dim), the dense MLP and the shared experts
+# (the GELU MLP's up bias with them), the routed experts, the embedding and
+# the head; only the recurrent families' T dims stay whole
+_ATTN = r"(^|/)(self_|cross_)?attn/([qkv]/[wb]|(q_b|kv_b|o)/w)$"
+_KV = r"(^|/)(self_|cross_)?attn/[kv]/[wb]$"
 TP_HELD = (_ATTN + r"|(mlp|shared)/(gate|up|down)/w$|(mlp|shared)/up/b$"
            r"|moe/(gate|up|down)$|embed/table$|head/w$")
 _WARNED: set = set()
@@ -129,6 +132,13 @@ def _warn_once(msg: str) -> None:
         warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
 
+def heads_of(cfg) -> Tuple[int, int]:
+    """The (query, KV) head counts that attention splits by: MLA's every
+    head has its own K and V rows of ``kv_b`` (H, H); GQA's the config's."""
+    return (cfg.num_heads,
+            cfg.num_heads if cfg.attn_kind == "mla" else cfg.num_kv_heads)
+
+
 def _whole_attention(heads, m: int) -> Optional[str]:
     """The attention leaves that stay whole on a model axis of ``m`` ranks,
     by heads (a regex, or None): k and v where ``m`` divides the query
@@ -136,7 +146,10 @@ def _whole_attention(heads, m: int) -> Optional[str]:
     (the query heads are laid out KV-head major), all of attention where
     ``m`` does not divide the query heads or a rank's block would read part
     of two groups (the reference's per-dim fallback would split inside a
-    head; the port never does).  Warns once a case."""
+    head; the port never does).  One rule for every attention of the
+    model: GQA's, whisper's bidirectional and cross-attention (the same
+    heads), MLA's (``heads_of``: its q·k and v heads differ in width, not
+    in count, and each leaf is laid out head-major).  Warns once a case."""
     if m == 1:
         return None
     hq, hkv = heads
@@ -326,7 +339,10 @@ class Placement:
                      if m.size > 1 and self.dim(name, a) is not None)
 
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of ``t`` on every axis, a copy where split."""
+        """This rank's slice of ``t`` on every axis, a copy of its own where
+        split (a slice of dim 0 is contiguous as a view, and a view would
+        keep the whole tensor's storage alive)."""
+        whole = t
         for axis, m in self.meshes.items():
             d = self.dim(name, axis)
             if d is not None and m.size > 1:
@@ -334,8 +350,8 @@ class Placement:
                     raise ValueError(f"{name}: dim {d} of {tuple(t.shape)} does not split "
                                      f"over {m.size} {axis} ranks")
                 k = t.shape[d] // m.size
-                t = t.narrow(d, m.rank * k, k).contiguous()
-        return t
+                t = t.narrow(d, m.rank * k, k)
+        return t if t is whole else t.clone(memory_format=torch.contiguous_format)
 
     def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The whole tensor of this rank's slice ``t``, gathered over every

@@ -339,6 +339,16 @@ with torch.no_grad():
     res = {"tp": dense.tp_mlp(shard, x, "gelu", mesh).numpy(),
            "serve": dense.serve_mlp(shard, x, "gelu", mesh).numpy(),
            "plain": L.mlp(mlp, x, "gelu").numpy()}
+# 7 rows split over neither 2 nor 4 ranks: tp_mlp runs column-then-row
+torch.manual_seed(0)
+swiglu = L.MLP(mlp.up.in_features, mlp.up.out_features, "swiglu")
+for kind, whole in (("gelu", mlp), ("swiglu", swiglu)):
+    for which, p in (("odd_tp", dense.shard_mlp(whole, mesh)), ("odd_plain", whole)):
+        xo = x[:, :7].clone().requires_grad_()
+        y = (dense.tp_mlp(p, xo, kind, mesh) if which == "odd_tp" else L.mlp(p, xo, kind))
+        y.pow(2).sum().backward()
+        res[f"{which}_{kind}"] = y.detach().numpy()
+        res[f"{which}_{kind}_dx"] = xo.grad.numpy()
 if rank == 0:
     np.savez(out, **res)
 dist.destroy_process_group()
@@ -412,3 +422,14 @@ def test_gelu_tp_mlp_matches_reference(gelu_tp, world, fn):
     assert _err(port["plain"], ref["plain"]) < BOUND
     assert _err(port[fn], ref[fn]) < BOUND
     assert _err(port[fn], ref["plain"]) < BOUND
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("kind", ["gelu", "swiglu"])
+def test_tp_mlp_runs_column_then_row_where_the_sequence_does_not_split(gelu_tp, world, kind):
+    """``tp_mlp`` over 7 rows, which split over neither 2 nor 4 ranks: the
+    whole sequence through this rank's hidden units, the rows summed over
+    the ranks; its output and its input's gradient are the plain MLP's."""
+    port = gelu_tp[f"port{world}"]
+    for key in (kind, f"{kind}_dx"):
+        assert _err(port[f"odd_tp_{key}"], port[f"odd_plain_{key}"]) < BOUND

@@ -272,7 +272,10 @@ def reference_weights(cfg, seed=0, *, device="cuda"):      # the reference's wei
     model.load_state_dict(torch.load(sd))
     return model
 
-M.init_params = reference_weights
+def reference_placed(cfg, seed, mesh, *, device="cuda"):  # placed as the launcher places
+    return M.shard_(cfg, reference_weights(cfg, seed, device=device), mesh)
+
+M.init_params, M.init_placed = reference_weights, reference_placed
 res = train.main(argv)
 log = {"losses": res["losses"]}
 if ckpt:           # the checkpoint restored into this rank's slices, exactly

@@ -230,14 +230,29 @@ OTHER_VARIANTS = {
 
 @pytest.mark.parametrize("change", list(OTHER_VARIANTS.values()), ids=list(OTHER_VARIANTS))
 def test_unported_variants_raise(change):
-    """The variants that raised at build before the other-families slice
-    build now (``test_ported_variants_build_and_run`` runs them); what
-    still raises of them is placing them on a mesh, which names its
+    """The name is kept only to keep the count of tests: these variants no
+    longer raise where it says.  They raised at build before the
+    other-families slice and build now (``test_ported_variants_build_and_run`` runs them), and since
+    their placement they place on a mesh too (over a fake world of 4 ranks
+    at 1x4: their attention split by heads); what still raises of them is
+    serving a cache on a model placed over ``model``, which names its
     ROADMAP item."""
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
     cfg = get_smoke_config(ARCH).replace(**change)
     model = M.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        M.shard_(cfg, model, None)
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((2, cfg.encoder_seq, cfg.d_model))
+    with fake_world(4):
+        M.shard_(cfg, model, make_mesh((1, 4), ("data", "model")))
+    held = dict(model.named_parameters())
+    q = next(n for n in held if n.endswith("attn.q.weight"))
+    assert model.placement.axes(q) == ("model",) and held[q].shape[0] * 4 == (
+        cfg.num_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                         if cfg.attn_kind == "mla" else cfg.head_dim))
+    with pytest.raises(ValueError, match="queue 1 item 8"):
+        M.forward_hidden(cfg, model, batch, M.init_caches(cfg, 2, 16, device="cpu"))
 
 
 @pytest.mark.parametrize("change", [dict(sliding_window=16), dict(mlp_kind="gelu"),

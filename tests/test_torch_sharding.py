@@ -198,6 +198,54 @@ def test_port_layout_specs_follow_convert(arch, mesh):
         assert held == got
 
 
+FAMILIES = ("whisper-small", "deepseek-v2-lite-16b", "qwen2-vl-72b")
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_port_specs_of_the_other_families_equal_the_reference(arch, mesh):
+    """At full size (shapes only: the port's meta model, the reference's
+    ``eval_shape`` tree) every port leaf of whisper-small, deepseek-v2-lite-16b
+    and qwen2-vl-72b takes the reference's ``param_specs`` of its leaf, its
+    stacked layer dims dropped and a ``w`` leaf's dims reversed, and nothing
+    else: the model axis stays on every leaf the reference splits there
+    (attention by whole heads, whisper's self- and cross-attention, MLA's q,
+    ``kv_b`` and o, the MLPs and experts, the vocabulary).  Whisper's
+    vocabulary of 51865 stays whole on ``model`` and its table's d splits
+    over ``data``; its learned positions ``dec_pos`` split their 32768
+    positions over ``data``; MLA's ``kv_a`` splits d over ``data`` alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import param_specs as port_model
+
+    cfg, params, _ = _trees(arch)
+    sizes = dict(zip(("data", "model"), mesh))
+    ref = {k: tuple(v) for k, v in _flat(JSH.param_specs(params, _stub(mesh))).items()}
+    pcfg = get_config(arch)
+    layout = reference_layout(pcfg, port_model(pcfg, ep_pad=16 if pcfg.is_moe else 1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")          # every attention splits by whole heads
+        got = SH.port_specs(layout, sizes, heads=SH.heads_of(pcfg))
+    assert set(got) == set(layout)
+    for name, leaf in layout.items():
+        spec = ref[leaf.path] + (None,) * (len(leaf.shape) - len(ref[leaf.path]))
+        spec = spec[leaf.lead:]
+        assert got[name] == (spec[::-1] if leaf.transposed else spec), name
+    D, M_ = mesh
+    if arch == "whisper-small":
+        assert got["embed.weight"] == (None if M_ > 1 else "model", "data")
+        assert got["dec_pos"] == ("data", None) and got["trunk.enc_pos"] == (None, None)
+        for att in ("trunk.dec_layers.0.self_attn.", "trunk.dec_layers.0.cross_attn.",
+                    "trunk.enc_layers.0.attn."):
+            assert got[att + "q.weight"] == ("model", "data"), att
+            assert got[att + "o.weight"] == ("data", "model") and got[att + "o.bias"] == (None,)
+    if arch == "deepseek-v2-lite-16b":
+        att = "trunk.moe_layers.0.attn."
+        assert got[att + "kv_a.weight"] == (None, "data")
+        assert got[att + "kv_b.weight"] == ("model", None)
+        assert got[att + "kv_a_norm.scale"] == (None,)
+        assert got["trunk.moe_layers.0.moe.gate"] == ("model", "data", None)
+
+
 def test_placement_slices_and_gathers_back():
     """``Placement.local`` keeps rank r's slice of each split dim and
     ``full`` on a size-1 mesh is the tensor itself; ``place`` over a bare
@@ -235,6 +283,28 @@ def test_placement_slices_and_gathers_back():
     assert bare.dim(qname, "model") == 0 and bare.axes(attn + "k.weight") == ()
     one = SH.place(layout, {"data": Mesh(None), "model": Mesh(None)}, heads=heads)
     assert one.full(name, w) is w and one.axes(name) == ()
+
+
+def test_placed_slices_own_their_storage():
+    """A slice of dim 0 is contiguous as a view; kept as one, it would hold
+    the whole parameter's storage alive on every rank (the experts' and the
+    MLP's up rows: four times their bytes at 1x4).  Every parameter of a
+    model placed at 1x4 and 2x2 holds exactly its own bytes, and a leaf
+    that no axis splits stays the very tensor."""
+    cfg = get_smoke_config("qwen2-vl-72b")
+    for shape in ((1, 4), (2, 2)):
+        model = M.init_params(cfg, 0, device="cpu")
+        q = "trunk.dense_layers.0.attn.q.weight"
+        whole = dict(model.named_parameters())
+        meshes = {"data": Mesh(None, shape[0], shape[0] - 1, "data"),
+                  "model": Mesh(None, shape[1], shape[1] - 1, "model")}
+        place = SH.place(reference_layout(cfg, model), meshes, heads=SH.heads_of(cfg))
+        assert place.local("ln_f.scale", whole["ln_f.scale"]) is whole["ln_f.scale"]
+        for name, p in whole.items():
+            t = place.local(name, p.detach())
+            assert t.untyped_storage().nbytes() == t.numel() * t.element_size(), (shape, name)
+            assert t.is_contiguous(), (shape, name)
+        assert place.axes(q) == (("data", "model") if shape[0] > 1 else ("model",))
 
 
 # ---------------------------------------------------------------------------

@@ -117,15 +117,37 @@ port) and waits for them.  Each rank:
     ran (``ir.nccl_overlap``, summed by op and site): measurements, which
     no verdict reads; the step's ms unprofiled, profiled, and recorded
     and profiled.
-``--sections`` runs a subset of helpers, train, fsdp, deep, tp32, moe, pp, overlap and
-launcher.
+  * trains the other families placed (``FAMILIES``; ``models.model.
+    init_placed``: each rank draws its slices a module at a time), fp32,
+    remat, three plain steps each: whisper-small whole (12 + 12 layers, B
+    8 x S 448 over its 1500 stub frames) at 1x4 and 2x2 (attention of the
+    encoder, self- and cross-attention by heads, the GELU MLPs over
+    ``model``, ``dec_pos`` over ``data``); deepseek-v2-lite-16b (B 4 x S
+    2048: MLA's heads, the experts) and qwen2-vl-72b (B 2 x S 1024, 256
+    patches a row) at 1x4, each first at its probes' depths (deepseek 4
+    and 8 layers, qwen2-vl 1 and 2), then at the deepest of its depths
+    whose peak a rank, fitted linearly through the probes' largest peaks,
+    stays under FAMILY_PEAK_GIB.  Whisper's runs and each first probe
+    hold step 1 to this card's unplaced step of the same weights and batch
+    (loss and grad_norm within ``chip_smoke.PARITY_TRAIN``'s relative
+    bound; a MoE model's routing replayed).  The ``Issued`` rows at
+    ``tp.*`` and ``ep.*`` (``family_rows``), the kernels' launches
+    (``chip_smoke.expected_train_launches``), the split by heads and the
+    leaves held alike must be the code's; it prints step ms, tokens/s,
+    MFU, every rank's peak GiB and, of the deepest runs and whisper's, the
+    device ms by class of one more step.
+``--sections`` runs a subset of helpers, train, fsdp, deep, tp32, moe, pp, overlap,
+families and launcher.
 ``--json PATH`` writes the result line to a file as well.  Then it runs
-the launcher once, under ``torch.distributed.run``
+the launcher under ``torch.distributed.run``
 (torchrun): ``repro_torch.launch.train --config`` (the same model, batch
 and sequence, 3 steps) ``--mesh 1x4 --tuned-plan`` a plan the port tunes
-for tp:4 on h100-sxm.  Rank 0 prints one JSON line with every rank's
-results and the launcher's last lines; the exit code is 1 if a check
-failed on any rank or the launcher failed.
+for tp:4 on h100-sxm; and the same without a plan for each of
+FAMILY_LAUNCHES (whisper-small whole, B 8 x S 448; qwen2-vl-72b at the
+families section's 16 layers, B 2 x S 1024), which the launcher places by
+``models.model.init_placed``.  Rank 0 prints one JSON line with every
+rank's results and the launches' last lines; the exit code is 1 if a
+check failed on any rank or a launch failed.
 """
 from __future__ import annotations
 
@@ -136,6 +158,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -148,6 +171,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(1, ROOT)          # chip_smoke's launch counts and parity bounds
 
 N = 4
 BOUNDS = {"ring_ag_matmul": 1e-4, "mm_reduce_scatter": 1e-3, "chunked_all_to_all": 1e-6,
@@ -160,7 +184,8 @@ PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer1.mlp.ag": ("ring", 4),
 TRAIN_PLAN = {"tp.layer0.mlp.ag": ("ring", 2), "tp.layer0.mlp.rs": ("chunked", 4),
               "tp.layer1.mlp.ag": ("ring", 4), "tp.layer1.mlp.rs": ("chunked", 2)}
 TRAIN = dict(layers=4, B=4, S=2048, steps=3)          # --smoke: 2 layers, S = 64
-SECTIONS = ("helpers", "train", "fsdp", "deep", "tp32", "moe", "pp", "overlap", "launcher")
+SECTIONS = ("helpers", "train", "fsdp", "deep", "tp32", "moe", "pp", "overlap", "families",
+            "launcher")
 GATE_OPT = dict(lr=3e-4, eps=1e-3)
 GATE_REL = 1e-5
 # FSDP placements at 4 layers: (mesh, shape, mode, global batch); grad_accum=2 at
@@ -176,6 +201,11 @@ CARD_BYTES = 80e9
 # olmoe-1b-7b with its experts split over ``model``: 4 layers against the
 # one-card step, 16 (all) against the one-card forward; --smoke: 2 and 4
 MOE = dict(arch="olmoe-1b-7b", layers=(4, 16), B=4, S=2048, steps=3, lr=3e-5)
+# the launcher's runs of the other families at 1x4 (--smoke: their smoke
+# configs at S = 64)
+FAMILY_LAUNCHES = ({"arch": "whisper-small", "batch": 8, "seq": 448},
+                   {"arch": "qwen2-vl-72b", "overrides": {"num_layers": 16}, "batch": 2,
+                    "seq": 1024})
 # qwen2-moe-a2.7b (attention biases, a gated shared expert over ``model``) at
 # 4 layers under 1x4 against the one-card step; B 3 x S 2048 makes its
 # capacity int(6144 * 4 * 1.25 / 60) = 512 split over 4 ranks, and lets the
@@ -190,6 +220,25 @@ PP_FULL_B = 8
 PP_PLAN = {"p2p": ("chunked", 4)}
 PP_SITE = "pp.tick.p2p"
 PP_LOSS_REL, PP_GRAD_BOUND = 1e-5, 1e-4       # against one rank's unpipelined model
+# the other families placed (item 8.1 of ROADMAP.md's queue 1), at full width
+# over B x S (whisper's 1500 stub frames, qwen2-vl's 256 patches at the head of
+# each row): whisper-small whole at 1x4 and 2x2; deepseek-v2-lite-16b (MLA's
+# heads and its experts over ``model``) and qwen2-vl-72b at 1x4, each at the
+# deepest of ``depths`` whose peak a rank, fitted linearly through the peaks
+# the ``probes`` measured, stays under FAMILY_PEAK_GIB.  Step 1 is held to
+# one card's unplaced step (each rank on its card) at ``parity`` layers, a
+# depth one card holds (whisper whole), which is the first probe.
+FAMILIES = (dict(arch="whisper-small", B=8, S=448, meshes=("1x4", "2x2")),
+            dict(arch="deepseek-v2-lite-16b", B=4, S=2048, meshes=("1x4",), probes=(4, 8),
+                 depths=(8, 16, 27)),
+            dict(arch="qwen2-vl-72b", B=2, S=1024, meshes=("1x4",), probes=(1, 2),
+                 depths=(4, 8, 12, 16, 20, 24)))
+FAMILY_PEAK_GIB = 72.0
+FAMILY_STEPS = 3
+# --smoke: the smoke configs (2 + 2 layers of whisper over 64 frames), S 64
+# (qwen2-vl's 288: its 256 patches and 32 tokens), the probes and depths cut
+FAMILY_SMOKE = {"whisper-small": (64, None, None), "deepseek-v2-lite-16b": (64, (2, 3), (4,)),
+                "qwen2-vl-72b": (288, (1, 2), (3,))}
 # Issued rows a layer's sites log in one forward and backward pass with remat:
 # gate and up ring twice (forward, recompute) and once backward each; down
 # reduce-scatter twice and once backward
@@ -260,10 +309,12 @@ def placement_rows(cfg, place, passes: int, steps: int, S: int) -> dict:
     placed model's ``place`` (``model.placement``) splits over ``model``:
     where q is split, a layer's attention rows twice (forward, recompute)
     and its input's gradient once, and where k is not, the k and v weights'
-    (and biases') gradients once each; qk_norm's two scales' gradients once
+    (and biases') gradients once each (MLA: its whole ``kv_a`` and latent
+    norm, and ``q_a`` and its norm with a q LoRA); qk_norm's two scales' gradients once
     each; where the embedding is split, the embedding once, the loss's two
     sums (``vocab_ce``) twice a chunk of 256 and its input's gradient once;
-    a MoE layer's shared experts as attention.  None on one model rank."""
+    a MoE layer's shared experts as attention (their sum once forward where
+    no gate reads it).  None on one model rank."""
     n, out = passes * steps, {}
 
     def split(suffix):
@@ -278,7 +329,10 @@ def placement_rows(cfg, place, passes: int, steps: int, S: int) -> dict:
     for i in range(cfg.num_layers if split("attn.q.weight") else 0):
         add(f"tp.layer{i}.attn.ar", "all_reduce", 2)
         add(f"tp.layer{i}.attn.ar.bwd", "all_reduce.bwd", 1)
-        if not split("attn.k.weight"):
+        if cfg.attn_kind == "mla":        # the whole kv_a and its latent's norm
+            add(f"tp.layer{i}.attn.kv.ar.bwd", "all_reduce.bwd",
+                4 if cfg.q_lora_rank else 2)
+        elif not split("attn.k.weight"):
             add(f"tp.layer{i}.attn.kv.ar.bwd", "all_reduce.bwd", 4 if cfg.attn_bias else 2)
         if cfg.qk_norm:
             add(f"tp.layer{i}.attn.qk_norm.ar.bwd", "all_reduce.bwd", 2)
@@ -288,7 +342,9 @@ def placement_rows(cfg, place, passes: int, steps: int, S: int) -> dict:
         add("tp.ce.ar.bwd", "all_reduce.bwd", 1)
     first = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
     for j in range(cfg.num_layers - first if cfg.num_shared_experts else 0):
-        add(f"ep.layer{j}.moe.shared.ar", "all_reduce", 2)
+        # gated, the sum is saved for the gate's product, so remat's recompute
+        # reaches it; ungated, the recompute stops before it
+        add(f"ep.layer{j}.moe.shared.ar", "all_reduce", 2 if cfg.shared_expert_gate else 1)
         add(f"ep.layer{j}.moe.shared.ar.bwd", "all_reduce.bwd", 1)
     return out
 
@@ -376,7 +432,7 @@ def train_section(rank: int, dev, smoke: bool, res: dict) -> None:
         mm, dm = meshes[name]["model"], meshes[name]["data"]
         k = B // dm.size
         rows = slice(dm.rank * k, (dm.rank + 1) * k)
-        model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mm)
+        model = M.init_placed(cfg, 0, mm, device=dev)
         state = adamw.init_state(dict(model.named_parameters()))
         step_fn = T.make_train_step(cfg, T.TrainConfig(
             opt=adamw.AdamWConfig(**GATE_OPT), warmup=2, total_steps=100, sited_mesh=mm,
@@ -470,6 +526,12 @@ def held_alike(model) -> bool:
     """Whether every leaf is bit-equal (its ``digest``) on the ranks that
     hold the same slice of it (the same rank on each axis that splits it):
     a replicated leaf on every rank."""
+    return not differ_alike(model)
+
+
+def differ_alike(model) -> list:
+    """The leaves that ``held_alike`` finds differing between ranks that
+    hold the same slice of them."""
     import torch.distributed as dist
 
     place = model.placement
@@ -477,13 +539,15 @@ def held_alike(model) -> bool:
              for n, p in model.named_parameters()}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, marks)
+    out = []
     for n in marks:
         seen = {}
         for e in every:
             key, mark = tuple(e[n][0]), e[n][1]
             if seen.setdefault(key, mark) != mark:
-                return False
-    return True
+                out.append(n)
+                break
+    return out
 
 
 def fsdp_rows(rows, cfg, passes: int, steps: int, per_layer: int) -> bool:
@@ -539,7 +603,7 @@ def fsdp_section(rank: int, dev, smoke: bool, res: dict, shared: str) -> None:
         rows = slice(dm.rank * k, (dm.rank + 1) * k)
         knobs = TRAIN_PLAN if mm.size > 1 else {}          # the plan on a model axis
         plan = {site: C.CollectiveRuntime(*v) for site, v in knobs.items()}
-        model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mesh)
+        model = M.init_placed(cfg, 0, mesh, device=dev)
         place = model.placement
         state = adamw.init_state(dict(model.named_parameters()))
         step_fn = T.make_train_step(cfg, T.TrainConfig(
@@ -905,7 +969,7 @@ def moe_section(rank: int, dev, smoke: bool, res: dict) -> None:
             dm, mm = mesh["data"], mesh["model"]
             k = B // dm.size
             rows = slice(dm.rank * k, (dm.rank + 1) * k)
-            model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mesh)
+            model = M.init_placed(cfg, 0, mesh, device=dev)
             place = model.placement
             _release(dev)
             before = {n: p.detach().double().sum().item() for n, p in model.named_parameters()}
@@ -1358,7 +1422,7 @@ def overlap_section(rank: int, dev, smoke: bool, res: dict) -> None:
     # one tp 1x4 step under TRAIN_PLAN, judged and profiled
     meshes = make_mesh((1, N), ("data", "model"))
     mm = meshes["model"]
-    model = M.shard_(cfg, M.init_params(cfg, 0, device=dev), mm)
+    model = M.init_placed(cfg, 0, mm, device=dev)
     state = adamw.init_state(dict(model.named_parameters()))
     step_fn = T.make_train_step(cfg, T.TrainConfig(
         opt=adamw.AdamWConfig(**GATE_OPT), warmup=2, total_steps=100, sited_mesh=mm))
@@ -1403,6 +1467,254 @@ def overlap_section(rank: int, dev, smoke: bool, res: dict) -> None:
     _release(dev)
 
 
+def family_rows(cfg, place, steps: int, S: int) -> dict:
+    """``{site: {op: [chunks, ...]}}`` that ``steps`` plain steps of an
+    other family's placed model log at ``tp.*`` and ``ep.*`` with remat,
+    each site at one chunk (no plan).  whisper: each encoder layer's
+    attention at ``tp.enc{i}.attn`` and each decoder layer's self- and
+    cross-attention at ``tp.layer{i}.attn|cross_attn`` (twice forward,
+    their inputs' gradients once, the memory's at ``.mem.ar.bwd`` once),
+    each GELU MLP's ring once a projection twice and once backward and its
+    reduce-scatter likewise where the sequence splits (else column-then-row
+    at ``{site}.ar``: the recompute stops before the sum, once each way),
+    the vocabulary where it splits (``placement_rows``); the dense trunk's
+    (MLA, M-RoPE): ``placement_rows``, the dense layers' MLPs as
+    ``expected_rows``, each MoE layer's dispatch and combine twice and once
+    backward."""
+    m = place.meshes["model"].size
+    if cfg.family != "audio":
+        out = placement_rows(cfg, place, 1, steps, S)
+        first = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
+        out.update({k: v for k, v in expected_rows(cfg, 1, steps, {}).items()
+                    if int(k.split(".")[1][len("layer"):]) < first})
+        for j in range(cfg.num_layers - first):
+            for kind in ("a2a_disp", "a2a_comb"):
+                out[f"ep.layer{j}.moe.{kind}"] = {"all_to_all": [1] * 2 * steps,
+                                                   "all_to_all.bwd": [1] * steps}
+        return out
+    out = {}
+
+    def add(site, op, k):
+        out[site] = {op: [1] * k * steps}
+
+    def attn(site, memory=False):
+        add(f"{site}.ar", "all_reduce", 2)
+        add(f"{site}.ar.bwd", "all_reduce.bwd", 1)
+        if memory:
+            add(f"{site}.mem.ar.bwd", "all_reduce.bwd", 1)
+
+    def mlp(site, seq):
+        if seq % m:
+            add(f"{site}.ar", "all_reduce", 1)
+            add(f"{site}.ar.bwd", "all_reduce.bwd", 1)
+            return
+        for k, ops_ in (("ag", ("ring_ag_matmul", "ring_ag_matmul.bwd")),
+                        ("rs", ("mm_reduce_scatter", "mm_reduce_scatter.bwd"))):
+            out[f"{site}.{k}"] = {ops_[0]: [1] * 2 * steps, ops_[1]: [1] * steps}
+
+    if m == 1:
+        return out
+    for i in range(cfg.encoder_layers):
+        attn(f"tp.enc{i}.attn")
+        mlp(f"tp.enc{i}.mlp", cfg.encoder_seq)
+    for i in range(cfg.num_layers):
+        attn(f"tp.layer{i}.attn")
+        attn(f"tp.layer{i}.cross_attn", memory=True)
+        mlp(f"tp.layer{i}.mlp", S)
+    out.update({k: v for k, v in placement_rows(cfg, place, 1, steps, S).items()
+                if not k.startswith("tp.layer")})
+    return out
+
+
+def _max_over_ranks(x: float, dev) -> float:
+    import torch.distributed as dist
+
+    t = torch.tensor([x], dtype=torch.float64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def family_run(cfg, mesh_name: str, B: int, S: int, dev, res: dict, *, parity: bool,
+               profile: bool) -> dict:
+    """``FAMILY_STEPS`` plain steps of ``cfg`` placed on the mesh
+    ``mesh_name`` (``models.model.init_placed``), remat, fp32, from the
+    port's SyntheticCorpus and the family's stubs (the same every step);
+    with ``parity`` step 1 (GATE_OPT) held to this card's unplaced step 1 of
+    the same weights and batch, loss and grad_norm within
+    ``chip_smoke.PARITY_TRAIN``'s relative bound (a MoE model's routing
+    replayed from it); else at lr 3e-5.  Step ms (median of steps 2-3),
+    tokens/s, MFU (the reference's 6·N_active·tokens on the fp32 peak of
+    four cards), every rank's peak GiB, the ``Issued`` rows a step by site
+    against the code's (``family_rows``), the kernels' launches against
+    ``chip_smoke.expected_train_launches``, the split and the leaves held
+    alike; with ``profile``, device ms by class of one more step."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus, stub_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L, model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C, constraints as CT
+    from repro_torch.train import metrics as MET, trainer as T
+
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
+    stubs = {k: torch.as_tensor(v, device=dev) for k, v in stub_inputs(cfg, B).items()}
+    batches = [dict({k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(k).items()},
+                    **stubs) for k in range(FAMILY_STEPS + 1)]
+    opt = adamw.AdamWConfig(**GATE_OPT) if parity else adamw.AdamWConfig(lr=3e-5)
+    want, routing, one_card_s = None, None, None
+    if parity:                # this card's unplaced step 1 of the same weights
+        t = time.perf_counter()
+        model = M.init_params(cfg, 0, device=dev)
+        state = adamw.init_state(dict(model.named_parameters()))
+        with L.record_routing() as routing:
+            model, state, m = T.make_train_step(cfg, T.TrainConfig(
+                opt=opt, warmup=2, total_steps=100))(model, state, batches[0], 1)
+        want = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        one_card_s = time.perf_counter() - t
+        del model, state, m
+        _release(dev)
+    shape = tuple(int(x) for x in mesh_name.split("x"))
+    mesh = make_mesh(shape, ("data", "model"))
+    dm, mm = mesh["data"], mesh["model"]
+    t = time.perf_counter()
+    model = M.init_placed(cfg, 0, mesh, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t
+    place = model.placement
+    before = {n: p.detach().double().sum().item() for n, p in model.named_parameters()}
+    state = adamw.init_state(dict(model.named_parameters()))
+    step_fn = T.make_train_step(cfg, T.TrainConfig(opt=opt, warmup=2, total_steps=100,
+                                                   sited_mesh=mm,
+                                                   data_axis=dm if dm.size > 1 else None))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    k = B // dm.size
+    rows = slice(dm.rank * k, (dm.rank + 1) * k)
+    tok_rows = slice(dm.rank * k * S, (dm.rank + 1) * k * S)
+    times, losses, norms, gate = [], [], [], None
+    with CT.use_axes(("data",), "model", sizes={"data": dm.size, "model": mm.size},
+                     batch=B), C.record_issued() as issued:
+        for i in range(FAMILY_STEPS):
+            b = {n: a[rows] for n, a in batches[i].items()}
+            replay = L.record_routing(routing, rows=tok_rows) if i == 0 and parity \
+                and cfg.is_moe else contextlib.nullcontext()
+            _sync(dev)
+            t = time.perf_counter()
+            with replay:
+                model, state, m = step_fn(model, state, b, i + 1)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            _sync(dev)
+            times.append(time.perf_counter() - t)
+            if i == 0 and parity:
+                gate = {k: abs(v - want[k]) / abs(want[k])
+                        for k, v in (("loss", losses[0]), ("grad_norm", norms[0]))}
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        by_site = rows_by_site(issued)
+        b = {n: a[rows] for n, a in batches[FAMILY_STEPS].items()}
+        prof_ms = device_ms_by_class(lambda: step_fn(model, state, b, FAMILY_STEPS + 1), dev) \
+            if profile else None
+    want_launches = {} if dev.type != "cuda" else {
+        k: v for k, v in chip_smoke.expected_train_launches(cfg, FAMILY_STEPS).items() if v}
+    want_rows = family_rows(cfg, place, FAMILY_STEPS, S)
+    counts = {site: {op: len(c) for op, c in ops_.items()} for site, ops_ in by_site.items()}
+    summary = {}                          # Issued rows a step by site kind, all layers
+    for site, ops_ in counts.items():
+        kind = re.sub(r"\.(layer|enc)\d+\.", r".\1{i}.", site)
+        for op, c in ops_.items():
+            summary[f"{kind} {op}"] = summary.get(f"{kind} {op}", 0) + c // FAMILY_STEPS
+    differ = differ_alike(model)
+    alike = not differ
+    still = [n for n, p in model.named_parameters()
+             if p.detach().double().sum().item() == before[n]]
+    heads = [n for n in place.specs if re.search(r"attn\.(q|kv_b)\.weight$", n)]
+    split = all("model" in place.axes(n) for n in heads) if mm.size > 1 else True
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak / 2**30)
+    step_s = statistics.median(times[1:] or times)
+    tokens = B * S
+    row = {"arch": cfg.name, "mesh": mesh_name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "batch": B, "seq": S, "lr": opt.lr,
+           "eps": opt.eps, "init_s": init_s, "one_card_s": one_card_s, "losses": losses,
+           "grad_norms": norms, "one_card": want, "gate": gate, "step_ms": step_s * 1e3,
+           "step_ms_all": [x * 1e3 for x in times], "tokens_per_s": tokens / step_s,
+           "mfu_fp32": MET.mfu(cfg, tokens, step_s, chips=N, peak=MET.H100_FP32_PEAK),
+           "peak_gib": peak / 2**30, "peak_gib_by_rank": peaks,
+           "profiled_step_ms": prof_ms, "issued_a_step": summary,
+           "issued_as_code": by_site == want_rows, "heads_split": split,
+           "held_alike_equal": alike, "not_moved": still, "launches": launches,
+           "launches_as_code": launches == want_launches}
+    tag = f"families {cfg.name} {mesh_name} {cfg.num_layers} layers"
+    if gate is not None and not max(gate.values()) <= chip_smoke.PARITY_TRAIN["rel_bound"]:
+        res["failed"].append(f"{tag}: step 1 against one card {gate}")
+    if by_site != want_rows:
+        diff = sorted(set(by_site) ^ set(want_rows)) + sorted(
+            s for s in set(by_site) & set(want_rows) if by_site[s] != want_rows[s])
+        res["failed"].append(f"{tag}: issued rows differ from the code's at {diff}: "
+                             f"{ {s: counts.get(s) for s in diff} }")
+    for what, ok in (("attention not split by heads", split),
+                     (f"leaves held alike differ between ranks: {differ[:8]}", alike),
+                     (f"kernel launches {launches}, expected {want_launches}",
+                      launches == want_launches),
+                     (f"parameters that did not move: {still[:5]}", not still),
+                     (f"peak memory {peak} bytes", peak < CARD_BYTES),
+                     (f"losses {losses}", all(map(math.isfinite, losses + norms)))):
+        if not ok:
+            res["failed"].append(f"{tag}: {what}")
+    del model, state, step_fn, place, batches
+    _release(dev)
+    dist.barrier()
+    return row
+
+
+def families_section(rank: int, dev, smoke: bool, res: dict) -> None:
+    """The other families placed (``FAMILIES``, module docstring): whisper
+    whole at 1x4 and 2x2; deepseek-v2-lite-16b and qwen2-vl-72b at 1x4,
+    their probes (the first with parity), the fitted peaks and the depth
+    the rule picks, and three steps there."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if rank == 0:
+        print("families: start", flush=True)
+    runs, picks = [], {}
+    for fam in FAMILIES:
+        base = (get_smoke_config if smoke else get_config)(fam["arch"])
+        S = FAMILY_SMOKE[fam["arch"]][0] if smoke else fam["S"]
+        if "probes" not in fam:          # whole: its parity run is its run
+            for name in fam["meshes"]:
+                runs.append(family_run(base, name, fam["B"], S, dev, res, parity=True,
+                                       profile=True))
+            continue
+        probes, depths = FAMILY_SMOKE[fam["arch"]][1:] if smoke else (fam["probes"],
+                                                                       fam["depths"])
+        peak = {}
+        for j, L_ in enumerate(probes):
+            row = family_run(base.replace(num_layers=L_), fam["meshes"][0], fam["B"], S, dev,
+                             res, parity=j == 0, profile=False)
+            runs.append(row)
+            peak[L_] = max(row["peak_gib_by_rank"])
+        (a, pa), (b, pb) = sorted(peak.items())
+        fit = {d: pa + (pb - pa) / (b - a) * (d - a) for d in depths}
+        pick = max([d for d in depths if fit[d] < FAMILY_PEAK_GIB] or [depths[0]])
+        if dev.type == "cuda" and not pb > pa:        # a deeper probe must hold more
+            res["failed"].append(f"families {fam['arch']}: probe peaks {peak} GiB do not "
+                                 "grow with depth")
+            pick = depths[0]
+        picks[fam["arch"]] = {"probe_peaks_gib": peak, "fitted_gib": fit, "depth": pick,
+                              "limit_gib": FAMILY_PEAK_GIB}
+        if rank == 0:
+            print(f"families: {fam['arch']} probes {peak} GiB, fit {fit}, depth {pick}",
+                  flush=True)
+        runs.append(family_run(base.replace(num_layers=pick), fam["meshes"][0], fam["B"], S,
+                               dev, res, parity=False, profile=True))
+    res["families"] = {"runs": runs, "depths": picks, "steps": FAMILY_STEPS}
+
+
 def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> int:
     import torch.distributed as dist
 
@@ -1437,6 +1749,8 @@ def worker(rank: int, port: int, smoke: bool, out: str, sections=SECTIONS) -> in
             pp_section(rank, dev, smoke, res)
         if "overlap" in sections:
             overlap_section(rank, dev, smoke, res)
+        if "families" in sections:
+            families_section(rank, dev, smoke, res)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
@@ -1448,8 +1762,6 @@ def run_launcher(smoke: bool, tmp: str) -> dict:
     """``torch.distributed.run --standalone --nproc-per-node 4 -m
     repro_torch.launch.train --config ... --mesh 1x4 --tuned-plan ...``:
     its exit code, seconds and last lines."""
-    import signal
-
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import ParallelPlan, extract_workload, tune
     from repro_torch.parallel import collectives as C
@@ -1464,16 +1776,39 @@ def run_launcher(smoke: bool, tmp: str) -> dict:
         cfg = get_config("llama3-8b").replace(num_layers=TRAIN["layers"])
     plan = tune(extract_workload(cfg, ParallelPlan(kind="tp", tp=N), seq=run["seq"],
                                  global_batch=run["batch"]), "h100-sxm")
-    paths = {"config": os.path.join(tmp, "run.json"), "plan": os.path.join(tmp, "plan.json")}
-    with open(paths["config"], "w") as f:
-        json.dump(run, f)
-    plan.save(paths["plan"])
+    path = os.path.join(tmp, "plan.json")
+    plan.save(path)
     with plan.applied():         # what the sited trunk's sites resolve to
         knobs = {f"tp.layer{i}.mlp.{k}": C.runtime_for(f"tp.layer{i}.mlp.{k}", k).num_chunks
                  for i in range(cfg.num_layers) for k in ("ag", "rs")}
+    return dict(torchrun(run, smoke, tmp, ["--tuned-plan", path]), plan_knobs=knobs)
+
+
+def family_launches(smoke: bool, tmp: str) -> list:
+    """``torchrun`` of each of FAMILY_LAUNCHES: 3 steps at 1x4 with no
+    plan."""
+    out = []
+    for run in FAMILY_LAUNCHES:
+        run = dict(run, steps=TRAIN["steps"], lr=3e-5)
+        if smoke:
+            run.update(smoke=True, seq=64)
+            run.pop("overrides", None)
+        out.append(dict(torchrun(run, smoke, tmp, []), arch=run["arch"]))
+    return out
+
+
+def torchrun(run: dict, smoke: bool, tmp: str, extra: list) -> dict:
+    """``repro_torch.launch.train --config`` (``run``) ``--mesh 1x4`` under
+    ``torch.distributed.run``, one process a card: the command, its exit
+    code, seconds and last lines."""
+    import signal
+
+    path = os.path.join(tmp, f"run_{run['arch']}.json")
+    with open(path, "w") as f:
+        json.dump(run, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(N), "-m", "repro_torch.launch.train", "--config", paths["config"], "--mesh",
-           f"1x{N}", "--tuned-plan", paths["plan"], "--log-every", "1"]
+           str(N), "-m", "repro_torch.launch.train", "--config", path, "--mesh", f"1x{N}",
+           "--log-every", "1"] + extra
     cmd += ["--device", "cpu"] if smoke else []
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t = time.perf_counter()
@@ -1485,7 +1820,7 @@ def run_launcher(smoke: bool, tmp: str) -> dict:
         os.killpg(p.pid, signal.SIGKILL)          # torchrun and its workers
         text = p.communicate()[0]
     return {"cmd": " ".join(cmd[1:]), "rc": p.returncode,
-            "seconds": time.perf_counter() - t, "plan_knobs": knobs,
+            "seconds": time.perf_counter() - t,
             "last_lines": text.strip().splitlines()[-8:]}
 
 
@@ -1556,18 +1891,21 @@ def main() -> int:
         for o in outs:
             with open(o) as f:
                 ranks.append(json.load(f))
-        launcher = run_launcher(args.smoke, tmp) if "launcher" in sections else None
-    line = json.dumps({"cards": card, "ranks": ranks, "launcher": launcher})
+        launches = []
+        if "launcher" in sections:
+            launches = [dict(run_launcher(args.smoke, tmp), arch="llama3-8b")]
+            launches += family_launches(args.smoke, tmp)
+    line = json.dumps({"cards": card, "ranks": ranks, "launcher": launches or None})
     print(line)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             f.write(line + "\n")
     failed = [f for r in ranks for f in r["failed"]]
-    if launcher is not None and (launcher["rc"] != 0 or not any(
-            line.startswith(f"step {TRAIN['steps'] - 1:4d} loss")
-            for line in launcher["last_lines"])):
-        failed.append(f"launcher: exit code {launcher['rc']}")
+    failed += [f"launcher, {run['arch']}: exit code {run['rc']}" for run in launches
+               if run["rc"] != 0 or not any(
+                   line.startswith(f"step {TRAIN['steps'] - 1:4d} loss")
+                   for line in run["last_lines"])]
     if failed:
         print(f"four_rank_check: failed {failed}", file=sys.stderr)
         return 1
