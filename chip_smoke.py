@@ -9,7 +9,8 @@ Phases, each of which exits non-zero on a failed check:
      sm_90a), timed; what ptxas reports (one nvcc a source, all started at
      once beside the build's) for flash attention's fp32 forward
      instantiations at h = 80, 112 and 128 (with and without lse and
-     ALiBi) and for every instantiation
+     ALiBi), for the SSD backward kernel at both of its (P, N) and its
+     group sum, and for every instantiation
      of both backward kernels (each dtype and head dim, ALiBi's fp32 ones;
      each beside its dynamic shared memory), for every instantiation of
      the RMSNorm forward, for the RMSNorm backward's fp32 register-path
@@ -273,6 +274,37 @@ Phases, each of which exits non-zero on a failed check:
      rank every leaf stays whole, so these steps check the placed model's
      own glue (its mesh, its sites, the data axis's averages, ``dec_pos``
      read through ``_weight``), not the split by heads.
+  17. the recurrent-training slice, right after phase 16: the SSD backward
+     kernel (``csrc/ssd_bwd.cu``, which no TPU kernel has: the reference
+     trains through ``jax.grad`` of its jnp scans) at zamba2-7b's training
+     shape for one layer (B 4, S 2048, 112 heads, P = N = 64, one group, x,
+     B and C views of one conv buffer), the very call it times held within
+     1e-5 of each gradient's max|g| to fp64 autograd of the step oracle
+     (batch element by batch element, dA and dD summed) and to the plain
+     backward ``ref.ssd_chunked_bwd_ref`` in fp64; at S 500 and with an
+     initial state and a final-state gradient through ``ops.ssd`` under
+     grad (``SSDFn``), held to both; timed by its device time beside the
+     plain version's backward (autograd of the chunked scan) and its bound
+     (bytes at 3.35 TB/s, or its operations over the causal pairs at fp32
+     as 3xTF32's 165 TFLOP/s, the card's fastest fp32-exact rate, as for
+     the SSD forward; the bound on the fp32 CUDA cores it runs on, 67
+     TFLOP/s, printed beside); no library call
+     computes it; the flash backward at zamba2-7b's training shape (B 4, S
+     2048, 32/32 heads, h 112), as phase 16 holds and times its shapes;
+     ``zamba2-7b`` at full width and 13 layers (two shared-block
+     applications and one tail layer, B 4 x S 2048, remat, fp32) trained
+     three plain steps as phase 12 trains, gated on finite losses, every
+     parameter moving and launches equal to the code's, a profile of a
+     fourth step by kernel class with the SSD backward a class of its own;
+     and one step at 7 layers (one group of six, the shared block, one
+     tail layer; B 1, S 512) against ``backend="ref"`` (phase 12's
+     ``family_train_parity``): its updated parameters and loss within phase
+     8's parity bounds, and its gradients and grad_norm held to the plain
+     versions' in fp64 within fixed limits (1e-3 of max|g|, 3e-5
+     relative), the fp32 plain versions' distance printed beside, and a
+     control, the kernels' step with TF32 on, that must miss them (at this
+     depth the fp32 plain step is itself 3.0e-4 of max|g| from fp64, beyond
+     the 1e-4 mu bound, so two fp32 steps cannot agree within it).
 Each serving phase ends with a torch.profiler trace of the prefill and of
 four decode steps: device time by kernel class beside the host's wall time.
 Phases 7 to 13 share one 1-rank NCCL group from a ``FileStore``.  Then it
@@ -281,7 +313,8 @@ prints one ``{"plan": ...}`` line, one ``{"plan_serving": ...}`` line, one
 line, one ``{"families": ...}`` line, one ``{"families_train": ...}`` line,
 one ``{"pipeline": ...}`` line, one ``{"analysis": ...}`` line, one
 ``{"other_families": ...}`` line, one ``{"other_families_train": ...}``
-line, one ``{"kernels": [...]}`` line (the flash kernels' instantiations of
+line, one ``{"recurrent_train": ...}`` line, one ``{"kernels": [...]}`` line
+(the flash kernels' instantiations of
 phases 11 and 12, forward and backward at h = 80 and with ALiBi, as
 entries of their own with the launches of the models that run them,
 served and trained, which the base flash entries do not count again; the
@@ -291,8 +324,10 @@ those of phase 9's placed step at its 32/8 heads, the same instantiations,
 since no phase here runs 8/2 heads; phase 15's entries carry the launches
 of their shape class, as the wrappers count them (``ops.LAUNCHES_BY_SHAPE``),
 in the runs of the models that run them, phase 16's training runs
-included; phase 16's backward entries likewise, from its training runs)
-and, last, the device line.
+included; phase 16's backward entries likewise, from its training runs;
+phase 17's SSD backward and flash backward at h = 112, and the base
+RMSNorm, flash forward and SSD entries, the launches of zamba2-7b's
+trained run) and, last, the device line.
 TF32 is off in every phase (fp32 matrix products run in full fp32).
 """
 from __future__ import annotations
@@ -361,7 +396,7 @@ WKV6_EXACT_RTOL = 2e-5                    # WKV6 against its step oracle in fp64
                                           # the rows they span
 SLICE_LOGITS_BOUND = 1e-3                 # kernels vs plain versions, cut depth, fp32
 NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bwd": 0,
-               "flash_attention_bwd": 0}
+               "flash_attention_bwd": 0, "ssd_bwd": 0}
 # the backward kernels against autograd of their plain versions in fp64 on
 # the card, relative to max|g| (RMSNorm per gradient; flash over dq, dk, dv)
 RMS_GRAD_BOUND, FLASH_GRAD_BOUND, HALF_GRAD_BOUND = 1e-5, 1e-4, 2e-2
@@ -2001,6 +2036,15 @@ def expected_train_launches(cfg, passes: int) -> dict:
     scores are plain; a decoder layer of the audio family two, self- and
     cross-attention, and each encoder layer one) run in the forward and
     again in its recompute, ln_f once; each backward pass runs each once."""
+    if cfg.family == "hybrid":
+        # zamba2: remat checkpoints each Mamba layer (its ln, gated norm and
+        # SSD scan run in the forward and the recompute), not the shared
+        # block (ln1, ln2 and flash once each way a group), ln_f once
+        L, groups = cfg.num_layers, cfg.num_layers // cfg.shared_attn_every
+        return dict(NO_LAUNCHES, rmsnorm=passes * (4 * L + 2 * groups + 1),
+                    rmsnorm_bwd=passes * (2 * L + 2 * groups + 1), ssd=passes * 2 * L,
+                    ssd_bwd=passes * L, flash_attention=passes * groups,
+                    flash_attention_bwd=passes * groups)
     L, rms, mla = cfg.num_layers, cfg.norm_kind == "rmsnorm", cfg.attn_kind == "mla"
     n = ((1 if cfg.parallel_block else 2) * rms + 2 * cfg.qk_norm
          + mla * (1 + bool(cfg.q_lora_rank)))
@@ -2020,7 +2064,7 @@ def train_ms_by_class(run) -> dict:
         run()
         torch.cuda.synchronize()
     out = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "rmsnorm_fwd": 0.0,
-           "rmsnorm_bwd": 0.0, "nccl": 0.0, "other": 0.0}
+           "rmsnorm_bwd": 0.0, "ssd_fwd": 0.0, "ssd_bwd": 0.0, "nccl": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2029,6 +2073,8 @@ def train_ms_by_class(run) -> dict:
                 "flash_fwd" if "flash_fwd_kernel" in name else
                 "rmsnorm_bwd" if ("rmsnorm_bwd_kernel" in name or "rmsnorm_dscale" in name) else
                 "rmsnorm_fwd" if "rmsnorm_kernel" in name else
+                "ssd_bwd" if "ssd_bwd_" in name else
+                "ssd_fwd" if ("ssd_fwd_kernel" in name or "ssd_step_kernel" in name) else
                 "nccl" if "nccl" in name else
                 "gemm" if ("gemm" in name or "gemv" in name) else "other")
         out[kind] += ev.self_device_time_total / 1e3
@@ -2166,13 +2212,13 @@ def parity_batch(cfg) -> dict:
 
 
 def parity_step(cfg, batch, *, backend=None, sited_mesh=None, plan=None,
-                placed=None) -> tuple:
+                placed=None) -> dict:
     """One train step of ``cfg`` from SEED + 2's weights on ``batch`` with
     PARITY_OPT, through ``backend`` (and on the sited trunk over
     ``sited_mesh`` under ``plan``; or placed on the (data, model) mesh
-    ``placed``, ``models.model.init_placed``): the updated parameters,
-    AdamW's mu, loss, grad_norm, the kernels' launches and the issued
-    collectives."""
+    ``placed``, ``models.model.init_placed``): the updated parameters
+    (``params``), AdamW's ``mu``, ``loss``, ``grad_norm``, the kernels'
+    ``launches`` and the ``issued`` collectives."""
     from repro_torch.optim import adamw
     from repro_torch.train import trainer as T
 
@@ -2190,46 +2236,71 @@ def parity_step(cfg, batch, *, backend=None, sited_mesh=None, plan=None,
             collectives.record_issued() as issued:
         model, state, m = step_fn(model, state, batch, 1)
     torch.cuda.synchronize()
-    params = {n: p.detach() for n, p in model.named_parameters()}
-    return (params, state["mu"], float(m["loss"]), float(m["grad_norm"]),
-            dict(ops.LAUNCHES), list(issued))
+    return {"params": {n: p.detach() for n, p in model.named_parameters()},
+            "mu": state["mu"], "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "launches": dict(ops.LAUNCHES), "issued": list(issued)}
 
 
-def parity_held(tag: str, name: str, first: tuple, other: tuple, card: str,
-                note: str = "") -> dict:
+def parity_held(tag: str, name: str, first: dict, other: dict, card: str,
+                note: str = "", *, mu_to_fp64: bool = False) -> dict:
     """``other``'s step (``parity_step``) held to ``first``'s within
     PARITY_TRAIN's bounds: updated parameters (abs), mu (of its max per
     parameter; a parameter whose mu is zero but for rounding, below
     PARITY_ZERO of the largest, stays below that in both), loss and
-    grad_norm (relative); printed, and failing the run past a bound."""
+    grad_norm (relative); printed, and failing the run past a bound.  With
+    ``mu_to_fp64``, mu and grad_norm are printed and not held here: the
+    caller holds the gradients to fp64 (``fp64_grads_held``)."""
     P = PARITY_TRAIN
-    params, mu, loss, gnorm = first[:4]
-    p2, mu2, loss2, gnorm2 = other[:4]
-    err = max((p.to(p2[n].device) - p2[n]).abs().max().item() for n, p in params.items())
-    mu_max = {n: m.abs().max().item() for n, m in mu.items()}
-    floor = PARITY_ZERO * max(mu_max.values())
-    zero = sorted(n for n, v in mu_max.items() if v <= floor)
-    zero_max = max([mu2[n].abs().max().item() for n in zero] + [0.0])
-    mu_err, mu_at = max(
-        (((m.to(mu2[n].device) - mu2[n]).abs().max() / mu_max[n]).item(), n)
-        for n, m in mu.items() if n not in zero)
-    loss_rel, gnorm_rel = abs(loss2 - loss) / abs(loss), abs(gnorm2 - gnorm) / gnorm
-    zero_note = (f"; {len(zero)} zero but for rounding, below {floor:.1e} in both (their "
-                 f"max {zero_max:.1e})" if zero else "")
-    say(f"{tag}, kernels against {name}: updated parameters max abs diff {err:.3e} (bound "
-        f"{P['bound']}); mu {mu_err:.3e} of its max, at {mu_at} (bound {P['mu_bound']})"
-        f"{zero_note}; loss "
-        f"{loss:.6f} / {loss2:.6f}, grad_norm {gnorm:.6f} / {gnorm2:.6f}, relative "
-        f"{loss_rel:.2e} / {gnorm_rel:.2e} (bound {P['rel_bound']}){note} ({card})")
-    check(err <= P["bound"], f"{tag} {name}: parameters differ by {err}")
-    check(mu_err <= P["mu_bound"], f"{tag} {name}: mu differs by {mu_err} of max")
-    check(zero_max <= floor, f"{tag} {name}: mu of {zero} (zero but for rounding in the "
-                             f"first step) reaches {zero_max} > {floor}")
-    check(loss_rel <= P["rel_bound"] and gnorm_rel <= P["rel_bound"],
-          f"{tag} {name}: loss or grad_norm differ by {loss_rel}, {gnorm_rel}")
-    return {"max_abs_param_diff": err, "mu_err_of_max": mu_err, "loss": loss2,
-            "grad_norm": gnorm2, "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
-            "mu_zero_but_for_rounding": zero, "mu_zero_floor": floor, "mu_zero_max": zero_max}
+    e = parity_errors(first, other)
+    zero = e["mu_zero_but_for_rounding"]
+    zero_note = (f"; {len(zero)} zero but for rounding, below {e['mu_zero_floor']:.1e} in "
+                 f"both (their max {e['mu_zero_max']:.1e})" if zero else "")
+    to_fp64 = " (mu and grad_norm held to fp64 below)" if mu_to_fp64 else ""
+    say(f"{tag}, kernels against {name}: updated parameters max abs diff "
+        f"{e['max_abs_param_diff']:.3e} (bound {P['bound']}); mu {e['mu_err_of_max']:.3e} of "
+        f"its max, at {e['mu_err_at']} (bound {P['mu_bound']}){zero_note}; loss "
+        f"{first['loss']:.6f} / {other['loss']:.6f}, grad_norm {first['grad_norm']:.6f} / "
+        f"{other['grad_norm']:.6f}, relative {e['loss_rel']:.2e} / {e['grad_norm_rel']:.2e} "
+        f"(bound {P['rel_bound']}){to_fp64}{note} ({card})")
+    check(e["max_abs_param_diff"] <= P["bound"],
+          f"{tag} {name}: parameters differ by {e['max_abs_param_diff']}")
+    check(e["loss_rel"] <= P["rel_bound"], f"{tag} {name}: loss differs by {e['loss_rel']}")
+    if not mu_to_fp64:
+        check(e["mu_err_of_max"] <= P["mu_bound"],
+              f"{tag} {name}: mu differs by {e['mu_err_of_max']} of max")
+        check(e["mu_zero_max"] <= e["mu_zero_floor"],
+              f"{tag} {name}: mu of {zero} (zero but for rounding in the first step) reaches "
+              f"{e['mu_zero_max']} > {e['mu_zero_floor']}")
+        check(e["grad_norm_rel"] <= P["rel_bound"],
+              f"{tag} {name}: grad_norm differs by {e['grad_norm_rel']}")
+    return {k: v for k, v in e.items() if k != "mu_err_at"}
+
+
+def parity_errors(first: dict, other: dict, key: str = "mu") -> dict:
+    """How far ``other``'s step lies from ``first``'s (each a
+    ``parity_step`` or a ``parity_grads``), as ``parity_held`` measures it:
+    the updated parameters (max abs, where both have them); ``key``'s
+    tensors (AdamW's ``mu`` or the ``grads``), each of its max per
+    parameter in ``first``, over the parameters whose ``key`` is not zero
+    but for rounding there (those are listed with their max in ``other``);
+    loss and grad_norm (relative)."""
+    a, b = first[key], other[key]
+    top = {n: t.abs().max().item() for n, t in a.items()}
+    floor = PARITY_ZERO * max(top.values())
+    zero = sorted(n for n, v in top.items() if v <= floor)
+    err, at = max((((t.to(b[n].device) - b[n]).abs().max() / top[n]).item(), n)
+                  for n, t in a.items() if n not in zero)
+    out = {f"{key}_err_of_max": err, f"{key}_err_at": at,
+           f"{key}_zero_but_for_rounding": zero, f"{key}_zero_floor": floor,
+           f"{key}_zero_max": max([b[n].abs().max().item() for n in zero] + [0.0]),
+           "loss": other["loss"], "grad_norm": other["grad_norm"],
+           "loss_rel": abs(other["loss"] - first["loss"]) / abs(first["loss"]),
+           "grad_norm_rel": abs(other["grad_norm"] - first["grad_norm"]) / first["grad_norm"]}
+    if "params" in first and "params" in other:
+        p2 = other["params"]
+        out["max_abs_param_diff"] = max((p.to(p2[n].device) - p2[n]).abs().max().item()
+                                        for n, p in first["params"].items())
+    return out
 
 
 def train_parity_phase(card: str, plan, mesh) -> dict:
@@ -2242,14 +2313,15 @@ def train_parity_phase(card: str, plan, mesh) -> dict:
     cfg = get_config(PLAN_ARCH).replace(num_layers=P["layers"])
     batch = parity_batch(cfg)
     first = parity_step(cfg, batch)
-    loss, gnorm, launches, issued = first[2:]
+    loss, gnorm, launches, issued = (first[k] for k in ("loss", "grad_norm", "launches",
+                                                        "issued"))
     check(np.isfinite(loss) and np.isfinite(gnorm), "train parity: non-finite loss")
     check(not issued, "train parity: the unsited step issued a collective")
     out = {"loss": loss, "grad_norm": gnorm}
     tag = f"train parity ({P['layers']} layers, full width, B={P['B']}, S={P['S']})"
     for name, kw in (("ref", dict(backend="ref")), ("sited", dict(sited_mesh=mesh, plan=plan))):
         other = parity_step(cfg, batch, **kw)
-        launches2, issued2 = other[4:]
+        launches2, issued2 = other["launches"], other["issued"]
         if name == "ref":
             check(launches2 == NO_LAUNCHES, "train parity: backend='ref' launched a kernel")
         else:
@@ -3216,42 +3288,137 @@ def family_train_phase(card: str, arch: str, layers, B: int, S: int, *,
     return out
 
 
-def family_train_parity(card: str, cfg) -> dict:
-    """One train step of ``cfg`` at full width and 2 layers (an audio
+def family_train_parity(card: str, cfg, layers: int = PARITY_TRAIN["layers"], *,
+                        grads_to_fp64: bool = False) -> dict:
+    """One train step of ``cfg`` at full width and ``layers`` (an audio
     model's encoder too; B = 1, S = 512, with its frames or patches)
     through the kernels, then one through ``backend="ref"`` from the same
     weights on the same batch, replaying the kernels' MoE routing
     (``layers.record_routing``), held to each other with phase 8's parity
     bounds (PARITY_TRAIN); the kernels' launches must be the code's.  The
     first step's parameters and mu wait in host memory (a second model of
-    qwen2-vl-72b's size does not fit on the card beside them)."""
+    qwen2-vl-72b's size does not fit on the card beside them).  With
+    ``grads_to_fp64`` the step's mu and grad_norm are held instead to the
+    plain versions' in fp64 (``fp64_grads_held``): where an fp32 rounding
+    anywhere moves the first layers' gradients by more than PARITY_TRAIN's
+    mu bound, two fp32 steps cannot agree within it."""
     from repro_torch.models import layers as L
 
     P = PARITY_TRAIN
-    cut = dict(num_layers=P["layers"])
+    cut = dict(num_layers=layers)
     if cfg.family == "audio":
-        cut["encoder_layers"] = P["layers"]
+        cut["encoder_layers"] = layers
     cfg = cfg.replace(**cut)
     batch = parity_batch(cfg)
     with L.record_routing() as routed:
         first = parity_step(cfg, batch)
-    first = tuple({n: a.cpu() for n, a in t.items()} for t in first[:2]) + first[2:]
-    loss, gnorm, launches = first[2:5]
+    first.update({k: {n: a.cpu() for n, a in first[k].items()} for k in ("params", "mu")})
+    loss, gnorm, launches = first["loss"], first["grad_norm"], first["launches"]
     want = expected_train_launches(cfg, 1)
     window = f", window {cfg.sliding_window}" if cfg.sliding_window else ""
     stubs = "".join(f", {k}" for k in ("frames", "patches") if k in batch)
-    tag = f"train parity {cfg.name} ({P['layers']} layers, full width, B={P['B']}, " \
+    tag = f"train parity {cfg.name} ({layers} layers, full width, B={P['B']}, " \
           f"S={P['S']}{window}{stubs}{', routing replayed' if cfg.is_moe else ''})"
     check(np.isfinite(loss) and np.isfinite(gnorm), f"{tag}: non-finite loss")
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
     with L.record_routing(routed):
         other = parity_step(cfg, batch, backend="ref")
-    check(other[4] == NO_LAUNCHES, f"{tag}: backend='ref' launched a kernel")
-    held = parity_held(tag, "ref", first, other, card)
+    check(other["launches"] == NO_LAUNCHES, f"{tag}: backend='ref' launched a kernel")
+    held = parity_held(tag, "ref", first, other, card, mu_to_fp64=grads_to_fp64)
     del first, other
     free()
-    return {"arch": cfg.name, "layers": P["layers"], "window": cfg.sliding_window,
-            "loss": loss, "grad_norm": gnorm, "launches": launches, "ref": held}
+    out = {"arch": cfg.name, "layers": layers, "window": cfg.sliding_window,
+           "loss": loss, "grad_norm": gnorm, "launches": launches, "ref": held}
+    if grads_to_fp64:
+        out["fp64"] = fp64_grads_held(tag, cfg, batch, card)
+    return out
+
+
+# the gradients and grad_norm of a parity step through the kernels against
+# those of the plain versions with the model in fp64, of each gradient's
+# max|g| and relative: fixed limits between the sound readings and a
+# control's.  At zamba2-7b's 7 layers on an H100: the kernels 1.965e-4 and
+# 2.40e-6, the fp32 plain versions 3.025e-4 and 1.02e-5; the control (the
+# kernels' step with TF32 on for cuBLAS and cuDNN) must miss them.
+PARITY_FP64 = dict(grads=1e-3, grad_norm=3e-5)
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on for cuBLAS and cuDNN (``fp64_grads_held``'s control), off
+    again after, as every phase runs."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def parity_grads(cfg, batch, *, backend=None, dtype=None) -> dict:
+    """The loss's gradients of ``cfg`` from SEED + 2's weights (the model
+    cast to ``dtype`` where given) on ``batch`` through ``backend``, remat
+    on, as ``parity_step`` takes them before AdamW: ``grads``, ``loss``,
+    ``grad_norm`` (in fp64) and the kernels' ``launches``."""
+    model = M.init_params(cfg, SEED + 2, device="cuda")
+    if dtype is not None:
+        model = model.to(dtype)
+    ops.reset_launches()
+    loss, _ = M.loss_and_metrics(cfg, model, batch, remat=True, backend=backend)
+    names, params = zip(*model.named_parameters())
+    grads = dict(zip(names, (g.detach() for g in torch.autograd.grad(loss, params))))
+    torch.cuda.synchronize()
+    gnorm = math.sqrt(sum(g.double().square().sum().item() for g in grads.values()))
+    del model, params
+    return {"grads": grads, "loss": loss.item(), "grad_norm": gnorm,
+            "launches": dict(ops.LAUNCHES)}
+
+
+def fp64_grads_held(tag: str, cfg, batch, card: str) -> dict:
+    """The gradients and grad_norm of ``cfg``'s parity step through the
+    kernels (``parity_grads``; one step's mu is 0.1 x the clipped gradient)
+    held within PARITY_FP64 to the plain versions' with the model in fp64
+    (they compute in fp64 for fp64 inputs); the fp32 plain versions' and a
+    control's distance printed beside: the kernels' step with TF32 on,
+    which must miss the limits, or they would not fail a step of lower
+    precision."""
+    want = expected_train_launches(cfg, 1)
+    exact = parity_grads(cfg, batch, backend="ref", dtype=torch.float64)
+    check(exact["launches"] == NO_LAUNCHES, f"{tag}: the fp64 plain step launched a kernel")
+    runs = {}
+    for name, kw, mode, launches in (
+            ("kernels", {}, contextlib.nullcontext, want),
+            ("plain fp32", dict(backend="ref"), contextlib.nullcontext, NO_LAUNCHES),
+            ("control, kernels with TF32 on", {}, tf32_on, want)):
+        with mode():
+            got = parity_grads(cfg, batch, **kw)
+        check(got["launches"] == launches, f"{tag} {name}: launches {got['launches']}, "
+                                           f"expected {launches}")
+        runs[name] = parity_errors(exact, got, "grads")
+        del got
+        free()
+    del exact
+    free()
+
+    def within(e):
+        return (e["grads_err_of_max"] <= PARITY_FP64["grads"]
+                and e["grad_norm_rel"] <= PARITY_FP64["grad_norm"])
+
+    say(f"{tag}, gradients against the plain versions' in fp64 (limits {PARITY_FP64['grads']} "
+        f"of max|g|, grad_norm {PARITY_FP64['grad_norm']} relative): " + "; ".join(
+            f"{name} {e['grads_err_of_max']:.3e} (at {e['grads_err_at']}), grad_norm "
+            f"{e['grad_norm_rel']:.2e}, loss {e['loss_rel']:.2e}" for name, e in runs.items())
+        + f" ({card})")
+    kern, control = runs["kernels"], runs["control, kernels with TF32 on"]
+    check(within(kern), f"{tag}: gradients {kern['grads_err_of_max']} of max|g|, grad_norm "
+                        f"{kern['grad_norm_rel']} from fp64, beyond {PARITY_FP64}")
+    check(kern["grads_zero_max"] <= kern["grads_zero_floor"],
+          f"{tag}: gradients of {kern['grads_zero_but_for_rounding']} (zero but for "
+          f"rounding) reach {kern['grads_zero_max']}")
+    check(not within(control), f"{tag}: the control (TF32 on) is within {PARITY_FP64}: "
+                               f"{control['grads_err_of_max']}, {control['grad_norm_rel']}")
+    keep = ("grads_err_of_max", "grad_norm_rel", "loss_rel")
+    return {"limits": PARITY_FP64,
+            **{name: {k: e[k] for k in keep} for name, e in runs.items()}}
 
 
 def families_train_phase(card: str) -> dict:
@@ -4052,19 +4219,20 @@ def other_placed_phase(card: str) -> dict:
         batch = parity_batch(cfg)
         with L.record_routing() as routed:
             first = parity_step(cfg, batch)
-        first = tuple({n: a.cpu() for n, a in t.items()} for t in first[:2]) + first[2:]
+        first.update({k: {n: a.cpu() for n, a in first[k].items()} for k in ("params", "mu")})
         free()
         with L.record_routing(routed):
             placed = parity_step(cfg, batch, placed=meshes)
-        sites = placement_sites(placed[5])
+        sites = placement_sites(placed["issued"])
         tag = f"placed {cfg.name} ({layers} layers, 1-rank group, B={P['B']}, S={P['S']})"
         check(not sites, f"{tag}: the placement issued {sites} on a model axis of 1")
-        check(placed[4] == first[4], f"{tag}: launches {placed[4]}, unplaced {first[4]}")
+        check(placed["launches"] == first["launches"],
+              f"{tag}: launches {placed['launches']}, unplaced {first['launches']}")
         held = parity_held(tag, "placed", first, placed, card,
-                           f"; issued {issued_summary(placed[5])}")
-        runs.append({"arch": cfg.name, "layers": layers, "loss": placed[2],
-                     "grad_norm": placed[3], "launches": placed[4], "unplaced": held,
-                     "issued": issued_summary(placed[5]),
+                           f"; issued {issued_summary(placed['issued'])}")
+        runs.append({"arch": cfg.name, "layers": layers, "loss": placed["loss"],
+                     "grad_norm": placed["grad_norm"], "launches": placed["launches"],
+                     "unplaced": held, "issued": issued_summary(placed["issued"]),
                      "seconds": time.perf_counter() - t1})
         del first, placed
         free()
@@ -4123,6 +4291,242 @@ def other_families_train_phase(card: str, other: dict) -> dict:
             "parity": parity, "seconds": seconds, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the recurrent-training slice (zamba2-7b trained on one card)
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCH = "zamba2-7b"
+# full width (d 3584, 112 SSD heads, P = N = 64, the shared block's 32 heads
+# of h = 112, d_ff 14336) cut to 13 layers: two groups of six, each with a
+# shared-block application, and one tail layer (1.49 B parameters, 22.3 GiB
+# of fp32 AdamW state); B 4 x S 2048 as phase 8
+RECURRENT_TRAIN = (RECURRENT_ARCH, 13, TRAIN_B, TRAIN_S)
+RECURRENT_PARITY_LAYERS = 7     # one group of six, the shared block, one tail layer
+# the SSD backward against fp64, of each gradient's max|g|: its products are
+# fp32 on the CUDA cores, its exponents and dcum's cancelling sums fp64 (the
+# plain backward in fp32 errs by 3e-8 to 4e-7 at 112 heads)
+SSD_GRAD_BOUND = 1e-5
+SSD_BWD_CASES = ((1, 500, False), (2, 300, True))   # B, S, with states, through SSDFn
+SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dstate0")
+
+
+def ssd_bwd_build_report(entries=None) -> dict:
+    """What ptxas reports for ``ssd_bwd.cu``: the backward kernel at its two
+    (P, N), zamba2-7b's (64, 64) and its smoke config's (128, 16), and the
+    group sum, beside the blocks per SM that shared memory and registers
+    allow; fails on a spill."""
+    lib = _build.library()
+    report = {}
+    for entry in entries if entries is not None else ptxas_report("ssd_bwd.cu"):
+        name = entry["kernel"]
+        m = re.search(r"ssd_bwd_kernelILi(\d+)ELi(\d+)EE", name)
+        if m:
+            key = f"<fp32, {m.group(1)}, {m.group(2)}>"
+            smem = lib.rt_ssd_bwd_smem_bytes(int(m.group(1)), int(m.group(2)))
+            check(smem > 0, f"ssd backward: no shared memory size for {key}")
+        elif "ssd_bwd_group_sum" in name:
+            key, smem = "group_sum", 0
+        else:
+            continue
+        regs = -(-entry["registers"] // 8) * 8     # allocated in units of 8 a thread
+        blocks = min(SM_SMEM // (smem + SM_SMEM_PER_BLOCK), SM_REGS // (regs * 256),
+                     SM_THREADS // 256)
+        report[key] = dict({k: v for k, v in entry.items() if k != "kernel"},
+                           smem_dynamic=smem, blocks_per_sm=blocks)
+        say(f"ptxas ssd backward {key}: {entry['registers']} registers, "
+            f"{entry['spill_stores']} B spill stores, {entry['spill_loads']} B spill loads, "
+            f"{entry['stack']} B stack; {smem} B of shared memory and 256 threads a block, "
+            f"so {blocks} block(s) per SM")
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"ssd backward {key} spills")
+    check(sorted(report) == ["<fp32, 128, 16>", "<fp32, 64, 64>", "group_sum"],
+          f"ptxas reported the ssd backward kernels {sorted(report)}")
+    return report
+
+
+def ssd_views(buf):
+    """x (B,S,H,P), B and C (B,S,1,N) as views of one conv buffer
+    (B, S, H·P + 2·N) at zamba2-7b's heads, as the Mamba2 block holds them."""
+    _, H, P, N = SSD_SHAPE
+    x, Bm, Cm = torch.split(buf, [H * P, N, N], dim=-1)
+    return x.unflatten(-1, (H, P)), Bm.unflatten(-1, (1, N)), Cm.unflatten(-1, (1, N))
+
+
+def ssd_bwd_inputs(gen, B: int, S: int, with_states: bool):
+    """zamba2-7b's scan inputs for one layer at B x S: the conv buffer of
+    ``ssd_views``, dt after softplus, zamba2-7b's initial A = −linspace(1,
+    16, H) (``mamba2.Block.init_weights``: cum reaches about −700 in a
+    chunk), D = 1 + 0.5·randn, and the output gradient dy; with
+    ``with_states`` also an initial state and the final state's gradient
+    (else None)."""
+    _, H, P, N = SSD_SHAPE
+    buf = randn((B, S, H * P + 2 * N), torch.float32, gen)
+    dt = torch.nn.functional.softplus(randn((B, S, H), torch.float32, gen))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    D = 1.0 + 0.5 * randn((H,), torch.float32, gen)
+    dy = randn((B, S, H, P), torch.float32, gen)
+    if not with_states:
+        return buf, (dt, A, D), None, dy, None
+    return (buf, (dt, A, D), randn((B, H, P, N), torch.float32, gen), dy,
+            randn((B, H, P, N), torch.float32, gen))
+
+
+def ssd_fp64_oracles(args, s0, dy, dse) -> tuple:
+    """The SSD's gradients (dx, ddt, dA, dB, dC, dD, dstate0) in fp64 two
+    ways: autograd of the step oracle ``ref.ssd_ref``, one batch element at
+    a time (its saved states at B = 4, S = 2048 would take 30 GB at once;
+    dA and dD are summed over the elements), with a zero initial state
+    where none is given; and the plain backward ``ref.ssd_chunked_bwd_ref``."""
+    B, _, H, P = dy.shape
+    parts = []
+    for b in range(B):
+        leaves = [a.detach().double().requires_grad_() if a.dim() == 1
+                  else a[b:b + 1].detach().double().requires_grad_() for a in args]
+        s = (torch.zeros((1, H, P, args[3].shape[-1]), dtype=torch.float64, device=dy.device)
+             if s0 is None else s0[b:b + 1].double()).requires_grad_()
+        y, st = ops.ssd(*leaves, s, backend="ref")
+        loss = (y * dy[b:b + 1].double()).sum()
+        if dse is not None:
+            loss = loss + (st * dse[b:b + 1].double()).sum()
+        parts.append(torch.autograd.grad(loss, leaves + [s]))
+        del leaves, s, y, st, loss
+    auto = tuple(sum(p[i] for p in parts) if i in (2, 5) else torch.cat([p[i] for p in parts])
+                 for i in range(7))
+    del parts
+    plain = ref.ssd_chunked_bwd_ref(*(a.double() for a in args),
+                                    None if s0 is None else s0.double(), dy.double(),
+                                    None if dse is None else dse.double())
+    return auto, plain
+
+
+def ssd_grads_held(what: str, got, args, s0, dy, dse) -> dict:
+    """``got`` (the kernel's gradients; without dstate0 where there is no
+    initial state) held within SSD_GRAD_BOUND of each gradient's max|g| to
+    both fp64 oracles (``ssd_fp64_oracles``); printed, failing the run
+    past the bound."""
+    auto, plain = ssd_fp64_oracles(args, s0, dy, dse)
+    errs = {}
+    for name, g, w1, w2 in zip(SSD_GRAD_NAMES, got, auto, plain):
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+        rel = []
+        for w in (w1, w2):
+            err, top = (g.double() - w).abs().max().item(), w.abs().max().item()
+            check(err <= SSD_GRAD_BOUND * top, f"{what}: {name} err {err} > {SSD_GRAD_BOUND} "
+                                               f"x max|g| {top}")
+            rel.append(err / top if top else 0.0)
+        errs[name] = {"max_abs_err": (g.double() - w1).abs().max().item(),
+                      "err_of_max_g_autograd": rel[0], "err_of_max_g_plain": rel[1]}
+    say(f"{what} fp32, against fp64 autograd of the step oracle / the plain backward in "
+        f"fp64, of each max|g| (bound {SSD_GRAD_BOUND}): "
+        + ", ".join(f"{n} {e['err_of_max_g_autograd']:.2e} / {e['err_of_max_g_plain']:.2e}"
+                    for n, e in errs.items()))
+    del auto, plain
+    free()
+    return errs
+
+
+def ssd_bwd_phase(gen, ptxas: dict) -> dict:
+    """The SSD backward kernel at zamba2-7b's training shape for one layer:
+    the call it times held to both fp64 oracles, then timed (device time
+    by kernel from the profiler; a call by CUDA events) beside the plain
+    version's backward (autograd of the chunked scan, fp32) and its bound;
+    at S 500 and with both state gradients through ``ops.ssd`` under grad
+    (``SSDFn``: one forward and one backward launch each), held to both."""
+    from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_cuda
+
+    B, S = TRAIN_B, TRAIN_S
+    _, H, P, N = SSD_SHAPE
+    buf, (dt, A, D), _, dy, _ = ssd_bwd_inputs(gen, B, S, False)
+    x, Bm, Cm = ssd_views(buf)
+    args = [x, dt, A, Bm, Cm, D]
+    _, _, states = ssd_cuda(*args, save_states=True)
+    got = ssd_bwd_cuda(*args, states, dy)
+    torch.cuda.synchronize()
+    what = f"ssd backward B={B} S={S} H={H} P={P} N={N} G=1 (the timed call)"
+    cases = [{"shape": [B, S, H, P, N], "groups": 1, "states": False, "timed": True,
+              "errors": ssd_grads_held(what, got, args, None, dy, None)}]
+    del got
+    free()
+
+    def call():
+        return ssd_bwd_cuda(*args, states, dy)
+
+    ms_a_call = time_ms(call, samples=10, per_sample=2)
+    split = device_ms_split(call, ("ssd_bwd_kernel", "ssd_bwd_group_sum"), calls=5)
+    ms = sum(split.values())
+    plain = backward_ms(lambda *a: ops.ssd(*a, backend="chunked")[0], args, dy, samples=3,
+                        per_sample=1)
+    nbytes, flops = _work.ssd_bwd_bytes(B, S, H, P, N, 1), _work.ssd_bwd_flops(B, S, H, P, N)
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_AS_3XTF32)
+    b_cores, by_cores = bound_ms(nbytes, flops, torch.float32)
+    say(f"ssd backward B={B} S={S} H={H} P={P} N={N} G=1 fp32: {ms:.4f} ms on the card ("
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        + f"; {ms_a_call:.4f} ms a call back to back); plain (autograd of the chunked scan) "
+        f"{plain:.4f} ms; no single library call; bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP at fp32 as 3xTF32's "
+        f"{PEAK_FLOPS[FP32_AS_3XTF32] / 1e12:.0f} TFLOP/s; {b_ms / ms:.1%} of it reached); on "
+        f"the fp32 CUDA cores it runs on, {b_cores:.4f} ms ({by_cores}, "
+        f"{b_cores / ms:.1%} of it reached)")
+    del args, buf, x, Bm, Cm, states, dy
+    free()
+
+    for Bc, Sc, with_states in SSD_BWD_CASES:
+        buf, (dt, A, D), s0, dy, dse = ssd_bwd_inputs(gen, Bc, Sc, with_states)
+        buf, dt, A, D = (t.requires_grad_() for t in (buf, dt, A, D))
+        x, Bm, Cm = ssd_views(buf)                   # the views SSDFn takes, as in training
+        s_leaf = None if s0 is None else s0.clone().requires_grad_()
+        inputs = [x, dt, A, Bm, Cm, D]
+        ops.reset_launches()
+        y, st = ops.ssd(*inputs, s_leaf)
+        loss = (y * dy).sum() + (0.0 if dse is None else (st * dse).sum())
+        got = torch.autograd.grad(loss, inputs + ([s_leaf] if s_leaf is not None else []))
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES == dict(NO_LAUNCHES, ssd=1, ssd_bwd=1),
+              f"ssd backward S={Sc}: launches {ops.LAUNCHES}")
+        what = f"ssd backward B={Bc} S={Sc} H={H} G=1 through SSDFn" + (
+            ", with an initial state and the final state's gradient" if with_states else "")
+        cases.append({"shape": [Bc, Sc, H, P, N], "groups": 1, "states": with_states,
+                      "errors": ssd_grads_held(what, got, [a.detach() for a in inputs], s0,
+                                               dy, dse)})
+        del buf, dt, A, D, x, Bm, Cm, inputs, got, y, st, loss
+        free()
+    worst = max(e["err_of_max_g_autograd"] for c in cases for e in c["errors"].values())
+    return {"name": "ssd_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+            "replaces": "src/repro/kernels/ssd.py:61", "shape": [B, S, H, P, N],
+            "groups": 1, "dtype": "float32",
+            "max_abs_err": max(e["max_abs_err"] for c in cases for e in c["errors"].values()),
+            "err_of_max_g": worst, "bound": SSD_GRAD_BOUND, "bound_of": "each gradient's max|g|",
+            "ms": ms, "ms_a_call": ms_a_call, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_ms_cuda_cores": b_cores, "library_ms": None,
+            "device_ms_by_kernel": split,
+            "ptxas": ptxas, "cases": cases}
+
+
+def recurrent_train_phase(card: str, ssd_bwd_ptxas: dict) -> dict:
+    """Phase 17: the SSD backward kernel and the flash backward at
+    zamba2-7b's training shapes; zamba2-7b trained at full width and 13
+    layers (a profile of a fourth step by kernel class); one 7-layer step
+    against ``backend="ref"``.  The two backward entries carry the trained
+    run's launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    kernels = [ssd_bwd_phase(gen, ssd_bwd_ptxas),
+               flash_bwd_variant_phase(gen, f"flash_attention_bwd ({RECURRENT_ARCH}, h = 112)",
+                                       TRAIN_B, TRAIN_S, 32, 32, 112, 0, False)]
+    trained = family_train_phase(card, *RECURRENT_TRAIN, profile=True)
+    parity = family_train_parity(card, get_config(RECURRENT_ARCH), RECURRENT_PARITY_LAYERS,
+                                 grads_to_fp64=True)
+    for k, kernel in zip(kernels, ("ssd_bwd", "flash_attention_bwd")):
+        k["launches_by_model"] = {f"{RECURRENT_ARCH} train": trained["launches"][kernel]}
+        k["launches"] = trained["launches"][kernel]
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main path")
+    seconds = time.perf_counter() - t0
+    say(f"phase 17 (the recurrent-training slice) took {seconds:.1f} s")
+    return {"kernels": kernels, "trained": trained, "parity": parity, "seconds": seconds,
+            "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -4142,14 +4546,14 @@ def main() -> int:
     # what ptxas says of each source, its nvccs all started at once beside the
     # build's
     t0 = time.perf_counter()
-    jobs = ptxas_start("flash.cu", "flash_bwd.cu", "rmsnorm.cu", "ssd.cu", "wkv6.cu",
-                       "wkv6_step.cu")
+    jobs = ptxas_start("flash.cu", "flash_bwd.cu", "rmsnorm.cu", "ssd.cu", "ssd_bwd.cu",
+                       "wkv6.cu", "wkv6_step.cu")
     try:
         _build.library()
     finally:
         found = ptxas_collect(jobs)
     say(f"build: kernels compiled with nvcc for sm_90a in {_build.BUILD_SECONDS:.1f} s "
-        f"({_build.BUILD_DIR}), beside the ptxas reports of six sources, all done in "
+        f"({_build.BUILD_DIR}), beside the ptxas reports of seven sources, all done in "
         f"{time.perf_counter() - t0:.1f} s")
     # phase 14's dry run needs no card: it runs beside the phases from here on
     dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
@@ -4170,6 +4574,7 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
     rmsnorm_fwd_ptxas = rmsnorm_fwd_build_report(found["rmsnorm.cu"])
     rmsnorm_bwd_ptxas = rmsnorm_bwd_build_report(found["rmsnorm.cu"])
     ssd_ptxas = ssd_build_report(found["ssd.cu"])
+    ssd_bwd_ptxas = ssd_bwd_build_report(found["ssd_bwd.cu"])
     wkv6_ptxas = wkv6_build_report(found["wkv6.cu"] + found["wkv6_step.cu"])
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -4191,6 +4596,8 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
     say(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
     other_train = other_families_train_phase(card, other)
     say(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+    recurrent = recurrent_train_phase(card, ssd_bwd_ptxas)
+    say(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
 
     import torch.distributed as dist
 
@@ -4240,6 +4647,7 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
     say(json.dumps({"other_families": {k: v for k, v in other.items() if k != "kernels"}}))
     say(json.dumps({"other_families_train": {k: v for k, v in other_train.items()
                                              if k not in ("kernels", "rank_kernels")}}))
+    say(json.dumps({"recurrent_train": {k: v for k, v in recurrent.items() if k != "kernels"}}))
 
     for k in kernels:       # launches on the main paths, by path and in all
         k["launches_by_model"] = {s["arch"]: s["launches"][k["name"]] for s in served}
@@ -4272,6 +4680,11 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
         # entries names (deepseek-v2-lite-16b's ln1, ln2 and ln_f at 2048)
         if k["name"] == "rmsnorm":
             k["launches_by_model"].update(other["base_rmsnorm"])
+        # phase 17's zamba2-7b training (its flash backward at h = 112 has an
+        # entry of its own, below)
+        if k["name"] in ("rmsnorm", "flash_attention", "ssd", "rmsnorm_bwd"):
+            k["launches_by_model"][f"{RECURRENT_ARCH} train"] = \
+                recurrent["trained"]["launches"][k["name"]]
         k["launches"] = sum(k["launches_by_model"].values())
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
     for k in families["kernels"]:      # phase 11's forward instantiations, trained in phase 12
@@ -4311,6 +4724,7 @@ def run_phases(card: str, t_start: float, found: dict, dry, dry_dir: str) -> int
     kernels += other["kernels"]          # phase 15's shapes, with their models' launches
     kernels += other_train["kernels"]    # phase 16's backward shapes, likewise
     kernels += other_train["rank_kernels"]   # a 1x4 rank's heads
+    kernels += recurrent["kernels"]      # the SSD backward, flash's at h = 112
     say(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

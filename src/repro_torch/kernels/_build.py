@@ -19,8 +19,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm.cu", "flash.cu", "flash_bwd.cu", "ssd.cu", "wkv6.cu", "wkv6_step.cu",
-           "runtime.cu")
+SOURCES = ("rmsnorm.cu", "flash.cu", "flash_bwd.cu", "ssd.cu", "ssd_bwd.cu", "wkv6.cu",
+           "wkv6_step.cu", "runtime.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 EXT_NAME = "repro_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
@@ -74,10 +74,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_flash_attention.restype = i
     lib.rt_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, i, p]
     lib.rt_flash_attention_bwd.restype = i
-    lib.rt_ssd.argtypes = [p] * 9 + [i] * 6 + [ll] * 6 + [i, p]
+    lib.rt_ssd.argtypes = [p] * 10 + [i] * 6 + [ll] * 6 + [i, p]
     lib.rt_ssd.restype = i
     lib.rt_ssd_smem_bytes.argtypes = [i, i]
     lib.rt_ssd_smem_bytes.restype = i
+    lib.rt_ssd_bwd.argtypes = [p] * 18 + [i] * 6 + [ll] * 6 + [i, p]
+    lib.rt_ssd_bwd.restype = i
+    lib.rt_ssd_bwd_smem_bytes.argtypes = [i, i]
+    lib.rt_ssd_bwd_smem_bytes.restype = i
     lib.rt_wkv6.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.rt_wkv6.restype = i
     lib.rt_wkv6_smem_bytes.argtypes = [i, i]

@@ -48,7 +48,12 @@
 //     units go to the warps with the fewest causal tiles, so that the four
 //     warps finish together (warp 3 has four times warp 0's causal tiles);
 //   * cum is a shuffle scan that every warp runs for itself; a lane fetches
-//     the cum and w it needs by shuffle, so there is no scan phase;
+//     the cum and w it needs by shuffle, so there is no scan phase.  The
+//     scan is in fp64 and every exponent is a difference taken in fp64
+//     before it is rounded to fp32 for exp2: in fp32 a difference of two
+//     running sums keeps only their absolute rounding, and at zamba2-7b's
+//     decays (A down to −16, cum down to about −1000 in log2 units in a
+//     chunk) the decay between neighbouring rows erred by up to 4e-5;
 //   * the split (common.cuh) rounds with an integer add and mask, as
 //     cvt.rna.tf32 rounds a finite x: sm_90 emulates cvt.rna in five
 //     instructions;
@@ -61,6 +66,12 @@
 //     distinct banks.  At P = N = 64 a block takes 115,200 B, and two blocks
 //     (8 warps) fit an SM;
 //   * bf16 inputs are converted to fp32 by plain loads.
+//
+// For the backward (csrc/ssd_bwd.cu) the chunked kernel also writes each
+// chunk's start state to hc (B, H, nchunks, P, N) fp32 where hc is not
+// null, as flash.cu writes lse: one copy of the state a chunk, between the
+// chunk's first barrier and its state update (a block-uniform branch on a
+// kernel argument; nothing else changes).
 //
 // Decode (S == 1) takes its own kernel: h' = e^{dt A} h + dt x_p B,
 // y_p = C . h' + D x_p, where the work is reading and writing the state
@@ -228,9 +239,9 @@ __global__ void __launch_bounds__(THREADS)
 ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bm,
                const T* __restrict__ Cm, const float* __restrict__ D,
-               const float* s0, T* __restrict__ y, float* sf, int S, int H,
-               int heads_per_group, long long sxb, long long sxs, long long sbb,
-               long long sbs, long long scb, long long scs) {
+               const float* s0, T* __restrict__ y, float* sf, float* __restrict__ hc,
+               int S, int H, int heads_per_group, long long sxb, long long sxs,
+               long long sbb, long long sbs, long long scb, long long scs) {
   static_assert(P % 16 == 0 && N % 8 == 0 && N >= 16, "P, N: multiples of 16");
   using L = Layout<P, N>;
   constexpr int NT = N / 8;            // 8-wide tiles of n
@@ -275,33 +286,41 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     cp_async_wait<0>();
     __syncthreads();   // chunk ci visible; chunk ci-1 consumed; the state updated
     if (L::NBUF == 2 && ci + 1 < nchunks) in.load(smem + ((ci + 1) & 1) * L::BUF, ci + 1);
+    if (hc) {                                  // this chunk's start state, for the backward
+      float4* dst = reinterpret_cast<float4*>(hc + (bh * nchunks + ci) * P * N);
+      for (int e = threadIdx.x; e < P * N / 4; e += THREADS) {
+        const int r = e / (N / 4), c = (e % (N / 4)) * 4;
+        dst[e] = *reinterpret_cast<const float4*>(Hs + swz<N>(r, c));
+      }
+    }
     const float* Xs = smem + (L::NBUF == 2 ? (ci & 1) * L::BUF : 0);
     const float* Bs = Xs + L::X;
     const float* Cs = Bs + L::BC;
     const float* dts = Cs + L::BC;
 
-    // cum (log2 units) at rows 2 lane and 2 lane + 1, and the state weights
+    // cum (log2 units, fp64) at rows 2 lane and 2 lane + 1, and the state
+    // weights
     const float2 dtl = *reinterpret_cast<const float2*>(dts + 2 * lane);
-    const float l0 = dtl.x * a_log2, l1 = dtl.y * a_log2;
-    float incl = l0 + l1;
+    const double l0 = dtl.x * a_log2, l1 = dtl.y * a_log2;
+    double incl = l0 + l1;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float v = __shfl_up_sync(kFull, incl, o);
+      const double v = __shfl_up_sync(kFull, incl, o);
       if (lane >= o) incl += v;
     }
-    const float cum_lo = incl - l1, cum_hi = incl;
-    const float cum_end = __shfl_sync(kFull, incl, 31);
-    const float w_lo = exp2f(cum_end - cum_lo) * dtl.x;
-    const float w_hi = exp2f(cum_end - cum_hi) * dtl.y;
+    const double cum_lo = incl - l1, cum_hi = incl;
+    const double cum_end = __shfl_sync(kFull, incl, 31);
+    const float w_lo = exp2f(static_cast<float>(cum_end - cum_lo)) * dtl.x;
+    const float w_hi = exp2f(static_cast<float>(cum_end - cum_hi)) * dtl.y;
 
     // phase 1: y = (C h0ᵀ) e^{cum_t}, the only reader of the old state
     const bool rows = 16 * warp < qn;          // warp-uniform
     // cum at rows t0 and t1 (one parity): every lane shuffles, then selects
-    const float lo0 = __shfl_sync(kFull, cum_lo, t0 >> 1);
-    const float hi0 = __shfl_sync(kFull, cum_hi, t0 >> 1);
-    const float lo1 = __shfl_sync(kFull, cum_lo, t1 >> 1);
-    const float hi1 = __shfl_sync(kFull, cum_hi, t1 >> 1);
-    const float ct0 = (g & 1) ? hi0 : lo0, ct1 = (g & 1) ? hi1 : lo1;
+    const double lo0 = __shfl_sync(kFull, cum_lo, t0 >> 1);
+    const double hi0 = __shfl_sync(kFull, cum_hi, t0 >> 1);
+    const double lo1 = __shfl_sync(kFull, cum_lo, t1 >> 1);
+    const double hi1 = __shfl_sync(kFull, cum_hi, t1 >> 1);
+    const double ct0 = (g & 1) ? hi0 : lo0, ct1 = (g & 1) ? hi1 : lo1;
     uint32_t c_big[NT][4], c_small[NT][4];     // this warp's rows of C, split once:
     float ya[PT][4];                           // the A fragments of C·h0ᵀ and C·Bᵀ
     if (rows) {
@@ -329,7 +348,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
     // phase 2: the causal part, y out, and this warp's units of the new state
     if (rows) {
-      const float e0 = exp2f(ct0), e1 = exp2f(ct1);
+      const float e0 = exp2f(static_cast<float>(ct0)), e1 = exp2f(static_cast<float>(ct1));
 #pragma unroll
       for (int j = 0; j < PT; ++j) {
         ya[j][0] *= e0;
@@ -365,8 +384,8 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int j = 2 * jp + i;
-          const float cs0 = __shfl_sync(kFull, cum_lo, 4 * j + tq);
-          const float cs1 = __shfl_sync(kFull, cum_hi, 4 * j + tq);
+          const double cs0 = __shfl_sync(kFull, cum_lo, 4 * j + tq);
+          const double cs1 = __shfl_sync(kFull, cum_hi, 4 * j + tq);
           const int s = 8 * j + 2 * tq;
           const float2 dtv = *reinterpret_cast<const float2*>(dts + s);
           float gs[4];
@@ -376,10 +395,12 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
             for (int c = 1; c < KC; ++c) gs[e] += gpart[c][i][e];
           }
-          const float g00 = s <= t0 ? gs[0] * exp2f(ct0 - cs0) * dtv.x : 0.f;
-          const float g01 = s + 1 <= t0 ? gs[1] * exp2f(ct0 - cs1) * dtv.y : 0.f;
-          const float g10 = s <= t1 ? gs[2] * exp2f(ct1 - cs0) * dtv.x : 0.f;
-          const float g11 = s + 1 <= t1 ? gs[3] * exp2f(ct1 - cs1) * dtv.y : 0.f;
+          const float g00 = s <= t0 ? gs[0] * exp2f(static_cast<float>(ct0 - cs0)) * dtv.x : 0.f;
+          const float g01 = s + 1 <= t0 ? gs[1] * exp2f(static_cast<float>(ct0 - cs1)) * dtv.y
+                                        : 0.f;
+          const float g10 = s <= t1 ? gs[2] * exp2f(static_cast<float>(ct1 - cs0)) * dtv.x : 0.f;
+          const float g11 = s + 1 <= t1 ? gs[3] * exp2f(static_cast<float>(ct1 - cs1)) * dtv.y
+                                        : 0.f;
           uint32_t a_big[4], a_small[4];
           split4(g00, g10, g01, g11, a_big, a_small);
           float2 b[PT];
@@ -409,7 +430,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
     // h = e^{cum_end} h + (w x)ᵀ B on this warp's units, k over s as in G x
     // (rows past the chunk's are zeros: w = 0 there); a warp-uniform loop
-    const float decay = exp2f(cum_end);
+    const float decay = exp2f(static_cast<float>(cum_end));
     for (int u = u_lo; u < u_hi; ++u) {
       const int m = u / SU::PER_ROW, nt0 = (u % SU::PER_ROW) * SU::UW;
       const int p0 = 16 * m + g, p1 = p0 + 8;
@@ -521,7 +542,7 @@ ssd_step_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 struct Args {
   const void* x; const float* dt; const float* A; const void* Bm; const void* Cm;
-  const float* D; const float* s0; void* y; float* sf;
+  const float* D; const float* s0; void* y; float* sf; float* hc;
   int B, S, H, G, P, N;
   long long sxb, sxs, sbb, sbs, scb, scs;
 };
@@ -538,7 +559,7 @@ int launch_fwd(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(a.H, a.B), THREADS, smem, stream>>>(
       static_cast<const T*>(a.x), a.dt, a.A, static_cast<const T*>(a.Bm),
-      static_cast<const T*>(a.Cm), a.D, a.s0, static_cast<T*>(a.y), a.sf, a.S, a.H,
+      static_cast<const T*>(a.Cm), a.D, a.s0, static_cast<T*>(a.y), a.sf, a.hc, a.S, a.H,
       a.H / a.G, a.sxb, a.sxs, a.sbb, a.sbs, a.scb, a.scs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -609,18 +630,22 @@ extern "C" int rt_ssd_smem_bytes(int P, int N) {
 // aligned); dt (B, S, H), A, D (H,), s0 (may be null: zeros) and
 // sf (B, H, P, N) fp32 and contiguous, s0 and sf 16-byte aligned; sf may be
 // s0.  y (B, S, H, P) contiguous.  S == 1 runs the decode kernel, S > 1 the
-// chunked one.  Returns a cudaError_t, or RT_UNSUPPORTED for what the
-// kernels do not take (P or N outside {16, 32, 64, 128}, G not dividing H,
-// another dtype, a grid dimension over its limit).
+// chunked one, which also writes each chunk's start state to hc (B, H,
+// ceil(S / 64), P, N) fp32, contiguous and 16-byte aligned, where hc is not
+// null (the decode kernel does not: at S == 1 that state is s0).  Returns a
+// cudaError_t, or RT_UNSUPPORTED for what the kernels do not take (P or N
+// outside {16, 32, 64, 128}, G not dividing H, another dtype, a grid
+// dimension over its limit).
 extern "C" int rt_ssd(const void* x, const void* dt, const void* A, const void* Bm,
                       const void* Cm, const void* D, const void* s0, void* y, void* sf,
-                      int B, int S, int H, int G, int P, int N, long long sxb,
+                      void* hc, int B, int S, int H, int G, int P, int N, long long sxb,
                       long long sxs, long long sbb, long long sbs, long long scb,
                       long long scs, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B > 65535) return RT_UNSUPPORTED;
   const Args a{x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm, Cm,
                static_cast<const float*>(D), static_cast<const float*>(s0), y,
-               static_cast<float*>(sf), B, S, H, G, P, N, sxb, sxs, sbb, sbs, scb, scs};
+               static_cast<float*>(sf), static_cast<float*>(hc), B, S, H, G, P, N,
+               sxb, sxs, sbb, sbs, scb, scs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case RT_F32: return launch_pn<float>(a, s);

@@ -15,11 +15,15 @@ the reference's S == 1 route to the step oracle applies to CPU tensors
 only, and the kernels take any S (rows past S count as absent), so
 nothing is padded.
 
-Training: with grad enabled and an input that needs a gradient, RMSNorm
-and flash attention on CUDA tensors go through ``RMSNormFn`` and
-``FlashAttentionFn``, whose backward launches the backward kernels
-(``rmsnorm_bwd`` and ``flash_attention_bwd``); the plain versions are
-differentiated by autograd.  The scans are forward-only: their kernels
+Training: with grad enabled and an input that needs a gradient, RMSNorm,
+flash attention and the SSD scan on CUDA tensors go through
+``RMSNormFn``, ``FlashAttentionFn`` and ``SSDFn``, whose backward launches
+the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd`` and
+``ssd_bwd``); the plain versions are differentiated by autograd, the
+chunked SSD on CPU tensors included.  ``SSDFn`` takes no ``out_state``
+(a state written in place breaks autograd) and, as its backward kernel,
+fp32 and the (P, N) that ``kernels.ssd.BWD_DIMS`` lists, raising before
+any launch otherwise.  WKV6 is still forward-only on the card: its kernels
 refuse inputs that need a gradient.
 
 Fake tensors (``torch._subclasses.fake_tensor.FakeTensor``, the dry run's,
@@ -27,9 +31,9 @@ Fake tensors (``torch._subclasses.fake_tensor.FakeTensor``, the dry run's,
 whatever their device: each kernel's call returns empty outputs of the
 kernel's shapes and dtypes (lse and the scans' states included), with no
 launch and no build, and adds the call's operations (``kernels.work``) to
-``FAKE_FLOPS``.  Under grad the route runs through ``RMSNormFn`` and
-``FlashAttentionFn`` as the card's does, so the dry run saves for the
-backward what the card saves.  It is not a fallback: a real CUDA tensor
+``FAKE_FLOPS``.  Under grad the route runs through ``RMSNormFn``,
+``FlashAttentionFn`` and ``SSDFn`` as the card's does, so the dry run saves
+for the backward what the card saves.  It is not a fallback: a real CUDA tensor
 launches the kernel, and a CPU tensor takes the plain version.
 
 There is no fallback: ``"cuda"`` on a CPU tensor raises, and a build or
@@ -54,13 +58,13 @@ from repro_torch.kernels import ref as _ref, work as _work
 from repro_torch.kernels.flash import (check_window_alibi, flash_attention_bwd_cuda,
                                       flash_attention_cuda)
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
-from repro_torch.kernels.ssd import ssd_cuda
+from repro_torch.kernels.ssd import check_bwd as check_ssd_bwd, n_chunks, ssd_bwd_cuda, ssd_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
 BACKENDS = ("ref", "cuda")
 SCAN_BACKENDS = ("ref", "chunked", "cuda")
 LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bwd": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "ssd_bwd": 0}
 
 
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
@@ -173,6 +177,60 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class SSDFn(torch.autograd.Function):
+    """The SSD scan through the CUDA kernels: ``rt_ssd`` forward, which also
+    writes each chunk's start state, and ``rt_ssd_bwd`` backward from those
+    states (``csrc/ssd_bwd.cu``).  The initial state's gradient and the
+    final state's are the two ends of the backward's reverse walk over dh,
+    so both come at no cost.  Returns (y, final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, state, chunk):
+        check_ssd_bwd(x, Bm)                  # what the backward refuses, before any launch
+        y, st, hc = _ssd_kernel(x, dt, A, Bm, Cm, D, state, chunk=chunk, save_states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, hc)
+        ctx.has_state, ctx.chunk = state is not None, chunk
+        ctx.set_materialize_grads(False)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, D, hc = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if is_fake(x):
+            B, S, H, P = x.shape
+            FAKE_FLOPS["ssd_bwd"] += _work.ssd_bwd_flops(B, S, H, P, Bm.shape[-1])
+            ds0 = hc.new_empty((B, H, P, Bm.shape[-1])) if ctx.has_state else None
+            return (*(torch.empty_like(t) for t in (x, dt, A, Bm, Cm, D)), ds0, None)
+        dx, ddt, dA, dB, dC, dD, ds0 = ssd_bwd_cuda(x, dt, A, Bm, Cm, D, hc, dy.contiguous(),
+                                                    dstate, chunk=ctx.chunk)
+        LAUNCHES["ssd_bwd"] += 1
+        return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, dD.to(D.dtype),
+                ds0 if ctx.has_state else None, None)
+
+
+def _ssd_kernel(x, dt, A, Bm, Cm, D, state, *, chunk, out_state=None, save_states=False):
+    """The forward kernel's call (y and the final state, and with
+    ``save_states`` the chunks' start states), or on a fake tensor empty
+    outputs of those shapes."""
+    if is_fake(x):
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        FAKE_FLOPS["ssd"] += _work.ssd_flops(B, S, H, P, N)
+        st = out_state if out_state is not None else torch.empty(
+            (B, H, P, N), dtype=torch.float32, device=x.device)
+        y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+        if not save_states:
+            return y, st
+        return y, st, torch.empty((B, H, n_chunks(S), P, N), dtype=torch.float32,
+                                  device=x.device)
+    out = ssd_cuda(x, dt, A, Bm, Cm, D, state, out_state=out_state, chunk=chunk,
+                   save_states=save_states)
+    LAUNCHES["ssd"] += 1
+    return out
+
+
 def _rmsnorm_kernel(x, scale, eps):
     """The forward kernel's call, or on a fake tensor its empty output."""
     if is_fake(x):
@@ -273,19 +331,17 @@ def ssd(x, dt, A, Bm, Cm, D, state=None, *, backend: Optional[str] = None, chunk
     head-expanded layout); state (B,H,P,N) fp32 or None -> y (B,S,H,P),
     final state (B,H,P,N) fp32.  x, Bm and Cm may be strided views (the
     kernel reads them in place).  With ``out_state`` the final state is
-    written there, which may be ``state`` itself, and returned."""
+    written there, which may be ``state`` itself, and returned.  Under grad
+    (an input that needs a gradient) CUDA tensors take ``SSDFn``, which
+    takes no ``out_state``."""
     b = _scan_backend(x, backend)
-    if b == "fake":
-        B, S, H, P = x.shape
-        N = Bm.shape[-1]
-        FAKE_FLOPS["ssd"] += _work.ssd_flops(B, S, H, P, N)
-        st = out_state if out_state is not None else torch.empty(
-            (B, H, P, N), dtype=torch.float32, device=x.device)
-        return torch.empty((B, S, H, P), dtype=x.dtype, device=x.device), st
-    if b == "cuda":
-        y, st = ssd_cuda(x, dt, A, Bm, Cm, D, state, out_state=out_state, chunk=chunk)
-        LAUNCHES["ssd"] += 1
-        return y, st
+    if b in ("cuda", "fake"):
+        if _needs_grad(*(t for t in (x, dt, A, Bm, Cm, D, state) if t is not None)):
+            if out_state is not None:
+                raise ValueError("ops.ssd under grad takes no out_state: a state written in "
+                                 "place breaks autograd")
+            return SSDFn.apply(x, dt, A, Bm, Cm, D, state, chunk)
+        return _ssd_kernel(x, dt, A, Bm, Cm, D, state, chunk=chunk, out_state=out_state)
     H, G = x.shape[2], Bm.shape[2]
     if H % G:
         raise ValueError(f"{G} groups do not divide {H} heads")

@@ -263,3 +263,113 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, state=None, *, chunk: int = 64):
         h = torch.exp(cum_end)[..., None, None] * h + torch.einsum("bqh,bqhp,bqhn->bhpn", w, xq, Bq)
         ys.append(y)
     return torch.cat(ys, dim=1).to(x.dtype), h
+
+
+def ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D, state, dy, dstate_end, *, chunk: int = 64):
+    """The backward of the SSD scan, by the algorithm of ``csrc/ssd_bwd.cu``:
+    the chunks' start states from a forward walk, then chunk by chunk in
+    reverse with dh, the gradient of the chunk's end state, carried from
+    ``dstate_end`` (or zeros) back to the first chunk.  x, dy (B,S,H,P);
+    dt (B,S,H); A, D (H,); Bm, Cm (B,S,G,N) per group, G dividing H; state,
+    dstate_end (B,H,P,N) or None; any S (padded to a chunk multiple with
+    dt = 0 rows, which change nothing).  Computes in fp32, or fp64 for fp64
+    x.  Returns (dx, ddt, dA, dBm, dCm, dD, dstate0), each in its input's
+    dtype (dstate0 in the computing dtype).
+
+    Per (b, h) and chunk, with a_t = dt_t A, cum its inclusive cumsum,
+    u_s = dt_s x_s, L[t,s] = e^{cum_t − cum_s} (s ≤ t), h0 the chunk's start
+    state and dh the gradient of its end state:
+      dh0   = Σ_t e^{cum_t} dy_t ⊗ C_t + e^{cum_end} dh        (the next dh)
+      dC_t  = e^{cum_t} h0ᵀ dy_t + Σ_{s≤t} L[t,s] (dy_t·u_s) B_s
+      dB_s  = Σ_{t≥s} L[t,s] (dy_t·u_s) C_t + e^{cum_end − cum_s} dhᵀ u_s
+      du_s  = Σ_{t≥s} L[t,s] (C_t·B_s) dy_t + e^{cum_end − cum_s} dh B_s
+      dx_s  = dt_s du_s + D dy_s;   ddt_s = x_s·du_s + A da_s
+      dD    = Σ dy·x;   dA = Σ dt da
+    where da is the reverse in-chunk cumsum of dcum, which collects the
+    derivative of every e^{…} above: + at t and − at s for L[t,s]; + at
+    cum_end and − at s for e^{cum_end − cum_s}; + at t for e^{cum_t}; + at
+    cum_end for e^{cum_end}.  dB and dC are summed over each group's heads.
+
+    cum is summed in fp64, as the CUDA kernels sum it, and each exponent is
+    a difference taken in fp64 before it is rounded: in fp32 a difference
+    of two running sums keeps only their absolute rounding, and at
+    zamba2-7b's decays (A down to −16, cum down to about −700 in a chunk)
+    e^{cum_t − cum_s} of neighbouring rows erred by up to 4e-5.  dcum, da,
+    dA and dD are summed in fp64 too, as the kernel sums them: their terms
+    cancel, and in fp32 dA erred by 7.5e-6 of max|dA| at those decays."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    if H % G:
+        raise ValueError(f"{G} groups do not divide {H} heads")
+    Q, acc = chunk, _acc(x)
+    pad = (-S) % Q
+
+    def prep(a, expand=False):
+        a = a.to(acc)
+        if expand:
+            a = a.repeat_interleave(H // G, dim=2)
+        return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) if pad else a
+
+    xf, dtf, dyf = prep(x), prep(dt), prep(dy)
+    Bf, Cf = prep(Bm, True), prep(Cm, True)
+    Af, Df = A.to(acc), D.to(acc)
+    nC = xf.shape[1] // Q
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, :, :, None]
+
+    def chunk_of(c):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq, dtq, Bq, Cq = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum((dtq * Af).double(), dim=1)                 # (B,Q,H), fp64
+        return sl, xq, dtq, Bq, Cq, cum, cum[:, -1]
+
+    def exp(a):                          # e^a of an fp64 exponent, in the computing dtype
+        return torch.exp(a.to(acc))
+
+    h = _state(state, (Bsz, H, P, N), x.device, acc)
+    starts = []
+    for c in range(nC):                   # the forward walk: each chunk's start state
+        starts.append(h)
+        _, xq, dtq, Bq, _, cum, cum_end = chunk_of(c)
+        w = exp(cum_end[:, None] - cum) * dtq
+        h = exp(cum_end)[..., None, None] * h + torch.einsum("bqh,bqhp,bqhn->bhpn", w, xq, Bq)
+
+    dh = _state(dstate_end, (Bsz, H, P, N), x.device, acc)
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA = torch.zeros_like(Af, dtype=torch.float64)
+    for c in reversed(range(nC)):
+        sl, xq, dtq, Bq, Cq, cum, cum_end = chunk_of(c)
+        dyq, h0 = dyf[:, sl], starts[c]
+        uq = dtq[..., None] * xq
+        Lm = torch.where(mask, exp(torch.where(mask, cum[:, :, None] - cum[:, None], 0.0)),
+                         0.0)                                          # (B,Q(t),Q(s),H)
+        CB = torch.einsum("bthn,bshn->btsh", Cq, Bq)
+        M1 = Lm * torch.einsum("bthp,bshp->btsh", dyq, uq)             # L (dy_t·u_s)
+        M2 = Lm * CB                                                   # L (C_t·B_s)
+        ec = exp(cum)                                                  # e^{cum_t}
+        ee = exp(cum_end[:, None] - cum)                               # e^{cum_end − cum_s}
+        dC_inter = ec[..., None] * torch.einsum("bthp,bhpn->bthn", dyq, h0)
+        dC[:, sl] = dC_inter + torch.einsum("btsh,bshn->bthn", M1, Bq)
+        dB[:, sl] = (torch.einsum("btsh,bthn->bshn", M1, Cq)
+                     + ee[..., None] * torch.einsum("bshp,bhpn->bshn", uq, dh))
+        du_state = ee[..., None] * torch.einsum("bshn,bhpn->bshp", Bq, dh)
+        du = torch.einsum("btsh,bthp->bshp", M2, dyq) + du_state
+        dx[:, sl] = dtq[..., None] * du + Df[None, None, :, None] * dyq
+        v = (M1 * CB).double()                                         # dcum's terms in fp64
+        w_state = torch.einsum("bshp,bshp->bsh", uq.double(), du_state.double())
+        dcum = (v.sum(2) - v.sum(1)
+                + torch.einsum("bthn,bthn->bth", Cq.double(), dC_inter.double()) - w_state)
+        dcum[:, -1] += (exp(cum_end).double()
+                        * torch.einsum("bhpn,bhpn->bh", dh.double(), h0.double())
+                        + w_state.sum(1))
+        da = dcum.flip(1).cumsum(1).flip(1)                            # Σ_{t ≥ s} dcum_t
+        ddt[:, sl] = (torch.einsum("bshp,bshp->bsh", xq, du) + Af * da).to(acc)
+        dA = dA + torch.einsum("bsh,bsh->h", dtq.double(), da)
+        dh = exp(cum_end)[..., None, None] * dh + torch.einsum("bth,bthp,bthn->bhpn", ec, dyq, Cq)
+    dD = torch.einsum("bshp,bshp->h", dyf.double(), xf.double())
+
+    def grouped(a):
+        return a[:, :S].unflatten(2, (G, H // G)).sum(3)
+
+    return (dx[:, :S].to(x.dtype), ddt[:, :S].to(dt.dtype), dA.to(A.dtype),
+            grouped(dB).to(Bm.dtype), grouped(dC).to(Cm.dtype), dD.to(D.dtype), dh)

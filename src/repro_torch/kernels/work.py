@@ -59,6 +59,34 @@ def ssd_flops(B: int, S: int, H: int, P: int, N: int) -> int:
     return B * H * flops
 
 
+def ssd_bwd_flops(B: int, S: int, H: int, P: int, N: int) -> int:
+    """One SSD backward call (``csrc/ssd_bwd.cu``) over the causal pairs
+    s <= t its rows have: C Bᵀ and dy xᵀ, L and M1, M2 on them (an exp, a
+    subtraction and six multiplies or adds a pair), the three products
+    with M1 and M2 (dC, dB and du, intra-chunk), the four with the states
+    (dC's e^{cum} dy h0, dB's and du's with dh, the next dh), their row
+    scalings and dot products, dx, ddt, dD and the scan of dcum."""
+    flops = 0
+    for q in _chunk_rows(S, 64):
+        pairs = q * (q + 1) // 2
+        flops += 2 * pairs * (N + P) + 8 * pairs      # C Bᵀ, dy xᵀ; L, M1, M2, dcum
+        flops += 2 * pairs * (2 * N + P)              # M1 B, M1ᵀ C, M2ᵀ dy
+        flops += 8 * q * P * N + 4 * P * N            # the four state products; dh's decay, dh·h0
+        flops += q * (4 * N + 11 * P + 10)            # scalings, dots, dx, dD, ddt, the scan
+    return B * H * flops
+
+
+def ssd_bwd_bytes(B: int, S: int, H: int, P: int, N: int, G: int, *,
+                  dstate_end: bool = False) -> int:
+    """The bytes one SSD backward call must move, each input read once and
+    each output written once, in fp32: x, dy, dx (B,S,H,P); B, C, dB, dC at
+    their G groups; dt, ddt; A, D, dA, dD; the chunks' start states the
+    forward saved; dstate_end where given, and dstate0."""
+    chunks = len(_chunk_rows(S, 64))
+    return 4 * (3 * B * S * H * P + 4 * B * S * G * N + 2 * B * S * H + 4 * H
+                + B * H * chunks * P * N + B * H * P * N * (2 if dstate_end else 1))
+
+
 def wkv6_flops(B: int, S: int, H: int, K: int, V: int) -> int:
     """One WKV6 call: the off-diagonal A[t][s] over s < t (a subtraction, an
     exp, two multiplies and an add per channel), its diagonal, the decays

@@ -13,7 +13,9 @@ stablelm-3b, h2o-danube-1.8b: parallel block, GELU, ALiBi, LayerNorm,
 a sliding window), the MoE models (olmoe-1b-7b, deepseek-moe-16b,
 qwen2-moe-a2.7b) and the other families (whisper-small,
 deepseek-v2-lite-16b's MLA, qwen2-vl-72b's M-RoPE), on one process or
-under ``--mesh``; the loss adds
+under ``--mesh``, and the hybrid zamba2-7b on one process (its placement
+and rwkv6-1.6b's training raise ``NotImplementedError`` naming their
+ROADMAP items); the loss adds
 ``router_aux_coef`` times the routers' load-balancing loss, printed as
 ``aux``.  An audio model's every batch carries the stub frames that the
 reference's ``data.pipeline.make_batch`` draws (``data.pipeline.
@@ -134,6 +136,7 @@ def _train_on_mesh(cfg, tcfg, data, args):
     """``args.steps`` steps on the (data, model) mesh; returns (model,
     losses, step seconds)."""
     shape = mesh_shape(args.mesh)
+    M.check_placement(cfg)          # before any process group is started
     dev = _init_distributed(args.device)
     meshes = make_mesh(shape, ("data", "model"))
     data_m, model_m = meshes["data"], meshes["model"]

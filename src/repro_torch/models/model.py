@@ -30,10 +30,12 @@ no card raises.  The weights are random, drawn on the target device from a
 times the routers' load-balancing loss) trains the dense, moe (MLA
 included) and vlm families, which share the trunk of ``models.dense``,
 and the audio family (``models.whisper``: the tied embedding's gradient
-sums the lookup's and the head's, ``dec_pos`` gets the rows below S);
-the recurrent families are forward-only (their scan kernels have no
-backward).  ``shard_`` places every family that trains: dense, moe (MLA
-included), vlm (M-RoPE) and audio (learned positions).
+sums the lookup's and the head's, ``dec_pos`` gets the rows below S),
+and the hybrid family (``models.zamba2``, its SSD scan through
+``ops.SSDFn`` on the card); ssm (rwkv6) trains only once WKV6 has a
+backward (``WKV6_BACKWARD``).  ``shard_`` places the dense, moe (MLA
+included), vlm (M-RoPE) and audio (learned positions) families; the two
+recurrent trunks raise (``RECURRENT_PLACEMENT``).
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ Caches = Dict[str, object]
 
 _TRUNKS = {"dense": dense, "moe": dense, "vlm": dense, "ssm": rwkv6, "hybrid": zamba2,
            "audio": whisper}
-RECURRENT_TRAINING = "the recurrent-training slice (ROADMAP.md, queue 1)"
+WKV6_BACKWARD = "the WKV6 backward (ROADMAP.md, queue 1 item 14.2)"
+RECURRENT_PLACEMENT = "placing the recurrent trunks (ROADMAP.md, queue 1 item 14.3)"
 PLACEMENT = "the rest of the placements (ROADMAP.md, queue 1 item 8)"
 DECODER = dense.FAMILIES         # the families of ``models.dense``'s trunk
 N_PATCHES = 256                  # the vlm stub: one 16x16 image at the sequence head
@@ -99,10 +102,15 @@ def shard_(cfg, model: "Model", mesh) -> "Model":
     return _placed(model, place)
 
 
-def _placement(cfg, model: Model, mesh) -> sharding.Placement:
+def check_placement(cfg) -> None:
+    """Raise for a family that cannot be placed yet, naming its item."""
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"training the {cfg.family!r} family on a mesh "
-                                  f"arrives with {RECURRENT_TRAINING}")
+                                  f"arrives with {RECURRENT_PLACEMENT}")
+
+
+def _placement(cfg, model: Model, mesh) -> sharding.Placement:
+    check_placement(cfg)
     return sharding.place(reference_layout(cfg, model), mesh, heads=sharding.heads_of(cfg))
 
 
@@ -228,7 +236,7 @@ def _check_pipeline(cfg) -> None:
     if cfg.family == "dense" and not cfg.is_moe:
         return
     later = {"moe": "the MoE follow-ups (ROADMAP.md, queue 1 item 11)",
-             "ssm": RECURRENT_TRAINING, "hybrid": RECURRENT_TRAINING}
+             "ssm": RECURRENT_PLACEMENT, "hybrid": RECURRENT_PLACEMENT}
     raise NotImplementedError(f"a pipeline of the {cfg.family!r} family arrives with "
                               + later.get(cfg.family, PLACEMENT))
 
@@ -412,10 +420,12 @@ def _trunk_fwd(cfg, p: Model, x, positions, tc, *, backend, mesh, shards, remat=
         return dense.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, mesh=mesh,
                                shards=shards, remat=remat, gather=_layer_gather(p),
                                data=data, route_rows=route_rows)
+    # as in the reference, the recurrent families ignore ``mesh``
+    if cfg.family == "hybrid":
+        return zamba2.trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend, remat=remat)
     if remat:
         raise NotImplementedError(f"remat of the {cfg.family!r} trunk arrives with "
-                                  f"{RECURRENT_TRAINING}")
-    # as in the reference, the recurrent families ignore ``mesh``
+                                  f"{WKV6_BACKWARD}")
     return _trunk(cfg).trunk_fwd(p.trunk, cfg, x, positions, tc, backend=backend)
 
 

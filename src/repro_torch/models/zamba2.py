@@ -13,13 +13,20 @@ as nested ``nn.ModuleList``s (state-dict keys ``groups.{g}.{j}.*``,
 ``app_in.{g}.*``, ``tail.{t}.*``, ``shared.*``) and loops.  The caches keep
 the reference's stacked layout: each mamba layer's conv carry and SSD
 state, and one KV cache per shared-block application (one ``pos`` for all).
+
+Training: ``trunk_fwd(remat=True)`` checkpoints each Mamba layer
+(``torch.utils.checkpoint``, non-reentrant) and not the shared block, as
+the reference's ``jax.checkpoint`` does, so the backward recomputes a Mamba
+layer from its input (its SSD scan and RMSNorms run again).
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
@@ -100,12 +107,20 @@ def _shared_block_fwd(shared: SharedBlock, app_in: nn.Linear, cfg, x, x0, positi
     return x + h, new_cache
 
 
-def _mamba_stack(layers, cfg, x, seg, index, *, backend=None):
+def _mamba_stack(layers, cfg, x, seg, index, *, backend=None, remat=False):
     """Run ``layers`` in order; ``seg`` is the stacked cache of this stack
     (leading axes ``index`` + the layer) or None.  Each layer's new conv carry
     is written into its slice of ``seg``; its SSD state already is that slice
-    (``mamba2.block_fwd`` updates it in place), so it is not copied."""
+    (``mamba2.block_fwd`` updates it in place), so it is not copied.  With
+    ``remat`` and no cache each layer is checkpointed."""
     for j, lp in enumerate(layers):
+        if remat and seg is None:
+            def fl(x, lp=lp):
+                return mamba_layer_fwd(lp, cfg, x, None, backend=backend)[0]
+
+            x = checkpoint(contextvars.copy_context().run, fl, x, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
         lc = None
         if seg is not None:
             lc = {name: a[index + (j,)] for name, a in seg.items()}
@@ -118,16 +133,18 @@ def _mamba_stack(layers, cfg, x, seg, index, *, backend=None):
 
 
 def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
-              caches: Optional[Caches] = None, *, backend: Optional[str] = None
-              ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
+              caches: Optional[Caches] = None, *, backend: Optional[str] = None,
+              remat: bool = False) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
     """caches: None | {"groups": stacked (G, every, ...), "attn": stacked
     (G, ...) with one ``pos``, "tail": stacked (tail, ...)}, updated in
-    place.  Returns (x, caches, aux); aux is zero (no MoE)."""
+    place.  ``remat`` (with no caches, as the reference's) checkpoints each
+    Mamba layer, not the shared block.  Returns (x, caches, aux); aux is
+    zero (no MoE)."""
     every, n_groups, tail = _split(cfg)
     x0 = x              # original embeddings, read by every shared-block application
     for g in range(n_groups):
         x = _mamba_stack(p.groups[g], cfg, x, caches["groups"] if caches is not None else None, (g,),
-                         backend=backend)
+                         backend=backend, remat=remat)
         ac = None
         if caches is not None:
             seg = caches["attn"]
@@ -137,7 +154,7 @@ def trunk_fwd(p: Trunk, cfg, x: torch.Tensor, positions: torch.Tensor,
                                  backend=backend)
     if tail:
         x = _mamba_stack(p.tail, cfg, x, caches["tail"] if caches is not None else None, (),
-                         backend=backend)
+                         backend=backend, remat=remat)
     if caches is not None and n_groups:
         caches = dict(caches, attn=dict(caches["attn"], pos=caches["attn"]["pos"] + x.shape[1]))
     return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -17,7 +17,11 @@ reference does not have, against autograd through the plain versions on
 the same inputs: fp32 within 1e-5 (RMSNorm, of each gradient's max|g|) and
 1e-4 (flash, its forward's bound, of max|g| over dq, dk and dv), against
 the plain versions in fp64; bf16 and fp16 within 2e-2 of max|g| (the
-forward's half-precision bound)."""
+forward's half-precision bound).  The SSD backward kernel (``SSDFn``), which
+the reference does not have either, against fp64 autograd of the step
+oracle and the plain backward ``ref.ssd_chunked_bwd_ref`` in fp64: within
+1e-5 of each gradient's max|g| (its products are fp32 on the CUDA cores; its
+exponents and dcum's cancelling sums are fp64)."""
 import importlib.util
 from pathlib import Path
 
@@ -29,7 +33,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash import HEAD_DIMS, flash_attention_bwd_cuda, flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
-from repro_torch.kernels.ssd import ssd_cuda
+from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_cuda
 from repro_torch.kernels.wkv6 import wkv6_cuda
 from repro_torch.models import model as M
 
@@ -48,8 +52,9 @@ MODEL_LOGITS_BOUND = 1e-3
 RMS_GRAD_BOUND = 1e-5            # relative to max|g|, fp32 against the plain version in fp64
 FLASH_GRAD_BOUND = 1e-4          # relative to max|g|, fp32 against the plain version in fp64
 HALF_GRAD_BOUND = 2e-2           # relative to max|g|, bf16/fp16
+SSD_GRAD_BOUND = 1e-5           # relative to each gradient's max|g|, fp32 against fp64
 NO_LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "ssd": 0, "wkv6": 0, "rmsnorm_bwd": 0,
-               "flash_attention_bwd": 0}
+               "flash_attention_bwd": 0, "ssd_bwd": 0}
 
 
 def _t(shape, seed=0, dtype=torch.float32, device="cpu"):
@@ -553,6 +558,138 @@ def test_ssd_refuses_misaligned_or_unpacked_views(cuda):
     y, st = ssd_cuda(xb, dt, A, Bb, Cb, D)
     torch.cuda.synchronize()
     _close_scan(y, st, *ops.ssd(xb, dt, A, Bb, Cb, D, backend="ref"), torch.bfloat16)
+
+
+def _ssd_grads_fp64(x, dt, A, Bm, Cm, D, s0, dy, dse):
+    """fp64 autograd of the step oracle (B and C expanded from their groups,
+    so their gradients sum over each group's heads) for the output
+    gradients dy and dse (or none for the final state)."""
+    leaves = [t.detach().double().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    s = None if s0 is None else s0.detach().double().requires_grad_()
+    y, st = ops.ssd(*leaves, s, backend="ref")
+    loss = (y * dy.double()).sum() + (0.0 if dse is None else (st * dse.double()).sum())
+    return torch.autograd.grad(loss, leaves + ([s] if s is not None else []))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,G,P,N", [(2, 8, 2, 64, 64), (2, 4, 1, 128, 16),
+                                       (1, 3, 3, 64, 64)])
+@pytest.mark.parametrize("S", [1, 64, 100, 500])
+@pytest.mark.parametrize("states", [False, True])
+def test_ssd_bwd_kernel_matches_autograd_of_ref(cuda, B, H, G, P, N, S, states):
+    """``ops.ssd`` under grad on the card (``SSDFn``: the forward with its
+    chunk states, then ``csrc/ssd_bwd.cu``) at the two instantiated (P, N),
+    zamba2-7b's and its smoke config's, with G < H (the group sums) and
+    G = H, S of one row, one chunk, a part chunk and 500 rows, x, B and C
+    as views of one conv buffer; with an initial state and the final
+    state's gradient or neither.  Every gradient within SSD_GRAD_BOUND of
+    its max|g| of fp64 autograd of the step oracle and of the plain
+    backward in fp64; one launch of each kernel; y as the forward's."""
+    x, Bm, Cm = _ssd_views(B, S, H, P, G, N, device=cuda)
+    _, dt, A, _, _, D = _ssd(B, S, H, P, N, device=cuda, seed=1)
+    D = D + 0.5 * _t((H,), 8, device=cuda)
+    s0 = _t((B, H, P, N), 9, device=cuda) if states else None
+    dy = _t((B, S, H, P), 10, device=cuda)
+    dse = _t((B, H, P, N), 11, device=cuda) if states else None
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    s_leaf = None if s0 is None else s0.clone().requires_grad_()
+    ops.reset_launches()
+    y, st = ops.ssd(*leaves, s_leaf)
+    loss = (y * dy).sum() + (0.0 if dse is None else (st * dse).sum())
+    got = torch.autograd.grad(loss, leaves + ([s_leaf] if states else []))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == dict(NO_LAUNCHES, ssd=1, ssd_bwd=1)
+    y_fwd, _ = ops.ssd(x, dt, A, Bm, Cm, D, s0)
+    assert torch.equal(y.detach(), y_fwd)
+    want = _ssd_grads_fp64(x, dt, A, Bm, Cm, D, s0, dy, dse)
+    plain = ref.ssd_chunked_bwd_ref(*(t.double() for t in (x, dt, A, Bm, Cm, D)),
+                                    None if s0 is None else s0.double(), dy.double(),
+                                    None if dse is None else dse.double())
+    names = ["dx", "ddt", "dA", "dB", "dC", "dD", "dstate0"]
+    for name, g, w, w2 in zip(names, got, want, plain):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        for oracle in (w, w2):      # a gradient that is zero (dA at S = 1) stays zero
+            err = (g.double() - oracle).abs().max().item()
+            assert err <= SSD_GRAD_BOUND * oracle.abs().max().item(), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [64, 500])
+def test_ssd_kernels_at_zamba2_decays(cuda, S):
+    """zamba2-7b's initial decays, A = −linspace(1, 16, H) (cum reaches about
+    −700 in a chunk, where an fp32 difference of two running sums errs by
+    up to 4e-5 between neighbouring rows): y within SSD_EXACT_RTOL and every
+    gradient within SSD_GRAD_BOUND of its max|g| of fp64 autograd of the
+    step oracle."""
+    B, H, P, N = 2, 16, 64, 64
+    x, Bm, Cm = _ssd_views(B, S, H, P, 1, N, device=cuda)
+    _, dt, _, _, _, D = _ssd(B, S, H, P, N, device=cuda, seed=1)
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    dy = _t((B, S, H, P), 10, device=cuda)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    y, _ = ops.ssd(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    y64, _ = ops.ssd(*(t.double() for t in (x, dt, A, Bm, Cm, D)), backend="ref")
+    assert _rel_err(y.detach(), y64) <= SSD_EXACT_RTOL
+    want = _ssd_grads_fp64(x, dt, A, Bm, Cm, D, None, dy, None)
+    for name, g, w in zip(["dx", "ddt", "dA", "dB", "dC", "dD"], got, want):
+        assert _rel_err(g, w) <= SSD_GRAD_BOUND, (name, _rel_err(g, w))
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_is_deterministic(cuda):
+    """Two backward passes of the same call give the same bits (every sum in
+    a fixed order: the group sum of dB and dC too)."""
+    x, Bm, Cm = _ssd_views(2, 300, 8, 64, 1, 64, device=cuda)
+    _, dt, A, _, _, D = _ssd(2, 300, 8, 64, 64, device=cuda)
+    dy = _t((2, 300, 8, 64), 3, device=cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+        runs.append(torch.autograd.grad(ops.ssd(*leaves)[0], leaves, dy))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_refuses_what_it_does_not_take(cuda):
+    """Under grad, before any launch: bf16 (``TypeError`` naming where the
+    other dtypes wait), a (P, N) the backward is not built for
+    (``ValueError`` listing those it takes), and ``out_state``; the
+    backward wrapper refuses chunk states of another shape."""
+    x, dt, A, Bm, Cm, D = _ssd(1, 70, 2, 64, 64, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(TypeError, match="queue 2 item 3"):
+        ops.ssd(x.bfloat16().requires_grad_(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D)
+    x32, dt32, A32, B32, C32, D32 = _ssd(1, 70, 2, 32, 32, device=cuda)
+    with pytest.raises(ValueError, match=r"\(64, 64\), \(128, 16\)"):
+        ops.ssd(x32, dt32, A32.requires_grad_(), B32, C32, D32)
+    st = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="out_state"):
+        ops.ssd(x, dt, A, Bm, Cm, D.requires_grad_(), st, out_state=st)
+    assert ops.LAUNCHES == NO_LAUNCHES
+    y, _, hc = ssd_cuda(x, dt, A, Bm, Cm, D.detach(), save_states=True)
+    assert hc.shape == (1, 2, 2, 64, 64)
+    with pytest.raises(ValueError, match="chunk states"):
+        ssd_bwd_cuda(x, dt, A, Bm, Cm, D.detach(), hc[:, :, :1].contiguous(), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 64, 130])
+def test_ssd_forward_saves_the_chunk_start_states(cuda, S):
+    """``ssd_cuda(save_states=True)``: chunk c's start state is the final
+    state of a call over its first 64 c rows (the initial state at c = 0),
+    and y and the final state are those of a call without it."""
+    B, H, P, N = 2, 4, 64, 64
+    x, dt, A, Bm, Cm, D = _ssd(B, S, H, P, N, device=cuda)
+    s0 = _t((B, H, P, N), 9, device=cuda)
+    y, st, hc = ssd_cuda(x, dt, A, Bm, Cm, D, s0, save_states=True)
+    y2, st2 = ssd_cuda(x, dt, A, Bm, Cm, D, s0)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert torch.equal(hc[:, :, 0], s0)
+    for c in range(1, hc.shape[2]):
+        _, want = ssd_cuda(*(t[:, :64 * c] for t in (x, dt)), A, Bm[:, :64 * c],
+                           Cm[:, :64 * c], D, s0)
+        assert torch.equal(hc[:, :, c], want), c
 
 
 @pytest.mark.gpu

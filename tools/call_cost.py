@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Per-call cost of the port's SSD decode path, of flash attention (forward
-and backward), of the WKV6 scan and of the RMSNorm kernels on one card,
+"""Per-call cost of the port's SSD decode path and chunked forward, of flash
+attention (forward and backward), of the WKV6 scan and of the RMSNorm kernels on one card,
 for one tree of the repo, so that two trees can be compared in one run on
 the same card:
 
@@ -22,6 +22,18 @@ the sections named in ``--only`` (all by default):
     ``layer_ms``, one decode step of zamba2-7b's Mamba layers through the
     trunk's ``_mamba_stack`` over 4 layers at full width with random
     weights and a stacked cache, per layer, by CUDA events as above;
+  * ``ssd_fwd``: ``ssd_fwd_ms``, the chunked SSD forward's device time (the
+    mean over 50 calls from a torch.profiler trace) at zamba2-7b's served
+    prefill (B = 8, S = 512) and training (B = 4, S = 2048) shapes, by
+    ``"BxS"`` (H = 112, P = N = 64, fp32, no state, x, B and C as views of
+    one conv-output buffer with one group, A = −linspace(1, 16, H) as
+    zamba2-7b's initial decays); ``"BxS+states"`` the same call writing each
+    chunk's start state for the backward, where that tree's ``ssd_cuda``
+    has ``save_states``; ``ssd_fwd_decay_err``, by S, y's largest error of
+    max|y| against the step oracle in fp64 at those decays (B = 2, H = 16,
+    P = N = 64, S = 64 and 500, one group), as
+    ``tests/test_torch_ops.py::test_ssd_kernels_at_zamba2_decays`` holds it
+    within 2e-5;
   * ``flash``: ``flash_ms``, ``ops.flash_attention`` at llama3-8b's served
     prefill shape (B = 8, S = 512, 32 / 8 heads of 128, causal, fp32), by
     CUDA events as above;
@@ -61,7 +73,7 @@ import subprocess
 import sys
 import time
 
-SECTIONS = ("ssd", "flash", "wkv6", "flash_bwd", "rmsnorm_bwd", "rmsnorm")
+SECTIONS = ("ssd", "ssd_fwd", "flash", "wkv6", "flash_bwd", "rmsnorm_bwd", "rmsnorm")
 # the RMSNorm forward's (rows, D) on the main paths: prefill's 4096 rows at
 # each d_model and latent width served, olmoe-1b-7b's qk_norm over 8 x 512
 # tokens x 16 heads of 128, and the training rows of llama3-8b and yi-34b
@@ -178,6 +190,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
     from repro_torch.models import mamba2, zamba2
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -232,6 +245,33 @@ def main() -> int:
             out["layer_ms"] = time_ms(
                 lambda: zamba2._mamba_stack(layers, cfg, h, seg, ())) / len(layers)
             del layers, seg
+
+        if "ssd_fwd" in only:
+            out["ssd_fwd_ms"], out["ssd_fwd_decay_err"] = {}, {}
+
+            def views(Bb, S, Hh):
+                buf = randn(Bb, S, Hh * P + 2 * N)
+                x, Bm, Cm = torch.split(buf, [Hh * P, N, N], dim=-1)
+                return (x.unflatten(-1, (Hh, P)), torch.nn.functional.softplus(randn(Bb, S, Hh)),
+                        -torch.linspace(1.0, 16.0, Hh, device=dev), Bm.unflatten(-1, (1, N)),
+                        Cm.unflatten(-1, (1, N)), 1.0 + 0.5 * randn(Hh))
+
+            saves = "save_states" in inspect.signature(ssd_cuda).parameters
+            for Bb, S in ((8, 512), (4, 2048)):
+                args = views(Bb, S, H)
+                for states in (False, True) if saves else (False,):
+                    kw = {"save_states": True} if states else {}
+                    key = f"{Bb}x{S}" + ("+states" if states else "")
+                    out["ssd_fwd_ms"][key] = device_ms(lambda: ssd_cuda(*args, **kw),
+                                                       "ssd_fwd_kernel")
+                del args
+            for S in (64, 500):
+                args = views(2, S, 16)
+                y = ssd_cuda(*args)[0]
+                y64 = ops.ssd(*(a.double() for a in args), backend="ref")[0]
+                out["ssd_fwd_decay_err"][S] = ((y.double() - y64).abs().max()
+                                               / y64.abs().max()).item()
+                del args, y, y64
 
         if "flash" in only:
             q = randn(8, 512, 32, 128)
